@@ -1,0 +1,28 @@
+"""dccrg_tpu_torch: the PyTorch / CUDA port of dccrg_tpu.
+
+A second package beside ``dccrg_tpu`` (the JAX reference, which it never
+imports). This slice holds the single-device advection main path: the
+grid metadata (mapping, length, topology, geometry), the closed-form
+uniform plan, the ``Grid`` step loop with its bulk executor (CUDA kernel
+A, csrc/bulk_pass.cu) and the rotation fast path (CUDA kernel B,
+csrc/rotation_step.cu). Entry points run on the card unless the caller
+asks for the CPU (``device="cpu"``); kernels are built with ``nvcc`` at
+their first CUDA call, never on import.
+"""
+
+from .geometry import CartesianGeometry, NoGeometry, StretchedCartesianGeometry
+from .grid import (DEFAULT_NEIGHBORHOOD_ID, Grid, SlotwiseKernel,
+                   bucket_capacity)
+from .length import GridLength
+from .mapping import Mapping
+from .neighbors import make_neighborhood, validate_neighborhood
+from .topology import GridTopology
+from .types import ERROR_CELL, ERROR_INDEX, as_cell_array, as_index_array
+
+__all__ = [
+    "CartesianGeometry", "DEFAULT_NEIGHBORHOOD_ID", "ERROR_CELL",
+    "ERROR_INDEX", "Grid", "GridLength", "GridTopology", "Mapping",
+    "NoGeometry", "SlotwiseKernel", "StretchedCartesianGeometry",
+    "as_cell_array", "as_index_array", "bucket_capacity",
+    "make_neighborhood", "validate_neighborhood",
+]

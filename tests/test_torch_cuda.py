@@ -1,0 +1,87 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``: these tests need an NVIDIA GPU and ``nvcc``, and skip
+where there is none. This file imports neither ``jax`` nor the reference
+package, so it also runs where only the port is installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from dccrg_tpu_torch import DEFAULT_NEIGHBORHOOD_ID
+from dccrg_tpu_torch.models.advection import GridAdvection
+from dccrg_tpu_torch.ops import advection_kernel, roll_executor
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("periodic", [(True, True, False), (False, True, True)])
+def test_bulk_kernel_matches_plain(device, periodic, k, dtype, monkeypatch):
+    """Kernel A's pass against its plain version on the same inputs,
+    at a grid whose extents are not multiples of the brick."""
+    monkeypatch.setenv("DCCRG_BULK_SPP", str(k))
+    a = GridAdvection(n=20, nz=7, device=device, periodic=periodic, dtype=dtype)
+    g = a.grid
+    n0 = 20 * 20 * 7
+    gen = torch.Generator(device=device).manual_seed(k)
+    g.data["density"][0, :n0] = torch.rand(n0, generator=gen, device=device).to(dtype)
+    hood = g.plan.hoods[DEFAULT_NEIGHBORHOOD_ID]
+    spec = roll_executor._grid_spec_for(g, hood, k)
+    fields = {f: g.data[f][0, :g.plan.L] for f in ("density", "vx", "vy")}
+    extras = (torch.tensor(0.4 * a.max_time_step(), dtype=torch.float32),)
+    before = roll_executor.bulk_pass.launches
+    got = roll_executor.bulk_pass(spec, a._kernel, fields, extras)["density"]
+    assert roll_executor.bulk_pass.launches == before + 1
+    want = roll_executor.bulk_pass_plain(spec, a._kernel, fields, extras)["density"]
+    assert got.dtype == dtype and got.shape == (g.plan.L,)
+    # fmad off and the same order of operations: bit for bit
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("spp", [1, 5, 8])
+def test_rotation_kernel_matches_plain(device, spp, dtype):
+    shape = (24, 40, 33)
+    cell_length = (1.0 / 24, 1.0 / 40, 1.0 / 33)
+    step = advection_kernel.make_rotation_step(shape, dtype=dtype,
+                                               steps_per_pass=spp,
+                                               tile=(8, 8),
+                                               cell_length=cell_length)
+    gen = torch.Generator(device=device).manual_seed(spp)
+    rho = torch.rand(shape, generator=gen, device=device)
+    x = (np.arange(24) + 0.5) / 24
+    vxf = torch.linspace(-0.5, 0.5, 40, device=device)[None, :]
+    vy = (x - 0.5).astype(np.float32)
+    vyf = torch.as_tensor(np.concatenate([vy[-8:], vy, vy[:8]])[:, None],
+                          device=device)
+    before = advection_kernel.rotation_step.launches
+    got = step(rho, vxf, vyf, 0.01)
+    assert advection_kernel.rotation_step.launches == before + 1
+    want = advection_kernel.rotation_step_plain(
+        rho.to(dtype), vxf, vyf, 0.01, 1.0 / cell_length[0],
+        1.0 / cell_length[1], spp)
+    assert torch.equal(got, want)
+
+
+def test_grid_run_steps_on_the_card(device):
+    a = GridAdvection(n=32, device=device)
+    before = roll_executor.bulk_pass.launches
+    a.run(3)
+    assert a.grid.last_step_path == "bulk"
+    assert roll_executor.bulk_pass.launches == before + 3
+    b = GridAdvection(n=32, device=device)
+    b.run(3, bulk=False)
+    assert b.grid.last_step_path == "roll"
+    assert torch.equal(a.grid.data["density"], b.grid.data["density"])

@@ -1,0 +1,119 @@
+"""The port's closed-form single-device plan against the reference.
+
+Both packages build the plan of a complete level-0 grid; the port's
+must agree bit for bit: the row layout (``L``, ``R``), the per-slot
+offsets, the roll plan (flat shifts, wrong rows, true sources) and the
+bulk executor's fixup cascade tables (``build_epilogue_sets``).
+"""
+
+import itertools
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+
+from dccrg_tpu.grid import DEFAULT_NEIGHBORHOOD_ID, Grid, default_mesh
+from dccrg_tpu.ops import roll_executor as ref_exec
+
+import dccrg_tpu_torch as port
+from dccrg_tpu_torch.ops import roll_executor as port_exec
+
+DIMS = [(16, 16, 16), (24, 24, 24), (8, 12, 20)]
+PERIODIC = list(itertools.product((False, True), repeat=3))
+
+
+def _ref_grid(dims, periodic, hood_len):
+    return (Grid(cell_data={"rho": jnp.float32})
+            .set_initial_length(dims).set_periodic(*periodic)
+            .set_maximum_refinement_level(0)
+            .set_neighborhood_length(hood_len)
+            .initialize(default_mesh(jax.devices()[:1])))
+
+
+def _port_grid(dims, periodic, hood_len, cell_data=None):
+    return (port.Grid(cell_data={"rho": "float32"} if cell_data is None
+                      else cell_data)
+            .set_initial_length(dims).set_periodic(*periodic)
+            .set_maximum_refinement_level(0)
+            .set_neighborhood_length(hood_len)
+            .initialize("cpu"))
+
+
+@pytest.mark.parametrize("hood_len", [0, 1])
+@pytest.mark.parametrize("dims", DIMS)
+def test_plan_matches_reference(dims, hood_len):
+    for periodic in PERIODIC:
+        g, p = _ref_grid(dims, periodic, hood_len), _port_grid(dims, periodic, hood_len)
+        msg = f"dims={dims} periodic={periodic} hood={hood_len}"
+        assert (g.plan.L, g.plan.R) == (p.plan.L, p.plan.R), msg
+        assert p.plan.R == p.plan.L + 1
+        assert p.plan.L == port.bucket_capacity(int(np.prod(dims)))
+        hr = g.plan.hoods[DEFAULT_NEIGHBORHOOD_ID]
+        hp = p.plan.hoods[port.DEFAULT_NEIGHBORHOOD_ID]
+        np.testing.assert_array_equal(np.asarray(hr.offs_const), hp.offs_const,
+                                      err_msg=msg)
+        cr, cp = hr.closed_form, hp.closed_form
+        assert tuple(cr["dims"]) == tuple(cp["dims"]), msg
+        assert tuple(cr["periodic"]) == tuple(cp["periodic"]), msg
+        assert cr["n0"] == cp["n0"], msg
+        np.testing.assert_array_equal(cr["offsets"], cp["offsets"], err_msg=msg)
+        rr, rp = hr.roll_plan(g.plan.L), hp.roll_plan(p.plan.L)
+        for name, a, b in zip(("shifts", "wrong_rows", "wrong_src"), rr, rp):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b),
+                                          err_msg=f"{name}: {msg}")
+        # the lazy dense tables agree too (host introspection path)
+        np.testing.assert_array_equal(np.asarray(hr.nbr_rows), hp.nbr_rows,
+                                      err_msg=msg)
+        np.testing.assert_array_equal(np.asarray(hr.nbr_mask), hp.nbr_mask,
+                                      err_msg=msg)
+
+
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("dims,periodic,hood_len", [
+    ((16, 16, 16), (True, True, False), 0),
+    ((24, 24, 24), (True, True, True), 0),
+    ((8, 12, 20), (False, True, False), 1),
+    ((16, 16, 16), (False, False, False), 1),
+])
+def test_epilogue_sets_match_reference(dims, periodic, hood_len, k):
+    g, p = _ref_grid(dims, periodic, hood_len), _port_grid(dims, periodic, hood_len)
+    hr = g.plan.hoods[DEFAULT_NEIGHBORHOOD_ID]
+    hp = p.plan.hoods[port.DEFAULT_NEIGHBORHOOD_ID]
+    cf = hr.closed_form
+    rr = hr.roll_plan(g.plan.L)
+    spec_r = ref_exec.RollPassSpec(rr[0], cf["dims"], cf["periodic"],
+                                   cf["offsets"], cf["n0"], g.plan.L, k)
+    spec_p = port_exec._grid_spec_for(p, hp, k)
+    assert spec_p is not None
+    assert spec_p.k == k and spec_p.L == g.plan.L
+    assert spec_p.shifts == spec_r.shifts
+    tr = ref_exec.build_epilogue_sets(spec_r, rr[1])
+    tp = port_exec.build_epilogue_sets(spec_p, hp.roll_plan(p.plan.L)[1])
+    assert len(tr) == len(tp) == k
+    for t, (a, b) in enumerate(zip(tr, tp)):
+        for name, x, y in zip(("rows", "nbr", "mask"), a, b):
+            np.testing.assert_array_equal(x, y, err_msg=f"table {t} {name}")
+    caps = [port.bucket_capacity(len(r[0])) for r in tp]
+    for a, b in zip(ref_exec.pad_epilogue_tables(tr, caps, g.plan.L),
+                    port_exec.pad_epilogue_tables(tp, caps, p.plan.L)):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+
+
+def test_pass_spec_geometry():
+    """The port's pass geometry: the flux's reach is per axis, the halo
+    is k times it, and the brick fits a block's shared memory."""
+    # no fields: only the host plan is built, nothing is allocated
+    p = _port_grid((512, 512, 512), (True, True, False), 0, cell_data={})
+    hood = p.plan.hoods[port.DEFAULT_NEIGHBORHOOD_ID]
+    for k in (1, 4, 8):
+        spec = port_exec._grid_spec_for(p, hood, k)
+        # face hood: the upwind flux reads x and y neighbors only
+        assert spec.reach == (1, 1, 0)
+        assert spec.halo == (k, k, 0)
+        assert len(spec.slots) == 4
+        assert spec.smem_bytes() <= 232448
+        assert all(b >= 1 for b in spec.brick)
+    assert p.plan.L == 2 ** 27 and p.plan.R == 2 ** 27 + 1

@@ -1,28 +1,35 @@
 """dccrg_tpu_torch: the PyTorch / CUDA port of dccrg_tpu.
 
 A second package beside ``dccrg_tpu`` (the JAX reference, which it never
-imports). This slice holds the single-device advection main path: the
-grid metadata (mapping, length, topology, geometry), the closed-form
-uniform plan, the ``Grid`` step loop with its bulk executor (CUDA kernel
-A, csrc/bulk_pass.cu) and the rotation fast path (CUDA kernel B,
-csrc/rotation_step.cu). Entry points run on the card unless the caller
-asks for the CPU (``device="cpu"``); kernels are built with ``nvcc`` at
-their first CUDA call, never on import.
+imports). It holds the single-device advection main path: the grid
+metadata (mapping, length, topology, geometry), the closed-form uniform
+plan, the ``Grid`` step loop with its bulk executor (CUDA kernel A,
+csrc/bulk_pass.cu) and the rotation fast path (CUDA kernel B,
+csrc/rotation_step.cu); and the single-device Poisson solvers
+(models/poisson.py: the general-grid ``PoissonSolver`` on
+``Grid.apply_stencil``, ``DensePoissonSolver`` on ``DenseGrid``, and
+``CudaPoissonSolver`` on CUDA kernel C, csrc/laplacian_matvec.cu).
+Entry points run on the card unless the caller asks for the CPU
+(``device="cpu"``); kernels are built with ``nvcc`` at their first CUDA
+call, never on import.
 """
 
 from .geometry import CartesianGeometry, NoGeometry, StretchedCartesianGeometry
 from .grid import (DEFAULT_NEIGHBORHOOD_ID, Grid, SlotwiseKernel,
                    bucket_capacity)
 from .length import GridLength
+from .dense import DenseGrid
 from .mapping import Mapping
-from .neighbors import make_neighborhood, validate_neighborhood
+from .neighbors import (NeighborLists, build_neighbor_lists, face_masks,
+                        make_neighborhood, validate_neighborhood)
 from .topology import GridTopology
 from .types import ERROR_CELL, ERROR_INDEX, as_cell_array, as_index_array
 
 __all__ = [
-    "CartesianGeometry", "DEFAULT_NEIGHBORHOOD_ID", "ERROR_CELL",
-    "ERROR_INDEX", "Grid", "GridLength", "GridTopology", "Mapping",
-    "NoGeometry", "SlotwiseKernel", "StretchedCartesianGeometry",
-    "as_cell_array", "as_index_array", "bucket_capacity",
+    "CartesianGeometry", "DEFAULT_NEIGHBORHOOD_ID", "DenseGrid",
+    "ERROR_CELL", "ERROR_INDEX", "Grid", "GridLength", "GridTopology",
+    "Mapping", "NeighborLists", "NoGeometry", "SlotwiseKernel",
+    "StretchedCartesianGeometry", "as_cell_array", "as_index_array",
+    "bucket_capacity", "build_neighbor_lists", "face_masks",
     "make_neighborhood", "validate_neighborhood",
 ]

@@ -3,8 +3,10 @@
 Both packages keep per-cell fields as ``[n_dev, R]`` arrays with rows in
 grid order and ``R = L + 1``, so a field moves between them as a numpy
 array of that shape: ``np.asarray(jax_grid.data[name])`` on the
-reference side. bfloat16 arrays use the ``ml_dtypes`` bfloat16 type that
-the reference's arrays convert to.
+reference side (float and int32 fields alike). A ``DenseGrid`` field is
+one ``[X, Y, Z, ...]`` array (``dense_grid.to_host(name)`` there).
+bfloat16 arrays use the ``ml_dtypes`` bfloat16 type that the
+reference's arrays convert to.
 """
 
 from __future__ import annotations
@@ -35,23 +37,46 @@ def fields_from_numpy(grid, arrays, L=None) -> None:
         if arr.dtype.name != _dtype_name(dtype):
             raise TypeError(f"{name}: dtype {arr.dtype.name}, the field is "
                             f"{_dtype_name(dtype)}")
-        if dtype == torch.bfloat16:
-            t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
-        else:
-            t = torch.from_numpy(arr)
-        grid.data[name] = t.to(grid.device)
+        grid.data[name] = _to_tensor(arr, dtype).to(grid.device)
 
 
 def fields_to_numpy(grid) -> dict:
     """``{name: ndarray [n_dev, R, ...]}`` of every field, in the
     field's dtype (bfloat16 as ``ml_dtypes.bfloat16``)."""
-    out = {}
-    for name, t in grid.data.items():
-        t = t.detach().cpu()
-        if t.dtype == torch.bfloat16:
-            import ml_dtypes
+    return {name: _to_numpy(t) for name, t in grid.data.items()}
 
-            out[name] = t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
-        else:
-            out[name] = t.numpy()
-    return out
+
+def _to_tensor(arr, dtype):
+    if dtype == torch.bfloat16:
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def _to_numpy(t):
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def dense_from_numpy(dense_grid, arrays) -> None:
+    """Load ``{name: ndarray [X, Y, Z, ...]}`` into a ``DenseGrid``'s
+    arrays; each must have the grid's shape and the field's dtype."""
+    for name, arr in arrays.items():
+        shape, dtype = dense_grid.fields[name]
+        arr = np.array(arr, order="C")
+        want = dense_grid.length + shape
+        if arr.shape != want:
+            raise ValueError(f"{name}: shape {arr.shape}, the grid holds {want}")
+        if arr.dtype.name != _dtype_name(dtype):
+            raise TypeError(f"{name}: dtype {arr.dtype.name}, the field is "
+                            f"{_dtype_name(dtype)}")
+        dense_grid.arrays[name] = _to_tensor(arr, dtype).to(dense_grid.device)
+
+
+def dense_to_numpy(dense_grid) -> dict:
+    """``{name: ndarray [X, Y, Z, ...]}`` of every array of a
+    ``DenseGrid``, in the field's dtype."""
+    return {name: _to_numpy(t) for name, t in dense_grid.arrays.items()}

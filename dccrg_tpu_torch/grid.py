@@ -28,7 +28,7 @@ import torch
 
 from .geometry import CartesianGeometry, NoGeometry, StretchedCartesianGeometry
 from .mapping import Mapping
-from .neighbors import make_neighborhood
+from .neighbors import build_neighbor_lists, make_neighborhood, validate_neighborhood
 from .topology import GridTopology
 from . import uniform as uniform_mod
 
@@ -143,6 +143,30 @@ def _make_roll3d_gather(synth, L):
     return gather
 
 
+class _GatheredNeighbors(dict):
+    """``[L, S, ...]`` neighbor stacks of the stencil's input fields,
+    gathered on first access: PyTorch runs eagerly, so a field the kernel
+    never reads from its neighbors is never gathered (the reference's
+    compiler drops those gathers the same way)."""
+
+    def __init__(self, fields, gather, nmask, n_slots):
+        super().__init__()
+        self._fields = fields
+        self._gather = gather
+        self._nmask = nmask
+        self._n_slots = n_slots
+
+    def __missing__(self, name):
+        fl = self._fields[name]
+        st = torch.stack([self._gather(fl, j, self._nmask[:, j])
+                          for j in range(self._n_slots)], dim=1)
+        self[name] = st
+        return st
+
+    def __contains__(self, name):
+        return name in self._fields
+
+
 def _make_offs_col(uniform_offs, noffs, sc0):
     """Per-slot offsets closure: raw (NOT premasked — kernels gate on
     the mask), ``[3]`` for uniform plans, ``[L, 3]`` when scaled
@@ -201,7 +225,8 @@ class _HoodPlan:
     ``(rows, mask)``, materialized only if a host path asks."""
 
     def __init__(self, offsets, nbr_rows, nbr_offs, nbr_mask, n_inner=None,
-                 offs_const=None, closed_form=None, pair_compact=None):
+                 offs_const=None, closed_form=None, pair_compact=None,
+                 lists=None):
         self.offsets = offsets  # [K, 3] neighborhood items
         self._nbr_rows = nbr_rows  # [n_dev, L, S] int32 (pad: zero row), or thunk
         self._nbr_offs = nbr_offs  # [n_dev, L, S, 3] int32, or thunk
@@ -212,6 +237,7 @@ class _HoodPlan:
         self.closed_form = closed_form
         self.offs_const = offs_const  # [S, 3] int32 per-slot offsets
         self._pair_compact = pair_compact
+        self._lists = lists  # NeighborLists, or a thunk building them
         self.n_inner = n_inner  # [n_dev] rows [0, n_inner) have no remote deps
         self._roll_plan = None  # computed on demand by roll_plan()
         self._dev = {}  # memoized device uploads
@@ -219,6 +245,14 @@ class _HoodPlan:
     @property
     def pair_compact(self):
         return self._pair_compact
+
+    @property
+    def lists(self):
+        """The flat neighbors_of / neighbors_to lists of the epoch
+        (neighbors.NeighborLists), built on first access."""
+        if callable(self._lists):
+            self._lists = self._lists()
+        return self._lists
 
     @property
     def nbr_offs(self):
@@ -463,7 +497,10 @@ class Grid:
         if not (uniform_mod.is_uniform(cells, n0) and n0 < 2**31 - 2):
             raise NotImplementedError(
                 "only complete level-0 grids below 2^31 cells are ported")
-        self.plan = self._build_plan_uniform(cells, owner)
+        plan = self._build_plan_uniform(cells, owner)
+        old = getattr(self, "plan", None)
+        plan.epoch = old.epoch + 1 if old is not None else 0
+        self.plan = plan
 
     def _build_plan_uniform(self, cells: np.ndarray, owner: np.ndarray):
         """Closed-form plan construction for all-level-0 grids
@@ -483,8 +520,13 @@ class Grid:
             row_of_pos=layout["row_of_pos"],
             ghost_ids=layout["ghost_ids"],
         )
+        mapping, topology = self.mapping, self.topology
         for hid, offs in self.neighborhoods.items():
             hd = hood_data[hid]
+
+            def lists_thunk(offs=offs):
+                return build_neighbor_lists(mapping, topology, cells, offs)
+
             hood = _HoodPlan(
                 offsets=offs,
                 nbr_rows=hd["tables_thunk"],
@@ -495,6 +537,7 @@ class Grid:
                 pair_compact=hd["pair_compact"],
                 n_inner=(layout["n_inner"]
                          if hid == DEFAULT_NEIGHBORHOOD_ID else None),
+                lists=lists_thunk,
             )
             # roll shifts + wrap fixups were computed arithmetically
             hood._roll_plan = hd["roll_plan"]
@@ -569,6 +612,135 @@ class Grid:
             _shape, dtype = self.fields[name]
             vals = torch.as_tensor(np.asarray(values))
             self.data[name][0, rows_t] = vals.to(device=self.device, dtype=dtype)
+
+    def get_cells(self, criteria=None, exact_match: bool = False,
+                  neighborhood_id=DEFAULT_NEIGHBORHOOD_ID) -> np.ndarray:
+        """Cell ids, id-sorted (reference get_cells, dccrg.hpp:661-753).
+        On one device every cell is local. The neighbor-type
+        ``criteria`` filter is not ported and raises."""
+        del exact_match
+        if criteria is not None:
+            raise NotImplementedError(
+                "get_cells criteria (neighbor-type masks) are not ported")
+        if neighborhood_id not in self.plan.hoods:
+            return np.empty(0, np.uint64)
+        return self.plan.cells.copy()
+
+    # -- user neighborhoods (dccrg.hpp:6491-6681) ----------------------
+
+    def add_neighborhood(self, neighborhood_id, offsets) -> bool:
+        """Register a user neighborhood (offsets validated against the
+        default neighborhood length) and rebuild the plan; False when
+        the id is taken."""
+        if not self.initialized:
+            raise RuntimeError("add_neighborhood() requires initialize() first")
+        if neighborhood_id in self.neighborhoods:
+            return False
+        offsets = validate_neighborhood(offsets, self._hood_len)
+        self.neighborhoods[neighborhood_id] = offsets
+        self._build_plan(self.plan.cells, self.plan.owner)
+        return True
+
+    # -- halo exchange (dccrg.hpp:978-1014) ----------------------------
+
+    def update_copies_of_remote_neighbors(
+        self, neighborhood_id=DEFAULT_NEIGHBORHOOD_ID, fields=None
+    ) -> None:
+        """Refresh ghost copies of remote neighbors (dccrg.hpp:978). One
+        device has no ghost rows, so nothing moves; the neighborhood and
+        the field names are still checked."""
+        if neighborhood_id not in self.plan.hoods:
+            raise KeyError(f"unknown neighborhood {neighborhood_id!r}")
+        unknown = [n for n in (fields or ()) if n not in self.fields]
+        if unknown:
+            raise KeyError(f"unknown field(s) {unknown}")
+
+    # -- stencil execution ---------------------------------------------
+
+    def apply_stencil(
+        self,
+        kernel,
+        fields_in,
+        fields_out,
+        neighborhood_id=DEFAULT_NEIGHBORHOOD_ID,
+        include_to=False,
+        extra_args=(),
+    ):
+        """Run a gather-based stencil kernel over all local cells.
+
+        ``kernel(cell_fields, nbr_fields, offs, mask)`` receives
+        ``cell_fields[name]`` ``[L, ...]``, ``nbr_fields[name]``
+        ``[L, S, ...]`` (neighbors gathered, zeros where the mask is
+        off), ``offs`` ``[L, S, 3]`` and ``mask`` ``[L, S]``, and returns
+        a dict name -> ``[L, ...]`` for every name in ``fields_out``. The
+        updated rows are written into new field tensors. Only the
+        closed-form single-device branch is ported: ``include_to``,
+        ``extra_args`` and plans with dense tables raise
+        ``NotImplementedError``.
+        """
+        fields_in = tuple(fields_in)
+        fields_out = tuple(fields_out)
+        fn, tables = self._make_stencil(
+            kernel, fields_in, fields_out, neighborhood_id, include_to,
+            n_extra=len(extra_args),
+        )
+        out = fn(*tables, *(self.data[n] for n in fields_in),
+                 *(self.data[n] for n in fields_out))
+        for n, arr in zip(fields_out, out):
+            self.data[n] = arr
+
+    def _make_stencil(self, kernel, fields_in, fields_out, neighborhood_id,
+                      include_to, n_extra=0):
+        """(program, bound tables) for a gather stencil on a closed-form
+        single-device plan: ``program(*tables, *fields_in, *fields_out)
+        -> fields_out`` (``[n_dev, R]`` tensors in and out). The mask is
+        synthesized from the row index, the neighbors are gathered by
+        exact 3-D rolls, ``offs = mask * offs_const`` (grid.py:2720-2916
+        of the reference, its plain-kernel branch)."""
+        if include_to:
+            raise NotImplementedError("apply_stencil include_to is not ported")
+        if n_extra:
+            raise NotImplementedError("apply_stencil extra_args are not ported")
+        if isinstance(kernel, SlotwiseKernel):
+            raise NotImplementedError(
+                "apply_stencil with a SlotwiseKernel is not ported")
+        hood = self.plan.hoods[neighborhood_id]
+        cf = hood.closed_form
+        if cf is None:
+            raise NotImplementedError(
+                "apply_stencil needs a closed-form plan (dense tables are "
+                "not ported)")
+        L, R = self.plan.L, self.plan.R
+        tables = [hood.dev("offs_const", hood.offs_const, self.device)]
+        synth = _synth_key(cf)
+        key = ("stencil", kernel, fields_in, fields_out, L, R, synth)
+        fn = self._program_cache.get(key)
+        if fn is not None:
+            return fn, tables
+
+        n_in = len(fields_in)
+        n_slots = len(synth[3])
+        gather = _make_roll3d_gather(synth, L)
+
+        def fn(offs_dev, *args):
+            ins = args[:n_in]
+            outs_cur = args[n_in:]
+            cell_fields = {n: f[0][:L] for n, f in zip(fields_in, ins)}
+            nmask = _synth_mask(synth, L, offs_dev.device)
+            noffs = nmask[:, :, None] * offs_dev[None, :, :]
+            nbr_fields = _GatheredNeighbors(
+                {n: f[0] for n, f in zip(fields_in, ins)}, gather, nmask,
+                n_slots)
+            result = kernel(cell_fields, nbr_fields, noffs, nmask)
+            outs = []
+            for n, cur in zip(fields_out, outs_cur):
+                fl = cur[0].clone()
+                fl[:L] = result[n].to(fl.dtype)
+                outs.append(fl[None])
+            return tuple(outs)
+
+        self._program_cache[key] = fn
+        return fn, tables
 
     # -- fused multi-step execution ------------------------------------
 

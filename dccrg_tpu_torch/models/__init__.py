@@ -1,7 +1,12 @@
-"""Model zoo of the port (single-device slice: advection)."""
+"""Model zoo of the port (single-device slices: advection, Poisson)."""
 
 from .advection import (CudaRotationAdvection, GridAdvection, analytic_density,
                         hump_density, make_uniform_flux_kernel)
+from .poisson import (POISSON_FIELDS, POISSON_NEIGHBORHOOD_ID,
+                      DensePoissonSolver, PoissonSolver, cg_solve,
+                      poisson_fields)
 
-__all__ = ["CudaRotationAdvection", "GridAdvection", "analytic_density",
-           "hump_density", "make_uniform_flux_kernel"]
+__all__ = ["CudaRotationAdvection", "DensePoissonSolver", "GridAdvection",
+           "POISSON_FIELDS", "POISSON_NEIGHBORHOOD_ID", "PoissonSolver",
+           "analytic_density", "cg_solve", "hump_density",
+           "make_uniform_flux_kernel", "poisson_fields"]

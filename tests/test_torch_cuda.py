@@ -13,7 +13,8 @@ import torch
 
 from dccrg_tpu_torch import DEFAULT_NEIGHBORHOOD_ID
 from dccrg_tpu_torch.models.advection import GridAdvection
-from dccrg_tpu_torch.ops import advection_kernel, roll_executor
+from dccrg_tpu_torch.models.poisson import DensePoissonSolver
+from dccrg_tpu_torch.ops import advection_kernel, poisson_kernel, roll_executor
 
 pytestmark = pytest.mark.cuda
 
@@ -85,3 +86,38 @@ def test_grid_run_steps_on_the_card(device):
     b.run(3, bulk=False)
     assert b.grid.last_step_path == "roll"
     assert torch.equal(a.grid.data["density"], b.grid.data["density"])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("periodic", [(True, True, True), (False, True, True),
+                                      (False, False, False), (True, False, True)])
+@pytest.mark.parametrize("shape", [(16, 8, 128), (24, 20, 36), (1, 2, 33)])
+def test_laplacian_kernel_matches_plain(device, shape, periodic, dtype):
+    """Kernel C against its plain version on the same inputs, at extents
+    that are multiples of nothing and axes of length 1 and 2: fmad off
+    and the same order of operations, so bit for bit."""
+    mv = poisson_kernel.make_laplacian_matvec(
+        shape, cell_length=(0.5, 0.25, 0.125), periodic=periodic, dtype=dtype)
+    gen = torch.Generator(device=device).manual_seed(sum(shape))
+    p = torch.rand(shape, generator=gen, device=device).to(dtype)
+    before = poisson_kernel.laplacian_matvec.launches
+    got = mv(p)
+    assert poisson_kernel.laplacian_matvec.launches == before + 1
+    want = poisson_kernel.laplacian_matvec_plain(p, mv.rdd2, mv.periodic)
+    assert got.dtype == dtype and got.shape == p.shape
+    assert torch.equal(got, want)
+
+
+def test_cuda_poisson_solver_on_the_card(device):
+    """CudaPoissonSolver runs every matvec through kernel C and walks the
+    same trajectory as the dense plain solver (same arithmetic)."""
+    n = 32
+    gen = torch.Generator(device=device).manual_seed(1)
+    rhs = torch.rand((n, n, n), generator=gen, device=device)
+    rhs = rhs - rhs.mean()
+    before = poisson_kernel.laplacian_matvec.launches
+    x, info = poisson_kernel.CudaPoissonSolver((n, n, n)).solve(rhs, rtol=1e-5)
+    assert poisson_kernel.laplacian_matvec.launches == before + info["iterations"]
+    xd, info_d = DensePoissonSolver((n, n, n), device=device).solve(rhs, rtol=1e-5)
+    assert info_d["iterations"] == info["iterations"] > 0
+    assert torch.equal(x, xd)

@@ -128,6 +128,8 @@ def test_import_leaves_jax_out():
         "import dccrg_tpu_torch.models.advection\n"
         "import dccrg_tpu_torch.ops.roll_executor\n"
         "import dccrg_tpu_torch.ops.advection_kernel\n"
+        "import dccrg_tpu_torch.ops.poisson_kernel\n"
+        "import dccrg_tpu_torch.models.poisson, dccrg_tpu_torch.dense\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith('jax.') or m == 'dccrg_tpu'\n"
         "             or m.startswith('dccrg_tpu.'))\n"

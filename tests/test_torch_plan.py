@@ -117,3 +117,33 @@ def test_pass_spec_geometry():
         assert spec.smem_bytes() <= 232448
         assert all(b >= 1 for b in spec.brick)
     assert p.plan.L == 2 ** 27 and p.plan.R == 2 ** 27 + 1
+
+
+NL_FIELDS = ("of_source", "of_neighbor", "of_offset", "of_item",
+             "to_source", "to_neighbor", "to_offset")
+
+
+@pytest.mark.parametrize("periodic", PERIODIC)
+@pytest.mark.parametrize("hood_len", [0, 1])
+@pytest.mark.parametrize("dims", [(8, 12, 20), (2, 1, 5)])
+def test_neighbor_lists_match_reference(dims, hood_len, periodic):
+    """The port's level-0 neighbor lists (computed from the indices)
+    against the reference engine's, bit for bit and dtype for dtype:
+    non-periodic edges drop neighbors, and periodic axes of length 1
+    and 2 make a cell its own neighbor or both sides the same cell."""
+    g, p = _ref_grid(dims, periodic, hood_len), _port_grid(dims, periodic, hood_len)
+    lr = g.plan.hoods[DEFAULT_NEIGHBORHOOD_ID].lists
+    lp = p.plan.hoods[port.DEFAULT_NEIGHBORHOOD_ID].lists
+    for name in NL_FIELDS:
+        a, b = np.asarray(getattr(lr, name)), getattr(lp, name)
+        assert a.dtype == b.dtype, name
+        np.testing.assert_array_equal(b, a, err_msg=name)
+
+
+def test_neighbor_lists_refuse_refined_cells():
+    from dccrg_tpu_torch.neighbors import build_neighbor_lists
+
+    p = _port_grid((4, 4, 4), (True, True, True), 1)
+    with pytest.raises(NotImplementedError):
+        build_neighbor_lists(p.mapping, p.topology, p.plan.cells[:-1],
+                             p.neighborhoods[port.DEFAULT_NEIGHBORHOOD_ID])

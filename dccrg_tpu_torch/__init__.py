@@ -8,8 +8,11 @@ csrc/bulk_pass.cu) and the rotation fast path (CUDA kernel B,
 csrc/rotation_step.cu); and the single-device Poisson solvers
 (models/poisson.py: the general-grid ``PoissonSolver`` on
 ``Grid.apply_stencil``, ``DensePoissonSolver`` on ``DenseGrid``, and
-``CudaPoissonSolver`` on CUDA kernel C, csrc/laplacian_matvec.cu).
-Entry points run on the card unless the caller asks for the CPU
+``CudaPoissonSolver`` on CUDA kernel C, csrc/laplacian_matvec.cu);
+and the fleet's single-device execution layer (fleet.py: ``GridBatch``
+stacks same-shape jobs along a batch axis and steps them through CUDA
+kernel A', csrc/fleet_bulk_pass.cu; ``run_solo`` is the one-grid
+baseline), with its integrity fingerprints (integrity.py). Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``); kernels are built with ``nvcc`` at their first CUDA
 call, never on import.
 """
@@ -19,6 +22,8 @@ from .grid import (DEFAULT_NEIGHBORHOOD_ID, Grid, SlotwiseKernel,
                    bucket_capacity)
 from .length import GridLength
 from .dense import DenseGrid
+from .fleet import FleetJob, GridBatch, run_solo, template_grid
+from .integrity import register_conserved
 from .mapping import Mapping
 from .neighbors import (NeighborLists, build_neighbor_lists, face_masks,
                         make_neighborhood, validate_neighborhood)
@@ -27,9 +32,11 @@ from .types import ERROR_CELL, ERROR_INDEX, as_cell_array, as_index_array
 
 __all__ = [
     "CartesianGeometry", "DEFAULT_NEIGHBORHOOD_ID", "DenseGrid",
-    "ERROR_CELL", "ERROR_INDEX", "Grid", "GridLength", "GridTopology",
+    "ERROR_CELL", "ERROR_INDEX", "FleetJob", "Grid", "GridBatch",
+    "GridLength", "GridTopology",
     "Mapping", "NeighborLists", "NoGeometry", "SlotwiseKernel",
     "StretchedCartesianGeometry", "as_cell_array", "as_index_array",
     "bucket_capacity", "build_neighbor_lists", "face_masks",
-    "make_neighborhood", "validate_neighborhood",
+    "make_neighborhood", "register_conserved", "run_solo",
+    "template_grid", "validate_neighborhood",
 ]

@@ -80,3 +80,26 @@ def dense_to_numpy(dense_grid) -> dict:
     """``{name: ndarray [X, Y, Z, ...]}`` of every array of a
     ``DenseGrid``, in the field's dtype."""
     return {name: _to_numpy(t) for name, t in dense_grid.arrays.items()}
+
+
+def batch_state_from_numpy(batch, arrays) -> None:
+    """Load a reference ``GridBatch.state`` (``{field: ndarray
+    [capacity, R, ...]}``) into a port ``GridBatch``; each array must
+    have the batch's shape and the field's dtype."""
+    for name, arr in arrays.items():
+        shape, dtype = batch.schema[name]
+        arr = np.array(arr, order="C")
+        want = (batch.capacity, batch.R) + shape
+        if arr.shape != want:
+            raise ValueError(f"{name}: shape {arr.shape}, the batch holds "
+                             f"{want}")
+        if arr.dtype.name != _dtype_name(dtype):
+            raise TypeError(f"{name}: dtype {arr.dtype.name}, the field is "
+                            f"{_dtype_name(dtype)}")
+        batch.state[name] = _to_tensor(arr, dtype).to(batch.device)
+
+
+def batch_state_to_numpy(batch) -> dict:
+    """``{field: ndarray [capacity, R, ...]}`` of a port ``GridBatch``'s
+    state, in the field's dtype (bfloat16 as ``ml_dtypes.bfloat16``)."""
+    return {name: _to_numpy(t) for name, t in batch.state.items()}

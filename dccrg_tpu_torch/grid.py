@@ -13,7 +13,8 @@ PyTorch counterpart of ``dccrg_tpu/grid.py`` for one device:
   ``SlotwiseKernel`` one neighbor slot at a time. An eligible step loop
   goes through the bulk executor (ops/roll_executor.py, a CUDA kernel on
   the card); everything else takes the plain roll path, which gathers
-  each slot with an exact 3-D ``torch.roll``.
+  each slot with an exact 3-D ``torch.roll`` (a plain grid kernel gets
+  the slots stacked as ``[L, S]``).
 
 Only all-level-0 grids on one device are handled; AMR, the halo
 exchange and multi-device plans belong to later slices of the port.
@@ -123,21 +124,26 @@ def _synth_mask(synth, L, device):
          for j in range(len(offs_cells))], dim=1)
 
 
-def _make_roll3d_gather(synth, L):
+def _make_roll3d_gather(synth, L, lead=0):
     """Single-device closed-form slot gather: view the flat field as
     the 3-D grid and ``torch.roll`` it — exact periodic wraps, no
     scatter. Non-periodic wraps carry junk and are zeroed through the
-    slot mask."""
+    slot mask. ``lead`` batch dimensions (a fleet's slots) may come
+    before the row dimension."""
     (nx, ny, nz), _per, n0, offs_cells, *_ = synth
 
     def gather(fl, j, mask_j):
         ox, oy, oz = offs_cells[j]
-        g3 = fl[:n0].reshape((nz, ny, nx) + tuple(fl.shape[1:]))
-        g3 = torch.roll(g3, shifts=(-oz, -oy, -ox), dims=(0, 1, 2))
-        col = g3.reshape((n0,) + tuple(fl.shape[1:]))
+        pre, rest = tuple(fl.shape[:lead]), tuple(fl.shape[lead + 1:])
+        g3 = fl[(slice(None),) * lead + (slice(0, n0),)].reshape(
+            pre + (nz, ny, nx) + rest)
+        g3 = torch.roll(g3, shifts=(-oz, -oy, -ox),
+                        dims=(lead, lead + 1, lead + 2))
+        col = g3.reshape(pre + (n0,) + rest)
         if L > n0:
-            col = torch.cat([col, col.new_zeros((L - n0,) + tuple(col.shape[1:]))])
-        mexp = mask_j.reshape(tuple(mask_j.shape) + (1,) * (col.ndim - 1))
+            col = torch.cat([col, col.new_zeros(pre + (L - n0,) + rest)],
+                            dim=lead)
+        mexp = mask_j.reshape(tuple(mask_j.shape) + (1,) * len(rest))
         return torch.where(mexp, col, col.new_zeros(()))
 
     return gather
@@ -610,7 +616,8 @@ class Grid:
         rows_t = torch.as_tensor(rows, device=self.device)
         for name, values in values_by_field.items():
             _shape, dtype = self.fields[name]
-            vals = torch.as_tensor(np.asarray(values))
+            vals = (values if isinstance(values, torch.Tensor)
+                    else torch.as_tensor(np.asarray(values)))
             self.data[name][0, rows_t] = vals.to(device=self.device, dtype=dtype)
 
     def get_cells(self, criteria=None, exact_match: bool = False,
@@ -764,7 +771,10 @@ class Grid:
         launches the CUDA bulk kernel. An ineligible loop, or
         ``bulk=False``, takes the plain roll path: per step, every slot
         gathers its neighbors with an exact 3-D ``torch.roll`` and the
-        kernel's slot function runs on them.
+        kernel's slot function runs on them. A plain grid kernel
+        (``kernel(cell_fields, nbr_fields, offs, mask, *extra)``, not a
+        ``SlotwiseKernel``) gets the ``[L, S]`` neighbour stacks, the
+        pre-masked ``[L, S, 3]`` offsets and the ``[L, S]`` mask.
 
         ``exchange_fields`` must be a subset of ``fields_out``. On one
         device there are no ghost rows, so nothing is exchanged.
@@ -789,10 +799,11 @@ class Grid:
                 return built
         hood = self.plan.hoods[neighborhood_id]
         cf = hood.closed_form
-        if cf is None or not isinstance(kernel, SlotwiseKernel):
+        if cf is None:
             raise NotImplementedError(
-                "the port's step loop needs a closed-form plan and a "
-                "SlotwiseKernel")
+                "the port's step loop needs a closed-form plan (dense "
+                "tables are not ported)")
+        slotwise = isinstance(kernel, SlotwiseKernel)
         L, R = self.plan.L, self.plan.R
         static_in = tuple(n for n in fields_in if n not in fields_out)
         tables = [hood.dev("offs_const", hood.offs_const, self.device)]
@@ -813,17 +824,31 @@ class Grid:
             # and the steps then update the copies in place
             state = [a[0].clone() for a in args[n_static:n_static + n_out]]
             extra = args[n_static + n_out:]
-            sgidx, sbase = _synth_prep(synth, L, offs_dev.device)
-            masks = [_synth_col(synth, sgidx, sbase, j)
-                     for j in range(n_slots)]
-            offs_col = _make_offs_col(True, offs_dev, None)
+            if slotwise:
+                sgidx, sbase = _synth_prep(synth, L, offs_dev.device)
+                masks = [_synth_col(synth, sgidx, sbase, j)
+                         for j in range(n_slots)]
+                offs_col = _make_offs_col(True, offs_dev, None)
+            else:
+                # the plain-kernel branch (grid.py:3187-3197 of the
+                # reference): the [L, S] mask, offsets pre-masked, and
+                # every input field's [L, S] neighbour stack
+                nmask = _synth_mask(synth, L, offs_dev.device)
+                noffs = nmask[:, :, None] * offs_dev[None, :, :]
             for _ in range(int(n_steps)):
                 full = dict(statics)
                 full.update(zip(fields_out, state))
                 cell_fields = {n: full[n][:L] for n in fields_in}
-                result = _run_slotwise(
-                    kernel, cell_fields, {n: full[n] for n in fields_in},
-                    gather, offs_col, masks.__getitem__, n_slots, extra)
+                if slotwise:
+                    result = _run_slotwise(
+                        kernel, cell_fields, {n: full[n] for n in fields_in},
+                        gather, offs_col, masks.__getitem__, n_slots, extra)
+                else:
+                    nbr_fields = _GatheredNeighbors(
+                        {n: full[n] for n in fields_in}, gather, nmask,
+                        n_slots)
+                    result = kernel(cell_fields, nbr_fields, noffs, nmask,
+                                    *extra)
                 for j, n in enumerate(fields_out):
                     state[j][:L] = result[n].to(state[j].dtype)
             return tuple(s[None] for s in state)

@@ -1,0 +1,183 @@
+"""Silent-data-corruption invariants of the port (counterpart of
+``dccrg_tpu/integrity.py``, its in-program layer).
+
+The fleet step computes, per slot, an exact fingerprint of the input
+and the output state in the same quantum as the step, plus
+conservation sums for kernels registered conservative; the host
+compares the fingerprints exactly and the sums within
+:func:`sum_tolerance`. ``DCCRG_INTEGRITY=0`` turns the whole layer off:
+the quantum then runs no invariant operation at all.
+
+A fingerprint is the pair ``(sum(x), sum((lo16(x)+1) * (hi16(x)+1)))``
+over uint32 words in wrapping uint32 arithmetic: commutative and
+associative exactly, so the device sums, the host numpy sums and the
+reference package's sums agree bit for bit on equal bytes, while a
+change that keeps the linear sum still moves the nonlinear one.
+PyTorch has no wrapping uint32 reduction, so the device sums run in
+int64 and are masked to 32 bits: each term is below 2^34, so 2^29
+terms stay far below 2^63.
+
+File fingerprints and the shadow-execution audits come with the
+checkpoint and scheduler slices.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from .resilience import ResilienceExhaustedError
+
+_U32 = 0xFFFFFFFF
+
+
+class IntegrityError(ResilienceExhaustedError):
+    """CORRUPT trips exhausted their bounded retries: device state
+    repeatedly failed its own fingerprint/conservation invariants
+    while every cheaper detector (finiteness, CRCs) passed.
+    ``details`` maps invariant name -> a short description of the
+    mismatch."""
+
+    def __init__(self, msg, details=None):
+        super().__init__(msg)
+        self.details = dict(details or {})
+
+
+# ---------------------------------------------------------------------
+# env knobs
+# ---------------------------------------------------------------------
+
+def integrity_enabled(default: bool = True) -> bool:
+    """The ``DCCRG_INTEGRITY`` env knob: in-program invariants on
+    (default) or off. Off means no invariant operation runs at all."""
+    v = os.environ.get("DCCRG_INTEGRITY", "")
+    if v == "":
+        return default
+    return v not in ("0", "off", "false", "no")
+
+
+def integrity_rtol(default: float = 1e-4) -> float:
+    """The ``DCCRG_INTEGRITY_RTOL`` env knob: relative tolerance for
+    conservation-sum drift (float reductions are inexact; the
+    fingerprints are the exact layer)."""
+    try:
+        return float(os.environ.get("DCCRG_INTEGRITY_RTOL", "")
+                     or default)
+    except ValueError:
+        return default
+
+
+def sum_tolerance(base, n_elements: int, steps: int = 1) -> float:
+    """Allowed |drift| of a conservation sum over ``steps`` steps of a
+    conservative kernel: rounding accumulates about eps per element
+    update, so the bound scales with the sum's magnitude, the element
+    count and the square root of the step count, while one corrupted
+    cell moves the sum by about one cell value."""
+    scale = abs(float(base)) + float(n_elements)
+    return integrity_rtol() * scale * max(1.0, float(steps)) ** 0.5
+
+
+# ---------------------------------------------------------------------
+# conservation registry: which kernels conserve which fields
+# ---------------------------------------------------------------------
+
+# kernel registry name -> (fields, axes that must be periodic for the
+# conservation to hold; None = any periodicity)
+_CONSERVED: dict = {}
+
+
+def register_conserved(kernel_name: str, fields, periodic_axes=None):
+    """Declare that the registered fleet kernel ``kernel_name``
+    conserves the total of ``fields`` (exactly, in real arithmetic),
+    provided every axis in ``periodic_axes`` is periodic."""
+    _CONSERVED[str(kernel_name)] = (tuple(fields),
+                                    None if periodic_axes is None
+                                    else tuple(periodic_axes))
+
+
+# diffusion redistributes over a symmetric neighbour relation (any
+# periodicity); upwind advection along x conserves only when x wraps
+register_conserved("diffuse", ("rho",))
+register_conserved("advect_x", ("rho",), periodic_axes=(0,))
+
+
+def conserved_fields(kernel, periodic, fields_out) -> tuple:
+    """The fields a job's kernel provably conserves under its
+    periodicity. Callable kernels (no registry entry) conserve
+    nothing that can be assumed."""
+    if callable(kernel):
+        return ()
+    entry = _CONSERVED.get(str(kernel))
+    if entry is None:
+        return ()
+    fields, axes = entry
+    if axes is not None and not all(bool(periodic[a]) for a in axes):
+        return ()
+    return tuple(n for n in fields if n in tuple(fields_out))
+
+
+# ---------------------------------------------------------------------
+# fingerprints: order-independent exact uint32 pairs
+# ---------------------------------------------------------------------
+
+def _row_words(arr) -> np.ndarray:
+    """``[n, k]`` uint32 word view of per-cell rows: each cell's bytes,
+    zero-padded per row to a multiple of 4, so the same cells in any
+    order give the same multiset of words."""
+    a = np.ascontiguousarray(arr)
+    n = a.shape[0] if a.ndim else 1
+    b = a.reshape(n, -1).view(np.uint8)
+    pad = (-b.shape[1]) % 4
+    if pad:
+        b = np.concatenate(
+            [b, np.zeros((n, pad), dtype=np.uint8)], axis=1)
+    return b.view(np.uint32)
+
+
+def fingerprint_rows(arr) -> tuple:
+    """The ``(s1, s2)`` fingerprint of per-cell rows ``arr`` (leading
+    axis = cells; a numpy array, bfloat16 as its int16 or ml_dtypes
+    view): wrapping-uint32 ``sum(x)`` and
+    ``sum((lo16(x)+1) * (hi16(x)+1))`` over the word view."""
+    w = _row_words(arr)
+    s1 = int(np.sum(w, dtype=np.uint32))
+    lo = (w & np.uint32(0xFFFF)) + np.uint32(1)
+    hi = (w >> np.uint32(16)) + np.uint32(1)
+    s2 = int(np.sum(lo * hi, dtype=np.uint32))
+    return s1, s2
+
+
+def _words(x: torch.Tensor) -> torch.Tensor:
+    """int64 tensor of the uint32 words of ``x``'s elements, one word
+    per element: 32-bit types bitcast, 16-bit types (bfloat16 state)
+    widen each element to its own word."""
+    size = x.element_size()
+    if size == 4:
+        return x.view(torch.int32).to(torch.int64) & _U32
+    if size == 2:
+        return x.view(torch.int16).to(torch.int64) & 0xFFFF
+    raise TypeError(f"device fingerprints need a 16- or 32-bit element "
+                    f"type, got {x.dtype}")
+
+
+def _pair(w: torch.Tensor) -> torch.Tensor:
+    """``[..., 2]`` int64 ``(s1, s2)`` over the last axis of words."""
+    s1 = w.sum(dim=-1) & _U32
+    s2 = (((w & 0xFFFF) + 1) * ((w >> 16) + 1)).sum(dim=-1) & _U32
+    return torch.stack([s1, s2], dim=-1)
+
+
+def device_fingerprint(x: torch.Tensor, n_own: int) -> torch.Tensor:
+    """The ``(s1, s2)`` pair of one field's owned rows ``x[:n_own]``,
+    computed where ``x`` lies: an int64 ``[2]`` tensor of values below
+    2^32. One word per element, which equals :func:`fingerprint_rows`'
+    padded-row words for 32-bit types and for scalar 16-bit fields."""
+    return _pair(_words(x[:n_own]).reshape(-1))
+
+
+def slot_fingerprints(x: torch.Tensor, n_own: int) -> torch.Tensor:
+    """:func:`device_fingerprint` of every slot of a batched field
+    ``[B, R, ...]``: int64 ``[B, 2]``."""
+    return _pair(_words(x[:, :n_own]).reshape(x.shape[0], -1))

@@ -26,6 +26,12 @@ knows, the flux's field set in one storage dtype (float32 or bfloat16),
 and a brick that fits shared memory. On a CUDA grid an eligible step
 loop always launches kernel A; on a CPU grid ``bulk_pass`` computes the
 same pass with its plain PyTorch version.
+
+The fleet's batched form (``make_fleet_bulk_step``, for ``GridBatch``)
+is **kernel A'** (``fleet_bulk_pass``, csrc/fleet_bulk_pass.cu): one
+step of a fleet twin (``diffuse``, ``advect_x``) over every slot of a
+``[B, R]`` bucket state with per-slot extras read on the device. It
+wraps exactly, so no epilogue follows it.
 """
 
 from __future__ import annotations
@@ -537,3 +543,179 @@ def compile_bulk_step_loop(grid, kernel, fields_in, fields_out,
     fn.step_path = "bulk"
     grid._program_cache[key] = fn
     return fn, tables, static_in
+
+
+# ---------------------------------------------------------------------
+# kernel A': the fleet's batched bulk pass (GridBatch integration)
+# ---------------------------------------------------------------------
+
+# device flux of a fleet twin -> (fields read, fields written, the
+# functor's code in csrc/fleet_bulk_pass.cu); the twins are
+# fleet._make_diffuse_slotwise / _make_advect_x_slotwise
+FLEET_FLUXES = {
+    "diffuse": (("rho",), ("rho",), 0),
+    "advect_x": (("rho",), ("rho",), 1),
+}
+
+_FLEET_SIG = {
+    "dccrg_fleet_bulk": (ctypes.c_int, [
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_int), ctypes.c_longlong,
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]),
+    "dccrg_fleet_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+}
+
+
+# the slots kernel A' unrolls: the 3x3x3 cube without its centre,
+# z-major and x fastest, the default neighbourhood of length 1
+_CUBE = tuple((x, y, z) for z in (-1, 0, 1) for y in (-1, 0, 1)
+              for x in (-1, 0, 1) if (x, y, z) != (0, 0, 0))
+
+
+class FleetPassSpec:
+    """Static geometry of kernel A' over one bucket's single-device
+    closed-form plan: grid extents and periodicity and the slots' cell
+    offsets in ``offs_const`` order. Kernel A' unrolls the 26 slots of
+    the default neighbourhood of length 1 in that order; any other
+    neighbourhood raises ValueError (the bucket keeps the table
+    program)."""
+
+    def __init__(self, dims, periodic, offs_cells, offs_const, n0, L):
+        self.dims = tuple(int(d) for d in dims)
+        self.periodic = tuple(bool(p) for p in periodic)
+        self.offs_cells = tuple(tuple(int(v) for v in o) for o in offs_cells)
+        self.offs_const = tuple(tuple(int(v) for v in o) for o in offs_const)
+        self.n0 = int(n0)
+        self.L = int(L)
+        self.R = self.L + 1
+        signs = tuple(tuple(int(np.sign(v)) for v in o) for o in self.offs_const)
+        if self.offs_cells != _CUBE or signs != _CUBE:
+            raise ValueError("kernel A' needs the 26-slot neighbourhood of "
+                             "length 1 in its default order")
+
+    def bytes_moved(self, batch, itemsize):
+        """HBM bytes of one pass at the bound: every slot's rows read
+        once and written once."""
+        return 2 * batch * self.R * itemsize
+
+    def flops(self, batch, flux):
+        """Float operations of one pass: ``diffuse`` a subtract and an
+        add per slot, ``advect_x`` an add per slot; two (diffuse) or
+        four (advect_x) in the finish."""
+        per_cell = (2 * len(self.offs_cells) + 2 if flux == "diffuse"
+                    else len(self.offs_cells) + 4)
+        return batch * self.n0 * per_cell
+
+
+def fleet_bulk_pass(spec, kernel, state, extras):
+    """One fleet step of ``kernel``'s device flux over every slot of
+    ``state`` (the bucket's ``[B, R]`` field, row stride ``R``) with
+    per-slot ``extras`` (``[B, E]`` float32, column 0 read). Returns a
+    new ``[B, R]`` tensor: rows ``[0, L)`` stepped, the zero row
+    copied. On CUDA tensors it launches kernel A'
+    (csrc/fleet_bulk_pass.cu) and counts the launch in
+    ``fleet_bulk_pass.launches``; on CPU tensors it runs
+    :func:`fleet_bulk_pass_plain`."""
+    if state.device.type == "cpu":
+        return fleet_bulk_pass_plain(spec, kernel, state, extras)
+    if state.device.type != "cuda":
+        raise ValueError(f"fleet_bulk_pass runs on CUDA or CPU, got "
+                         f"{state.device}")
+    code = _STORAGE_CODES.get(state.dtype)
+    if code is None:
+        raise ValueError(f"fleet_bulk_pass storage must be float32 or "
+                         f"bfloat16, got {state.dtype}")
+    B = state.shape[0]
+    if state.shape != (B, spec.R) or not state.is_contiguous():
+        raise ValueError(f"fleet_bulk_pass needs a contiguous [B, {spec.R}] "
+                         f"state, got {tuple(state.shape)}")
+    if (extras.device != state.device or extras.dtype != _F32
+            or extras.ndim != 2 or extras.shape[0] != B
+            or extras.shape[1] < 1 or not extras.is_contiguous()):
+        raise ValueError("fleet_bulk_pass needs contiguous float32 [B, E] "
+                         "extras on the state's device")
+    flux = FLEET_FLUXES[kernel.device_flux][2]
+    lib = _build.load("fleet_bulk_pass", _FLEET_SIG)
+    out = torch.empty_like(state)
+    nx, ny, nz = spec.dims
+    geom = (ctypes.c_int * 8)(nx, ny, nz, *(int(p) for p in spec.periodic),
+                              B, extras.shape[1])
+    rc = lib.dccrg_fleet_bulk(
+        code, flux, state.data_ptr(), out.data_ptr(), extras.data_ptr(), geom,
+        spec.n0, spec.L, spec.R, state.device.index or 0,
+        torch.cuda.current_stream(state.device).cuda_stream)
+    _build.check(lib, "dccrg_fleet", rc)
+    fleet_bulk_pass.launches += 1
+    return out
+
+
+fleet_bulk_pass.launches = 0
+
+
+def fleet_bulk_pass_plain(spec, kernel, state, extras):
+    """The plain PyTorch version of kernel A': the twin's slot
+    functions over ``[B, L]``, each slot gathered with an exact 3-D
+    ``torch.roll`` per grid and masked in closed form, per-slot extras
+    as ``[B, 1]`` columns; the result rounded to the storage dtype
+    once, the zero row copied."""
+    L = spec.L
+    name_in = FLEET_FLUXES[kernel.device_flux][0][0]
+    synth = (spec.dims, spec.periodic, spec.n0, spec.offs_cells, False)
+    gidx, base = _synth_prep(synth, L, state.device)
+    gather = _make_roll3d_gather(synth, L, lead=1)
+    offs_col = _make_offs_col(
+        True, torch.tensor(spec.offs_const, dtype=torch.int32,
+                           device=state.device), None)
+    ex = tuple(extras[:, i:i + 1] for i in range(extras.shape[1]))
+    res = _run_slotwise(
+        kernel, {name_in: state[:, :L]}, {name_in: state}, gather, offs_col,
+        lambda j: _synth_col(synth, gidx, base, j), len(spec.offs_cells), ex)
+    out = state.clone()
+    out[:, :L] = res[FLEET_FLUXES[kernel.device_flux][1][0]].to(state.dtype)
+    return out
+
+
+def make_fleet_bulk_step(grid, kernel, fields_in, fields_out, n_extra):
+    """Batched bulk step for a fleet bucket: ``step(state, extras)``
+    over ``{field: [capacity, R]}`` state with per-slot float32 extras
+    ``[capacity, E]`` on the state's device. Each step is one kernel A'
+    pass on CUDA (its plain version on the CPU). Kernel A' wraps
+    exactly, so no fixup epilogue runs after it: the reference's
+    vmapped epilogue would repair nothing here. Returns None when the
+    bucket's template grid, schema or kernel is ineligible (the caller
+    keeps the table program). The pass takes its batch from the
+    state's shape."""
+    from .. import grid as grid_mod
+
+    fields_in = tuple(fields_in)
+    fields_out = tuple(fields_out)
+    if not isinstance(kernel, SlotwiseKernel):
+        return None
+    flux = FLEET_FLUXES.get(getattr(kernel, "device_flux", None))
+    if flux is None or n_extra < 1 or grid.n_dev != 1:
+        return None
+    names_in, names_out, _code = flux
+    if set(fields_in) != set(names_in) or fields_out != names_out:
+        return None
+    shape, dtype = grid.fields[names_in[0]]
+    if shape != () or dtype not in _STORAGE_CODES:
+        return None
+    hood = grid.plan.hoods[grid_mod.DEFAULT_NEIGHBORHOOD_ID]
+    cf = hood.closed_form
+    if cf is None or cf.get("multi") or hood.offs_const is None:
+        return None
+    try:
+        spec = FleetPassSpec(cf["dims"], cf["periodic"], cf["offsets"],
+                             hood.offs_const, cf["n0"], grid.plan.L)
+    except ValueError:
+        return None
+    name_out = names_out[0]
+
+    def step(state, extras):
+        new = dict(state)
+        new[name_out] = fleet_bulk_pass(spec, kernel, state[names_in[0]],
+                                        extras)
+        return new
+
+    step.spec = spec
+    return step

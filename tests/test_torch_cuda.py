@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from dccrg_tpu_torch import DEFAULT_NEIGHBORHOOD_ID
+from dccrg_tpu_torch import fleet
 from dccrg_tpu_torch.models.advection import GridAdvection
 from dccrg_tpu_torch.models.poisson import DensePoissonSolver
 from dccrg_tpu_torch.ops import advection_kernel, poisson_kernel, roll_executor
@@ -121,3 +122,59 @@ def test_cuda_poisson_solver_on_the_card(device):
     xd, info_d = DensePoissonSolver((n, n, n), device=device).solve(rhs, rtol=1e-5)
     assert info_d["iterations"] == info["iterations"] > 0
     assert torch.equal(x, xd)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["diffuse", "advect_x"])
+@pytest.mark.parametrize("periodic", [(True, True, True), (False, True, True),
+                                      (False, False, False)])
+@pytest.mark.parametrize("length", [(8, 8, 8), (24, 20, 36)])
+def test_fleet_bulk_kernel_matches_plain(device, length, periodic, kernel, dtype):
+    """Kernel A' against its plain version on a [B, R] state (pad rows
+    included at (24, 20, 36)), each slot with its own parameter: fmad
+    off and the same order of operations, so bit for bit."""
+    B = 3
+    job = fleet.FleetJob("p", length=length, kernel=kernel, periodic=periodic,
+                         cell_data={"rho": dtype})
+    grid = fleet.template_grid(job, device)
+    twin = fleet.FLEET_BULK_KERNELS[kernel]
+    step = roll_executor.make_fleet_bulk_step(grid, twin, ("rho",), ("rho",), 1)
+    spec = step.spec
+    gen = torch.Generator(device=device).manual_seed(sum(length))
+    state = (torch.rand((B, spec.R), generator=gen, device=device) * 100).to(dtype)
+    state[:, -1] = 0
+    extras = torch.tensor([[0.02], [0.05], [0.11]], device=device)
+    before = roll_executor.fleet_bulk_pass.launches
+    got = roll_executor.fleet_bulk_pass(spec, twin, state, extras)
+    assert roll_executor.fleet_bulk_pass.launches == before + 1
+    want = roll_executor.fleet_bulk_pass_plain(spec, twin, state, extras)
+    assert got.dtype == dtype and got.shape == state.shape
+    assert torch.equal(got, want)
+
+
+def test_grid_batch_bulk_quantum_on_the_card(device):
+    """A GridBatch bucket on the card launches kernel A' once per step,
+    its invariants are exact, and a table-program bucket of the same
+    jobs digests equal to run_solo."""
+    jobs = [fleet.FleetJob(f"j{i}", length=(16, 16, 16), n_steps=4,
+                           params=(0.02 + 0.003 * i,), seed=i) for i in range(3)]
+    bulk = fleet.GridBatch(jobs[0], 4, device=device)
+    table = fleet.GridBatch(jobs[0], 4, device=device, bulk=False)
+    for b in (bulk, table):
+        for j in jobs:
+            j.apply_init(b.grid)
+            b.admit(j)
+    budget = np.array([4, 4, 2, 0], np.int32)
+    before = roll_executor.fleet_bulk_pass.launches
+    bulk.step(budget)
+    assert bulk.bulk_active() and not table.bulk_active()
+    assert roll_executor.fleet_bulk_pass.launches == before + 4
+    table.step(budget)
+    np.testing.assert_array_equal(bulk.last_inv["fp_out"]["rho"],
+                                  bulk.fingerprint_slots()["rho"])
+    torch.testing.assert_close(bulk.state["rho"], table.state["rho"],
+                               rtol=1e-5, atol=1e-6)
+    jobs[2].n_steps = 2
+    for slot in range(3):
+        assert table.digest(slot) == fleet.run_solo(jobs[slot], device=device)
+    assert bulk.finite_slots()[:3].all()

@@ -130,9 +130,12 @@ def test_import_leaves_jax_out():
         "import dccrg_tpu_torch.ops.advection_kernel\n"
         "import dccrg_tpu_torch.ops.poisson_kernel\n"
         "import dccrg_tpu_torch.models.poisson, dccrg_tpu_torch.dense\n"
+        "import dccrg_tpu_torch.fleet, dccrg_tpu_torch.integrity\n"
+        "import dccrg_tpu_torch.checkpoint, dccrg_tpu_torch.faults\n"
+        "import dccrg_tpu_torch.resilience\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith('jax.') or m == 'dccrg_tpu'\n"
-        "             or m.startswith('dccrg_tpu.'))\n"
+        "             or m.startswith('dccrg_tpu.') or m == 'ml_dtypes')\n"
         "assert not bad, bad\n"
         "print('clean')\n"
     )

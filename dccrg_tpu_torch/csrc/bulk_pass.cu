@@ -1,42 +1,53 @@
-// Bulk stencil pass of the grid step loop: `k` sub-steps of the upwind
-// advection flux over a single-device closed-form plan, one HBM pass.
+// Bulk stencil pass of the grid step loop: one sub-step of the upwind
+// advection flux over a single-device closed-form plan.
 //
 // Replaces the Pallas kernel `make_bulk_pass`
 // (dccrg_tpu/ops/roll_executor.py:183). That kernel walks the flat row
 // array as [G, 8, 128] windows with halos sized by the largest flat
-// shift; at 512^3 the z shift alone is nx*ny rows, megabytes, against a
-// block's 227 KB of shared memory. Here rows are grid order
-// (flat = x + nx*(y + ny*z)), so the pass tiles [nz, ny, nx] bricks
-// instead: each block loads one brick of every input field plus a halo
-// of k*reach cells per axis into shared memory, applies the flux k times
-// over shrinking regions, and writes its interior once. A warp walks a
-// window row along x (32 lanes on 32 neighbouring cells, so loads and
-// stores are coalesced and no lane divides an index), and the brick's x
-// extent is chosen so a window row is a whole number of warps wide.
-// Periodic wraps are done exactly at load time; slots that cross a
-// non-periodic edge are masked from the cell coordinates, as
-// grid._synth_col does (the y and z tests once per row).
+// shift, leaves the rows whose flat roll crosses a periodic wrap wrong
+// and has a fixup epilogue repair them. Here rows are grid order
+// (flat = x + nx*(y + ny*z)) and every neighbour is read at its exact
+// 3-D position, periodic wraps included, so every row written is right
+// and nothing follows the kernel. One launch is one step; the step loop
+// launches once per step, each launch reading the previous one's output
+// in the storage type, as the reference rounds its state between steps.
 //
-// With k = 1 nothing is carried between sub-steps, and staging bricks
-// in shared memory only serialises each block's loads before its
-// compute: that pass (bulk_upwind_direct) has each thread compute one
-// cell from its neighbours read straight from device memory through
-// the read-only cache, a warp along x and eight rows of y per block, so
-// neighbour reads hit L1/L2 and HBM sees each input about once.
+// Bound on the H100: bytes. At 512^3, float32, the pass reads 3 fields
+// and writes 1: 4 * 2^27 * 4 B = 2.15 GB, 0.64 ms at 3.35 TB/s; about 49
+// float ops per cell as counted for the generic slot loop (0.10 ms at
+// 67 TFLOP/s). Two routes:
 //
-// The flux is a compile-time functor: the upwind flux of
-// dccrg_tpu/models/advection.py:107-129 over fields density, vx, vy,
-// with its arithmetic in the same order (per slot: x face then y face;
-// acc - where(face_pos, up_pos*m, 0), then + where(face_neg, up_neg*m, 0),
-// both unconditionally). Storage is float32 or bfloat16, the arithmetic
-// float32; the carried density is rounded to the storage type after
-// every sub-step, as the reference's step loop rounds its state. Built
-// with --fmad=false, so float32 results equal the plain PyTorch version.
+// Plane tiles (bulk_planes), for the face neighbourhood's four x / y
+// slots in the order the neighbourhood lists them (-y, -x, +x, +y): the
+// main path. A block owns a 128 x 16 (x, y) tile and marches a chunk of
+// z. The set has no z reach, so every plane is computed alone. Each
+// z-plane's tile of the three fields, with one halo row in y and 8 halo
+// columns in x on each side, is staged in shared memory by cp.async in
+// 16-byte chunks, in a ring of 3 planes: the plane computed and two that
+// load meanwhile, so the loads overlap the arithmetic. Periodic edges
+// are wrapped per chunk at load time; chunks beyond a non-periodic edge
+// are zero-filled, and the slot's mask drops them. A thread computes V
+// cells along x (4 float32, 8 bfloat16) from 16-byte shared-memory
+// reads, with the four slots unrolled and the non-periodic masks fixed
+// once per block, and writes them with one 16-byte store. Extents that
+// are not a multiple of V, or unaligned arrays, take the same kernel
+// with element-wise loads and stores.
 //
-// Bound on the H100: bytes. At 512^3, float32, k = 1 the pass reads 3
-// fields and writes 1: 4 * 2^27 * 4 B = 2.15 GB, 0.64 ms at 3.35 TB/s;
-// about 49 float ops per cell (0.10 ms at 67 TFLOP/s). Neighbour and
-// brick-halo re-reads mostly hit L1/L2.
+// Direct (bulk_upwind_direct), for every other slot set (the 26-cube of
+// a neighbourhood of length 1, user neighbourhoods): one cell per
+// thread, the runtime slot loop, neighbours read straight from device
+// memory through the read-only cache.
+//
+// The flux is the upwind flux of dccrg_tpu/models/advection.py:107-129
+// over fields density, vx, vy, with its arithmetic in the same order
+// (per slot: x face then y face; acc - where(face_pos, up_pos*m, 0),
+// then + where(face_neg, up_neg*m, 0)). A face term whose face flag is
+// 0, or whose slot is masked, adds or subtracts an exact 0 to a sum that
+// is never -0.0 (it starts at +0.0 and every step ends in an addition),
+// so the plane tiles leave those terms out. Storage is float32 or
+// bfloat16, the arithmetic float32, the result rounded to the storage
+// type once. Built with --fmad=false, so results equal the plain
+// PyTorch version bit for bit.
 //
 // C entry point: dccrg_bulk_upwind(); returns cudaGetLastError() of the
 // launch (0 on success).
@@ -44,22 +55,26 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <climits>
+#include <cstdint>
 
 namespace {
 
 constexpr int kMaxSlots = 26;
 constexpr int kThreads = 256;
-constexpr size_t kMaxSmem = 232448;  // 227 KB opt-in per block on sm_90
+constexpr int kTileX = 128, kTileY = 16;  // plane tile: x cells, y rows
+constexpr int kPad = 8;                   // x halo columns on each side
+constexpr int kRowW = kTileX + 2 * kPad;  // staged columns
+constexpr int kStages = 3;                // planes in the ring
+constexpr int kRows = kTileY + 2;         // staged rows of one field
+
+// the face set in neighbourhood order, as (ox, oy, oz, fx, fy)
+constexpr int kFace4[4][5] = {
+    {0, -1, 0, 0, -1}, {-1, 0, 0, -1, 0}, {1, 0, 0, 1, 0}, {0, 1, 0, 0, 1}};
 
 struct Geom {
-  int nx, ny, nz;     // grid extents
-  int px, py, pz;     // periodic flags
-  int bx, by, bz;     // brick interior
-  int rx, ry, rz;     // reach of one sub-step per axis
-  int hx, hy, hz;     // halo = k * reach
-  int wx, wy, wz;     // window = brick + 2 * halo
-  int nbx, nby, nbz;  // bricks per axis
-  int k;              // sub-steps per pass
+  int nx, ny, nz;  // grid extents
+  int px, py, pz;  // periodic flags
+  int zc;          // z-planes per block (plane tiles)
 };
 
 struct Slots {
@@ -82,9 +97,48 @@ template <> struct Store<__nv_bfloat16> {
   }
 };
 
-template <typename T>
-__device__ __forceinline__ float round_to(float v) {
-  return Store<T>::load(Store<T>::pack(v));
+// 16 bytes of shared memory as floats, and V floats back to 16 bytes
+__device__ __forceinline__ void load_vec(const float* p, float* v) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+}
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* v) {
+  const uint4 a = *reinterpret_cast<const uint4*>(p);
+  const unsigned w[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {  // little-endian: element 2i is the low half
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+__device__ __forceinline__ void store_vec(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ unsigned bf16_bits(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+__device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float* v) {
+  unsigned w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    w[i] = bf16_bits(v[2 * i]) | (bf16_bits(v[2 * i + 1]) << 16);
+  *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// 16-byte asynchronous copy to shared memory; zero-fills when !valid
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Wrap a coordinate into [0, n) on a periodic axis; false when it lies
@@ -112,117 +166,144 @@ __device__ __forceinline__ float face_term(float acc, float rc, float rn,
   return acc;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-bulk_upwind_kernel(const T* __restrict__ rho, const T* __restrict__ vx,
-                   const T* __restrict__ vy, T* __restrict__ out,
-                   const Geom g, const Slots s, const float c0,
-                   const float c1) {
-  extern __shared__ float smem[];
-  const int W = g.wx * g.wy * g.wz;
-  float* sr = smem;
-  float* svx = smem + W;
-  float* svy = smem + 2 * W;
-  float* sr2 = smem + 3 * W;
+// Plane tiles of the face set, unrolled.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kThreads, 2)
+bulk_planes(const T* __restrict__ rho, const T* __restrict__ vx,
+            const T* __restrict__ vy, T* __restrict__ out, const Geom g,
+            const float c0, const float c1) {
+  constexpr int V = 16 / sizeof(T);   // cells per thread along x
+  constexpr int LPR = kTileX / V;     // threads per tile row
+  constexpr int RG = kThreads / LPR;  // tile rows computed at once
+  constexpr int RPT = kTileY / RG;    // tile rows per thread
+  constexpr int CPR = kRowW / V;      // 16-byte chunks per staged row
+  constexpr int field = kRows * kRowW;  // one field's staged plane
+  constexpr int stage = 3 * field;      // one ring slot
+  static_assert(kPad % V == 0 && RPT * RG == kTileY, "tile geometry");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
 
-  const int lane = threadIdx.x;  // along x
-  const int warp = threadIdx.y;
-  const int n_warps = blockDim.y;
+  const int ntx = (g.nx + kTileX - 1) / kTileX;
+  const int nty = (g.ny + kTileY - 1) / kTileY;
   const int b = blockIdx.x;
-  const int bi = b % g.nbx;
-  const int bj = (b / g.nbx) % g.nby;
-  const int bk = b / (g.nbx * g.nby);
-  // unwrapped global coordinates of window cell (0, 0, 0)
-  const int x0 = bi * g.bx - g.hx;
-  const int y0 = bj * g.by - g.hy;
-  const int z0 = bk * g.bz - g.hz;
+  const int x0 = (b % ntx) * kTileX;
+  const int y0 = ((b / ntx) % nty) * kTileY;
+  const int zs = (b / (ntx * nty)) * g.zc;
+  const int np = min(g.zc, g.nz - zs);  // planes of this block
   const long long nxy = (long long)g.nx * g.ny;
 
-  // load: one window row (fixed y, z) per warp at a time
-  for (int r = warp; r < g.wy * g.wz; r += n_warps) {
-    int gy = y0 + r % g.wy, gz = z0 + r / g.wy;
-    const bool row_in = wrap(gy, g.ny, g.py) && wrap(gz, g.nz, g.pz);
-    const long long base = (long long)g.nx * gy + nxy * gz;
-    const int lr = r * g.wx;
-    for (int lx = lane; lx < g.wx; lx += 32) {
-      int gx = x0 + lx;
-      float a = 0.f, u = 0.f, w = 0.f;
-      if (row_in && wrap(gx, g.nx, g.px)) {
-        const long long f = base + gx;
-        a = Store<T>::load(rho[f]);
-        u = Store<T>::load(vx[f]);
-        w = Store<T>::load(vy[f]);
+  // stage plane i (z = zs + i) of the three fields into slot i % kStages
+  auto load_plane = [&](int i) {
+    T* st = smem + (i % kStages) * stage;
+    const long long zoff = (long long)(zs + i) * nxy;
+    if (VEC) {
+      for (int k = threadIdx.x; k < 3 * kRows * CPR; k += kThreads) {
+        const int row = k / CPR, c = k - row * CPR;
+        const int f = row / kRows;
+        int gy = y0 - 1 + (row - f * kRows), gx = x0 - kPad + c * V;
+        const T* base = f == 0 ? rho : (f == 1 ? vx : vy);
+        // nx % V == 0, so a chunk lies wholly inside or outside the grid
+        const bool ok = wrap(gy, g.ny, g.py) && wrap(gx, g.nx, g.px);
+        cp_async16(st + row * kRowW + c * V,
+                   ok ? base + zoff + (long long)gy * g.nx + gx : base, ok);
       }
-      sr[lr + lx] = a;
-      svx[lr + lx] = u;
-      svy[lr + lx] = w;
+    } else {
+      for (int k = threadIdx.x; k < 3 * kRows * kRowW; k += kThreads) {
+        const int row = k / kRowW, e = k - row * kRowW;
+        const int f = row / kRows;
+        int gy = y0 - 1 + (row - f * kRows), gx = x0 - kPad + e;
+        const T* base = f == 0 ? rho : (f == 1 ? vx : vy);
+        const bool ok = wrap(gy, g.ny, g.py) && wrap(gx, g.nx, g.px);
+        st[row * kRowW + e] =
+            ok ? base[zoff + (long long)gy * g.nx + gx] : Store<T>::pack(0.f);
+      }
     }
-  }
-  __syncthreads();
+  };
 
-  const int sy = g.wx, sz = g.wx * g.wy;
-  float* cur = sr;
-  float* nxt = sr2;
-  for (int t = 1; t <= g.k; ++t) {
-    const int lox = t * g.rx, loy = t * g.ry, loz = t * g.rz;
-    const int ex = g.wx - 2 * lox, ey = g.wy - 2 * loy, ez = g.wz - 2 * loz;
-    const bool last = t == g.k;
-    for (int r = warp; r < ey * ez; r += n_warps) {
-      const int ly = loy + r % ey, lz = loz + r / ey;
-      const int gy = y0 + ly, gz = z0 + lz;  // unwrapped
-      // slots valid for this row's y and z (non-periodic edges)
-      unsigned row_ok = 0;
-      for (int j = 0; j < s.n; ++j) {
-        bool v = true;
-        if (!g.py && s.oy[j]) {
-          const int c = gy + s.oy[j];
-          v = v && c >= 0 && c < g.ny;
-        }
-        if (!g.pz && s.oz[j]) {
-          const int c = gz + s.oz[j];
-          v = v && c >= 0 && c < g.nz;
-        }
-        row_ok |= (unsigned)v << j;
-      }
-      const int lrow = sy * ly + sz * lz;
-      for (int lx = lox + lane; lx < lox + ex; lx += 32) {
-        const int li = lrow + lx;
-        const int gx = x0 + lx;
-        const float rc = cur[li], vxc = svx[li], vyc = svy[li];
+  const int lx = threadIdx.x % LPR, rg = threadIdx.x / LPR;
+  const int gx0 = x0 + lx * V;  // global x of the thread's first cell
+  // the non-periodic masks: bit c for cell c's -x / +x neighbour
+  unsigned xm_ok = 0, xp_ok = 0;
+#pragma unroll
+  for (int c = 0; c < V; ++c) {
+    xm_ok |= (unsigned)(g.px || gx0 + c > 0) << c;
+    xp_ok |= (unsigned)(g.px || gx0 + c + 1 < g.nx) << c;
+  }
+
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < np) load_plane(i);
+    cp_async_commit();
+  }
+  for (int i = 0; i < np; ++i) {
+    // slot (i + kStages - 1) % kStages held plane i - 1, freed by the
+    // last sync
+    if (i + kStages - 1 < np) load_plane(i + kStages - 1);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();  // plane i has landed
+    __syncthreads();
+    const long long zoff = (long long)(zs + i) * nxy;
+    const T* st = smem + (i % kStages) * stage;
+#pragma unroll
+    for (int k = 0; k < RPT; ++k) {
+      const int ry = rg + k * RG;
+      const int gy = y0 + ry;
+      const bool ym_ok = g.py || gy > 0;
+      const bool yp_ok = g.py || gy + 1 < g.ny;
+      const T* rr = st + (ry + 1) * kRowW + kPad + lx * V;
+      const T* ur = rr + field;
+      const T* wr = rr + 2 * field;
+      float R[V + 2], U[V + 2], W[V], RM[V], RP[V], WM[V], WP[V];
+      load_vec(rr, R + 1);
+      R[0] = Store<T>::load(rr[-1]);
+      R[V + 1] = Store<T>::load(rr[V]);
+      load_vec(ur, U + 1);
+      U[0] = Store<T>::load(ur[-1]);
+      U[V + 1] = Store<T>::load(ur[V]);
+      load_vec(wr, W);
+      load_vec(rr - kRowW, RM);
+      load_vec(rr + kRowW, RP);
+      load_vec(wr - kRowW, WM);
+      load_vec(wr + kRowW, WP);
+      float res[V];
+#pragma unroll
+      for (int c = 0; c < V; ++c) {
+        const float rc = R[c + 1], uc = U[c + 1], wc = W[c];
         float acc = 0.f;
-        for (int j = 0; j < s.n; ++j) {
-          bool valid = (row_ok >> j) & 1u;
-          if (!g.px && s.ox[j]) {
-            const int c = gx + s.ox[j];
-            valid = valid && c >= 0 && c < g.nx;
-          }
-          const int ln = li + s.ox[j] + sy * s.oy[j] + sz * s.oz[j];
-          const float rn = valid ? cur[ln] : 0.f;
-          const float vxn = valid ? svx[ln] : 0.f;
-          const float vyn = valid ? svy[ln] : 0.f;
-          acc = face_term(acc, rc, rn, vxc, vxn, c0, valid, s.fx[j]);
-          acc = face_term(acc, rc, rn, vyc, vyn, c1, valid, s.fy[j]);
+        if (ym_ok) {  // slot -y: the y face's negative side
+          const float v = 0.5f * (wc + WM[c]);
+          acc = acc + (v >= 0.f ? RM[c] : rc) * (v * c1);
         }
-        const float res = rc + acc;
-        if (last) {
-          // the interior: gx, gy, gz >= 0; ragged bricks stop at the edge
-          if (gx < g.nx && gy < g.ny && gz < g.nz)
-            out[gx + (long long)g.nx * gy + nxy * gz] = Store<T>::pack(res);
+        if ((xm_ok >> c) & 1u) {  // slot -x
+          const float v = 0.5f * (uc + U[c]);
+          acc = acc + (v >= 0.f ? R[c] : rc) * (v * c0);
+        }
+        if ((xp_ok >> c) & 1u) {  // slot +x
+          const float v = 0.5f * (uc + U[c + 2]);
+          acc = acc - (v >= 0.f ? rc : R[c + 2]) * (v * c0);
+        }
+        if (yp_ok) {  // slot +y
+          const float v = 0.5f * (wc + WP[c]);
+          acc = acc - (v >= 0.f ? rc : RP[c]) * (v * c1);
+        }
+        res[c] = rc + acc;
+      }
+      if (gy < g.ny) {
+        T* o = out + zoff + (long long)gy * g.nx + gx0;
+        if (VEC) {
+          if (gx0 < g.nx) store_vec(o, res);
         } else {
-          nxt[li] = round_to<T>(res);
+#pragma unroll
+          for (int c = 0; c < V; ++c)
+            if (gx0 + c < g.nx) o[c] = Store<T>::pack(res[c]);
         }
       }
     }
-    if (!last) {
-      __syncthreads();
-      float* tmp = cur;
-      cur = nxt;
-      nxt = tmp;
-    }
+    __syncthreads();  // slot i % kStages is reloaded next iteration
   }
 }
 
-// k = 1: one cell per thread, neighbours read from device memory.
+// Any other slot set: one cell per thread, neighbours read from device
+// memory.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 bulk_upwind_direct(const T* __restrict__ rho, const T* __restrict__ vx,
@@ -257,6 +338,32 @@ bulk_upwind_direct(const T* __restrict__ rho, const T* __restrict__ vx,
   }
 }
 
+bool is_face4(const int* si, int n_slots) {
+  if (n_slots != 4) return false;
+  for (int j = 0; j < 4; ++j)
+    for (int i = 0; i < 5; ++i)
+      if (si[5 * j + i] != kFace4[j][i]) return false;
+  return true;
+}
+
+template <typename T, bool VEC>
+int launch_planes(const void* rho, const void* vx, const void* vy, void* out,
+                  const Geom& g, float c0, float c1, void* stream) {
+  const size_t smem = (size_t)kStages * 3 * kRows * kRowW * sizeof(T);
+  const long long blocks = (long long)((g.nx + kTileX - 1) / kTileX) *
+                           ((g.ny + kTileY - 1) / kTileY) *
+                           ((g.nz + g.zc - 1) / g.zc);
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      bulk_planes<T, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  bulk_planes<T, VEC><<<(unsigned)blocks, kThreads, smem,
+                        (cudaStream_t)stream>>>(
+      (const T*)rho, (const T*)vx, (const T*)vy, (T*)out, g, c0, c1);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch(const void* rho, const void* vx, const void* vy, void* out,
            const int* gi, const int* si, int n_slots, float c0, float c1,
@@ -264,42 +371,33 @@ int launch(const void* rho, const void* vx, const void* vy, void* out,
   Geom g;
   g.nx = gi[0]; g.ny = gi[1]; g.nz = gi[2];
   g.px = gi[3]; g.py = gi[4]; g.pz = gi[5];
-  g.bx = gi[6]; g.by = gi[7]; g.bz = gi[8];
-  g.rx = gi[9]; g.ry = gi[10]; g.rz = gi[11];
-  g.k = gi[12];
-  if (n_slots < 0 || n_slots > kMaxSlots || g.k < 1 || g.bx < 1 ||
-      g.by < 1 || g.bz < 1 || g.nx < 1 || g.ny < 1 || g.nz < 1)
+  g.zc = gi[8];
+  if (n_slots < 0 || n_slots > kMaxSlots || g.nx < 1 || g.ny < 1 ||
+      g.nz < 1)
     return (int)cudaErrorInvalidValue;
-  g.hx = g.k * g.rx; g.hy = g.k * g.ry; g.hz = g.k * g.rz;
-  g.wx = g.bx + 2 * g.hx; g.wy = g.by + 2 * g.hy; g.wz = g.bz + 2 * g.hz;
-  g.nbx = (g.nx + g.bx - 1) / g.bx;
-  g.nby = (g.ny + g.by - 1) / g.by;
-  g.nbz = (g.nz + g.bz - 1) / g.bz;
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  if (is_face4(si, n_slots)) {
+    if (gi[6] != kTileX || gi[7] != kTileY || g.zc < 1)
+      return (int)cudaErrorInvalidValue;
+    constexpr int V = 16 / sizeof(T);
+    const bool aligned = g.nx % V == 0 &&
+                         ((uintptr_t)rho | (uintptr_t)vx | (uintptr_t)vy |
+                          (uintptr_t)out) % 16 == 0;
+    return aligned ? launch_planes<T, true>(rho, vx, vy, out, g, c0, c1, stream)
+                   : launch_planes<T, false>(rho, vx, vy, out, g, c0, c1,
+                                             stream);
+  }
   Slots s;
   s.n = n_slots;
   for (int j = 0; j < n_slots; ++j) {
     s.ox[j] = si[5 * j]; s.oy[j] = si[5 * j + 1]; s.oz[j] = si[5 * j + 2];
     s.fx[j] = si[5 * j + 3]; s.fy[j] = si[5 * j + 4];
   }
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return (int)e;
-  if (g.k == 1) {
-    const dim3 grid((g.nx + 31) / 32, (g.ny + kThreads / 32 - 1) /
-                    (kThreads / 32), g.nz < 65535 ? g.nz : 65535);
-    if (grid.y > 65535) return (int)cudaErrorInvalidValue;
-    bulk_upwind_direct<T><<<grid, dim3(32, kThreads / 32), 0,
-                            (cudaStream_t)stream>>>(
-        (const T*)rho, (const T*)vx, (const T*)vy, (T*)out, g, s, c0, c1);
-    return (int)cudaGetLastError();
-  }
-  const size_t smem = (size_t)4 * g.wx * g.wy * g.wz * sizeof(float);
-  const long long blocks = (long long)g.nbx * g.nby * g.nbz;
-  if (smem > kMaxSmem || blocks > INT_MAX) return (int)cudaErrorInvalidValue;
-  e = cudaFuncSetAttribute(bulk_upwind_kernel<T>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  bulk_upwind_kernel<T><<<(unsigned)blocks, dim3(32, kThreads / 32), smem,
+  const dim3 grid((g.nx + 31) / 32, (g.ny + kThreads / 32 - 1) /
+                  (kThreads / 32), g.nz < 65535 ? g.nz : 65535);
+  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+  bulk_upwind_direct<T><<<grid, dim3(32, kThreads / 32), 0,
                           (cudaStream_t)stream>>>(
       (const T*)rho, (const T*)vx, (const T*)vy, (T*)out, g, s, c0, c1);
   return (int)cudaGetLastError();
@@ -308,8 +406,9 @@ int launch(const void* rho, const void* vx, const void* vy, void* out,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (all four arrays the same type).
-// geom: nx, ny, nz, px, py, pz, bx, by, bz, rx, ry, rz, k.
-// slots: n_slots rows of (ox, oy, oz, fx, fy).
+// geom: nx, ny, nz, px, py, pz, tile x, tile y, z-planes per block.
+// The plane tiles (the face set) take tile 128 x 16; the direct route
+// ignores the tile. slots: n_slots rows of (ox, oy, oz, fx, fy).
 extern "C" int dccrg_bulk_upwind(int dtype, const void* rho, const void* vx,
                                  const void* vy, void* out, const int* geom,
                                  const int* slots, int n_slots, float c0,

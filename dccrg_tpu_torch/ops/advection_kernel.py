@@ -18,9 +18,8 @@ import torch
 from . import _build
 
 _STORAGE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_SMEM = 232448  # bytes of shared memory a block may opt into on sm_90
 _MARGIN = 8  # wrap rows on each side of vy_face
-DEFAULT_TILE = (16, 16)  # 16 x 16 (x, y) cells by 16 z: 256 threads a block
+DEFAULT_TILE = (64, 16)  # a band of 64 rows of y by 16 z-columns a block
 
 _ROT_SIG = {
     "dccrg_rotation_step": (ctypes.c_int, [
@@ -40,18 +39,16 @@ def _coeffs(dt, dtype, rdx, rdy):
     return dt_s * rdx, dt_s * rdy
 
 
-def check_tile(txy, tz, spp):
-    """Raise unless kernel B can run an (x, y) tile of ``txy`` cells and
-    ``tz`` z-columns with a ``spp``-wide halo: tz is 8, 16 or 32, one
-    thread per tile column and z (at most 1024), and the two tile
-    buffers fit a block's shared memory."""
-    w = txy + 2 * spp
-    smem = (2 * w * w * tz + 2 * w) * 4
-    if txy < 1 or tz not in (8, 16, 32) or w * tz > 1024 or smem > _MAX_SMEM:
-        raise ValueError(f"tile {(txy, tz)} with steps_per_pass {spp} does "
-                         "not fit the kernel: tz in (8, 16, 32), "
-                         "(txy + 2*spp) * tz <= 1024 threads and "
-                         f"{smem} B <= {_MAX_SMEM} B of shared memory")
+def check_tile(by, tz, spp):
+    """Raise unless kernel B can run a band of ``by`` rows of y and
+    ``tz`` z-columns per block for ``spp`` sub-steps: tz is 8, 16 or
+    32, and one thread per row of the band widened by ``spp`` rows on
+    each side and pair of z-columns makes at most 1024. Any X fits: the
+    kernel marches x with a fixed ring of folded y velocities."""
+    if by < 1 or tz not in (8, 16, 32) or (by + 2 * spp) * tz // 2 > 1024:
+        raise ValueError(f"tile {(by, tz)} with steps_per_pass {spp} does "
+                         "not fit the kernel: by >= 1, tz in (8, 16, 32) "
+                         "and (by + 2*spp) * tz / 2 <= 1024 threads")
 
 
 def flops_per_pass(cells, spp):
@@ -84,7 +81,7 @@ def rotation_step_plain(rho, vx_face, vy_face, dt, rdx, rdy, spp):
 def rotation_step(rho, vx_face, vy_face, dt, rdx, rdy, spp, tile):
     """``spp`` upwind sub-steps of ``rho`` ``[X, Y, Z]`` in its storage
     dtype (float32 or bfloat16). On CUDA tensors it launches kernel B
-    (csrc/rotation_step.cu) with ``tile = (txy, tz)`` and counts the
+    (csrc/rotation_step.cu) with ``tile = (by, tz)`` and counts the
     launch in ``rotation_step.launches``; on CPU tensors it runs
     :func:`rotation_step_plain`."""
     if rho.device.type == "cpu":
@@ -126,10 +123,11 @@ def make_rotation_step(shape, dtype=torch.float32, tile=None,
     extents work: the TPU kernel's ``Z % 128`` and ``tx % 8`` were
     constraints of its tiling, not of the step.
 
-    ``tile``: (txy, tz), the kernel's (x, y) tile edge and its z depth
-    per block (8, 16 or 32); None picks ``DEFAULT_TILE``. ``steps_per_pass``
-    (1..8): temporal blocking depth — that many upwind updates per HBM
-    pass, with a halo of the same width in x and y.
+    ``tile``: (by, tz), the band of output rows of y and the chunk of
+    z-columns (8, 16 or 32) of one block of the kernel, which streams
+    the band along the whole x extent; None picks ``DEFAULT_TILE``.
+    ``steps_per_pass`` (1..8): temporal blocking depth — that many
+    upwind updates per HBM pass, with a y halo of the same width.
 
     Returns ``step(rho, vx_face, vy_face, dt) -> rho'`` with ``rho``
     ``[X, Y, Z]`` (Z contiguous), ``vx_face`` ``[1, Y]`` (vx at cell rows,
@@ -144,8 +142,8 @@ def make_rotation_step(shape, dtype=torch.float32, tile=None,
         raise ValueError("steps_per_pass must be in 1..8")
     if dtype not in _STORAGE_CODES:
         raise ValueError(f"storage dtype must be float32 or bfloat16, got {dtype}")
-    txy, tz = DEFAULT_TILE if tile is None else (int(tile[0]), int(tile[1]))
-    check_tile(txy, tz, sp)
+    by, tz = DEFAULT_TILE if tile is None else (int(tile[0]), int(tile[1]))
+    check_tile(by, tz, sp)
     if cell_length is None:
         cell_length = (1.0 / X, 1.0 / Y, 1.0 / Z)
     rdx = float(1.0 / cell_length[0])
@@ -158,8 +156,8 @@ def make_rotation_step(shape, dtype=torch.float32, tile=None,
                 or tuple(vy_face.shape) != (X + 2 * _MARGIN, 1)):
             raise ValueError("vx_face must be [1, Y] and vy_face [X + 16, 1]")
         return rotation_step(rho.to(dtype), vx_face, vy_face, dt, rdx, rdy,
-                             sp, (txy, tz))
+                             sp, (by, tz))
 
-    step.tile = (txy, tz)
+    step.tile = (by, tz)
     step.steps_per_pass = sp
     return step

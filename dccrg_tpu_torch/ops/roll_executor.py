@@ -1,31 +1,27 @@
 """Bulk executor for the grid step loop, on a hand-written CUDA kernel.
 
 Port of ``dccrg_tpu/ops/roll_executor.py``. An eligible
-``Grid.run_steps`` runs as passes of ``k`` sub-steps each
-(``DCCRG_BULK_SPP``, 1..8); every pass is
+``Grid.run_steps`` runs as one launch of **kernel A** (``bulk_pass``,
+csrc/bulk_pass.cu) per step: one step of the kernel's device flux over
+all rows, the carried field rounded to its storage dtype between steps
+as the reference's step loop rounds its state.
 
-1. **kernel A** (``bulk_pass``, csrc/bulk_pass.cu): the ``k`` sub-steps
-   of the kernel's device flux over all rows in one HBM pass. The TPU
-   kernel walked flat ``[G, 8, 128]`` windows and left the rows whose
-   flat roll crosses a periodic wrap wrong; this one works on the 3-D
-   grid (rows are grid order on a single-device closed-form plan): at
-   ``k`` = 1 each thread reads its cell's neighbours directly, at ``k``
-   > 1 blocks stage 3-D bricks with a ``k``-deep halo. It wraps exactly,
-   so every row it writes is right;
-2. **the fixup epilogue** (plain PyTorch on the device, as it is XLA
-   code outside the Pallas kernel in the reference): the host-built
-   cascade of dilated row sets around the flat-roll wrong rows is re-run
-   through the kernel's slot functions with exact gathered neighbors and
-   merged into the pass output with ``index_copy_``, so those rows are
-   bitwise the plain roll path's.
+The TPU kernel walked flat ``[G, 8, 128]`` windows and left the rows
+whose flat roll crosses a periodic wrap wrong, for a fixup epilogue to
+repair. This one works on the 3-D grid (rows are grid order on a
+single-device closed-form plan) and wraps exactly, so every row it
+writes is already the plain roll path's and no epilogue runs. The
+epilogue's host tables (``build_epilogue_sets``) stay as a ported
+reference function: they name the wrap rows, which the tests check on
+their own.
 
 Eligibility (anything else takes the plain roll path of
 ``Grid.compile_step_loop``): a single-device closed-form plan, scalar
 cell fields, a ``SlotwiseKernel`` that names a device flux this module
-knows, the flux's field set in one storage dtype (float32 or bfloat16),
-and a brick that fits shared memory. On a CUDA grid an eligible step
-loop always launches kernel A; on a CPU grid ``bulk_pass`` computes the
-same pass with its plain PyTorch version.
+knows, and the flux's field set in one storage dtype (float32 or
+bfloat16). On a CUDA grid an eligible step loop always launches kernel
+A; on a CPU grid ``bulk_pass`` computes the same pass with its plain
+PyTorch version.
 
 The fleet's batched form (``make_fleet_bulk_step``, for ``GridBatch``)
 is **kernel A'** (``fleet_bulk_pass``, csrc/fleet_bulk_pass.cu): one
@@ -37,7 +33,6 @@ wraps exactly, so no epilogue follows it.
 from __future__ import annotations
 
 import ctypes
-import os
 
 import numpy as np
 import torch
@@ -47,16 +42,6 @@ from ..grid import (SlotwiseKernel, _make_offs_col, _make_roll3d_gather,
 from . import _build
 
 _F32 = torch.float32
-
-
-def bulk_steps_per_pass() -> int:
-    """DCCRG_BULK_SPP: temporal blocking depth of the bulk pass
-    (sub-steps per HBM pass), clamped to 1..8."""
-    try:
-        k = int(os.environ.get("DCCRG_BULK_SPP", "1"))
-    except ValueError:
-        k = 1
-    return max(1, min(k, 8))
 
 
 # ---------------------------------------------------------------------
@@ -71,7 +56,6 @@ DEVICE_FLUXES = {
 
 _STORAGE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_SLOTS = 26
-_MAX_SMEM = 232448  # bytes of shared memory a block may opt into on sm_90
 
 
 def _face_slots(offs_cells, offs_const):
@@ -89,17 +73,30 @@ def _face_slots(offs_cells, offs_const):
     return out
 
 
+# the face neighbourhood's four flux slots as (ox, oy, oz, fx, fy), in
+# the order of make_neighborhood(0) (-y, -x, +x, +y): the slot set that
+# kernel A's plane-tile route unrolls at compile time
+_FACE4 = ((0, -1, 0, 0, -1), (-1, 0, 0, -1, 0), (1, 0, 0, 1, 0),
+          (0, 1, 0, 0, 1))
+_TILE = (128, 16)  # plane-tile route: cells of x and rows of y per block
+_TARGET_BLOCKS = 2048  # z is cut into chunks until about this many blocks
+
+
 class PassSpec:
-    """Static geometry of one bulk pass over a single-device
+    """Static geometry of one bulk step over a single-device
     closed-form plan: the port's counterpart of ``RollPassSpec``
-    (dccrg_tpu/ops/roll_executor.py:90). Instead of flat ``[G, 8, 128]``
-    windows it holds 3-D bricks: ``brick`` interior cells per axis (x,
-    y, z), ``reach`` cells per sub-step per axis (over the slots the
-    device flux reads), ``halo = k * reach``. Only a ``k`` > 1 pass
-    stages bricks; the ``k`` = 1 pass reads neighbours directly."""
+    (dccrg_tpu/ops/roll_executor.py:90). ``slots`` are the flux slots.
+
+    The face set (``face4``: the four x / y face slots in ``_FACE4``
+    order, the main path's) takes kernel A's plane tiles: a block owns
+    a ``tile[0]`` x ``tile[1]`` (x, y) tile and marches ``tile[2]``
+    z-planes, each staged with its halo in a shared-memory ring of three
+    planes while the next ones load. Any other set takes
+    the direct kernel (one cell per thread, neighbours read through the
+    cache; ``tile`` is its 32 x 8 block)."""
 
     def __init__(self, shifts, dims, periodic, offs_cells, offs_const, n0,
-                 L, k):
+                 L):
         self.shifts = tuple(int(s) for s in shifts)
         self.dims = tuple(int(d) for d in dims)
         self.periodic = tuple(bool(p) for p in periodic)
@@ -107,52 +104,28 @@ class PassSpec:
         self.offs_const = tuple(tuple(int(v) for v in o) for o in offs_const)
         self.n0 = int(n0)
         self.L = int(L)
-        self.k = int(k)
         self.slots = _face_slots(self.offs_cells, self.offs_const)
         if len(self.slots) > _MAX_SLOTS:
             raise ValueError(f"{len(self.slots)} slots exceed {_MAX_SLOTS}")
-        self.reach = tuple(max((abs(s[1 + d]) for s in self.slots), default=0)
-                           for d in range(3))
-        self.halo = tuple(self.k * r for r in self.reach)
-        self.brick = self._choose_brick()
-        if self.smem_bytes() > _MAX_SMEM:
-            raise ValueError(
-                f"brick {self.brick} with halo {self.halo} needs "
-                f"{self.smem_bytes()} B of shared memory")
-
-    def smem_bytes(self, brick=None):
-        b = self.brick if brick is None else brick
-        cells = 1
-        for d in range(3):
-            cells *= b[d] + 2 * self.halo[d]
-        return 4 * cells * 4
-
-    def _choose_brick(self):
-        """x: a window row of 64 cells (two warps' lanes), or the next
-        multiple of 32 that leaves at least 16 interior cells; y, z: 16
-        and 4. Clipped to the grid and shrunk (y, then z, then x) until
-        the window fits shared memory."""
-        hx = self.halo[0]
-        row = 64
-        while row - 2 * hx < 16:
-            row += 32
-        b = [min(row - 2 * hx, self.dims[0]), min(16, self.dims[1]),
-             min(4, self.dims[2])]
-        for axis, floor in ((1, 1), (2, 1), (0, 8)):
-            while self.smem_bytes(b) > _MAX_SMEM and b[axis] > floor:
-                b[axis] = max(floor, b[axis] // 2)
-        return tuple(b)
+        self.face4 = tuple(s[1:] for s in self.slots) == _FACE4
+        nx, ny, nz = self.dims
+        if self.face4:
+            tiles = -(-nx // _TILE[0]) * -(-ny // _TILE[1])
+            chunks = max(1, min(nz, -(-_TARGET_BLOCKS // tiles)))
+            self.tile = (*_TILE, -(-nz // chunks))
+        else:
+            self.tile = (32, 8, 1)
 
     def bytes_moved(self, itemsize, n_in=3, n_out=1):
-        """HBM bytes of one pass at the bound: each input read once,
+        """HBM bytes of one step at the bound: each input read once,
         each output written once."""
         return (n_in + n_out) * self.n0 * itemsize
 
     def flops(self):
-        """Float operations of one pass: per cell, sub-step and slot,
-        two face terms of 6 (add, 3 multiplies, subtract, add), plus
-        the final add."""
-        return self.k * self.n0 * (12 * len(self.slots) + 1)
+        """Float operations of one step: per cell and slot, two face
+        terms of 6 (add, 3 multiplies, subtract, add), plus the final
+        add."""
+        return self.n0 * (12 * len(self.slots) + 1)
 
 
 # ---------------------------------------------------------------------
@@ -177,17 +150,24 @@ def _flux_coeffs(kernel, dt):
     return float(dt32 * np.float32(inv[0])), float(dt32 * np.float32(inv[1]))
 
 
-def bulk_pass(spec, kernel, fields, extras):
-    """One bulk pass: ``spec.k`` sub-steps of ``kernel``'s device flux
-    over all ``[L]`` rows of ``fields`` (name -> tensor, the flux's
-    input fields). Returns ``{out field: [L] tensor}``; pad rows keep
-    their values. On CUDA tensors it launches kernel A
-    (csrc/bulk_pass.cu) and counts the launch in ``bulk_pass.launches``;
-    on CPU tensors it runs :func:`bulk_pass_plain`."""
+def bulk_pass(spec, kernel, fields, extras, out=None):
+    """One step of ``kernel``'s device flux over all ``[L]`` rows of
+    ``fields`` (name -> tensor, the flux's input fields). Returns
+    ``{out field: [L] tensor}`` in the storage dtype; pad rows keep
+    their values. On CUDA tensors it is one launch of kernel A
+    (csrc/bulk_pass.cu), counted in ``bulk_pass.launches``; on CPU
+    tensors it runs :func:`bulk_pass_plain`. ``out``, an ``[L]``
+    tensor, takes the result in place of a new one. ``extras[0]`` (dt)
+    is read on the host: the step loop hands it over as a CPU tensor,
+    so the launch waits on nothing on the device."""
     names_in, names_out = DEVICE_FLUXES[kernel.device_flux]
     rho, vx, vy = (fields[n] for n in names_in)
     if rho.device.type == "cpu":
-        return bulk_pass_plain(spec, kernel, fields, extras)
+        res = bulk_pass_plain(spec, kernel, fields, extras)
+        if out is not None:
+            out.copy_(res[names_out[0]])
+            res = {names_out[0]: out}
+        return res
     if rho.device.type != "cuda":
         raise ValueError(f"bulk_pass runs on CUDA or CPU, got {rho.device}")
     code = _STORAGE_CODES.get(rho.dtype)
@@ -199,12 +179,16 @@ def bulk_pass(spec, kernel, fields, extras):
     if code is None:
         raise ValueError(f"bulk_pass storage must be float32 or bfloat16, "
                          f"got {rho.dtype}")
+    if out is None:
+        out = torch.empty_like(rho)
+    elif (out.device != rho.device or out.dtype != rho.dtype
+          or out.shape != (spec.L,) or not out.is_contiguous()):
+        raise ValueError("bulk_pass out must be a contiguous [L] tensor like "
+                         "the fields")
     lib = _build.load("bulk_pass", _BULK_SIG)
-    out = torch.empty_like(rho)
     nx, ny, nz = spec.dims
-    geom = (ctypes.c_int * 13)(
-        nx, ny, nz, *(int(p) for p in spec.periodic), *spec.brick,
-        *spec.reach, spec.k)
+    geom = (ctypes.c_int * 9)(nx, ny, nz, *(int(p) for p in spec.periodic),
+                              *spec.tile)
     flat = [v for s in spec.slots for v in s[1:]]
     slots = (ctypes.c_int * max(1, len(flat)))(*flat)
     c0, c1 = _flux_coeffs(kernel, float(extras[0]))
@@ -223,31 +207,27 @@ bulk_pass.launches = 0
 
 
 def bulk_pass_plain(spec, kernel, fields, extras):
-    """The plain PyTorch version of kernel A: ``spec.k`` sub-steps of
-    the kernel's slot functions, each slot gathered with an exact 3-D
-    ``torch.roll`` and masked in closed form, the carried fields
-    rounded to their storage dtype after every sub-step."""
+    """The plain PyTorch version of kernel A: one step of the kernel's
+    slot functions, each slot gathered with an exact 3-D ``torch.roll``
+    and masked in closed form, the result rounded to its storage
+    dtype."""
     _names_in, names_out = DEVICE_FLUXES[kernel.device_flux]
     any_t = next(iter(fields.values()))
     synth = (spec.dims, spec.periodic, spec.n0, spec.offs_cells, False)
     gidx, base = _synth_prep(synth, spec.L, any_t.device)
     n_slots = len(spec.offs_cells)
-    masks = [_synth_col(synth, gidx, base, j) for j in range(n_slots)]
     gather = _make_roll3d_gather(synth, spec.L)
     offs_col = _make_offs_col(
         True, torch.tensor(spec.offs_const, dtype=torch.int32,
                            device=any_t.device), None)
-    cur = dict(fields)
-    for _ in range(spec.k):
-        res = _run_slotwise(kernel, dict(cur), cur, gather, offs_col,
-                            masks.__getitem__, n_slots, extras)
-        for f in names_out:
-            cur[f] = res[f].to(fields[f].dtype)
-    return {f: cur[f] for f in names_out}
+    res = _run_slotwise(kernel, dict(fields), fields, gather, offs_col,
+                        lambda j: _synth_col(synth, gidx, base, j), n_slots,
+                        extras)
+    return {f: res[f].to(fields[f].dtype) for f in names_out}
 
 
 # ---------------------------------------------------------------------
-# the fixup scatter epilogue
+# the fixup epilogue's host tables
 # ---------------------------------------------------------------------
 
 def _flat_coords(rows, dims):
@@ -273,8 +253,9 @@ def _apply_offset(rows, off, dims, periodic, n0):
     return valid, np.where(valid, tgt, 0)
 
 
-def build_epilogue_sets(spec, wrong_rows_host):
-    """Host tables of the fixup cascade for a ``spec.k``-deep pass.
+def build_epilogue_sets(spec, wrong_rows_host, k=1):
+    """Host tables of the reference's fixup cascade for a ``k``-deep
+    pass (its ``DCCRG_BULK_SPP``).
 
     ``W`` = rows whose flat roll is wrong for some slot. After ``k``
     sub-steps the wrongness has spread ``k-1`` stencil hops, and
@@ -284,7 +265,7 @@ def build_epilogue_sets(spec, wrong_rows_host):
     ``need_{t-1} = need_t ∪ N(need_t)`` (N = true neighbors), all
     gathers reading exact neighbor rows. Returns ``[(rows_t [Nt],
     nbr_rows_t [Nt, S], mask_t [Nt, S])]`` for t = 1..k (unpadded)."""
-    L, k = spec.L, spec.k
+    L = spec.L
     dims, periodic, n0 = spec.dims, spec.periodic, spec.n0
     offs = spec.offs_cells
     W = np.unique(np.asarray(wrong_rows_host, dtype=np.int64).ravel())
@@ -327,71 +308,11 @@ def build_epilogue_sets(spec, wrong_rows_host):
     return tables
 
 
-def pad_epilogue_tables(tables, caps, L):
-    """Pad the cascade tables to sticky row capacities (rows pad with
-    ``L``; the epilogue gathers clamp them and writes only the real
-    prefix) so table shapes survive bucketed structure epochs."""
-    out = []
-    for (rows, nbr, mask), cap in zip(tables, caps):
-        n = len(rows)
-        rows_p = np.full(cap, L, dtype=np.int32)
-        nbr_p = np.zeros((cap, nbr.shape[1]), dtype=np.int32)
-        mask_p = np.zeros((cap, nbr.shape[1]), dtype=bool)
-        rows_p[:n] = rows
-        nbr_p[:n] = nbr
-        mask_p[:n] = mask
-        out.append((rows_p, nbr_p, mask_p))
-    return out
-
-
-def make_epilogue(kernel, fields_in, fields_out, dtypes, offs_const, L,
-                  counts):
-    """``fn(cur, tables_flat, extras) -> {field: values}`` — the fixup
-    cascade: for each sub-step t, re-run the kernel's slot loop over
-    table t's rows with exact gathered neighbors. ``cur`` maps every
-    involved field to its ``[L]`` pass input and is not modified:
-    intermediate sub-steps write into copies of the output fields.
-    Returns the last sub-step's results for the real rows of the last
-    table (``counts[t]`` real rows per padded table), in storage dtype,
-    ready to merge into the bulk pass output."""
-    offs_dev = torch.as_tensor(np.asarray(offs_const, dtype=np.int32))
-    S = len(offs_const)
-    n_tables = len(counts)
-
-    def fn(cur, tables_flat, extras):
-        cur = dict(cur)
-        copied = set()
-        offs = offs_dev.to(next(iter(cur.values())).device)
-        for t in range(n_tables):
-            rows, nbr, mask = tables_flat[3 * t: 3 * t + 3]
-            rc = torch.clamp(rows, max=L - 1).long()
-            nc = torch.clamp(nbr, max=L - 1).long()
-            cell = {f: cur[f][rc] for f in fields_in}
-            nbrv = {f: torch.where(mask, cur[f][nc], cur[f].new_zeros(()))
-                    for f in fields_in}
-            acc = kernel.init(cell, *extras)
-            for j in range(S):
-                acc = kernel.slot(acc, cell, {f: nbrv[f][:, j] for f in fields_in},
-                                  offs[j], mask[:, j], *extras)
-            res = kernel.finish(acc, cell, *extras)
-            n = counts[t]
-            if t + 1 == n_tables:
-                return {f: res[f][:n].to(dtypes[f]) for f in fields_out}
-            for f in fields_out:
-                if f not in copied:
-                    cur[f] = cur[f].clone()
-                    copied.add(f)
-                cur[f].index_copy_(0, rc[:n], res[f][:n].to(dtypes[f]))
-        return {}
-
-    return fn
-
-
 # ---------------------------------------------------------------------
 # Grid.run_steps integration
 # ---------------------------------------------------------------------
 
-def _grid_spec_for(grid, hood, k):
+def _grid_spec_for(grid, hood):
     """PassSpec for a grid's hood, or None when the bulk executor
     cannot express the plan (the caller takes the plain roll path)."""
     cf = hood.closed_form
@@ -402,7 +323,7 @@ def _grid_spec_for(grid, hood, k):
         return None
     try:
         return PassSpec(roll[0], cf["dims"], cf["periodic"], cf["offsets"],
-                        hood.offs_const, cf["n0"], int(grid.plan.L), k)
+                        hood.offs_const, cf["n0"], int(grid.plan.L))
     except ValueError:
         return None
 
@@ -428,10 +349,10 @@ def _eligible_fields(grid, kernel, fields_in, fields_out):
 def compile_bulk_step_loop(grid, kernel, fields_in, fields_out,
                            exchange_fields, neighborhood_id, n_extra):
     """The bulk replacement for Grid.compile_step_loop on an eligible
-    single-device closed-form plan: ``n_steps`` steps as ``k``-deep
-    bulk passes with fixup epilogues, then ``n_steps % k`` one-deep
-    passes. Same ``(fn, tables, static_in)`` contract, ``fn.step_path
-    == "bulk"``; returns None when ineligible."""
+    single-device closed-form plan: ``n_steps`` launches of kernel A
+    and nothing else on the device. Same ``(fn, tables, static_in)``
+    contract (no tables), ``fn.step_path == "bulk"``; returns None when
+    ineligible."""
     fields_in = tuple(fields_in)
     fields_out = tuple(fields_out)
     if not _eligible_fields(grid, kernel, fields_in, fields_out):
@@ -439,110 +360,46 @@ def compile_bulk_step_loop(grid, kernel, fields_in, fields_out,
     hood = grid.plan.hoods[neighborhood_id]
     if hood.offs_const is None:
         return None
-    k = bulk_steps_per_pass()
-    spec_k = _grid_spec_for(grid, hood, k)
-    if spec_k is None:
-        return None
-    spec_1 = spec_k if k == 1 else _grid_spec_for(grid, hood, 1)
-    if spec_1 is None:
+    spec = _grid_spec_for(grid, hood)
+    if spec is None:
         return None
     L, R = grid.plan.L, grid.plan.R
-    roll = hood.roll_plan(L)
-    dtypes = {f: grid.fields[f][1] for f in set(fields_in) | set(fields_out)}
-    offs_const = np.asarray(hood.offs_const)
     static_in = tuple(f for f in fields_in if f not in fields_out)
-    device = grid.device
-
-    # epilogue cascade tables (host, padded to sticky caps) for the
-    # k-deep pass and — when k > 1 — the 1-deep remainder pass; the
-    # numpy dilation cascade is surface-sized (about 10^6 rows at
-    # 512^3), so it is memoized on the hood (one structure epoch)
-    memo = getattr(hood, "_bulk_epilogue", None)
-    if memo is None:
-        memo = hood._bulk_epilogue = {}
-
-    def padded(spec, tag):
-        hit = memo.get(tag)
-        if hit is not None:
-            return hit
-        raw = build_epilogue_sets(spec, roll[1])
-        counts = tuple(len(r[0]) for r in raw)
-        caps = [grid._sticky_cap(("bulkN", neighborhood_id, tag, t),
-                                 max(1, n)) for t, n in enumerate(counts)]
-        hit = (pad_epilogue_tables(raw, caps, L), tuple(caps), counts)
-        memo[tag] = hit
-        return hit
-
-    def upload(tab, tag):
-        out = []
-        for t, (rows, nbr, mask) in enumerate(tab):
-            for name, arr in (("bulk_rows", rows), ("bulk_nbr", nbr),
-                              ("bulk_mask", mask)):
-                out.append(hood.dev((name, neighborhood_id, tag, t, len(rows)),
-                                    arr, device))
-        return out
-
-    tab_k, caps_k, counts_k = padded(spec_k, k)
-    tables = upload(tab_k, k)
-    if k > 1:
-        tab_1, caps_1, counts_1 = padded(spec_1, 1)
-        tables += upload(tab_1, 1)
-    else:
-        caps_1, counts_1 = caps_k, counts_k
-
     key = ("bulksteploop", kernel, fields_in, fields_out, n_extra, L, R,
-           spec_k.shifts, spec_k.dims, spec_k.periodic, k, caps_k, caps_1)
+           spec.shifts, spec.dims, spec.periodic)
     fn = grid._program_cache.get(key)
     if fn is not None:
-        return fn, tables, static_in
+        return fn, (), static_in
 
     n_static, n_out = len(static_in), len(fields_out)
-    n_tabs_k = 3 * len(caps_k)
-    epi_k = make_epilogue(kernel, fields_in, fields_out, dtypes, offs_const,
-                          L, counts_k)
-    epi_1 = epi_k if k == 1 else make_epilogue(
-        kernel, fields_in, fields_out, dtypes, offs_const, L, counts_1)
 
     def fn(n_steps, *args):
-        n_tabs = n_tabs_k + (3 * len(caps_1) if k > 1 else 0)
-        tabs_k = args[:n_tabs_k]
-        tabs_1 = tabs_k if k == 1 else args[n_tabs_k:n_tabs]
-        args = args[n_tabs:]
         statics = {f: a[0][:L] for f, a in zip(static_in, args[:n_static])}
         outs_full = args[n_static: n_static + n_out]
-        # extras ride through float32, for the kernel and the epilogue
-        # alike (a float64 extra would otherwise step fixup rows with
-        # more dt bits than the bulk rows)
+        # extras ride through float32, as the kernel reads them
         extras = tuple(torch.as_tensor(e).to(_F32).to(torch.as_tensor(e).dtype)
                        for e in args[n_static + n_out:])
 
-        def one_pass(state, spec, epi, tabs, counts):
+        n_steps = int(n_steps)
+        # the flux writes one field; the last launch writes the new
+        # state's rows in place, and only the rows past L are copied
+        (f_out,), (a_out,) = fields_out, outs_full
+        new = torch.empty_like(a_out)
+        state = {f_out: a_out[0, :L]}
+        for i in range(n_steps):
             full = dict(statics)
             full.update(state)
-            bulk = bulk_pass(spec, kernel, {f: full[f] for f in fields_in},
-                             extras)
-            fixed = epi(full, tabs, extras)
-            rows_last = tabs[-3][:counts[-1]].long()
-            for f in fields_out:
-                bulk[f].index_copy_(0, rows_last, fixed[f])
-            return bulk
-
-        state = {f: a[0][:L] for f, a in zip(fields_out, outs_full)}
-        n_steps = int(n_steps)
-        for _ in range(n_steps // k):
-            state = one_pass(state, spec_k, epi_k, tabs_k, counts_k)
-        for _ in range(n_steps % k if k > 1 else 0):
-            state = one_pass(state, spec_1, epi_1, tabs_1, counts_1)
-        out = []
-        for f, a in zip(fields_out, outs_full):
-            new = a.clone()
-            new[0, :L] = state[f]
-            out.append(new)
-        return tuple(out)
+            state = bulk_pass(spec, kernel, {f: full[f] for f in fields_in},
+                              extras,
+                              out=new[0, :L] if i + 1 == n_steps else None)
+        if n_steps == 0:
+            new[0, :L] = a_out[0, :L]
+        new[0, L:] = a_out[0, L:]
+        return (new,)
 
     fn.step_path = "bulk"
     grid._program_cache[key] = fn
-    return fn, tables, static_in
+    return fn, (), static_in
 
 
 # ---------------------------------------------------------------------

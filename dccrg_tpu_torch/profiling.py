@@ -1,9 +1,9 @@
 """Profiles the port's main path on the card.
 
-    python -m dccrg_tpu_torch.profiling [--n 512] [--steps 20] [--spp 1 2 4]
+    python -m dccrg_tpu_torch.profiling [--n 512] [--steps 20]
 
-For each ``DCCRG_BULK_SPP`` value given it traces ``--steps`` steps of
-``GridAdvection(n).run`` (after two warm-up steps) with
+It traces ``--steps`` steps of ``GridAdvection(n).run`` (after two
+warm-up steps) with
 ``torch.profiler`` and prints one JSON line per device kernel (device
 time and launches per step) and one summary line: wall time per step
 (CUDA events around the traced run, the profiler's own host cost
@@ -16,7 +16,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 import subprocess
 import sys
 
@@ -30,15 +29,14 @@ def _card():
     return out.stdout.strip().splitlines()[0] if out.returncode == 0 else None
 
 
-def profile_main_path(n, steps, spp, card):
+def profile_main_path(n, steps, card):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from .models.advection import GridAdvection
 
-    os.environ["DCCRG_BULK_SPP"] = str(spp)
     adv = GridAdvection(n=n, device="cuda")
-    adv.run(2 * spp)
+    adv.run(2)
     torch.cuda.synchronize()
     if adv.grid.last_step_path != "bulk":
         raise SystemExit(f"the main path took {adv.grid.last_step_path!r}")
@@ -60,11 +58,11 @@ def profile_main_path(n, steps, spp, card):
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3
     for dev_us, count, key in rows[:15]:
-        print(json.dumps({"spp": spp, "kernel": key[:80],
+        print(json.dumps({"kernel": key[:80],
                           "device_ms_per_step": dev_us / 1e3 / steps,
                           "launches_per_step": count / steps}), flush=True)
     print(json.dumps({
-        "profile": "main_path", "n": n, "steps": steps, "spp": spp,
+        "profile": "main_path", "n": n, "steps": steps,
         "wall_ms_per_step": wall_ms / steps,
         "device_busy_ms_per_step": busy_ms / steps,
         "device_busy_share": busy_ms / wall_ms,
@@ -76,15 +74,11 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--n", type=int, default=512)
     p.add_argument("--steps", type=int, default=20)
-    p.add_argument("--spp", type=int, nargs="+", default=[1])
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("profiling: needs a CUDA device", file=sys.stderr)
         return 2
-    card = _card()
-    for spp in args.spp:
-        profile_main_path(args.n, args.steps, spp, card)
-    os.environ.pop("DCCRG_BULK_SPP", None)
+    profile_main_path(args.n, args.steps, _card())
     return 0
 
 

@@ -65,9 +65,11 @@ def test_rotation_step_bfloat16_matches_reference_kernel():
 
 
 def test_rotation_step_any_extent_and_checks():
-    """The TPU tiling constraints (Z % 128, tx % 8) are gone; shapes
-    and the shared-memory budget are still checked."""
+    """The TPU tiling constraints (Z % 128, tx % 8) are gone; shapes,
+    the band and z chunk of the tile (``(by, tz)``: threads and shared
+    memory of one block) are still checked."""
     step = make_rotation_step((12, 10, 20), steps_per_pass=3)
+    assert step.tile == advection_kernel.DEFAULT_TILE == (64, 16)
     x = (np.arange(12) + 0.5) / 12
     rho = torch.rand(12, 10, 20, generator=torch.Generator().manual_seed(0))
     vxf = torch.full((1, 10), 0.1)
@@ -77,14 +79,27 @@ def test_rotation_step_any_extent_and_checks():
     assert out.shape == (12, 10, 20) and torch.isfinite(out).all()
     # mass is conserved by the periodic upwind update
     assert abs(float(out.double().sum() - rho.double().sum())) < 1e-3
+    # a band of 8 rows and 8 z-columns: the same step
+    small = make_rotation_step((12, 10, 20), steps_per_pass=3, tile=(8, 8))
+    assert small.tile == (8, 8)
+    assert torch.equal(small(rho, vxf, vyf, 0.01), out)
     with pytest.raises(ValueError):
         step(rho[:, :, :10], vxf, vyf, 0.01)
     with pytest.raises(ValueError):
         step(rho, vxf, vyf[:12], 0.01)
     with pytest.raises(ValueError):
         make_rotation_step((12, 10, 20), steps_per_pass=9)
+    # tz must be 8, 16 or 32
     with pytest.raises(ValueError):
         make_rotation_step((64, 64, 64), tile=(64, 64), steps_per_pass=8)
+    # (by + 2 * spp) * tz / 2 threads above 1024
+    with pytest.raises(ValueError):
+        make_rotation_step((64, 64, 64), tile=(60, 32), steps_per_pass=8)
+    with pytest.raises(ValueError):
+        make_rotation_step((64, 64, 64), tile=(0, 16))
+    # any X fits: the folded y velocities stream through a fixed ring
+    long = make_rotation_step((60000, 4, 4), steps_per_pass=8)
+    assert long.tile == advection_kernel.DEFAULT_TILE
 
 
 def _l2_vs_analytic(s):

@@ -11,13 +11,19 @@ import numpy as np
 import pytest
 import torch
 
+import dccrg_tpu_torch as port
 from dccrg_tpu_torch import DEFAULT_NEIGHBORHOOD_ID
 from dccrg_tpu_torch import fleet
-from dccrg_tpu_torch.models.advection import GridAdvection
+from dccrg_tpu_torch.models.advection import (GridAdvection,
+                                              make_uniform_flux_kernel)
 from dccrg_tpu_torch.models.poisson import DensePoissonSolver
 from dccrg_tpu_torch.ops import advection_kernel, poisson_kernel, roll_executor
 
 pytestmark = pytest.mark.cuda
+
+FIELDS = ("density", "vx", "vy")
+# a user neighbourhood with reach 2 in y and z: kernel A's direct route
+REACH2_HOOD = [(1, 2, 0), (-1, -2, 0), (1, 0, 2), (-1, 0, -2), (0, 1, 0)]
 
 
 @pytest.fixture
@@ -27,46 +33,75 @@ def device():
     return torch.device("cuda", 0)
 
 
+def _hood_grid(dims, periodic, hood_len, dtype, device, seed):
+    """A grid with the advection fields: seeded density and velocities
+    of both signs, so both upwind sides are taken."""
+    g = (port.Grid(cell_data={f: torch.float32 for f in FIELDS}, dtype=dtype)
+         .set_initial_length(dims).set_periodic(*periodic)
+         .set_maximum_refinement_level(0).set_neighborhood_length(hood_len)
+         .initialize(device))
+    n0 = int(np.prod(dims))
+    gen = torch.Generator(device=device).manual_seed(seed)
+    for f, shift in (("density", 0.0), ("vx", 0.5), ("vy", 0.5)):
+        v = torch.rand(n0, generator=gen, device=device) - shift
+        g.data[f][0, :n0] = v.to(dtype)
+    return g
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("k", [1, 3])
-@pytest.mark.parametrize("periodic", [(True, True, False), (False, True, True)])
-def test_bulk_kernel_matches_plain(device, periodic, k, dtype, monkeypatch):
-    """Kernel A's pass against its plain version on the same inputs,
-    at a grid whose extents are not multiples of the brick."""
-    monkeypatch.setenv("DCCRG_BULK_SPP", str(k))
-    a = GridAdvection(n=20, nz=7, device=device, periodic=periodic, dtype=dtype)
-    g = a.grid
-    n0 = 20 * 20 * 7
-    gen = torch.Generator(device=device).manual_seed(k)
-    g.data["density"][0, :n0] = torch.rand(n0, generator=gen, device=device).to(dtype)
-    hood = g.plan.hoods[DEFAULT_NEIGHBORHOOD_ID]
-    spec = roll_executor._grid_spec_for(g, hood, k)
-    fields = {f: g.data[f][0, :g.plan.L] for f in ("density", "vx", "vy")}
-    extras = (torch.tensor(0.4 * a.max_time_step(), dtype=torch.float32),)
+@pytest.mark.parametrize("hood", ["face", "cube", "reach2"])
+@pytest.mark.parametrize("periodic", [(True, True, False), (False, True, True),
+                                      (False, False, False)])
+@pytest.mark.parametrize("dims", [(20, 20, 7), (24, 20, 36), (17, 9, 5)])
+def test_bulk_kernel_matches_plain(device, dims, periodic, hood, dtype):
+    """Kernel A (one launch) against its plain version on the same
+    inputs, at extents that are not multiples of the tile (and, at
+    (17, 9, 5), of the vector width), on both routes: the face set
+    (plane tiles, unrolled) and, for the 26-cube and a user
+    neighbourhood of reach 2, the direct kernel."""
+    hood_len = {"face": 0, "cube": 1, "reach2": 2}[hood]
+    g = _hood_grid(dims, periodic, hood_len, dtype, device, seed=sum(dims))
+    hood_id = DEFAULT_NEIGHBORHOOD_ID
+    if hood == "reach2":
+        hood_id = 7
+        assert g.add_neighborhood(hood_id, REACH2_HOOD)
+    spec = roll_executor._grid_spec_for(g, g.plan.hoods[hood_id])
+    assert spec.face4 == (hood == "face")
+    kern = make_uniform_flux_kernel(tuple(1.0 / d for d in dims))
+    fields = {f: g.data[f][0, :g.plan.L] for f in FIELDS}
+    extras = (torch.tensor(0.02, dtype=torch.float32),)
     before = roll_executor.bulk_pass.launches
-    got = roll_executor.bulk_pass(spec, a._kernel, fields, extras)["density"]
+    got = roll_executor.bulk_pass(spec, kern, fields, extras)["density"]
     assert roll_executor.bulk_pass.launches == before + 1
-    want = roll_executor.bulk_pass_plain(spec, a._kernel, fields, extras)["density"]
+    want = roll_executor.bulk_pass_plain(spec, kern, fields, extras)["density"]
     assert got.dtype == dtype and got.shape == (g.plan.L,)
     # fmad off and the same order of operations: bit for bit
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("tile", [None, (8, 8)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("spp", [1, 5, 8])
-def test_rotation_kernel_matches_plain(device, spp, dtype):
-    shape = (24, 40, 33)
-    cell_length = (1.0 / 24, 1.0 / 40, 1.0 / 33)
+@pytest.mark.parametrize("spp", [1, 2, 3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("shape", [(24, 40, 33), (24, 20, 36), (17, 9, 5),
+                                   (70000, 3, 8)])
+def test_rotation_kernel_matches_plain(device, shape, spp, dtype, tile):
+    """Kernel B against its plain version, at extents that are
+    multiples of nothing and smaller than the halo (rows and planes
+    wrap more than once), and at a long x extent (the y velocities'
+    ring refilled many times), with the default band and a small
+    one."""
+    X, Y, Z = shape
+    cell_length = (1.0 / X, 1.0 / Y, 1.0 / Z)
     step = advection_kernel.make_rotation_step(shape, dtype=dtype,
                                                steps_per_pass=spp,
-                                               tile=(8, 8),
+                                               tile=tile,
                                                cell_length=cell_length)
     gen = torch.Generator(device=device).manual_seed(spp)
     rho = torch.rand(shape, generator=gen, device=device)
-    x = (np.arange(24) + 0.5) / 24
-    vxf = torch.linspace(-0.5, 0.5, 40, device=device)[None, :]
+    x = (np.arange(X) + 0.5) / X
+    vxf = torch.linspace(-0.5, 0.5, Y, device=device)[None, :]
     vy = (x - 0.5).astype(np.float32)
-    vyf = torch.as_tensor(np.concatenate([vy[-8:], vy, vy[:8]])[:, None],
+    vyf = torch.as_tensor(vy[(np.arange(X + 16) - 8) % X][:, None],
                           device=device)
     before = advection_kernel.rotation_step.launches
     got = step(rho, vxf, vyf, 0.01)

@@ -85,38 +85,46 @@ def test_epilogue_sets_match_reference(dims, periodic, hood_len, k):
     rr = hr.roll_plan(g.plan.L)
     spec_r = ref_exec.RollPassSpec(rr[0], cf["dims"], cf["periodic"],
                                    cf["offsets"], cf["n0"], g.plan.L, k)
-    spec_p = port_exec._grid_spec_for(p, hp, k)
+    spec_p = port_exec._grid_spec_for(p, hp)
     assert spec_p is not None
-    assert spec_p.k == k and spec_p.L == g.plan.L
+    assert spec_p.L == g.plan.L
     assert spec_p.shifts == spec_r.shifts
     tr = ref_exec.build_epilogue_sets(spec_r, rr[1])
-    tp = port_exec.build_epilogue_sets(spec_p, hp.roll_plan(p.plan.L)[1])
+    tp = port_exec.build_epilogue_sets(spec_p, hp.roll_plan(p.plan.L)[1], k)
     assert len(tr) == len(tp) == k
     for t, (a, b) in enumerate(zip(tr, tp)):
         for name, x, y in zip(("rows", "nbr", "mask"), a, b):
             np.testing.assert_array_equal(x, y, err_msg=f"table {t} {name}")
-    caps = [port.bucket_capacity(len(r[0])) for r in tp]
-    for a, b in zip(ref_exec.pad_epilogue_tables(tr, caps, g.plan.L),
-                    port_exec.pad_epilogue_tables(tp, caps, p.plan.L)):
-        for x, y in zip(a, b):
-            np.testing.assert_array_equal(x, y)
+
+
+# a user neighbourhood with reach 2 in y and z
+REACH2_HOOD = [(1, 2, 0), (-1, -2, 0), (1, 0, 2), (-1, 0, -2), (0, 1, 0)]
 
 
 def test_pass_spec_geometry():
-    """The port's pass geometry: the flux's reach is per axis, the halo
-    is k times it, and the brick fits a block's shared memory."""
+    """The port's step geometry: the face set takes the plane-tile
+    route with z cut into chunks and the bound counts one step; every
+    other slot set takes the direct route."""
     # no fields: only the host plan is built, nothing is allocated
     p = _port_grid((512, 512, 512), (True, True, False), 0, cell_data={})
     hood = p.plan.hoods[port.DEFAULT_NEIGHBORHOOD_ID]
-    for k in (1, 4, 8):
-        spec = port_exec._grid_spec_for(p, hood, k)
-        # face hood: the upwind flux reads x and y neighbors only
-        assert spec.reach == (1, 1, 0)
-        assert spec.halo == (k, k, 0)
-        assert len(spec.slots) == 4
-        assert spec.smem_bytes() <= 232448
-        assert all(b >= 1 for b in spec.brick)
+    spec = port_exec._grid_spec_for(p, hood)
+    # face hood: the upwind flux reads x and y neighbors only
+    assert len(spec.slots) == 4
+    assert spec.face4
+    assert spec.tile == (128, 16, 32)
+    assert spec.bytes_moved(4) == 4 * 2 ** 27 * 4
+    assert spec.flops() == 49 * 2 ** 27
     assert p.plan.L == 2 ** 27 and p.plan.R == 2 ** 27 + 1
+    # the 26-cube: the direct route
+    q = _port_grid((8, 12, 20), (False, True, False), 1, cell_data={})
+    spec = port_exec._grid_spec_for(q, q.plan.hoods[port.DEFAULT_NEIGHBORHOOD_ID])
+    assert not spec.face4 and spec.tile == (32, 8, 1)
+    # reach 2 in y and z (a user neighbourhood): the direct route
+    q = _port_grid((8, 12, 20), (True, True, True), 2, cell_data={})
+    assert q.add_neighborhood(7, REACH2_HOOD)
+    spec = port_exec._grid_spec_for(q, q.plan.hoods[7])
+    assert not spec.face4 and spec.tile == (32, 8, 1)
 
 
 NL_FIELDS = ("of_source", "of_neighbor", "of_offset", "of_item",

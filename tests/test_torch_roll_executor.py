@@ -1,13 +1,13 @@
-"""The port's bulk executor (kernel A's plain version plus the fixup
+"""The port's bulk executor (kernel A's plain version, no fixup
 epilogue) against the reference's Pallas bulk executor.
 
 The reference runs ``GridAdvection`` under ``DCCRG_BULK=pallas`` on a
 one-device mesh (Pallas in interpret mode on the CPU). The port's grid
 is seeded from the same numpy state through ``convert.py`` and runs the
 same steps; on CPU tensors its bulk pass is the plain PyTorch version of
-kernel A. Inside the port, the bulk path's fixup rows must equal the
-plain roll path's bit for bit, and ``last_step_path`` says which path
-ran.
+kernel A. Inside the port, the bulk path must equal the plain roll path
+bit for bit on every row, the wrap rows the reference's epilogue
+repairs included, and ``last_step_path`` says which path ran.
 """
 
 import numpy as np
@@ -43,6 +43,8 @@ def _seeded_reference(n, seed):
 @pytest.mark.parametrize("k", [1, 4])
 @pytest.mark.parametrize("n", [16, 24])
 def test_bulk_matches_reference_bulk_executor(n, k, monkeypatch):
+    """The reference's k-deep Pallas passes (``DCCRG_BULK_SPP``) and its
+    epilogue against the port's one launch per step."""
     monkeypatch.setenv("DCCRG_BULK", "pallas")
     monkeypatch.setenv("DCCRG_BULK_SPP", str(k))
     ref = _seeded_reference(n, seed=n + k)
@@ -73,20 +75,22 @@ def _port_pair(n, periodic, dtype, seed):
 
 
 def _fixup_rows(adv, k):
+    """The rows the reference's epilogue repairs after k steps."""
     g = adv.grid
     hood = g.plan.hoods[port.DEFAULT_NEIGHBORHOOD_ID]
-    spec = roll_executor._grid_spec_for(g, hood, k)
-    return roll_executor.build_epilogue_sets(spec, hood.roll_plan(g.plan.L)[1])[-1][0]
+    spec = roll_executor._grid_spec_for(g, hood)
+    return roll_executor.build_epilogue_sets(
+        spec, hood.roll_plan(g.plan.L)[1], k)[-1][0]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("k", [1, 4])
-@pytest.mark.parametrize("periodic", [(True, True, False), (False, False, False)])
-def test_bulk_fixup_rows_match_roll_path(periodic, k, dtype, monkeypatch):
-    """One k-deep pass through the bulk executor against k steps of the
-    plain roll path: the fixup rows bit for bit, every row to float32
-    rounding."""
-    monkeypatch.setenv("DCCRG_BULK_SPP", str(k))
+@pytest.mark.parametrize("periodic", [(True, True, False), (True, True, True),
+                                      (False, False, False)])
+def test_bulk_fixup_rows_match_roll_path(periodic, k, dtype):
+    """The epilogue-free bulk executor against the plain roll path: k
+    steps, then k + 1 more, bit for bit on every row, the wrap rows the
+    reference's epilogue repairs after k steps included."""
     bulk, roll = _port_pair(16, periodic, dtype, seed=k)
     dt = 0.5 * bulk.max_time_step()
     before = roll_executor.bulk_pass.launches
@@ -96,14 +100,65 @@ def test_bulk_fixup_rows_match_roll_path(periodic, k, dtype, monkeypatch):
     assert roll.grid.last_step_path == "roll"
     # CPU tensors take the plain version: no kernel launch is counted
     assert roll_executor.bulk_pass.launches == before
-    a = bulk.grid.data["density"][0].to(torch.float32).numpy()
-    b = roll.grid.data["density"][0].to(torch.float32).numpy()
-    rows = _fixup_rows(bulk, k)
-    # fixups come from periodic wraps only: non-periodic edges are masked
+    a, b = bulk.grid.data["density"][0], roll.grid.data["density"][0]
+    rows = torch.as_tensor(_fixup_rows(bulk, k).astype(np.int64))
+    # wrap rows come from periodic wraps only: non-periodic edges are masked
     assert (len(rows) > 0) == any(periodic)
-    np.testing.assert_array_equal(a[rows], b[rows])
-    np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-7)
+    assert torch.equal(a[rows], b[rows])
+    assert torch.equal(a, b)
+    bulk.run(k + 1, dt)
+    roll.run(k + 1, dt, bulk=False)
+    assert torch.equal(bulk.grid.data["density"], roll.grid.data["density"])
     assert bulk.grid.data["density"].dtype == dtype
+
+
+def _hood_grid(dims, periodic, hood_len, dtype, seed):
+    """A grid with the advection fields, seeded density and velocities
+    of both signs, and the upwind flux kernel for it."""
+    g = (port.Grid(cell_data={f: torch.float32 for f in FIELDS}, dtype=dtype)
+         .set_initial_length(dims).set_periodic(*periodic)
+         .set_maximum_refinement_level(0).set_neighborhood_length(hood_len)
+         .initialize("cpu"))
+    n0 = int(np.prod(dims))
+    rng = np.random.default_rng(seed)
+    for f, shift in (("density", 0.0), ("vx", 0.5), ("vy", 0.5)):
+        v = rng.random(n0, dtype=np.float32) - np.float32(shift)
+        g.data[f][0, :n0] = torch.from_numpy(v).to(dtype)
+    return g, make_uniform_flux_kernel(tuple(1.0 / d for d in dims))
+
+
+# a user neighbourhood with reach 2 in y and z: kernel A's direct route
+REACH2_HOOD = [(1, 2, 0), (-1, -2, 0), (1, 0, 2), (-1, 0, -2), (0, 1, 0)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hood", ["cube", "reach2"])
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("periodic", [(True, True, True), (False, True, False)])
+def test_bulk_matches_roll_path_with_z_reach(periodic, k, hood, dtype):
+    """Neighbourhoods with z reach through the bulk executor (kernel A's
+    direct route) against the roll path, bit for bit after k + 1 steps:
+    the 26-cube and a user neighbourhood of reach 2."""
+    dims = (12, 10, 6)
+    hood_len, hood_id = (1, port.DEFAULT_NEIGHBORHOOD_ID) if hood == "cube" \
+        else (2, 7)
+    grids = [_hood_grid(dims, periodic, hood_len, dtype, seed=3)[0]
+             for _ in range(2)]
+    if hood == "reach2":
+        for g in grids:
+            assert g.add_neighborhood(hood_id, REACH2_HOOD)
+    kern = make_uniform_flux_kernel(tuple(1.0 / d for d in dims))
+    spec = roll_executor._grid_spec_for(grids[0], grids[0].plan.hoods[hood_id])
+    assert not spec.face4 and spec.tile == (32, 8, 1)
+    dt = torch.tensor(0.01, dtype=torch.float32)
+    grids[0].run_steps(kern, FIELDS, ["density"], k + 1, extra_args=(dt,),
+                       neighborhood_id=hood_id)
+    grids[1].run_steps(kern, FIELDS, ["density"], k + 1, extra_args=(dt,),
+                       neighborhood_id=hood_id, bulk=False)
+    assert grids[0].last_step_path == "bulk"
+    assert grids[1].last_step_path == "roll"
+    assert torch.equal(grids[0].data["density"], grids[1].data["density"])
+    assert grids[0].data["density"].dtype == dtype
 
 
 def test_ineligible_kernel_takes_roll_path():
@@ -129,7 +184,7 @@ def test_bulk_pass_rejects_other_devices():
     a = GridAdvection(n=16, device="cpu")
     g = a.grid
     spec = roll_executor._grid_spec_for(
-        g, g.plan.hoods[port.DEFAULT_NEIGHBORHOOD_ID], 1)
+        g, g.plan.hoods[port.DEFAULT_NEIGHBORHOOD_ID])
     fields = {f: g.data[f][0, :g.plan.L].to("meta") for f in FIELDS}
     with pytest.raises(ValueError):
         roll_executor.bulk_pass(spec, a._kernel, fields,

@@ -19,12 +19,13 @@ per-job parameters (dt, cfl) riding as a ``[B, E]`` float32 tensor.
 - the **bulk program**: on a CUDA bucket whose job names a registry
   kernel with a slot-wise twin known to kernel A'
   (ops/roll_executor.py, csrc/fleet_bulk_pass.cu), every step is one
-  kernel A' launch. Its sums run in slot order too, so it matches the
-  table program to float re-association.
+  kernel A' launch, the budget freeze included. Its sums run in slot
+  order too, so it matches the table program to float re-association.
 
 Per-job isolation: slot ``k`` advances ``budget[k]`` steps per quantum
-and is frozen afterwards by a per-slot ``torch.where`` that keeps its
-old bytes, and no operation mixes slots. With ``DCCRG_INTEGRITY`` on
+and is frozen afterwards: its old bytes are kept exactly, by kernel A'
+itself on the card and by a per-slot ``torch.where`` everywhere else,
+and no operation mixes slots. With ``DCCRG_INTEGRITY`` on
 (the default) each quantum also measures, per slot, the exact
 fingerprints and the conservation sums of its input and output state,
 read to the host once per quantum (:attr:`GridBatch.last_inv`).
@@ -500,15 +501,17 @@ class GridBatch:
 
         def loop(state, extras, budget, q):
             for i in range(q):
-                new = vstep(state, extras)
-                live = budget > i  # [B]: per-slot step budget
-                # exhausted or masked slots keep their old bytes: the
-                # per-slot freeze the isolation contract rests on
-                state = {
-                    n: (torch.where(
-                        live.reshape((-1,) + (1,) * (a.ndim - 1)), new[n], a)
-                        if new[n] is not a else a)
-                    for n, a in state.items()}
+                if bulk:
+                    # the bulk step freezes spent slots itself (inside
+                    # kernel A' on the card)
+                    state = vstep(state, extras, budget, i)
+                else:
+                    new = vstep(state, extras)
+                    # exhausted or masked slots keep their old bytes: the
+                    # per-slot freeze the isolation contract rests on
+                    state = {n: (roll_executor.fleet_freeze(
+                        new[n], a, budget, i) if new[n] is not a else a)
+                        for n, a in state.items()}
             return state
 
         # locals only: a `self` capture would pin every batch (its

@@ -27,7 +27,9 @@ The fleet's batched form (``make_fleet_bulk_step``, for ``GridBatch``)
 is **kernel A'** (``fleet_bulk_pass``, csrc/fleet_bulk_pass.cu): one
 step of a fleet twin (``diffuse``, ``advect_x``) over every slot of a
 ``[B, R]`` bucket state with per-slot extras read on the device. It
-wraps exactly, so no epilogue follows it.
+wraps exactly, so no epilogue follows it, and it takes the per-slot
+step budgets: a slot whose budget is spent is copied unchanged by the
+same launch, so a fleet step on the card is one launch.
 """
 
 from __future__ import annotations
@@ -416,11 +418,19 @@ FLEET_FLUXES = {
 
 _FLEET_SIG = {
     "dccrg_fleet_bulk": (ctypes.c_int, [
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.POINTER(ctypes.c_int), ctypes.c_longlong,
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]),
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int), ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]),
     "dccrg_fleet_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
+
+# kernel A''s routes, by the code its entry point takes: the plane
+# route stages z-planes of a y band in shared memory (x extents up to
+# 256 that are a whole number of 16-byte chunks), the direct route
+# reads neighbours through the cache
+FLEET_ROUTES = ("planes", "direct")
+_MAX_PLANE_X = 256
 
 
 # the slots kernel A' unrolls: the 3x3x3 cube without its centre,
@@ -464,17 +474,53 @@ class FleetPassSpec:
         return batch * self.n0 * per_cell
 
 
-def fleet_bulk_pass(spec, kernel, state, extras):
+def fleet_route(spec, state):
+    """The route kernel A' takes for ``spec`` over ``state``:
+    ``"planes"`` where the x extent is at most 256 and a multiple of
+    16 bytes' elements (4 float32, 8 bfloat16), the row stride fits 32
+    bits and the allocation is 16-byte aligned, else ``"direct"``. The
+    kernel's entry point checks the same rule."""
+    nx = spec.dims[0]
+    fits = (nx <= _MAX_PLANE_X and nx % (16 // state.element_size()) == 0
+            and spec.R < 2 ** 31 - 1 and state.data_ptr() % 16 == 0)
+    return FLEET_ROUTES[0 if fits else 1]
+
+
+def _check_budget(budget, state):
+    if (budget.device != state.device or budget.dtype != torch.int32
+            or budget.shape != (state.shape[0],)
+            or not budget.is_contiguous()):
+        raise ValueError("fleet_bulk_pass needs a contiguous int32 [B] "
+                         "budget on the state's device")
+
+
+def fleet_freeze(new, old, budget, i):
+    """The per-slot budget freeze: slot ``b`` of ``new`` where
+    ``budget[b] > i``, else ``old``'s bytes unchanged (``torch.where``
+    selects elements, so NaN payloads and -0.0 stay exactly)."""
+    live = (budget > i).reshape((-1,) + (1,) * (new.ndim - 1))
+    return torch.where(live, new, old)
+
+
+def fleet_bulk_pass(spec, kernel, state, extras, budget=None, i=0):
     """One fleet step of ``kernel``'s device flux over every slot of
     ``state`` (the bucket's ``[B, R]`` field, row stride ``R``) with
     per-slot ``extras`` (``[B, E]`` float32, column 0 read). Returns a
     new ``[B, R]`` tensor: rows ``[0, L)`` stepped, the zero row
-    copied. On CUDA tensors it launches kernel A'
-    (csrc/fleet_bulk_pass.cu) and counts the launch in
+    copied. With ``budget`` (int32 ``[B]`` on the state's device), a
+    slot whose ``budget[b] <= i`` is frozen: its rows come out as its
+    input bytes. ``budget=None`` steps every slot.
+
+    On CUDA tensors it launches kernel A' (csrc/fleet_bulk_pass.cu) once,
+    freeze included, and counts the launch in
     ``fleet_bulk_pass.launches``; on CPU tensors it runs
-    :func:`fleet_bulk_pass_plain`."""
+    :func:`fleet_bulk_pass_plain` and, with a budget,
+    :func:`fleet_freeze`."""
+    if budget is not None:
+        _check_budget(budget, state)
     if state.device.type == "cpu":
-        return fleet_bulk_pass_plain(spec, kernel, state, extras)
+        out = fleet_bulk_pass_plain(spec, kernel, state, extras)
+        return out if budget is None else fleet_freeze(out, state, budget, i)
     if state.device.type != "cuda":
         raise ValueError(f"fleet_bulk_pass runs on CUDA or CPU, got "
                          f"{state.device}")
@@ -497,9 +543,11 @@ def fleet_bulk_pass(spec, kernel, state, extras):
     nx, ny, nz = spec.dims
     geom = (ctypes.c_int * 8)(nx, ny, nz, *(int(p) for p in spec.periodic),
                               B, extras.shape[1])
+    route = FLEET_ROUTES.index(fleet_route(spec, state))
     rc = lib.dccrg_fleet_bulk(
-        code, flux, state.data_ptr(), out.data_ptr(), extras.data_ptr(), geom,
-        spec.n0, spec.L, spec.R, state.device.index or 0,
+        code, flux, route, state.data_ptr(), out.data_ptr(),
+        extras.data_ptr(), None if budget is None else budget.data_ptr(),
+        int(i), geom, spec.n0, spec.L, spec.R, state.device.index or 0,
         torch.cuda.current_stream(state.device).cuda_stream)
     _build.check(lib, "dccrg_fleet", rc)
     fleet_bulk_pass.launches += 1
@@ -510,11 +558,11 @@ fleet_bulk_pass.launches = 0
 
 
 def fleet_bulk_pass_plain(spec, kernel, state, extras):
-    """The plain PyTorch version of kernel A': the twin's slot
-    functions over ``[B, L]``, each slot gathered with an exact 3-D
-    ``torch.roll`` per grid and masked in closed form, per-slot extras
-    as ``[B, 1]`` columns; the result rounded to the storage dtype
-    once, the zero row copied."""
+    """The plain PyTorch version of kernel A' without the freeze: the
+    twin's slot functions over ``[B, L]``, each slot gathered with an
+    exact 3-D ``torch.roll`` per grid and masked in closed form,
+    per-slot extras as ``[B, 1]`` columns; the result rounded to the
+    storage dtype once, the zero row copied."""
     L = spec.L
     name_in = FLEET_FLUXES[kernel.device_flux][0][0]
     synth = (spec.dims, spec.periodic, spec.n0, spec.offs_cells, False)
@@ -533,15 +581,17 @@ def fleet_bulk_pass_plain(spec, kernel, state, extras):
 
 
 def make_fleet_bulk_step(grid, kernel, fields_in, fields_out, n_extra):
-    """Batched bulk step for a fleet bucket: ``step(state, extras)``
-    over ``{field: [capacity, R]}`` state with per-slot float32 extras
-    ``[capacity, E]`` on the state's device. Each step is one kernel A'
-    pass on CUDA (its plain version on the CPU). Kernel A' wraps
-    exactly, so no fixup epilogue runs after it: the reference's
-    vmapped epilogue would repair nothing here. Returns None when the
-    bucket's template grid, schema or kernel is ineligible (the caller
-    keeps the table program). The pass takes its batch from the
-    state's shape."""
+    """Batched bulk step for a fleet bucket: ``step(state, extras,
+    budget, i)`` over ``{field: [capacity, R]}`` state with per-slot
+    float32 extras ``[capacity, E]`` and int32 budgets ``[capacity]``
+    on the state's device: step ``i`` of a quantum, slots with
+    ``budget <= i`` frozen. Each step is one kernel A' launch on CUDA,
+    freeze included (its plain version and ``torch.where`` on the
+    CPU). Kernel A' wraps exactly, so no fixup epilogue runs after it:
+    the reference's vmapped epilogue would repair nothing here. Returns
+    None when the bucket's template grid, schema or kernel is
+    ineligible (the caller keeps the table program). The pass takes its
+    batch from the state's shape."""
     from .. import grid as grid_mod
 
     fields_in = tuple(fields_in)
@@ -568,10 +618,10 @@ def make_fleet_bulk_step(grid, kernel, fields_in, fields_out, n_extra):
         return None
     name_out = names_out[0]
 
-    def step(state, extras):
+    def step(state, extras, budget, i):
         new = dict(state)
         new[name_out] = fleet_bulk_pass(spec, kernel, state[names_in[0]],
-                                        extras)
+                                        extras, budget, i)
         return new
 
     step.spec = spec

@@ -159,26 +159,50 @@ def test_cuda_poisson_solver_on_the_card(device):
     assert torch.equal(x, xd)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("kernel", ["diffuse", "advect_x"])
-@pytest.mark.parametrize("periodic", [(True, True, True), (False, True, True),
-                                      (False, False, False)])
-@pytest.mark.parametrize("length", [(8, 8, 8), (24, 20, 36)])
-def test_fleet_bulk_kernel_matches_plain(device, length, periodic, kernel, dtype):
-    """Kernel A' against its plain version on a [B, R] state (pad rows
-    included at (24, 20, 36)), each slot with its own parameter: fmad
-    off and the same order of operations, so bit for bit."""
-    B = 3
+def _bits(t):
+    """The raw storage words of a float32 or bfloat16 tensor."""
+    return t.view(torch.int32 if t.element_size() == 4 else torch.int16)
+
+
+def _fleet_case(device, length, periodic, kernel, dtype, B, seed):
     job = fleet.FleetJob("p", length=length, kernel=kernel, periodic=periodic,
                          cell_data={"rho": dtype})
     grid = fleet.template_grid(job, device)
     twin = fleet.FLEET_BULK_KERNELS[kernel]
     step = roll_executor.make_fleet_bulk_step(grid, twin, ("rho",), ("rho",), 1)
-    spec = step.spec
-    gen = torch.Generator(device=device).manual_seed(sum(length))
-    state = (torch.rand((B, spec.R), generator=gen, device=device) * 100).to(dtype)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    state = (torch.rand((B, step.spec.R), generator=gen, device=device)
+             * 100).to(dtype)
     state[:, -1] = 0
-    extras = torch.tensor([[0.02], [0.05], [0.11]], device=device)
+    extras = (0.02 + 0.03 * torch.arange(B, device=device,
+                                         dtype=torch.float32))[:, None]
+    return step.spec, twin, state.contiguous(), extras.contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["diffuse", "advect_x"])
+@pytest.mark.parametrize("periodic", [(True, True, True), (False, True, True),
+                                      (False, False, False)])
+@pytest.mark.parametrize("length", [(8, 8, 8), (24, 20, 36), (17, 9, 5),
+                                    (300, 200, 4), (16, 8, 70)])
+def test_fleet_bulk_kernel_matches_plain(device, length, periodic, kernel, dtype):
+    """Kernel A' against its plain version on a [B, R] state (pad rows
+    included at (24, 20, 36)), each slot with its own parameter: fmad
+    off and the same order of operations, so bit for bit. Both routes:
+    the plane route (x extents up to 256 that are a multiple of the
+    16-byte vector width) and the direct route ((17, 9, 5), whose x
+    extent is not, and (300, 200, 4), wider than 256). With B = 5 most
+    slot bases are not 16-byte aligned; with B = 200 at (16, 8, 70) the
+    plane route marches 64-plane z chunks, the last one partial. Then
+    the same state with the freeze: at step 1 of budgets cycling
+    [2, 0, 1, 3, 1], the slots with budget 0 or 1 are frozen and keep
+    their bytes exactly (a NaN with a payload and a -0.0 in slot 2
+    included), the others step."""
+    B = {(300, 200, 4): 2, (16, 8, 70): 200}.get(length, 5)
+    spec, twin, state, extras = _fleet_case(device, length, periodic, kernel,
+                                            dtype, B, sum(length))
+    route = "direct" if length[0] in (17, 300) else "planes"
+    assert roll_executor.fleet_route(spec, state) == route
     before = roll_executor.fleet_bulk_pass.launches
     got = roll_executor.fleet_bulk_pass(spec, twin, state, extras)
     assert roll_executor.fleet_bulk_pass.launches == before + 1
@@ -186,11 +210,27 @@ def test_fleet_bulk_kernel_matches_plain(device, length, periodic, kernel, dtype
     assert got.dtype == dtype and got.shape == state.shape
     assert torch.equal(got, want)
 
+    budget = torch.tensor([(2, 0, 1, 3, 1)[s % 5] for s in range(B)],
+                          dtype=torch.int32, device=device)
+    if B > 2:
+        words = _bits(state)
+        words[2, 3] = 0x7FC01234 if dtype == torch.float32 else 0x7FC5
+        state[2, 4] = -0.0
+    got = roll_executor.fleet_bulk_pass(spec, twin, state, extras, budget, 1)
+    assert roll_executor.fleet_bulk_pass.launches == before + 2
+    want = roll_executor.fleet_freeze(
+        roll_executor.fleet_bulk_pass_plain(spec, twin, state, extras),
+        state, budget, 1)
+    assert torch.equal(_bits(got), _bits(want))
+    frozen = (budget <= 1).nonzero().flatten()
+    assert torch.equal(_bits(got[frozen]), _bits(state[frozen]))
+
 
 def test_grid_batch_bulk_quantum_on_the_card(device):
     """A GridBatch bucket on the card launches kernel A' once per step,
-    its invariants are exact, and a table-program bucket of the same
-    jobs digests equal to run_solo."""
+    freeze included, and equals q plain passes each followed by the
+    where freeze bit for bit; its invariants are exact, and a
+    table-program bucket of the same jobs digests equal to run_solo."""
     jobs = [fleet.FleetJob(f"j{i}", length=(16, 16, 16), n_steps=4,
                            params=(0.02 + 0.003 * i,), seed=i) for i in range(3)]
     bulk = fleet.GridBatch(jobs[0], 4, device=device)
@@ -200,10 +240,20 @@ def test_grid_batch_bulk_quantum_on_the_card(device):
             j.apply_init(b.grid)
             b.admit(j)
     budget = np.array([4, 4, 2, 0], np.int32)
+    spec = roll_executor.make_fleet_bulk_step(
+        bulk.grid, bulk.bulk_kernel, ("rho",), ("rho",), 1).spec
+    ref = bulk.state["rho"].clone()
+    extras = torch.as_tensor(bulk._extras, device=device)
+    budget_dev = torch.as_tensor(budget, device=device)
+    for i in range(4):
+        ref = roll_executor.fleet_freeze(
+            roll_executor.fleet_bulk_pass_plain(spec, bulk.bulk_kernel, ref,
+                                                extras), ref, budget_dev, i)
     before = roll_executor.fleet_bulk_pass.launches
     bulk.step(budget)
     assert bulk.bulk_active() and not table.bulk_active()
     assert roll_executor.fleet_bulk_pass.launches == before + 4
+    assert torch.equal(_bits(bulk.state["rho"]), _bits(ref))
     table.step(budget)
     np.testing.assert_array_equal(bulk.last_inv["fp_out"]["rho"],
                                   bulk.fingerprint_slots()["rho"])

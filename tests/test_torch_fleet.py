@@ -27,6 +27,7 @@ import torch
 from dccrg_tpu_torch import checkpoint as port_ckpt
 from dccrg_tpu_torch import convert
 from dccrg_tpu_torch import fleet as port
+from dccrg_tpu_torch.ops import roll_executor
 
 F32_TOL = dict(rtol=1e-6, atol=1e-4)
 DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
@@ -307,6 +308,76 @@ def test_nan_confined_mid_run_not_just_at_the_end(bulk):
     assert poisoned.digest(0) == clean.digest(0)
     assert poisoned.digest(2) == clean.digest(2)
     assert poisoned.digest(1) != clean.digest(1)
+
+
+# ---------------------------------------------------------------------
+# the budget freeze inside the bulk step (kernel A' on the card)
+# ---------------------------------------------------------------------
+
+def _bits(t):
+    return t.view(torch.int32 if t.element_size() == 4 else torch.int16)
+
+
+def _bulk_spec(batch):
+    return roll_executor.make_fleet_bulk_step(
+        batch.grid, batch.bulk_kernel, ("rho",), ("rho",), 1).spec
+
+
+@pytest.mark.parametrize("kernel", ["diffuse", "advect_x"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_fused_freeze_equals_plain_pass_then_where(dtype, kernel):
+    """The bulk step with budgets (``fleet_bulk_pass(..., budget, i)``,
+    one kernel A' launch on the card) equals the plain pass followed by
+    the ``torch.where`` freeze bit for bit: at step 1 of budgets
+    [2, 0, 1, 3, 0] slots 1, 2 and 4 keep their input bytes, a NaN with
+    a payload and a -0.0 in slot 1 included; a budget of another dtype
+    is refused."""
+    tdt = DTYPES[dtype][1]
+    job = port.FleetJob("p", length=(6, 5, 7), kernel=kernel,
+                        cell_data={"rho": tdt})
+    batch = port.GridBatch(job, 5, device="cpu")
+    twin, spec = batch.bulk_kernel, _bulk_spec(batch)
+    rng = np.random.default_rng(7)
+    state = torch.tensor(rng.random((5, spec.R), dtype=np.float32) * 100).to(tdt)
+    state[:, -1] = 0
+    _bits(state)[1, 3] = 0x7FC01234 if dtype == "f32" else 0x7FC5
+    state[1, 4] = -0.0
+    extras = torch.tensor((0.02 + 0.01 * np.arange(5, dtype=np.float32))[:, None])
+    budget = torch.tensor([2, 0, 1, 3, 0], dtype=torch.int32)
+    got = roll_executor.fleet_bulk_pass(spec, twin, state, extras, budget, 1)
+    live = torch.tensor([True, False, False, True, False])[:, None]
+    want = torch.where(live, roll_executor.fleet_bulk_pass_plain(
+        spec, twin, state, extras), state)
+    assert torch.equal(_bits(got), _bits(want))
+    for slot in (1, 2, 4):
+        assert torch.equal(_bits(got[slot]), _bits(state[slot]))
+    assert not torch.equal(_bits(got[0]), _bits(state[0]))
+    with pytest.raises(ValueError):
+        roll_executor.fleet_bulk_pass(spec, twin, state, extras,
+                                      budget.to(torch.int64), 1)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_cpu_quantum_freezes_spent_slots_bitwise(dtype):
+    """A CPU bulk GridBatch quantum with budgets [4, 4, 2, 0] equals
+    four plain passes, each followed by the ``torch.where`` freeze of
+    the slots whose budget is spent, bit for bit; the budget-0 slot
+    keeps its bytes."""
+    jobs = _jobs(port, 60, count=3, length=(8, 6, 5), dtype=dtype)
+    batch = port.GridBatch(jobs[0], 4, device="cpu", bulk=True)
+    _admit(batch, jobs)
+    spec = _bulk_spec(batch)
+    extras = torch.as_tensor(batch._extras)
+    budget = np.array([4, 4, 2, 0], np.int32)
+    before = batch.state["rho"].clone()
+    want = before
+    for i in range(4):
+        live = torch.as_tensor(budget > i)[:, None]
+        want = torch.where(live, roll_executor.fleet_bulk_pass_plain(
+            spec, batch.bulk_kernel, want, extras), want)
+    assert batch.step(budget) == 4 and batch.bulk_active()
+    assert torch.equal(_bits(batch.state["rho"]), _bits(want))
+    assert torch.equal(_bits(batch.state["rho"][3]), _bits(before[3]))
 
 
 # ---------------------------------------------------------------------

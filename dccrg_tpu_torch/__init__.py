@@ -9,10 +9,15 @@ csrc/rotation_step.cu); and the single-device Poisson solvers
 (models/poisson.py: the general-grid ``PoissonSolver`` on
 ``Grid.apply_stencil``, ``DensePoissonSolver`` on ``DenseGrid``, and
 ``CudaPoissonSolver`` on CUDA kernel C, csrc/laplacian_matvec.cu);
-and the fleet's single-device execution layer (fleet.py: ``GridBatch``
+the fleet's single-device execution layer (fleet.py: ``GridBatch``
 stacks same-shape jobs along a batch axis and steps them through CUDA
 kernel A', csrc/fleet_bulk_pass.cu; ``run_solo`` is the one-grid
-baseline), with its integrity fingerprints (integrity.py). Entry points run on the card unless the caller asks for the CPU
+baseline), with its integrity fingerprints (integrity.py); and
+single-device adaptive mesh refinement: the neighbor engine under AMR
+(neighbors.py), the commit (amr.py), the hybrid plan of refined grids
+(hybrid.py), the dense-table gather path of ``Grid`` and the AMR
+applications (models/advection_amr.py, models/game_of_life.py). Entry
+points run on the card unless the caller asks for the CPU
 (``device="cpu"``); kernels are built with ``nvcc`` at their first CUDA
 call, never on import.
 """
@@ -25,8 +30,10 @@ from .dense import DenseGrid
 from .fleet import FleetJob, GridBatch, run_solo, template_grid
 from .integrity import register_conserved
 from .mapping import Mapping
-from .neighbors import (NeighborLists, build_neighbor_lists, face_masks,
-                        make_neighborhood, validate_neighborhood)
+from .neighbors import (NeighborLists, StructureError, build_neighbor_lists,
+                        face_masks, find_neighbors_of,
+                        find_neighbors_to_subset, make_neighborhood,
+                        validate_neighborhood, verify_tiling)
 from .topology import GridTopology
 from .types import ERROR_CELL, ERROR_INDEX, as_cell_array, as_index_array
 
@@ -35,8 +42,9 @@ __all__ = [
     "ERROR_CELL", "ERROR_INDEX", "FleetJob", "Grid", "GridBatch",
     "GridLength", "GridTopology",
     "Mapping", "NeighborLists", "NoGeometry", "SlotwiseKernel",
-    "StretchedCartesianGeometry", "as_cell_array", "as_index_array",
-    "bucket_capacity", "build_neighbor_lists", "face_masks",
+    "StretchedCartesianGeometry", "StructureError", "as_cell_array",
+    "as_index_array", "bucket_capacity", "build_neighbor_lists",
+    "face_masks", "find_neighbors_of", "find_neighbors_to_subset",
     "make_neighborhood", "register_conserved", "run_solo",
-    "template_grid", "validate_neighborhood",
+    "template_grid", "validate_neighborhood", "verify_tiling",
 ]

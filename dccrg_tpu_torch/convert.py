@@ -1,12 +1,16 @@
 """State carried between the reference package and the port.
 
-Both packages keep per-cell fields as ``[n_dev, R]`` arrays with rows in
-grid order and ``R = L + 1``, so a field moves between them as a numpy
-array of that shape: ``np.asarray(jax_grid.data[name])`` on the
-reference side (float and int32 fields alike). A ``DenseGrid`` field is
-one ``[X, Y, Z, ...]`` array (``dense_grid.to_host(name)`` there).
-bfloat16 arrays use the ``ml_dtypes`` bfloat16 type that the
-reference's arrays convert to.
+Both packages keep per-cell fields as ``[n_dev, R]`` arrays, with rows
+in the plan's row order and ``R = L + 1``; both build the same plan
+for the same cells (closed-form, dense-table or refined), so a field
+moves between them as a numpy array of that shape:
+``np.asarray(jax_grid.data[name])`` on the reference side (float and
+int32 fields alike). ``fields_from_cells`` / ``fields_to_cells`` carry
+fields by cell id instead, through each side's own plan
+(``plan.cells`` / ``plan.row_of_pos``), whatever the row layouts. A
+``DenseGrid`` field is one ``[X, Y, Z, ...]`` array
+(``dense_grid.to_host(name)`` there). bfloat16 arrays use the
+``ml_dtypes`` bfloat16 type that the reference's arrays convert to.
 """
 
 from __future__ import annotations
@@ -44,6 +48,30 @@ def fields_to_numpy(grid) -> dict:
     """``{name: ndarray [n_dev, R, ...]}`` of every field, in the
     field's dtype (bfloat16 as ``ml_dtypes.bfloat16``)."""
     return {name: _to_numpy(t) for name, t in grid.data.items()}
+
+
+def fields_to_cells(row_of_pos, arrays) -> dict:
+    """``{name: ndarray [n_cells, ...]}`` in the plan's cell order from
+    ``{name: ndarray [1, R, ...]}`` fields and that plan's
+    ``row_of_pos`` — a reference grid's fields read by cell id through
+    the reference's own rows (``plan.cells`` gives the ids)."""
+    rows = np.asarray(row_of_pos, dtype=np.int64)
+    return {name: np.asarray(a)[0, rows] for name, a in arrays.items()}
+
+
+def fields_from_cells(grid, cells, arrays) -> None:
+    """Write ``{name: ndarray [n, ...]}`` values given per cell id
+    (``cells``, any order) into ``grid``'s rows; every id must exist in
+    the grid. Rows of the grid's other cells keep their values."""
+    values = {}
+    for name, arr in arrays.items():
+        _shape, dtype = grid.fields[name]
+        arr = np.asarray(arr)
+        if arr.dtype.name != _dtype_name(dtype):
+            raise TypeError(f"{name}: dtype {arr.dtype.name}, the field is "
+                            f"{_dtype_name(dtype)}")
+        values[name] = _to_tensor(np.array(arr, order="C"), dtype)
+    grid.set_many(np.asarray(cells, np.uint64), values)
 
 
 def _to_tensor(arr, dtype):

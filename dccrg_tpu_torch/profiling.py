@@ -2,13 +2,18 @@
 
     python -m dccrg_tpu_torch.profiling [--path main] [--n 512] [--steps 20]
     python -m dccrg_tpu_torch.profiling --path fleet [--n 64]
+    python -m dccrg_tpu_torch.profiling --path amr [--n 128] [--steps 20]
 
 ``--path main`` (the default) traces ``--steps`` steps of
 ``GridAdvection(n).run`` after two warm-up steps. ``--path fleet``
 traces one 8-step quantum (``DCCRG_FLEET_QUANTUM``'s default) of a full
 bucket of 128 ``diffuse`` jobs of ``n``^3 cells
 (``DCCRG_FLEET_MAX_BATCH``'s default; bench/fleet_bench.py's jobs,
-integrity on) through ``GridBatch`` after one warm-up quantum. Each prints one JSON line
+integrity on) through ``GridBatch`` after one warm-up quantum.
+``--path amr`` traces ``--steps`` table-path steps of
+bench/recommit_bench.py's refined grid (``amr_slab_grid``: ``n``^3,
+two slab commits) with its diffuse kernel, after one warm-up step.
+Each prints one JSON line
 per device kernel (device time and launches per step, or per quantum)
 and one summary line: wall time (CUDA events around the traced run, the
 profiler's own host cost included), device busy time, the device's busy
@@ -111,11 +116,64 @@ def profile_fleet(n, card, slots=128, q=8):
                     "card": card})
 
 
+def amr_diffuse(cell, nbr, offs, mask):
+    """bench/recommit_bench.py's ``_diffuse`` kernel (its :165), as a
+    plain grid kernel."""
+    s = torch.sum(torch.where(mask, nbr["density"] - cell["density"][:, None],
+                              0.0), dim=1)
+    return {"density": cell["density"] + 0.01 * s}
+
+
+def amr_slab_grid(n, device, on_commit=None):
+    """bench/recommit_bench.py:90-118's refined grid: an n^3 level-0 grid
+    (max level 1, neighbourhood length 1, one float32 density); commit 1
+    refines the first n^3/64 cells (a z-slab), commit 2 the last n^3/64
+    level-0 cells; density ``arange % 97`` as the bench sets it.
+    ``on_commit(commit)`` wraps each ``stop_refining`` call (the caller
+    times it)."""
+    from .grid import Grid
+
+    g = (Grid(cell_data={"density": torch.float32})
+         .set_initial_length((n, n, n))
+         .set_maximum_refinement_level(1)
+         .set_neighborhood_length(1)
+         .initialize(device))
+    n0 = n ** 3
+    nref = n0 // 64
+    for first in (True, False):
+        cells = g.plan.cells
+        pick = cells[:nref] if first else cells[cells <= n0][-nref:]
+        for c in pick:
+            g.refine_completely(c)
+        if on_commit is None:
+            g.stop_refining()
+        else:
+            on_commit(g.stop_refining)
+    cells = g.get_cells()
+    g.set("density", cells, (np.arange(len(cells)) % 97).astype(np.float32))
+    return g
+
+
+def profile_amr(n, steps, card):
+    g = amr_slab_grid(n, "cuda")
+    g.run_steps(amr_diffuse, ["density"], ["density"], 1)
+    torch.cuda.synchronize()
+    if g.last_step_path != "table":
+        raise SystemExit(f"the AMR steps took {g.last_step_path!r}")
+    hood = g.plan.hoods[-0xDCC]
+    _trace(lambda: g.run_steps(amr_diffuse, ["density"], ["density"], steps),
+           steps, "step",
+           lambda: {"profile": "amr", "n": n, "steps": steps,
+                    "cells": len(g.plan.cells), "L": g.plan.L,
+                    "hard_rows": int(np.count_nonzero(
+                        hood.hard_rows[0] < g.plan.L)), "card": card})
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--path", choices=("main", "fleet"), default="main")
+    p.add_argument("--path", choices=("main", "fleet", "amr"), default="main")
     p.add_argument("--n", type=int, default=None,
-                   help="grid edge (default 512 main, 64 fleet)")
+                   help="grid edge (default 512 main, 64 fleet, 128 amr)")
     p.add_argument("--steps", type=int, default=20)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -123,6 +181,8 @@ def main(argv=None) -> int:
         return 2
     if args.path == "main":
         profile_main_path(args.n or 512, args.steps, _card())
+    elif args.path == "amr":
+        profile_amr(args.n or 128, args.steps, _card())
     else:
         profile_fleet(args.n or 64, _card())
     return 0

@@ -263,3 +263,27 @@ def test_grid_batch_bulk_quantum_on_the_card(device):
     for slot in range(3):
         assert table.digest(slot) == fleet.run_solo(jobs[slot], device=device)
     assert bulk.finite_slots()[:3].all()
+
+
+def test_refined_run_steps_on_the_card(device):
+    """A 16^3 refined grid (bench/recommit_bench.py's two slab commits)
+    and its table-path run_steps on the card against
+    the same run on the CPU: plans bit for bit, densities to rtol 1e-6,
+    atol 1e-7 (chip_smoke.py's AMR tolerance: the slot sums reduce in
+    another order)."""
+    from dccrg_tpu_torch.profiling import amr_diffuse, amr_slab_grid
+
+    card, cpu = amr_slab_grid(16, device), amr_slab_grid(16, torch.device("cpu"))
+    for name in ("cells", "row_of_pos"):
+        np.testing.assert_array_equal(getattr(card.plan, name),
+                                      getattr(cpu.plan, name))
+    hc = card.plan.hoods[DEFAULT_NEIGHBORHOOD_ID]
+    hp = cpu.plan.hoods[DEFAULT_NEIGHBORHOOD_ID]
+    for name in ("nbr_rows", "nbr_mask", "scale_rows", "hard_rows",
+                 "hard_nbr_rows", "hard_offs", "hard_mask"):
+        np.testing.assert_array_equal(getattr(hc, name), getattr(hp, name))
+    for g in (card, cpu):
+        g.run_steps(amr_diffuse, ["density"], ["density"], 5)
+        assert g.last_step_path == "table"
+    torch.testing.assert_close(card.data["density"].cpu(), cpu.data["density"],
+                               rtol=1e-6, atol=1e-7)

@@ -149,9 +149,12 @@ def test_neighbor_lists_match_reference(dims, hood_len, periodic):
 
 
 def test_neighbor_lists_refuse_refined_cells():
-    from dccrg_tpu_torch.neighbors import build_neighbor_lists
+    """A cell set other than the complete level-0 grid goes through the
+    AMR engine, which refuses a set that does not tile the grid (a
+    missing cell) with the reference's StructureError."""
+    from dccrg_tpu_torch.neighbors import StructureError, build_neighbor_lists
 
     p = _port_grid((4, 4, 4), (True, True, True), 1)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(StructureError):
         build_neighbor_lists(p.mapping, p.topology, p.plan.cells[:-1],
                              p.neighborhoods[port.DEFAULT_NEIGHBORHOOD_ID])

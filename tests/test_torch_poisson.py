@@ -355,10 +355,23 @@ def test_grid_surface():
     g.set("ctype", cells[:3], np.array([1, -1, 0], np.int32))
     got = g.get("ctype", cells[:3])
     assert got.dtype == np.int32 and got.tolist() == [1, -1, 0]
-    with pytest.raises(NotImplementedError):
-        g.apply_stencil(s._fwd, ["p0"], ["Ap0"], extra_args=(1.0,))
-    with pytest.raises(NotImplementedError):
-        g.apply_stencil(s._fwd, ["p0"], ["Ap0"], include_to=True)
+    # extra args and the neighbors_to triple reach the kernel (the
+    # closed-form plan's to-tables materialize for include_to)
+    g.set("p0", cells, np.arange(len(cells), dtype=np.float32))
+
+    def to_sum(cell, nbr, offs, mask, to_nbr, to_offs, to_mask, scale):
+        of = torch.sum(torch.where(mask, nbr["p0"], 0.0), dim=1)
+        to = torch.sum(torch.where(to_mask, to_nbr["p0"], 0.0), dim=1)
+        return {"Ap0": scale * (of - to)}
+
+    g.apply_stencil(to_sum, ["p0"], ["Ap0"], neighborhood_id=7,
+                    include_to=True, extra_args=(2.0,))
+    nl = g.plan.hoods[7].lists
+    p0 = np.arange(len(cells), dtype=np.float64)
+    want = np.zeros(len(cells))
+    np.add.at(want, nl.of_source, p0[np.searchsorted(cells, nl.of_neighbor)])
+    np.add.at(want, nl.to_source, -p0[np.searchsorted(cells, nl.to_neighbor)])
+    np.testing.assert_array_equal(g.get("Ap0", cells), 2.0 * want)
 
 
 def test_state_carried_across():

@@ -16,8 +16,11 @@ baseline), with its integrity fingerprints (integrity.py); and
 single-device adaptive mesh refinement: the neighbor engine under AMR
 (neighbors.py), the commit (amr.py), the hybrid plan of refined grids
 (hybrid.py), the dense-table gather path of ``Grid`` and the AMR
-applications (models/advection_amr.py, models/game_of_life.py). Entry
-points run on the card unless the caller asks for the CPU
+applications (models/advection_amr.py, models/game_of_life.py); and
+durable restart on one device: ``.dc`` checkpoints (checkpoint.py),
+their CRC sidecar, salvage, delta-chain loads and the numerics watchdog
+(resilience.py), fault plans (faults.py) and telemetry (telemetry.py).
+Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``); kernels are built with ``nvcc`` at their first CUDA
 call, never on import.
 """

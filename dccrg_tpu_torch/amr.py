@@ -33,6 +33,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from . import faults
 from .mapping import Mapping
 from .topology import GridTopology
 
@@ -362,6 +363,10 @@ def resolve_adaptation(
         for kids0 in removed.reshape(-1, 8) if len(removed) else []:
             for k in kids0:
                 weights.pop(int(k), None)
+
+    # the reference's fault site after the pins/weights inheritance
+    # (the port's grid passes neither, so nothing has changed yet)
+    faults.fire("adapt.resolve", phase="pins")
 
     return AmrResult(
         cells=new_cells_all[order],

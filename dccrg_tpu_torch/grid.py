@@ -36,6 +36,7 @@ from dataclasses import dataclass, field as dataclass_field
 import numpy as np
 import torch
 
+from . import faults, resilience, telemetry
 from .geometry import CartesianGeometry, NoGeometry, StretchedCartesianGeometry
 from .mapping import Mapping
 from .neighbors import (build_neighbor_lists, find_neighbors_of,
@@ -613,6 +614,7 @@ class Grid:
         self._unrefined_parents = np.empty(0, np.uint64)
         self._hybrid_reuse = {}  # hard-shell stream cache (hybrid.py)
         self._plan_arena = None  # pooled plan tables (hybrid.PlanArena)
+        self._watchdog_accum = 0  # steps since the last DCCRG_WATCHDOG check
 
     # -- fluent pre-initialize setters (dccrg.hpp:8242-8357) ----------
 
@@ -1303,51 +1305,62 @@ class Grid:
         clear_refined_unrefined_data().
 
         Not transactional yet: the reference rolls a failed commit back
-        (its ``txn.grid_transaction``), which the port has not taken; an
-        exception inside the plan rebuild leaves the request sets
-        cleared and the grid on its previous plan."""
+        (its ``txn.grid_transaction``), which the port has not taken. A
+        fault before the resolve finishes (the ``adapt.commit``
+        ``resolve`` phase, ``adapt.resolve``) leaves the grid and its
+        requests unchanged; an exception after it leaves the request
+        sets cleared, and one inside the plan rebuild the grid on its
+        previous plan."""
         from .amr import resolve_adaptation
 
-        res = resolve_adaptation(
-            self.mapping,
-            self.plan.cells,
-            self.plan.owner,
-            self.neighborhoods[DEFAULT_NEIGHBORHOOD_ID],
-            self._refines,
-            self._unrefines,
-            self._dont_refines,
-            self._dont_unrefines,
-            topology=self.topology,
-            hood_len=self._hood_len,
-        )
-        self._refines.clear()
-        self._unrefines.clear()
-        self._dont_refines.clear()
-        self._dont_unrefines.clear()
+        with telemetry.span("grid.adapt"):
+            faults.fire("adapt.commit", phase="resolve")
+            res = resolve_adaptation(
+                self.mapping,
+                self.plan.cells,
+                self.plan.owner,
+                self.neighborhoods[DEFAULT_NEIGHBORHOOD_ID],
+                self._refines,
+                self._unrefines,
+                self._dont_refines,
+                self._dont_unrefines,
+                topology=self.topology,
+                hood_len=self._hood_len,
+            )
+            faults.fire("adapt.commit", phase="resolved")
+            self._refines.clear()
+            self._unrefines.clear()
+            self._dont_refines.clear()
+            self._dont_unrefines.clear()
 
-        # preserve the data of disappearing cells for the app's
-        # projection: one device-side gather per field, pulled to host
-        old_ids = np.concatenate([res.refined_parents, res.removed_cells])
-        self._removed_data = {}
-        if len(old_ids):
-            _dev, rows = self._host_rows(old_ids)
-            rows_t = torch.as_tensor(rows, device=self.device)
-            for name in self.fields:
-                vals = self.data[name][0].index_select(0, rows_t)
-                self._removed_data[name] = (old_ids, _host_numpy(vals))
-        else:
-            self._removed_data = {name: (old_ids, None) for name in self.fields}
-        self._removed_cells = res.removed_cells
-        self._new_cells = res.new_cells
-        self._unrefined_parents = res.unrefined_parents
-        self._restructure(res.cells, res.owner, changed=res.changed_cells)
-        return res.new_cells.copy()
+            # preserve the data of disappearing cells for the app's
+            # projection: one device-side gather per field, pulled to host
+            old_ids = np.concatenate([res.refined_parents, res.removed_cells])
+            self._removed_data = {}
+            if len(old_ids):
+                _dev, rows = self._host_rows(old_ids)
+                rows_t = torch.as_tensor(rows, device=self.device)
+                for name in self.fields:
+                    vals = self.data[name][0].index_select(0, rows_t)
+                    self._removed_data[name] = (old_ids, _host_numpy(vals))
+            else:
+                self._removed_data = {name: (old_ids, None) for name in self.fields}
+            faults.fire("adapt.commit", phase="preserved")
+            self._removed_cells = res.removed_cells
+            self._new_cells = res.new_cells
+            self._unrefined_parents = res.unrefined_parents
+            self._restructure(res.cells, res.owner, changed=res.changed_cells)
+            return res.new_cells.copy()
 
     def _restructure(self, new_cells, new_owner, changed=None):
         """Rebuild the plan for a new cell set and carry the surviving
         cells' data over (the reference's rebuild, dccrg.hpp:10642-10690,
         with the data movement folded in). ``changed`` is the commit's
         dirty set of ids, handed to the hybrid builder."""
+        with telemetry.span("grid.recommit"):
+            self._restructure_impl(new_cells, new_owner, changed)
+
+    def _restructure_impl(self, new_cells, new_owner, changed):
         old_plan = self.plan
         same_cells = (len(new_cells) == len(old_plan.cells)
                       and np.array_equal(new_cells, old_plan.cells))
@@ -1369,6 +1382,7 @@ class Grid:
         surviving = plan.cells[np.isin(plan.cells, old_plan.cells)]
         _d, old_rows = self._host_rows(surviving)
         self._finish_plan(plan)
+        faults.fire("grid.restructure", phase="planned")
         _d, new_rows = self._host_rows(surviving)
         src = torch.as_tensor(old_rows, device=self.device)
         dst = torch.as_tensor(new_rows, device=self.device)
@@ -1377,6 +1391,7 @@ class Grid:
                                 device=self.device)
             moved[0].index_copy_(0, dst, self.data[name][0].index_select(0, src))
             self.data[name] = moved
+        faults.fire("grid.restructure", phase="moved")
 
     def get_removed_cells(self) -> np.ndarray:
         """Cells removed by the last stop_refining (dccrg.hpp:3519)."""
@@ -1431,17 +1446,74 @@ class Grid:
         device every partition puts all cells on device 0, so this is
         what the reference's one-device balance does: the plan is
         rebuilt for the same cells and owners, and every cell keeps its
-        row and its data."""
-        self._restructure(self.plan.cells.copy(), self.plan.owner.copy())
+        row and its data. The reference's ``balance.commit`` fault
+        phases fire in its order: ``partition`` and ``stage`` before any
+        change of state, ``finish`` before the rebuild and ``land``
+        after it."""
+        with telemetry.span("grid.balance"):
+            owner = self.plan.owner.copy()
+            faults.fire("balance.commit", phase="partition")
+            faults.fire("balance.commit", phase="stage")
+            faults.fire("balance.commit", phase="finish")
+            self._restructure(self.plan.cells.copy(), owner)
+            faults.fire("balance.commit", phase="land")
 
     def load_cells(self, cells) -> None:
         """Replace the grid structure with an arbitrary valid cell set
         (the reference's load_cells, dccrg.hpp:3669-3738); the data of
         every cell is reset."""
-        cells = np.sort(np.asarray(cells, dtype=np.uint64))
+        cells = np.asarray(cells, dtype=np.uint64)
+        if len(cells) > 1 and not np.all(cells[1:] >= cells[:-1]):
+            cells = np.sort(cells)
         verify_tiling(self.mapping, cells)
         self._build_plan(cells, np.zeros(len(cells), dtype=np.int32))
         self._allocate_fields()
+
+    # -- checkpoint / restart (dccrg.hpp:1109-2426) --------------------
+
+    def save_grid_data(self, filename: str, header: bytes = b"",
+                       variable=None) -> None:
+        """Write the ``.dc`` bytes (checkpoint.save_grid_data)."""
+        from .checkpoint import save_grid_data
+
+        save_grid_data(self, filename, header, variable=variable)
+
+    def load_grid_data(self, filename: str, header_size: int = 0,
+                       variable=None) -> bytes:
+        """Load a ``.dc`` file into this grid, whose parameters must
+        match the file's; returns the user header."""
+        from .checkpoint import load_grid_data
+
+        return load_grid_data(self, filename, header_size, variable=variable)
+
+    @classmethod
+    def from_file(cls, filename: str, cell_data, device=None,
+                  header_size: int = 0, variable=None):
+        """Restart from nothing but a ``.dc`` file: mapping, topology,
+        geometry and the AMR cell set come from its metadata, then the
+        payloads stream in. Returns ``(grid, header)``."""
+        from .checkpoint import load_grid
+
+        return load_grid(filename, cell_data, device=device,
+                         header_size=header_size, variable=variable)
+
+    def save_checkpoint(self, filename: str, header: bytes = b"",
+                        variable=None) -> str:
+        """Atomic, checksummed checkpoint: the ``.dc`` bytes (identical
+        to :meth:`save_grid_data`) through temp file + fsync + rename,
+        with the CRC32 sidecar ``<file>.crc`` (resilience.save_checkpoint)."""
+        return resilience.save_checkpoint(self, filename, header=header,
+                                          variable=variable)
+
+    @classmethod
+    def load_checkpoint(cls, filename: str, cell_data, device=None,
+                        header_size: int = 0, variable=None,
+                        strict: bool = True):
+        """Restart from a checkpoint with integrity verification:
+        ``(grid, header, report)`` (resilience.load_checkpoint)."""
+        return resilience.load_checkpoint(
+            filename, cell_data, device=device, header_size=header_size,
+            variable=variable, strict=strict)
 
     # -- halo exchange (dccrg.hpp:978-1014) ----------------------------
 
@@ -1714,17 +1786,27 @@ class Grid:
         fields_in = tuple(fields_in)
         fields_out = tuple(fields_out)
         extra_args = _as_extra(extra_args)
-        fn, tables, static_in = self.compile_step_loop(
-            kernel, fields_in, fields_out, exchange_fields,
-            neighborhood_id, n_extra=len(extra_args), bulk=bulk,
-        )
-        out = fn(
-            int(n_steps),
-            *tables,
-            *(self.data[n] for n in static_in),
-            *(self.data[n] for n in fields_out),
-            *extra_args,
-        )
-        for n, arr in zip(fields_out, out):
-            self.data[n] = arr
+        with telemetry.span("grid.step"):
+            fn, tables, static_in = self.compile_step_loop(
+                kernel, fields_in, fields_out, exchange_fields,
+                neighborhood_id, n_extra=len(extra_args), bulk=bulk,
+            )
+            out = fn(
+                int(n_steps),
+                *tables,
+                *(self.data[n] for n in static_in),
+                *(self.data[n] for n in fields_out),
+                *extra_args,
+            )
+            for n, arr in zip(fields_out, out):
+                self.data[n] = arr
         self.last_step_path = fn.step_path
+        # DCCRG_WATCHDOG=N: check the stepped fields for NaN/Inf every
+        # ~N steps (one device reduction, one host read), so a silent
+        # blow-up surfaces as NumericsError
+        wd = resilience.watchdog_interval()
+        if wd > 0:
+            self._watchdog_accum += int(n_steps)
+            if self._watchdog_accum >= wd:
+                self._watchdog_accum = 0
+                resilience.assert_finite(self, fields_out)

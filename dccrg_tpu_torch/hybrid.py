@@ -39,6 +39,8 @@ import weakref
 
 import numpy as np
 
+from . import faults, telemetry
+
 #: Optional phase-record sink: a list that every build appends
 #: ``(label, seconds)`` tuples to (``chip_smoke.py``'s AMR phase
 #: installs one to print per-phase timings).
@@ -46,11 +48,13 @@ _PHASE_SINK = None
 
 
 def _phase_timer():
-    """Phase-boundary logger: prints with ``DCCRG_TIMING=1`` and records
-    into :data:`_PHASE_SINK` when one is installed."""
+    """Phase-boundary logger: prints with ``DCCRG_TIMING=1``, records
+    into :data:`_PHASE_SINK` when one is installed, and records each
+    phase as a ``hybrid.<label>`` telemetry span when tracing is on."""
     sink = _PHASE_SINK
     echo = os.environ.get("DCCRG_TIMING") == "1"
-    if sink is None and not echo:
+    trace = telemetry.trace_enabled()
+    if sink is None and not echo and not trace:
         return lambda label: None
     state = {"t": time.perf_counter()}
 
@@ -61,6 +65,8 @@ def _phase_timer():
             print(f"[hybrid] {label}: {dt:.3f}s", flush=True)
         if sink is not None:
             sink.append((label, dt))
+        if trace:
+            telemetry.record_span("hybrid." + label.replace(" ", "_"), dt)
         state["t"] = now
 
     return mark
@@ -361,6 +367,7 @@ def build_hybrid_plan(mapping, topology, neighborhoods, cells, owner, n_dev,
     hard_pos.sort(kind="stable")
     hard_cells = cells[hard_pos]
     mark(f"classify (hard {len(hard_pos)}/{n})")
+    faults.fire("hybrid.recommit", phase="classified")
 
     # --- hard streams (generic engine on the hard shell) --------------
     # Epoch-to-epoch reuse: a hard cell whose whole search box is
@@ -439,6 +446,7 @@ def build_hybrid_plan(mapping, topology, neighborhoods, cells, owner, n_dev,
     if reuse is not None:
         reuse.clear()
         reuse.update(new_cache)
+    faults.fire("hybrid.recommit", phase="cached")
     mark(f"hard streams (reused {0 if reusable is None else len(reusable)}"
          f"/{len(hard_cells)})")
     # one device: no cross-device edge, so no outer cells and no ghosts
@@ -584,6 +592,8 @@ def build_hybrid_plan(mapping, topology, neighborhoods, cells, owner, n_dev,
             "hard_mask": hard_mask_dev,
         }
         mark(f"tables hood {hid}")
+
+    faults.fire("hybrid.recommit", phase="tables")
 
     # --- send / receive lists (none on one device) --------------------
     pair_compact = build_pair_tables(

@@ -17,8 +17,10 @@ PyTorch has no wrapping uint32 reduction, so the device sums run in
 int64 and are masked to 32 bits: each term is below 2^34, so 2^29
 terms stay far below 2^63.
 
-File fingerprints and the shadow-execution audits come with the
-checkpoint and scheduler slices.
+The checkpoint layer reads :func:`grid_fingerprint` (the live
+grid's payload fingerprint, computed on the device) and
+:func:`file_fingerprint` (the same pair re-derived from a file's
+payload bytes); the shadow-execution audits wait for the scheduler.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import os
 import numpy as np
 import torch
 
+from . import checkpoint as checkpoint_mod
 from .resilience import ResilienceExhaustedError
 
 _U32 = 0xFFFFFFFF
@@ -181,3 +184,57 @@ def slot_fingerprints(x: torch.Tensor, n_own: int) -> torch.Tensor:
     """:func:`device_fingerprint` of every slot of a batched field
     ``[B, R, ...]``: int64 ``[B, 2]``."""
     return _pair(_words(x[:, :n_own]).reshape(x.shape[0], -1))
+
+
+def grid_fingerprint(grid, fields=None) -> dict:
+    """``{field: (s1, s2)}`` over the grid's OWNED cell bytes, the
+    rows :func:`dccrg_tpu_torch.checkpoint.state_digest` hashes, equal
+    to :func:`fingerprint_rows` of those rows and to the reference's
+    fingerprint of a grid holding the same bytes. Computed on the
+    grid's device (:func:`device_fingerprint`, one host read per
+    field) where a row is one word per element: 32-bit types and
+    scalar 16-bit fields; other types on the host."""
+    out = {}
+    n_own = int(grid.plan.n_local[0])
+    for name in sorted(fields if fields is not None else grid.fields):
+        shape, dtype = grid.fields[name]
+        x = grid.data[name][0]
+        size = x.element_size()
+        if size == 4 or (size == 2 and tuple(shape) == ()):
+            s1, s2 = device_fingerprint(x, n_own).tolist()
+            out[name] = (int(s1), int(s2))
+        else:
+            rows = np.frombuffer(checkpoint_mod.tensor_bytes(x[:n_own]),
+                                 dtype=checkpoint_mod.storage_dtype(dtype))
+            out[name] = fingerprint_rows(rows.reshape((n_own,) + tuple(shape)))
+    return out
+
+
+def file_fingerprint(path: str, cell_data, header_size: int = 0,
+                     variable=None) -> dict:
+    """Recompute the ``{field: (s1, s2)}`` fingerprint from a
+    checkpoint file's payload bytes: the offline half of the at-rest
+    audit. Only fixed (non-ragged) fields fingerprint."""
+    raw = np.memmap(path, dtype=np.uint8, mode="r")
+    try:
+        meta = checkpoint_mod.parse_metadata(raw, header_size)
+        fields = checkpoint_mod.cell_data_fields(cell_data)
+        cols = checkpoint_mod.payload_columns(
+            raw, meta, fields, variable=variable)
+        return {name: fingerprint_rows(col)
+                for name, col in cols.items()}
+    finally:
+        del raw
+
+
+def conservation_sums(grid, fields) -> np.ndarray:
+    """Per-field sums over the grid's owned cells, each reduced on the
+    device and cast to float32 as the reference's ``field_sums`` does,
+    read by the host once: ``[len(fields)]`` float64."""
+    names = tuple(fields)
+    if not names:
+        return np.zeros(0, dtype=np.float64)
+    n_own = int(grid.plan.n_local[0])
+    sums = torch.stack([grid.data[n][0, :n_own].sum().to(torch.float32)
+                        for n in names])
+    return sums.cpu().numpy().astype(np.float64)

@@ -583,13 +583,21 @@ def verify_tiling(mapping: Mapping, all_cells_sorted: np.ndarray) -> None:
     set exactly tiles the index space — total volume matches and no two
     cells overlap (sufficient together with uniqueness)."""
     cells = np.asarray(all_cells_sorted, dtype=np.uint64)
-    if len(np.unique(cells)) != len(cells):
+    if len(cells) > 1 and np.all(cells[1:] >= cells[:-1]):
+        dup = bool(np.any(cells[1:] == cells[:-1]))
+    else:
+        dup = len(np.unique(cells)) != len(cells)
+    if dup:
         raise StructureError("duplicate cell ids")
     lvl = mapping.get_refinement_level(cells)
     if np.any(lvl < 0):
         raise StructureError("invalid cell id in cell set")
-    size = (1 << (mapping.max_refinement_level - lvl)).astype(object)
-    total = int(np.sum(size**3))
+    # volume in index units, per-level counts summed as Python ints
+    # (exact for any grid size)
+    max_lvl = mapping.max_refinement_level
+    per_level = np.bincount(lvl, minlength=max_lvl + 1)
+    total = sum(int(c) << (3 * (max_lvl - lv))
+                for lv, c in enumerate(per_level))
     expect = int(np.prod(mapping.get_index_length().astype(object)))
     if total != expect:
         raise StructureError(f"cells cover volume {total}, grid volume is {expect}")

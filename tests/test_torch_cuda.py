@@ -287,3 +287,34 @@ def test_refined_run_steps_on_the_card(device):
         assert g.last_step_path == "table"
     torch.testing.assert_close(card.data["density"].cpu(), cpu.data["density"],
                                rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_checkpoint_restart_on_the_card(device, tmp_path, dtype):
+    """GridAdvection(16) on the card: 4 steps, an atomic checkpoint with
+    its sidecar, a verified load from the file alone, 4 more steps on
+    kernel A == 8 uninterrupted steps bit for bit; the file's bytes equal
+    a CPU save of the same state."""
+    from dccrg_tpu_torch import checkpoint, resilience
+
+    a = GridAdvection(n=16, device=device, dtype=dtype)
+    straight = GridAdvection(n=16, device=device, dtype=dtype)
+    straight.grid.data = {n: t.clone() for n, t in a.grid.data.items()}
+    dt = straight.run(8)
+    a.run(4, dt)
+    fn = str(tmp_path / "adv.dc")
+    resilience.save_checkpoint(a.grid, fn, chunk_bytes=4096)
+    assert resilience.verify_checkpoint(fn) == []
+    assert all(ok for ok, _g, _w in resilience.audit_checkpoint(fn).values())
+    cpu, _ = checkpoint.load_grid(fn, a.grid.fields, device="cpu")
+    cpu.save_grid_data(str(tmp_path / "cpu.dc"))
+    assert open(fn, "rb").read() == open(tmp_path / "cpu.dc", "rb").read()
+    a.grid, _h, report = resilience.load_checkpoint(fn, a.grid.fields,
+                                                    device=device)
+    assert report.clean and a.grid.device.type == "cuda"
+    before = roll_executor.bulk_pass.launches
+    a.run(4, dt)
+    assert a.grid.last_step_path == "bulk"
+    assert roll_executor.bulk_pass.launches == before + 4
+    assert checkpoint.state_digest(a.grid) == \
+        checkpoint.state_digest(straight.grid)

@@ -14,8 +14,9 @@ get_real_coordinate / file (de)serialization):
   arrays (length+1 boundary values per dim), geometry id 2
   (dccrg_stretched_cartesian_geometry.hpp:48-830).
 
-All coordinate queries are vectorized over arrays of cell ids and are
-pure numpy on the host; device paths derive their own coordinate
+All coordinate queries are vectorized over arrays of cell ids and run
+on the host, in NumPy or, from 4096 cells, in the native engine
+(dccrg_tpu_torch/native); device paths derive their own coordinate
 arrays from these parameters instead of calling back into Python.
 """
 
@@ -25,22 +26,36 @@ import struct
 
 import numpy as np
 
-from .mapping import Mapping
+from .mapping import _NATIVE_BATCH, Mapping
 from .topology import GridTopology
 from .types import ERROR_INDEX, as_cell_array
+
 
 class _GeometryBase:
     """Shared implementation: everything derives from per-dimension
     level-0 cell boundary coordinates + uniform subdivision within a
-    level-0 cell. NumPy only: the formulas and their operation order are
-    those of the reference package's NumPy paths, so results agree with
-    it bit for bit."""
+    level-0 cell.
+
+    The NumPy paths and the native engine compute with the SAME formulas
+    (same operation order, no FMA contraction), and those are the
+    reference package's, so results are bit-identical whatever the batch
+    size or engine (tests/test_torch_native.py)."""
 
     geometry_id: int = -1
 
     def __init__(self, mapping: Mapping, topology: GridTopology):
         self.mapping = mapping
         self.topology = topology
+
+    def _native(self, n: int):
+        """The native module when the engine is on and the batch is
+        worth dispatching."""
+        if n >= _NATIVE_BATCH:
+            from . import native
+
+            if native.lib() is not None:
+                return native
+        return None
 
     # subclasses must provide level-0 boundary coordinate arrays,
     # one per dimension, each of length length[d]+1 (monotone increasing)
@@ -73,7 +88,13 @@ class _GeometryBase:
         return lvl, bad, l0, frac, extent
 
     def _min_and_length_flat(self, cells):
-        """(min corner, edge lengths) in one structure pass (1-d input)."""
+        """(min corner, edge lengths) in one structure pass (1-d input);
+        large batches go to the native engine."""
+        arr = np.atleast_1d(np.asarray(cells))
+        native = self._native(len(arr))
+        if native is not None:
+            return native.geometry_min_len(
+                self.mapping, [self._boundaries(d) for d in range(3)], arr)
         lvl, bad, l0, frac, extent = self._cell_level_and_l0(cells)
         mins = np.empty(l0.shape, dtype=np.float64)
         lens = np.empty(l0.shape, dtype=np.float64)
@@ -115,15 +136,21 @@ class _GeometryBase:
         arr = np.asarray(cells)
         scalar = np.isscalar(cells) or arr.ndim == 0
         flat = np.atleast_1d(arr).reshape(-1)
-        # lo + (frac + extent/2) * (hi - lo)
-        lvl, bad, l0, frac, extent = self._cell_level_and_l0(flat)
-        out = np.empty(l0.shape, dtype=np.float64)
-        for d in range(3):
-            b = self._boundaries(d)
-            lo = b[np.minimum(l0[:, d], len(b) - 2)]
-            hi = b[np.minimum(l0[:, d] + 1, len(b) - 1)]
-            out[:, d] = lo + (frac[:, d] + 0.5 * extent) * (hi - lo)
-        out[bad] = np.nan
+        native = self._native(len(flat))
+        if native is not None:
+            out = native.geometry_centers(
+                self.mapping, [self._boundaries(d) for d in range(3)], flat)
+        else:
+            # same formula and operation order as dn_geometry_centers:
+            # lo + (frac + extent/2) * (hi - lo)
+            lvl, bad, l0, frac, extent = self._cell_level_and_l0(flat)
+            out = np.empty(l0.shape, dtype=np.float64)
+            for d in range(3):
+                b = self._boundaries(d)
+                lo = b[np.minimum(l0[:, d], len(b) - 2)]
+                hi = b[np.minimum(l0[:, d] + 1, len(b) - 1)]
+                out[:, d] = lo + (frac[:, d] + 0.5 * extent) * (hi - lo)
+            out[bad] = np.nan
         out = out.reshape(((1,) if scalar else arr.shape) + (3,))
         return out[0] if scalar else out
 
@@ -260,17 +287,23 @@ class CartesianGeometry(_GeometryBase):
 
     def get_length(self, cells) -> np.ndarray:
         """Edge lengths from the refinement level alone — uniform cells
-        need no index math (cf. dccrg_cartesian_geometry.hpp:226-280)."""
+        need no index math (cf. dccrg_cartesian_geometry.hpp:226-280).
+        The NumPy path and the native engine read the same per-level
+        table, so they are bit-identical."""
         arr = np.asarray(cells)
         scalar = np.isscalar(cells) or arr.ndim == 0
         flat = as_cell_array(arr.reshape(-1))
-        lvl = np.atleast_1d(
-            np.asarray(self.mapping.get_refinement_level(flat), np.int64)
-        )
-        bad = lvl < 0
-        lens = self._length_table()[np.where(bad, 0, lvl)]
-        if bad.any():
-            lens[bad] = np.nan
+        native = self._native(len(flat))
+        if native is not None:
+            lens = native.cell_lengths(self.mapping, self._length_table(), flat)
+        else:
+            lvl = np.atleast_1d(
+                np.asarray(self.mapping.get_refinement_level(flat), np.int64)
+            )
+            bad = lvl < 0
+            lens = self._length_table()[np.where(bad, 0, lvl)]
+            if bad.any():
+                lens[bad] = np.nan
         out = lens.reshape(((1,) if scalar else arr.shape) + (3,))
         return out[0] if scalar else out
 

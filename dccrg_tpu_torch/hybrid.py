@@ -1,7 +1,9 @@
 """Hybrid structure plan for refined (AMR-carrying) grids, one device.
 
-Port of ``dccrg_tpu/hybrid.py`` (its NumPy paths; the reference's
-native writers produce the same tables). The generic plan builder
+Port of ``dccrg_tpu/hybrid.py``: its NumPy paths, and its native fast
+paths (the batched level lookup, the in-place far/easy/hard table
+writers and the stream merge of dccrg_tpu_torch/native), which write
+the same tables bit for bit. The generic plan builder
 streams ~26 neighbor entries per cell through the engine even when
 almost all of the grid sits in uniform same-level blocks; this builder
 rests on one observation: **a cell whose whole (symmetric)
@@ -196,10 +198,13 @@ class _LevelBlock:
     and whether it exists as a level-l leaf."""
 
     # level lattices above this are looked up by binary search instead
-    # of a position lattice
+    # of a position lattice (NumPy path; the native batch switches
+    # strategy at the larger _PLAT_MAX_NATIVE — its lattice lives in
+    # the arena, so the fill cost is paid on warm pages)
     _PLAT_MAX = 1 << 25
+    _PLAT_MAX_NATIVE = 1 << 27
 
-    def __init__(self, mapping, periodic, cells, level, a, b):
+    def __init__(self, mapping, periodic, cells, level, a, b, arena=None):
         self.a, self.b = a, b
         self.level = level
         self.cells = cells
@@ -208,6 +213,7 @@ class _LevelBlock:
         self.first = np.int64(mapping._level_first[level])
         self.size = 1 << (mapping.max_refinement_level - level)
         self.periodic = periodic
+        self._arena = arena
         lin = (cells[a:b] - np.uint64(self.first)).astype(np.int64)
         self.lin = lin
         nxl, nyl, nzl = self.dims
@@ -215,15 +221,65 @@ class _LevelBlock:
         self.y = (lin // nxl) % nyl
         self.z = lin // (nxl * nyl)
         self._cache = {}
+        self._batch = None  # (pos_all, valid_all, off key -> batch row)
         # all level-l cells are contiguous in the sorted cell array, so
         # a direct lin -> position lattice replaces the per-offset
-        # binary search when the level lattice fits in memory
+        # binary search when the level lattice fits in memory (the
+        # native batch of precompute builds its own)
         n_lat = nxl * nyl * nzl
-        if n_lat <= self._PLAT_MAX:
+        from . import native
+
+        if native.lib() is None and n_lat <= self._PLAT_MAX:
             self._plat = np.full(n_lat, -1, dtype=np.int32)
             self._plat[lin] = np.arange(a, b, dtype=np.int32)
         else:
             self._plat = None
+
+    def precompute(self, offs_batch):
+        """Batched native lookup of the whole offset set in one call
+        (one lattice build amortized over every offset, positions as
+        int32); a no-op without the native engine — ``lookup`` then runs
+        the per-offset NumPy path with identical plan-level results."""
+        from . import native
+
+        if native.lib() is None or self.b > 2**31 - 2:
+            return
+        offs_batch = np.ascontiguousarray(offs_batch,
+                                          dtype=np.int64).reshape(-1, 3)
+        kb, m = len(offs_batch), self.b - self.a
+        take = (self._arena.take if self._arena is not None
+                else lambda shape, dtype: np.empty(shape, dtype))
+        pos = take((kb, m), np.int32)
+        valid = take((kb, m), bool)
+        exist = take((kb, m), bool)
+        n_lat = int(np.prod(np.asarray(self.dims, dtype=np.int64)))
+        plat = (take((n_lat,), np.int32)
+                if n_lat <= self._PLAT_MAX_NATIVE else None)
+        native.level_lookup(
+            self.dims, self.periodic, self.lin, self.a, self.cells, self.b,
+            self.first, offs_batch, plat, pos, valid, exist,
+        )
+        rows = {}
+        for j, off in enumerate(offs_batch):
+            key = (int(off[0]), int(off[1]), int(off[2]))
+            self._cache[key] = (pos[j], valid[j], exist[j])
+            rows[key] = j
+        self._batch = (pos, valid, rows)
+
+    def batch_rows(self, offs):
+        """(pos_all, valid_all, sel) of the precomputed batch covering
+        every offset in ``offs`` — the zero-copy form dn_easy_tables
+        consumes — or None when no batch covers them."""
+        if self._batch is None:
+            return None
+        pos, valid, rows = self._batch
+        sel = np.empty(len(offs), dtype=np.int64)
+        for j, o in enumerate(offs):
+            row = rows.get((int(o[0]), int(o[1]), int(o[2])))
+            if row is None:
+                return None
+            sel[j] = row
+        return pos, valid, sel
 
     def lookup(self, off):
         key = (int(off[0]), int(off[1]), int(off[2]))
@@ -295,6 +351,7 @@ def build_hybrid_plan(mapping, topology, neighborhoods, cells, owner, n_dev,
     (the same object), ``changed_ids`` replaces the set difference of
     the two epochs' cell lists.
     """
+    from . import native
     from .amr import _box_dilate
     from .neighbors import find_neighbors_of
     from .uniform import _NeighborMaps, build_pair_tables
@@ -318,6 +375,8 @@ def build_hybrid_plan(mapping, topology, neighborhoods, cells, owner, n_dev,
     owner = np.asarray(owner, dtype=np.int32)
     cells = np.asarray(cells, dtype=np.uint64)
     n = len(cells)
+    # the in-place table writers emit int32 position sentinels
+    use_native = native.lib() is not None and n < 2**31 - 2
 
     # level-major ids: the level-0 subset is exactly the sorted prefix
     # of ids <= n0 (dccrg_mapping.hpp:154-209)
@@ -355,7 +414,11 @@ def build_hybrid_plan(mapping, topology, neighborhoods, cells, owner, n_dev,
         b = int(np.searchsorted(cells, last))
         if a == b:
             continue
-        blk = _LevelBlock(mapping, periodic, cells, l, a, b)
+        blk = _LevelBlock(mapping, periodic, cells, l, a, b, arena=arena)
+        # one native batch resolves every symmetrized offset for the
+        # whole block (classification, easy tables and the lazy
+        # to-tables all draw on this cache)
+        blk.precompute(check_offs)
         easy = np.ones(b - a, dtype=bool)
         for off in check_offs:
             _pos, valid, exist = blk.lookup(off)
@@ -424,9 +487,14 @@ def build_hybrid_plan(mapping, topology, neighborhoods, cells, owner, n_dev,
         # position (every reused entry's source AND neighbor survive),
         # plus a reusable-source mask over old positions
         prev_cells = reuse["cells"]
-        old2new = np.searchsorted(cells, prev_cells)
+        old2new = native.sorted_positions(cells, prev_cells)
+        if old2new is None:
+            old2new = np.searchsorted(cells, prev_cells)
         reus_old = np.zeros(len(prev_cells), dtype=bool)
-        reus_old[np.searchsorted(prev_cells, reusable)] = True
+        rpos = native.sorted_positions(prev_cells, reusable)
+        if rpos is None:
+            rpos = np.searchsorted(prev_cells, reusable)
+        reus_old[rpos] = True
     for hid, offs in neighborhoods.items():
         src, nbr, off, item = find_neighbors_of(
             mapping, topology, cells, fresh_hard, offs
@@ -435,12 +503,17 @@ def build_hybrid_plan(mapping, topology, neighborhoods, cells, owner, n_dev,
         spos = fresh_pos[src]
         npos = np.searchsorted(cells, nbr)
         if reusable is not None:
-            ps_pos, pn_pos, po, pi = reuse["streams"][hid]
-            keep = reus_old[ps_pos]
-            spos, npos, off, item = _merge_streams(
-                (spos, npos, off, item),
-                (old2new[ps_pos[keep]], old2new[pn_pos[keep]], po[keep],
-                 pi[keep]))
+            merged = native.stream_remap_merge(
+                old2new, reus_old, reuse["streams"][hid],
+                (spos, npos, off, item))
+            if merged is None:
+                ps_pos, pn_pos, po, pi = reuse["streams"][hid]
+                keep = reus_old[ps_pos]
+                merged = _merge_streams(
+                    (spos, npos, off, item),
+                    (old2new[ps_pos[keep]], old2new[pn_pos[keep]], po[keep],
+                     pi[keep]))
+            spos, npos, off, item = merged
         new_cache["streams"][hid] = (spos, npos, off, item)
         streams[hid] = (spos, npos, off, item)
     if reuse is not None:
@@ -469,6 +542,10 @@ def build_hybrid_plan(mapping, topology, neighborhoods, cells, owner, n_dev,
 
     far_pos = pos0[far_slots]
     far_rowidx = row_of_pos[far_pos].astype(np.int64)
+    if use_native:
+        # level-0 slot -> row, for the native far-row writer
+        row_of_pos0 = arena.take((n0,), np.int32, fill=0)
+        row_of_pos0[lvl0_gidx] = row_of_pos[:n_lvl0]
 
     # per-row cell size in index units (far/easy rows; hard rows get
     # explicit offsets, pad rows never pass a mask)
@@ -506,20 +583,26 @@ def build_hybrid_plan(mapping, topology, neighborhoods, cells, owner, n_dev,
         rows_t[uncovered_rows] = R - 1
         mask_t[uncovered_rows] = False
 
-        # far rows: the level-0 lattice maps
-        fr = np.empty((len(far_slots), k), dtype=np.int32)
-        fm = np.empty((len(far_slots), k), dtype=bool)
-        for j, o in enumerate(offs):
-            ng, valid = maps.shift(o)
-            vf = valid[far_slots]
-            rows = np.full(len(far_slots), R - 1, dtype=np.int32)
-            vv = np.nonzero(vf)[0]
-            rows[vv] = row_of_pos[pos0[ng[far_slots][vv]]]
-            fr[:, j] = rows
-            fm[:, j] = vf
-        rows_t[far_rowidx] = fr
-        mask_t[far_rowidx] = fm
-        del fr, fm
+        # far rows: the level-0 lattice maps, written straight into the
+        # table by the native writer when it is on (one device: no
+        # owner, so it reports no cross-device fixups)
+        if use_native:
+            native.far_tables(dims, periodic, offs, far_slots, far_rowidx,
+                              row_of_pos0, None, R - 1, rows_t, mask_t)
+        else:
+            fr = np.empty((len(far_slots), k), dtype=np.int32)
+            fm = np.empty((len(far_slots), k), dtype=bool)
+            for j, o in enumerate(offs):
+                ng, valid = maps.shift(o)
+                vf = valid[far_slots]
+                rows = np.full(len(far_slots), R - 1, dtype=np.int32)
+                vv = np.nonzero(vf)[0]
+                rows[vv] = row_of_pos[pos0[ng[far_slots][vv]]]
+                fr[:, j] = rows
+                fm[:, j] = vf
+            rows_t[far_rowidx] = fr
+            mask_t[far_rowidx] = fm
+            del fr, fm
         mark(f"tables[{hid}]: far scatter")
 
         # easy rows: level-l index arithmetic
@@ -527,6 +610,14 @@ def build_hybrid_plan(mapping, topology, neighborhoods, cells, owner, n_dev,
             ei, ridx = easy_rowidx[blk.level]
             E = len(ei)
             if E == 0:
+                continue
+            batch = blk.batch_rows(offs) if use_native else None
+            if batch is not None:
+                pos_all, valid_all, sel = batch
+                native.easy_tables(ei, ridx, sel, pos_all, valid_all,
+                                   blk.b - blk.a, row_of_pos, None, None,
+                                   R - 1, rows_t, mask_t)
+                mark(f"tables[{hid}]: easy block l{blk.level}")
                 continue
             posm = np.empty((E, k), dtype=np.int64)
             validm = np.empty((E, k), dtype=bool)
@@ -544,7 +635,22 @@ def build_hybrid_plan(mapping, topology, neighborhoods, cells, owner, n_dev,
 
         # hard rows: compact tables from the stream, grouped by source
         hard_rows_dev = hard_nbr_dev = hard_offs_dev = hard_mask_dev = None
-        if nE:
+        if nE and use_native:
+            # fused native writer: shape probe, then grouping + entry
+            # scatter + pad fill in one sequential pass — every table
+            # byte written exactly once
+            _nG, s_need, counts = native.hard_counts(s_p, None, 1)
+            S_hard = cap(("S_hard", hid), max(1, int(s_need)))
+            Hmax = cap(("Hmax", hid), max(1, int(counts.max())))
+            hard_rows_dev = arena.take((1, Hmax), np.int32)
+            hard_nbr_dev = arena.take((1, Hmax, S_hard), np.int32)
+            hard_offs_dev = arena.take((1, Hmax, S_hard, 3), np.int32)
+            hard_mask_dev = arena.take((1, Hmax, S_hard), bool)
+            native.hard_fill(s_p, s_n, s_off, None, row_of_pos, 1, Hmax,
+                             S_hard, L, R - 1, hard_rows_dev, hard_nbr_dev,
+                             hard_offs_dev, hard_mask_dev)
+            mark(f"tables[{hid}]: hard assembly")
+        elif nE:
             # slot = rank within the (contiguous, source-sorted) group
             changed = np.empty(nE, dtype=bool)
             changed[0] = True

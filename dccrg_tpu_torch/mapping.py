@@ -26,6 +26,9 @@ from .length import GridLength
 from .types import ERROR_CELL, ERROR_INDEX, as_cell_array, as_index_array
 
 _U1 = np.uint64(1)
+# 1-D batches at least this long go to the native engine (below it the
+# call overhead outweighs the win), as the reference dispatches them
+_NATIVE_BATCH = 4096
 
 
 class Mapping:
@@ -120,6 +123,11 @@ class Mapping:
         """
         scalar = np.isscalar(cells) or np.asarray(cells).ndim == 0
         cells = as_cell_array(cells)
+        if cells.ndim == 1 and len(cells) >= _NATIVE_BATCH:
+            from . import native
+
+            if native.lib() is not None:
+                return native.refinement_levels(self, cells)
         # level = number of level-firsts <= cell, minus 1
         lvl = np.searchsorted(self._level_first, cells, side="right").astype(np.int64) - 1
         lvl[(cells == ERROR_CELL) | (cells > self.last_cell)] = -1
@@ -165,6 +173,11 @@ class Mapping:
         """
         scalar = np.isscalar(cells) or np.asarray(cells).ndim == 0
         cells = as_cell_array(cells)
+        if cells.ndim == 1 and len(cells) >= _NATIVE_BATCH:
+            from . import native
+
+            if native.lib() is not None:
+                return native.cell_indices(self, cells)
         lvl = np.atleast_1d(np.asarray(self.get_refinement_level(cells), dtype=np.int64))
         bad = lvl < 0
         lvl_safe = np.where(bad, 0, lvl)

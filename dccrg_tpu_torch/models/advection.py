@@ -7,10 +7,11 @@ solve.hpp:339-346), cosine-hump initial density (radius 0.15 at
 (0.25, 0.5), initialize.hpp:54-66), first-order upwind fluxes with
 face-interpolated velocities, CFL-limited global step.
 
-Two routes reach the card: ``GridAdvection`` runs through the general
+Three routes reach the card: ``GridAdvection`` runs through the general
 ``Grid`` step loop (kernel A, csrc/bulk_pass.cu, on an eligible grid),
 ``CudaRotationAdvection`` is the single-kernel fast path (kernel B,
-csrc/rotation_step.cu).
+csrc/rotation_step.cu), and ``AdvectionSolver`` is the dense path on
+``DenseGrid`` in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import math
 import numpy as np
 import torch
 
+from ..dense import DenseGrid
 from ..grid import Grid, SlotwiseKernel, resolve_device
 from ..ops.advection_kernel import make_rotation_step
 
@@ -211,3 +213,126 @@ class GridAdvection:
         sq = torch.sum((g.data["density"] - exact) ** 2 * g.local_row_mask())
         vol = self.dx * self.dx * (1.0 / self.nz)
         return float(np.sqrt(float(sq) * vol))
+
+
+class AdvectionSolver:
+    """Dense-path advection on [0,1]^3, on one device.
+
+    Port of the reference's ``AdvectionSolver``
+    (dccrg_tpu/models/advection.py:257): tests/advection/2d.cpp's
+    configuration for normal dimension z, grid (n, n, nz), periodic in
+    x and y (2d.cpp:237), velocities in the x-y plane; ``nz > 1``
+    replicates the 2-D problem along z (the 512^3 configuration of
+    BASELINE.json). Plain PyTorch on ``DenseGrid``: the reference
+    computes this step in XLA, outside any Pallas kernel. Runs on the
+    card unless ``device`` says otherwise; ``mesh`` must be None (the
+    reference's multi-device mesh is a later slice of the port)."""
+
+    def __init__(self, n=64, nz=None, mesh=None, dtype=torch.float32, cfl=0.5,
+                 device=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "a device mesh: this port's AdvectionSolver runs on one device")
+        nz = nz if nz is not None else 1
+        self.n, self.nz, self.cfl = n, nz, cfl
+        self.grid = DenseGrid(
+            (n, n, nz),
+            {"rho": dtype, "vx": dtype, "vy": dtype, "vz": dtype},
+            device=device,
+            periodic=(True, True, False),
+            start=(0.0, 0.0, 0.0),
+            cell_length=(1.0 / n, 1.0 / n, 1.0 / nz),
+        )
+        self.grid.init_fields(lambda x, y, z: {
+            "rho": hump_density(x, y),
+            "vx": 0.5 - y,
+            "vy": x - 0.5,
+            "vz": torch.zeros_like(z),
+        })
+        # velocities are constant in time: halo-pad them once and pass
+        # the padded blocks into every step, so each step pads only rho
+        self._vel_padded = tuple(self.grid.pad_with_halo(self.grid.arrays[f], 1)
+                                 for f in ("vx", "vy", "vz"))
+        self._step = self.grid.make_step(self._kernel, ("rho",), ("rho",),
+                                         halo=1)
+        self.time = 0.0
+
+    # -- CFL (solve.hpp:289-333) --------------------------------------
+
+    def max_time_step(self) -> float:
+        """Largest stable dt: min over cells of length/|v| per dim."""
+        steps = []
+        for d, name in enumerate(("vx", "vy", "vz")):
+            v = self.grid.arrays[name].abs()
+            dlen = float(self.grid.cell_length[d])
+            steps.append(torch.where(v > 0, dlen / v, math.inf).min())
+        return float(torch.stack(steps).min())
+
+    # -- the fused step (solve.hpp:44-279) ----------------------------
+
+    def _kernel(self, b, vxp, vyp, vzp, dt):
+        rho = b["rho"]
+        vel = (vxp, vyp, vzp)
+        nloc = tuple(s - 2 for s in rho.shape)  # interior block extent
+
+        def interior_shift(a, d, off):
+            return a[tuple(slice(1 + (off if dd == d else 0),
+                                 a.shape[dd] - 1 + (off if dd == d else 0))
+                           for dd in range(3))]
+
+        rho_c = interior_shift(rho, 0, 0)
+        out = rho_c
+        for d in range(3):
+            v = vel[d]
+            v_c = interior_shift(v, d, 0)
+            v_p = interior_shift(v, d, +1)
+            v_m = interior_shift(v, d, -1)
+            rho_p = interior_shift(rho, d, +1)
+            rho_m = interior_shift(rho, d, -1)
+            # velocity interpolated to the shared face (equal-size cells
+            # reduce solve.hpp:169-176 to the average)
+            vface_hi = 0.5 * (v_c + v_p)
+            vface_lo = 0.5 * (v_m + v_c)
+            # upwind donor density (solve.hpp:178-226)
+            flux_hi = vface_hi * torch.where(vface_hi >= 0, rho_c, rho_p)
+            flux_lo = vface_lo * torch.where(vface_lo >= 0, rho_m, rho_c)
+            if not self.grid.periodic[d]:
+                # missing neighbor => no flux through that face. One
+                # device holds the whole axis, so the block's global
+                # index is its local one (the reference offsets it by
+                # the mesh position, lax.axis_index)
+                shape = [1, 1, 1]
+                shape[d] = nloc[d]
+                glob = torch.arange(nloc[d], device=rho.device).view(shape)
+                flux_hi = torch.where(glob < self.grid.length[d] - 1, flux_hi, 0.0)
+                flux_lo = torch.where(glob > 0, flux_lo, 0.0)
+            out = out + (flux_lo - flux_hi) * (dt / float(self.grid.cell_length[d]))
+        return {"rho": out}
+
+    def step(self, dt: float | None = None) -> float:
+        """One upwind step of ``dt`` (the CFL step times ``cfl`` when
+        None); ``dt`` enters the arithmetic as float32."""
+        if dt is None:
+            dt = self.cfl * self.max_time_step()
+        self.grid.arrays = self._step(self.grid.arrays, *self._vel_padded,
+                                      torch.tensor(dt, dtype=torch.float32))
+        self.time += float(dt)
+        return float(dt)
+
+    # -- diagnostics ---------------------------------------------------
+
+    def total_mass(self) -> float:
+        """Total mass, accumulated in float64 on the host."""
+        vol = float(np.prod(self.grid.cell_length))
+        return float(np.sum(self.grid.to_host("rho"), dtype=np.float64)) * vol
+
+    def l2_error(self) -> float:
+        """L2 error against the rotated analytic hump (the parity
+        metric of BASELINE.json), in float64 on the host."""
+        g = self.grid
+        x = g.cell_centers(0).cpu()[:, None, None]
+        y = g.cell_centers(1).cpu()[None, :, None]
+        exact = analytic_density(x, y, self.time).numpy()
+        diff = g.to_host("rho").astype(np.float64) - exact
+        vol = float(np.prod(g.cell_length))
+        return float(np.sqrt(np.sum(diff ** 2) * vol))

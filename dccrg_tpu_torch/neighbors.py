@@ -1,7 +1,8 @@
 """Host-side neighbor resolution, level 0 and under AMR.
 
-Port of ``dccrg_tpu/neighbors.py`` (its NumPy engine; the reference's
-native C++ engine returns the same entries): the semantics of the
+Port of ``dccrg_tpu/neighbors.py`` (its NumPy engine, and dispatch to
+the native engine of dccrg_tpu_torch/native, which returns the same
+entries): the semantics of the
 reference's ``find_neighbors_of`` / ``find_neighbors_to``
 (dccrg.hpp:4236-4897), vectorized over (cells x neighborhood items) by
 binary search in the sorted cell list.
@@ -136,9 +137,19 @@ def find_neighbors_of(
     ``all_cells_sorted`` must be the complete sorted leaf-cell set of
     the grid (replicated structure).
 
-    The reference dispatches to its native C++ engine when built; its
-    NumPy implementation, kept here, gives the same entries.
+    Dispatches to the native engine (dccrg_tpu_torch/native) when it is
+    on; the NumPy implementation below gives the same entries and is the
+    fallback.
     """
+    from . import native
+
+    if native.lib() is not None and len(np.atleast_1d(query_cells)) > 0:
+        index_length = mapping.get_index_length().astype(np.int64)
+        if not np.any(index_length >= _MAX_INDEX):
+            out = native.find_neighbors_of(
+                mapping, topology, all_cells_sorted, query_cells, neighborhood
+            )
+            return _dedup_entries(mapping, query_cells, *out)
     return _dedup_entries(mapping, query_cells, *_find_neighbors_of_numpy(
         mapping, topology, all_cells_sorted, query_cells, neighborhood
     ))
@@ -431,8 +442,22 @@ def find_neighbors_to_subset(
         order = np.lexsort((item, src_pos, q))
         return q[order], src[order], off[order]
 
-    # hard queries: candidate-window enumeration (the reference's native
-    # engine yields the same raw entries)
+    # hard queries: candidate-window enumeration — the native engine
+    # when it is on, the NumPy loop below otherwise (identical raw
+    # entries)
+    from . import native
+
+    hard_idx = np.nonzero(~easy)[0]
+    if native.lib() is not None and len(hard_idx):
+        hq, hsrc, hoff, hitem = native.find_neighbors_to_subset_raw(
+            mapping, topology, all_cells_sorted, query_cells[hard_idx],
+            neighborhood,
+        )
+        out_q.append(hard_idx[hq])
+        out_src.append(hsrc)
+        out_off.append(hoff)
+        out_item.append(hitem)
+        easy = np.ones(m, dtype=bool)  # skip the NumPy enumeration below
     for j, o in enumerate(neighborhood):
         for dlvl in (-1, 0, 1):
             c_lvl = v_lvl + dlvl

@@ -16,7 +16,8 @@ Item ``j`` lives in slot ``j``; kernels are mask-driven.
 
 ``DCCRG_FORCE_TABLES=1`` builds the dense ``[1, L, k]`` gather tables
 instead (the reference's cross-check path, dccrg_tpu/uniform.py:343):
-same rows, a table gather in place of the rolls. The neighbors_to
+same rows, a table gather in place of the rolls; the native engine
+writes them in one pass when it is on. The neighbors_to
 tables are a lazy thunk on both. ``build_pair_tables`` and
 ``dense_pair_tables`` are the halo send/receive lists' construction,
 shared with the hybrid plan; on one device they are empty.
@@ -181,6 +182,7 @@ def _build_dense_plan(hoods, cells, dims, periodic, size, cap):
     ``[1, L, k]`` rows and mask with item ``j`` in slot ``j`` (pad rows
     point at the zero row ``R - 1``), offsets are the per-slot
     constants, and the neighbors_to tables are a lazy thunk."""
+    from . import native
     from .grid import bucket_capacity
 
     if cap is None:
@@ -203,10 +205,20 @@ def _build_dense_plan(hoods, cells, dims, periodic, size, cap):
         lambda needed: cap(("M", "uniform"), needed))
 
     def dense_tables(offs):
-        """[L, k] (rows, mask) in row order (rows ARE grid order)."""
+        """[L, k] (rows, mask) in row order (rows ARE grid order): one
+        native pass when the engine is on, per-offset lattice maps
+        otherwise."""
         k = len(offs)
         rows_t = np.full((L, k), R - 1, dtype=np.int32)
         mask_t = np.zeros((L, k), dtype=bool)
+        nat = (native.uniform_tables(dims, periodic, offs, row_of_pos, None,
+                                     R - 1)
+               if n0 < 2**31 - 2 else None)
+        if nat is not None:
+            # one device emits no cross-device sentinels; L may exceed
+            # n0 (bucketed capacity), the tail keeps the pad
+            rows_t[:n0], mask_t[:n0] = nat
+            return rows_t, mask_t
         for j, o in enumerate(offs):
             ng, valid = maps.shift(o)
             rows_t[:n0, j] = reader_rows(ng, valid)

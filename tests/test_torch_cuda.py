@@ -14,7 +14,7 @@ import torch
 import dccrg_tpu_torch as port
 from dccrg_tpu_torch import DEFAULT_NEIGHBORHOOD_ID
 from dccrg_tpu_torch import fleet
-from dccrg_tpu_torch.models.advection import (GridAdvection,
+from dccrg_tpu_torch.models.advection import (AdvectionSolver, GridAdvection,
                                               make_uniform_flux_kernel)
 from dccrg_tpu_torch.models.poisson import DensePoissonSolver
 from dccrg_tpu_torch.ops import advection_kernel, poisson_kernel, roll_executor
@@ -318,3 +318,23 @@ def test_checkpoint_restart_on_the_card(device, tmp_path, dtype):
     assert roll_executor.bulk_pass.launches == before + 4
     assert checkpoint.state_digest(a.grid) == \
         checkpoint.state_digest(straight.grid)
+
+
+@pytest.mark.parametrize("n, nz", [(32, 8), (24, 1)])
+def test_dense_advection_on_the_card(device, n, nz):
+    """The dense AdvectionSolver on the card against its CPU run: the
+    same float32 operations, so rho agrees to rtol 1e-6, atol 1e-7;
+    the CFL step, mass and L2 error likewise."""
+    card = AdvectionSolver(n=n, nz=nz, device=device)
+    cpu = AdvectionSolver(n=n, nz=nz, device="cpu")
+    assert card.grid.arrays["rho"].device.type == "cuda"
+    dt = 0.4 * cpu.max_time_step()
+    assert np.isclose(card.max_time_step(), cpu.max_time_step(), rtol=1e-6)
+    m0 = card.total_mass()
+    for _ in range(10):
+        card.step(dt)
+        cpu.step(dt)
+    np.testing.assert_allclose(card.grid.to_host("rho"),
+                               cpu.grid.to_host("rho"), rtol=1e-6, atol=1e-7)
+    assert abs(card.total_mass() - m0) < 1e-6 * m0
+    assert abs(card.l2_error() - cpu.l2_error()) < 1e-7

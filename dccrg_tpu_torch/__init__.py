@@ -19,15 +19,20 @@ single-device adaptive mesh refinement: the neighbor engine under AMR
 applications (models/advection_amr.py, models/game_of_life.py); and
 durable restart on one device: ``.dc`` checkpoints (checkpoint.py),
 their CRC sidecar, salvage, delta-chain loads and the numerics watchdog
-(resilience.py), fault plans (faults.py) and telemetry (telemetry.py).
+(resilience.py), fault plans (faults.py) and telemetry (telemetry.py);
+and the distributed level-0 grid on partitions of one device: the
+partitioner (partition.py), the partition reductions (comm.py), the
+partitioned plans (uniform.py), and in ``Grid`` the halo exchange, the
+overlapped step and load balancing (``Grid.initialize([dev] * n)``).
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``); kernels are built with ``nvcc`` at their first CUDA
 call, never on import.
 """
 
 from .geometry import CartesianGeometry, NoGeometry, StretchedCartesianGeometry
-from .grid import (DEFAULT_NEIGHBORHOOD_ID, Grid, SlotwiseKernel,
+from .grid import (DEFAULT_NEIGHBORHOOD_ID, CellView, Grid, SlotwiseKernel,
                    bucket_capacity)
+from .partition import PARTITION_METHODS, partition_cells
 from .length import GridLength
 from .dense import DenseGrid
 from .fleet import FleetJob, GridBatch, run_solo, template_grid
@@ -41,13 +46,14 @@ from .topology import GridTopology
 from .types import ERROR_CELL, ERROR_INDEX, as_cell_array, as_index_array
 
 __all__ = [
-    "CartesianGeometry", "DEFAULT_NEIGHBORHOOD_ID", "DenseGrid",
+    "CartesianGeometry", "CellView", "DEFAULT_NEIGHBORHOOD_ID", "DenseGrid",
     "ERROR_CELL", "ERROR_INDEX", "FleetJob", "Grid", "GridBatch",
     "GridLength", "GridTopology",
-    "Mapping", "NeighborLists", "NoGeometry", "SlotwiseKernel",
+    "Mapping", "NeighborLists", "NoGeometry", "PARTITION_METHODS",
+    "SlotwiseKernel",
     "StretchedCartesianGeometry", "StructureError", "as_cell_array",
     "as_index_array", "bucket_capacity", "build_neighbor_lists",
     "face_masks", "find_neighbors_of", "find_neighbors_to_subset",
-    "make_neighborhood", "register_conserved", "run_solo",
+    "make_neighborhood", "partition_cells", "register_conserved", "run_solo",
     "template_grid", "validate_neighborhood", "verify_tiling",
 ]

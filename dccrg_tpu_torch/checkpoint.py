@@ -32,8 +32,11 @@ file bytes equal the reference's.
 each cell's ``pos`` buffer; a load reads the fixed parts (the counts
 among them) first and the ragged rows second.
 
-Multi-process slice writers and the load-done barrier are the
-reference's multi-process paths; this port has one device.
+A partitioned grid saves and loads in one process: every partition's
+rows are this process's, so the payload is gathered and scattered by
+flat row (``partition * R + row``) and the file's bytes do not depend on
+the partition. The reference's multi-process slice writers and the
+load-done barrier wait for the multi-process slice of the port.
 """
 
 from __future__ import annotations
@@ -111,16 +114,25 @@ def digest_update(h, name: str, shape, dtype, owned: torch.Tensor) -> None:
     h.update(tensor_bytes(owned))
 
 
+def owned_rows(grid, name) -> torch.Tensor:
+    """The owned rows of field ``name``: each partition's rows
+    ``[0, n_local[p])`` in partition order (ghost and pad rows left
+    out), on the grid's device."""
+    x = grid.data[name]
+    parts = [x[p, :int(grid.plan.n_local[p])] for p in range(grid.n_dev)]
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
 def state_digest(grid, fields=None) -> str:
-    """Deterministic SHA-256 over the grid's OWNED cell bytes (rows
-    ``[0, n_local)`` of the one device; pad rows excluded), field-name
-    sorted with the name, shape and dtype folded in. Equal to the
-    reference's digest of a grid holding the same bytes."""
+    """Deterministic SHA-256 over the grid's OWNED cell bytes (each
+    partition's rows ``[0, n_local[p])`` in partition order; ghost and
+    pad rows excluded), field-name sorted with the name, shape and
+    dtype folded in. Equal to the reference's digest of a grid holding
+    the same bytes on the same partition."""
     h = hashlib.sha256()
-    n_own = int(grid.plan.n_local[0])
     for name in sorted(fields if fields is not None else grid.fields):
         shape, dtype = grid.fields[name]
-        digest_update(h, name, shape, dtype, grid.data[name][0, :n_own])
+        digest_update(h, name, shape, dtype, owned_rows(grid, name))
     return h.hexdigest()
 
 
@@ -310,14 +322,16 @@ def payload_columns(raw, meta, fields, variable=None) -> dict:
 # ---------------------------------------------------------------------
 
 def _gather_bytes(grid, names, rows_t) -> np.ndarray:
-    """``uint8[n, bytes]`` of the rows ``rows_t`` of fields ``names``,
-    interleaved per row in the given order: one ``index_select`` per
-    field on the grid's device, the byte views concatenated there, one
-    blocking copy to the host."""
+    """``uint8[n, bytes]`` of the flat rows ``rows_t`` (``partition *
+    R + row``) of fields ``names``, interleaved per row in the given
+    order: one ``index_select`` per field on the grid's device, the
+    byte views concatenated there, one blocking copy to the host."""
+    from .grid import _flat
+
     n = int(rows_t.shape[0])
     if not names:
         return np.empty((n, 0), dtype=np.uint8)
-    cols = [grid.data[name][0].index_select(0, rows_t).contiguous()
+    cols = [_flat(grid.data[name]).index_select(0, rows_t).contiguous()
             .view(torch.uint8).reshape(n, -1) for name in names]
     out = cols[0] if len(cols) == 1 else torch.cat(cols, dim=1)
     return out.cpu().numpy()
@@ -329,8 +343,11 @@ def _chunk_bytes(grid, counts, start, fixed_spec, fixed_bytes, var_spec):
     on the save's worker thread, so the next chunk's device pull
     overlaps the file write of the current one."""
     idx = np.arange(start, min(start + CHUNK, len(grid.plan.cells)))
-    rows_t = torch.as_tensor(grid.plan.row_of_pos[idx].astype(np.int64),
-                             device=grid.device)
+    # the single-controller pull: every partition's rows are this
+    # process's, so a chunk is one gather over the flat rows
+    rows_t = torch.as_tensor(
+        grid.plan.owner[idx].astype(np.int64) * grid.plan.R
+        + grid.plan.row_of_pos[idx], device=grid.device)
     if grid.device.type == "cuda":
         with torch.cuda.device(grid.device):
             return _chunk_payload(grid, counts, idx, rows_t, fixed_spec,
@@ -511,20 +528,24 @@ def _grid_skeleton_matches(grid, mapping, hood_len, topology, geometry):
         )
 
 
-def _assign_rows(host, rows, vals) -> None:
-    """``host[0, rows] = vals``, as a slice when ``rows`` is one run."""
+def _assign_rows(host, dev, rows, vals) -> None:
+    """``host[dev, rows] = vals``, as a slice when the cells are one run
+    of rows of one partition."""
     if len(rows) and int(rows[-1]) - int(rows[0]) == len(rows) - 1 and (
-            len(rows) == 1 or np.all(np.diff(rows) == 1)):
-        host[0, int(rows[0]) : int(rows[0]) + len(rows)] = vals
+            len(rows) == 1 or np.all(np.diff(rows) == 1)) and (
+            dev[0] == dev[-1] and np.all(dev == dev[0])):
+        host[int(dev[0]), int(rows[0]) : int(rows[0]) + len(rows)] = vals
     else:
-        host[0, rows] = vals
+        host[dev, rows] = vals
 
 
 def _scatter_payloads(grid, raw, cells, offsets, fixed_spec, fixed_bytes,
                       var_spec):
-    """Stream payloads from ``raw`` (a memory map) into host arrays and
-    upload one tensor per field. Two passes when variable fields exist:
-    fixed parts (counts among them) first, then the ragged rows
+    """Stream payloads from ``raw`` (a memory map) into host
+    ``[n_dev, R]`` arrays, each cell at its owner's row, and upload one
+    tensor per field (the reference's single-controller path,
+    dccrg_tpu/checkpoint.py:921-1000). Two passes when variable fields
+    exist: fixed parts (counts among them) first, then the ragged rows
     (dccrg.hpp:2108-2123)."""
     hosts = {}
     for name, (shape, dtype) in grid.fields.items():
@@ -537,15 +558,16 @@ def _scatter_payloads(grid, raw, cells, offsets, fixed_spec, fixed_bytes,
 
     def rows_of(start, ids):
         if same:
-            return grid.plan.row_of_pos[start : start + len(ids)].astype(np.int64)
-        return grid._host_rows(ids)[1]
+            return (grid.plan.owner[start : start + len(ids)],
+                    grid.plan.row_of_pos[start : start + len(ids)].astype(np.int64))
+        return grid._host_rows(ids)
 
     with phase("scatter"):
         # pass 1: fixed-size parts at each cell's offset
         for start in range(0, len(cells), CHUNK):
             ids = cells[start : start + CHUNK]
             offs = offsets[start : start + CHUNK].astype(np.int64)
-            rows = rows_of(start, ids)
+            dev, rows = rows_of(start, ids)
             payload = _dense_block(raw, offs, fixed_bytes)
             if payload is None:
                 idx = offs[:, None] + np.arange(fixed_bytes, dtype=np.int64)[None, :]
@@ -555,7 +577,7 @@ def _scatter_payloads(grid, raw, cells, offsets, fixed_spec, fixed_bytes,
                 vals = payload[:, col : col + nbytes].copy().view(dtype).reshape(
                     (len(ids),) + shape
                 )
-                _assign_rows(hosts[name], rows, vals)
+                _assign_rows(hosts[name], dev, rows, vals)
                 col += nbytes
 
         # pass 2: ragged rows, sized by the counts read in pass 1
@@ -563,8 +585,8 @@ def _scatter_payloads(grid, raw, cells, offsets, fixed_spec, fixed_bytes,
             for start in range(0, len(cells), CHUNK):
                 ids = cells[start : start + CHUNK]
                 offs = offsets[start : start + CHUNK].astype(np.int64)
-                rows = rows_of(start, ids)
-                c = hosts[count_field][0, rows].astype(np.int64)
+                dev, rows = rows_of(start, ids)
+                c = hosts[count_field][dev, rows].astype(np.int64)
                 if np.any(c < 0) or np.any(c > cap):
                     raise ValueError(
                         f"corrupt counts for variable field {name!r} in file"
@@ -575,7 +597,7 @@ def _scatter_payloads(grid, raw, cells, offsets, fixed_spec, fixed_bytes,
                 for vn, vcf, _rs, _dt, vrb, _cap in var_spec:
                     if vn == name:
                         break
-                    base = base + hosts[vcf][0, rows].astype(np.int64) * vrb
+                    base = base + hosts[vcf][dev, rows].astype(np.int64) * vrb
                 total = int(c.sum())
                 if total == 0:
                     continue
@@ -593,7 +615,8 @@ def _scatter_payloads(grid, raw, cells, offsets, fixed_spec, fixed_bytes,
                     idx = starts[s:e, None].astype(idt) + span
                     vals = raw[idx].copy().view(dtype).reshape(
                         (e - s,) + row_shape)
-                    hosts[name][0, rows[cell_of_row[s:e]],
+                    hosts[name][dev[cell_of_row[s:e]],
+                                rows[cell_of_row[s:e]],
                                 row_within[s:e]] = vals
 
     with phase("upload"):

@@ -5,7 +5,7 @@ Port of ``dccrg_tpu/dense.py`` for a single device: fields are dense
 padded with a halo (the periodic wrap, or the ``boundary`` value on a
 non-periodic edge). The reference shards the arrays over a 3-D device
 mesh and fills the halos with collective permutes; that multi-device
-exchange belongs to a later slice of the port, so more than one device
+exchange waits for ROADMAP queue 1 item 5b, so more than one device
 raises ``NotImplementedError`` and ``dense_mesh`` has no counterpart.
 """
 
@@ -14,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .grid import as_torch_dtype, resolve_device
+from .grid import as_torch_dtype, single_device
 
 
 class DenseGrid:
@@ -40,12 +40,7 @@ class DenseGrid:
         start=(0.0, 0.0, 0.0),
         cell_length=None,
     ):
-        if isinstance(device, (list, tuple)):
-            if len(device) != 1:
-                raise NotImplementedError(
-                    f"{len(device)} devices: this port runs on one device")
-            device = device[0]
-        self.device = resolve_device(device)
+        self.device = single_device(device, "DenseGrid")
         self.length = tuple(int(v) for v in length)
         self.periodic = tuple(bool(p) for p in periodic)
         self.start = np.asarray(start, dtype=np.float64)

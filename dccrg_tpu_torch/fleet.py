@@ -47,7 +47,7 @@ from . import checkpoint as checkpoint_mod
 from . import faults, integrity
 from .convert import _to_numpy, _to_tensor
 from .grid import (DEFAULT_NEIGHBORHOOD_ID, Grid, SlotwiseKernel,
-                   as_torch_dtype, resolve_device)
+                   as_torch_dtype, single_device)
 
 _F32 = torch.float32
 
@@ -335,7 +335,7 @@ def template_grid(job: FleetJob, device=None) -> Grid:
             .set_maximum_refinement_level(0)
             .set_neighborhood_length(job.hood_len)
             .set_periodic(*job.periodic)
-            .initialize(device))
+            .initialize(single_device(device, "a fleet template grid")))
 
 
 def run_solo(job: FleetJob, device=None) -> str:
@@ -401,7 +401,8 @@ class GridBatch:
                  skeleton=False, bulk=True):
         self.key = proto.bucket_key()
         self.capacity = int(capacity)
-        self.device = resolve_device(device)
+        # one device, as the reference's GridBatch
+        self.device = single_device(device, "GridBatch")
         self.grid = template_grid(proto, self.device)
         plan = self.grid.plan
         self.L = int(plan.L)

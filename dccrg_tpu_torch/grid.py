@@ -1,6 +1,6 @@
-"""The grid runtime: single-device slice of the PyTorch port.
+"""The grid runtime of the PyTorch port.
 
-PyTorch counterpart of ``dccrg_tpu/grid.py`` for one device:
+PyTorch counterpart of ``dccrg_tpu/grid.py``:
 
 - **Structure is host state**: the sorted cell list, owners and the
   neighbor plan are numpy arrays. A complete level-0 grid gets the
@@ -10,9 +10,18 @@ PyTorch counterpart of ``dccrg_tpu/grid.py`` for one device:
   reference's dispatch order and capacity names, so ``L``, ``R``, rows
   and tables come out as the reference's.
 - **Data is device state**: each per-cell field is one tensor of shape
-  ``[n_dev, R, ...]`` with ``n_dev = 1`` and ``R = L + 1``; rows
-  ``n_local..L`` are capacity padding and row ``R - 1`` is the
-  permanent zero row.
+  ``[n_dev, R, ...]``, one row block per partition. A partition's rows
+  are ``[inner | outer | pad | ghost copies | pad | zero row]``
+  (``R = L + G + 1``; one partition has no ghosts, ``R = L + 1``).
+- **Partitions**: ``initialize([dev] * n)`` runs a level-0 grid on n
+  partitions, every one on the same device (the next slice of the port
+  puts each on its own card). The partitioner (partition.py) assigns
+  owners; the halo exchange (``update_copies_of_remote_neighbors``, the
+  split-phase calls and the step loop) moves each partition's send
+  rows into the ghost rows of its peers with one ``index_select`` and
+  one ``index_copy_`` per peer offset; ``balance_load`` repartitions
+  and moves the data with one gather per field. Refined grids run on
+  one partition.
 - **Stencils**: on a closed-form plan an eligible step loop goes
   through the bulk executor (ops/roll_executor.py, a CUDA kernel on the
   card); everything else gathers neighbors slot by slot with exact 3-D
@@ -24,8 +33,11 @@ PyTorch counterpart of ``dccrg_tpu/grid.py`` for one device:
   ``stop_refining`` resolves them (amr.py), rebuilds the plan and moves
   the surviving cells' rows on the device.
 
-The halo exchange and multi-device plans belong to later slices of the
-port.
+With ``n_dev > 1`` a stencil runs partition by partition over the
+closed-form plan (a flat roll plus exact fixup rows, a ``block``
+partition) or the dense tables; the overlapped step runs the exchange's
+sends on a side CUDA stream under the bulk pass and recomputes the
+outer rows after the receive.
 """
 
 from __future__ import annotations
@@ -42,6 +54,8 @@ from .mapping import Mapping
 from .neighbors import (build_neighbor_lists, find_neighbors_of,
                         find_neighbors_to_subset, make_neighborhood,
                         validate_neighborhood, verify_tiling)
+from .partition import (PARTITION_METHODS, partition_cells,
+                        partition_cells_hierarchical)
 from .topology import GridTopology
 from .types import ERROR_CELL
 from . import uniform as uniform_mod
@@ -69,6 +83,41 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run on "
             "the CPU")
     return dev
+
+
+# What waits for the slice that places partitions on distinct cards.
+NEXT_SLICE = "ROADMAP.md queue 1, item 5b"
+
+
+def resolve_partitions(device=None) -> list:
+    """The partitions an entry point runs on, one device each: ``device``
+    may be None (one partition on the card), a device, or a list of
+    devices (one partition each). Every partition lives on the same
+    device in this slice; a list naming distinct devices raises
+    NotImplementedError."""
+    if isinstance(device, (list, tuple)):
+        if not device:
+            raise ValueError("an empty device list")
+        devs = [resolve_device(d) for d in device]
+    else:
+        devs = [resolve_device(device)]
+    if any(d != devs[0] for d in devs[1:]):
+        raise NotImplementedError(
+            f"partitions on distinct devices {sorted(set(map(str, devs)))}: "
+            f"every partition shares one device until {NEXT_SLICE}")
+    return devs
+
+
+def single_device(device, what: str) -> torch.device:
+    """``device`` resolved for an entry point that runs on one
+    partition; a list of more than one device raises
+    NotImplementedError naming the slice that ports it."""
+    if isinstance(device, (list, tuple)):
+        if len(device) != 1:
+            raise NotImplementedError(
+                f"{what} on {len(device)} devices waits for {NEXT_SLICE}")
+        device = device[0]
+    return resolve_device(device)
 
 
 def as_torch_dtype(dtype) -> torch.dtype:
@@ -103,9 +152,14 @@ def _synth_key(cf):
             tuple(map(tuple, cf["offsets"])), bool(cf.get("multi")))
 
 
-def _synth_prep(synth, L, device):
+def _synth_prep(synth, L, device, row_gidx=None):
     """(grid index, base validity) per row for closed-form mask
-    synthesis on a single-device plan (rows ARE grid order)."""
+    synthesis: from the row index on a one-partition plan (rows ARE grid
+    order), or from one partition's ``[L]`` grid indices
+    (``device_row_ids()[p, :L]``, -1 on pad rows) on a partitioned
+    closed-form plan, whose rows are ``[inner | outer]``."""
+    if row_gidx is not None:
+        return torch.clamp(row_gidx, min=0), row_gidx >= 0
     n0_ = synth[2]
     gidx = torch.arange(L, dtype=torch.int32, device=device)
     if L > n0_:
@@ -136,9 +190,9 @@ def _synth_col(synth, gidx, base_valid, j):
     return v
 
 
-def _synth_mask(synth, L, device):
+def _synth_mask(synth, L, device, row_gidx=None):
     """Closed-form [L, S] validity mask (stack of _synth_col)."""
-    gidx, base_valid = _synth_prep(synth, L, device)
+    gidx, base_valid = _synth_prep(synth, L, device, row_gidx)
     offs_cells = synth[3]
     return torch.stack(
         [_synth_col(synth, gidx, base_valid, j)
@@ -191,7 +245,25 @@ class _GatheredNeighbors(dict):
         return name in self._fields
 
 
-def _roll3d_gather_all(gather, nmask, n_slots):
+def _make_roll_fixup_gather(shifts, L, fixups):
+    """Partitioned closed-form slot gather (the reference's
+    ``_make_nbr_slot_gather`` in roll mode): roll the partition's local
+    rows by the slot's flat shift, then copy the exact source rows into
+    the rows the roll gets wrong (partition edges, wraps and every ghost
+    read); masked slots read zero. ``fixups[j]`` is ``(rows [W_j],
+    src [W_j])``, int64 on the device, pad entries cut off."""
+    def gather(fl, j, mask_j):
+        col = torch.roll(fl[:L], -int(shifts[j]), dims=0)
+        wr, ws = fixups[j]
+        if wr.numel():
+            col.index_copy_(0, wr, fl.index_select(0, ws))
+        mexp = mask_j.reshape(tuple(mask_j.shape) + (1,) * (col.dim() - 1))
+        return torch.where(mexp, col, col.new_zeros(()))
+
+    return gather
+
+
+def _slot_gather_all(gather, nmask, n_slots):
     """Dense ``[L, S, ...]`` stack from a closed-form slot gather."""
     return lambda fl: torch.stack(
         [gather(fl, j, nmask[:, j]) for j in range(n_slots)], dim=1)
@@ -249,28 +321,53 @@ def _as_extra(extra_args):
                  for e in extra_args)
 
 
+def _flat_shifts(synth):
+    """Flat row shift of each slot of a partitioned closed-form plan
+    (``ox + nx * (oy + ny * oz)``, the roll plan's shifts)."""
+    (nx, ny, _nz), _per, _n0, offs_cells, *_ = synth
+    return [ox + nx * (oy + ny * oz) for ox, oy, oz in offs_cells]
+
+
 def _make_pass(spec, tabs, L, fields_out):
     """``run(kernel, cell_fields, flat, extra) -> result`` for one
-    stencil pass (see Grid._pass_tables for ``spec`` and the order of
-    ``tabs``): the bulk pass over the dense or closed-form plan, then
-    on a split plan the kernel over the hard rows, their results
-    written over the bulk result's rows (the reference's merge order,
-    dccrg_tpu/grid.py:2882-2893). Per-call setup (masks, premasked
-    offsets) is made here, once per call."""
+    stencil pass over one partition (see Grid._pass_tables for ``spec``
+    and the order of ``tabs``): the bulk pass over the dense or
+    closed-form plan, then on a split plan the kernel over the hard
+    rows, their results written over the bulk result's rows (the
+    reference's merge order, dccrg_tpu/grid.py:2882-2893).
+    ``run.repass(kernel, flat, extra, rows, nbr_rows, zero_masked)``
+    runs the kernel as a dense kernel at a row subset whose ``[k, S]``
+    neighbor rows are given (the overlapped step's outer rows).
+    Per-call setup (masks, premasked offsets) is made here, once per
+    call."""
     kind, synth, uniform_offs, scaled, split, include_to, slotwise = spec
     tabs = list(tabs)
-    if kind == "closed":
+    nmask = None
+    if kind in ("closed", "closed_multi"):
         offs_dev = tabs.pop(0)
         device = offs_dev.device
         n_slots = len(synth[3])
-        roll = _make_roll3d_gather(synth, L)
+        row_gidx = None
+        if kind == "closed":
+            roll = _make_roll3d_gather(synth, L)
+        else:
+            row_gidx = tabs.pop(0)
+            fixups = [(tabs[2 * j], tabs[2 * j + 1]) for j in range(n_slots)]
+            del tabs[:2 * n_slots]
+            roll = _make_roll_fixup_gather(_flat_shifts(synth), L, fixups)
+        sgidx, sbase = _synth_prep(synth, L, device, row_gidx)
         if slotwise:
-            sgidx, sbase = _synth_prep(synth, L, device)
             masks = [_synth_col(synth, sgidx, sbase, j) for j in range(n_slots)]
             slot_gather, mask_col = roll, masks.__getitem__
         else:
-            nmask = _synth_mask(synth, L, device)
-            gather_all = _roll3d_gather_all(roll, nmask, n_slots)
+            nmask = _synth_mask(synth, L, device, row_gidx)
+            gather_all = _slot_gather_all(roll, nmask, n_slots)
+
+        def mask_rows(rows):
+            g, b = sgidx[rows], sbase[rows]
+            return torch.stack([_synth_col(synth, g, b, j)
+                                for j in range(n_slots)], dim=1)
+
         noffs = offs_dev
     else:
         nrows, noffs, nmask = tabs[:3]
@@ -279,8 +376,11 @@ def _make_pass(spec, tabs, L, fields_out):
             n_slots = nrows.shape[0]
             slot_gather = _table_slot_gather(nrows)
             mask_col = nmask.__getitem__
+            mask_rows = lambda rows: nmask[:, rows].T
         else:
             gather_all = _table_gather_all(nrows)
+            mask_rows = lambda rows: nmask[rows]
+    raw_offs = noffs
     sc0 = tabs.pop(0) if scaled else None
     if split:
         hr, hnr, hof, hm = tabs[:4]
@@ -320,6 +420,26 @@ def _make_pass(spec, tabs, L, fields_out):
                     (hr,), h_result[n].to(result[n].dtype))
         return result
 
+    def repass(kernel, flat, extra, rows, nbr_rows, zero_masked):
+        # the reference's outer re-pass body (dccrg_tpu/grid.py:3247-3265)
+        m = mask_rows(rows)
+        cell = {n: v.index_select(0, rows) for n, v in flat.items()}
+        nbr = {}
+        for n, v in flat.items():
+            g = v[nbr_rows]
+            if zero_masked:  # a roll's masked slots hold junk
+                mexp = m.reshape(tuple(m.shape) + (1,) * (g.dim() - 2))
+                g = torch.where(mexp, g, g.new_zeros(()))
+            nbr[n] = g
+        if uniform_offs:
+            offs = m[:, :, None] * raw_offs[None, :, :]
+            if scaled:
+                offs = offs * sc0[rows][:, None, None]
+        else:
+            offs = raw_offs[rows]
+        return kernel(cell, nbr, offs, m, *extra)
+
+    run.repass = repass
     return run
 
 
@@ -337,15 +457,24 @@ class SlotwiseKernel:
     ``device_flux`` names the compile-time CUDA flux functor that
     computes the same function (ops/roll_executor.py, csrc/bulk_pass.cu);
     ``device_params`` holds its constants. A kernel without one always
-    takes the plain roll path."""
+    takes the plain roll path.
+
+    ``ghost_deps`` optionally declares per-output ghost dependencies
+    (``{out_field: (in_fields whose NEIGHBOR values out_field reads)}``),
+    the overlapped step's ghost-split contract (see
+    :func:`ghost_split_enabled`); a missing output defaults to all of
+    ``fields_in``."""
 
     def __init__(self, init, slot, finish, device_flux=None,
-                 device_params=None):
+                 device_params=None, ghost_deps=None):
         self.init = init
         self.slot = slot
         self.finish = finish
         self.device_flux = device_flux
         self.device_params = device_params
+        if ghost_deps is not None:
+            self.ghost_deps = {k: tuple(v)
+                               for k, v in dict(ghost_deps).items()}
 
     def __call__(self, cell_fields, nbr_fields, offs, mask, *extra):
         """The kernel as a plain dense kernel (slots looped over axis
@@ -356,6 +485,87 @@ class SlotwiseKernel:
             (lambda j: offs[:, j]) if offs.dim() == 3 else
             (lambda j: offs[j]),
             lambda j: mask[..., j], mask.shape[-1], extra)
+
+
+def ghost_split_enabled(default: bool = True) -> bool:
+    """The ``DCCRG_GHOST_SPLIT`` knob (default on): a kernel that
+    declares ``ghost_deps`` has the overlapped step re-run only the
+    outer rows that read a ghost of an exchanged field, and scatter only
+    the outputs whose declared ghost reads meet the exchanged set.
+    ``0`` keeps the full re-pass; kernels without a declaration are
+    never split."""
+    v = os.environ.get("DCCRG_GHOST_SPLIT", "")
+    if v == "":
+        return default
+    return v not in ("0", "off", "false", "no")
+
+
+def _flat(t: torch.Tensor) -> torch.Tensor:
+    """``[n_dev * R, ...]`` view of an ``[n_dev, R, ...]`` field: row
+    ``p * R + r`` is partition ``p``'s row ``r``."""
+    return t.view((-1,) + tuple(t.shape[2:]))
+
+
+def _halo_send(flat, src):
+    """One peer offset's sends (the reference's ``_halo_send``,
+    dccrg_tpu/grid.py:191): the sender rows ``src`` of every partition
+    (flat rows of :func:`_flat`), in receiver order."""
+    return flat.index_select(0, src)
+
+
+def _halo_scatter(flat, dst, payload):
+    """A received payload into the receivers' ghost rows ``dst`` (the
+    reference's ``_halo_scatter``; its ``-1`` slots are not in ``dst``)."""
+    flat.index_copy_(0, dst, payload)
+
+
+def _send_halos(state, exch_idx, groups, stream):
+    """The sends of one exchange, every peer offset of every exchanged
+    field (``state[j]`` for ``j`` in ``exch_idx``, ``groups`` their
+    :meth:`Grid._exchange_groups`); on ``stream`` (the overlapped step's
+    side CUDA stream) when given, ordered after the main stream's work
+    and handed back to it."""
+    if stream is None:
+        return [[_halo_send(_flat(state[j]), src) for src, _dst in g]
+                for j, g in zip(exch_idx, groups)]
+    main = torch.cuda.current_stream(stream.device)
+    stream.wait_stream(main)
+    with torch.cuda.stream(stream):
+        out = [[_halo_send(_flat(state[j]), src) for src, _dst in g]
+               for j, g in zip(exch_idx, groups)]
+    for per in out:
+        for t in per:
+            t.record_stream(main)
+    return out
+
+
+def _land_halos(state, exch_idx, groups, payloads, stream, R):
+    """The receives of one exchange into the ghost rows, in place, the
+    zero row zeroed again (dccrg_tpu/grid.py:2264), after the side
+    stream's sends when there is one."""
+    if stream is not None:
+        torch.cuda.current_stream(stream.device).wait_stream(stream)
+    for j, g, per in zip(exch_idx, groups, payloads):
+        fl = _flat(state[j])
+        for (_src, dst), payload in zip(g, per):
+            _halo_scatter(fl, dst, payload)
+        state[j][:, R - 1] = 0
+
+
+@dataclass
+class CellView:
+    """A set of cells exposed for iteration (the reference's ``cells`` /
+    ``inner_cells()`` views, dccrg.hpp:7547-7718): ids and the owning
+    partition of each."""
+
+    ids: np.ndarray  # uint64 cell ids
+    owner: np.ndarray  # partition index per cell
+
+    def __len__(self):
+        return len(self.ids)
+
+    def __iter__(self):
+        return iter(self.ids)
 
 
 class _HoodPlan:
@@ -375,9 +585,9 @@ class _HoodPlan:
         self._nbr_rows = nbr_rows  # [n_dev, L, S] int32 (pad: zero row), or thunk
         self._nbr_offs = nbr_offs  # [n_dev, L, S, 3] int32, or thunk
         self._nbr_mask = nbr_mask  # [n_dev, L, S] bool, or thunk
-        # closed-form single-device plans: the mask is synthesized from
-        # the row index and the roll shifts arithmetically (dict with
-        # dims/periodic/offsets/n0)
+        # closed-form plans: the mask is synthesized from the row's grid
+        # index and the roll shifts arithmetically (dict with
+        # dims/periodic/offsets/n0, and "multi" on several partitions)
         self.closed_form = closed_form
         # per-slot constant offsets [S, 3] int32 (index units, or cell
         # units times scale_rows on hybrid plans), or None
@@ -397,6 +607,7 @@ class _HoodPlan:
         self.n_inner = n_inner  # [n_dev] rows [0, n_inner) have no remote deps
         self._roll_plan = None  # computed on demand by roll_plan()
         self._dev = {}  # memoized device uploads
+        self._pair_host = {}  # predicate-filtered and per-offset pair tables
 
     @property
     def pair_compact(self):
@@ -554,17 +765,17 @@ class _Plan:
     owner: np.ndarray  # int32 per cell
     n_dev: int
     L: int  # local-row capacity
-    R: int  # total rows per device (L + 1 zero row)
+    R: int  # total rows per partition (L + ghost capacity + 1 zero row)
     n_local: np.ndarray  # [n_dev]
-    local_ids: list  # per device: uint64 ids in row order
-    row_of_pos: np.ndarray  # int32 [n_cells]: row on the owner device
-    ghost_ids: list  # per device: uint64 ids in ghost-row order (empty)
+    local_ids: list  # per partition: uint64 ids in row order [inner|outer]
+    row_of_pos: np.ndarray  # int32 [n_cells]: row on the owner partition
+    ghost_ids: list  # per partition: uint64 ids in ghost-row order
     hoods: dict = dataclass_field(default_factory=dict)  # hood id -> _HoodPlan
     epoch: int = 0
 
 
 class Grid:
-    """Cartesian cell-refinable grid, one device.
+    """Cartesian cell-refinable grid on one or more partitions.
 
     Mirrors the reference's fluent construction protocol
     (dccrg.hpp:8242-8357):
@@ -574,6 +785,10 @@ class Grid:
                 .set_periodic(True, True, True)
                 .set_neighborhood_length(1)
                 .initialize())          # on the card; device="cpu" for the CPU
+
+    ``initialize([torch.device("cuda")] * 4)`` runs the same grid on
+    four partitions of the card (``["cpu"] * n`` on the CPU), the list
+    taking the place of the reference's device mesh.
     """
 
     def __init__(self, cell_data=None, dtype=None):
@@ -598,7 +813,22 @@ class Grid:
         self._periodic = (False, False, False)
         self._hood_len = 1
         self._geometry_kind = ("none", {})
+        self._lb_method = "morton"
         self.initialized = False
+        # load balancing state (dccrg.hpp:5590-6380)
+        self._staged_balance = {}
+        self._pending_owner = None
+        self._pins = {}
+        self._weights = {}
+        self._partitioning_options = {}
+        self._partitioning_levels = []  # hierarchical partitioning
+        self._balance_added = {}
+        self._balance_removed = {}
+        # per-field transfer predicates (receiver-dependent payloads)
+        self._transfer_predicates = {}
+        self._pending = {}  # in-flight split-phase halo updates
+        self.last_overlap = None  # the overlapped step's mode, step loop
+        self._cells_epoch = 0  # bumped whenever the cell set changes
         self._cap_memo = {}  # capacity hysteresis memo (see _sticky_cap)
         self._program_cache = {}  # step loops keyed by static signature
         self.last_step_path = None  # "bulk" | "roll" | "table" after run_steps
@@ -645,6 +875,15 @@ class Grid:
         self._hood_len = int(n)
         return self
 
+    def set_load_balancing_method(self, method: str):
+        """The partitioner of ``initialize`` and ``balance_load``
+        (partition.PARTITION_METHODS; ``morton`` by default, as the
+        reference)."""
+        if method not in PARTITION_METHODS:
+            raise ValueError(f"unknown method {method!r}, have {PARTITION_METHODS}")
+        self._lb_method = method
+        return self
+
     def set_geometry(self, kind="cartesian", **params):
         """kind: 'none' | 'cartesian' (start, level_0_cell_length) |
         'stretched' (coordinates)."""
@@ -656,19 +895,21 @@ class Grid:
 
     # -- initialization (dccrg.hpp:480-562) ---------------------------
 
-    def initialize(self, device=None):
-        """Build the level-0 grid on one device: ``device`` is a device
-        or a one-element list of devices, ``"cuda"`` when None. More
-        than one device raises NotImplementedError (multi-GPU exchange
-        is a later slice of the port)."""
+    def initialize(self, device=None, partition: str | None = None):
+        """Build the level-0 grid (dccrg.hpp:480-562) on the partitions
+        ``device`` names: None is one partition on the card, a device
+        one partition there, a list of n devices n partitions (each the
+        same device in this slice; distinct devices raise
+        NotImplementedError). ``partition`` picks the partitioner of
+        the level-0 cells (partition.PARTITION_METHODS), the load
+        balancing method when None."""
         self._require_uninitialized()
-        if isinstance(device, (list, tuple)):
-            if len(device) != 1:
-                raise NotImplementedError(
-                    f"{len(device)} devices: this port runs on one device")
-            device = device[0]
-        self.device = resolve_device(device)
-        self.n_dev = 1
+        self.devices = resolve_partitions(device)
+        self.device = self.devices[0]
+        self.n_dev = len(self.devices)
+        # every partition is this process's (the multi-process slice
+        # fills this from the process group)
+        self._proc_local_dev = np.ones(self.n_dev, dtype=bool)
 
         self.mapping = Mapping(self._length)
         if self._max_ref_lvl < 0:
@@ -691,11 +932,14 @@ class Grid:
 
         self.neighborhoods = {DEFAULT_NEIGHBORHOOD_ID: make_neighborhood(self._hood_len)}
 
-        # level-0 cells, all on the one device (create_level_0_cells,
+        # level-0 cells, partitioned (create_level_0_cells,
         # dccrg.hpp:8089)
         n0 = self.mapping.length.total_level0_cells
         cells = np.arange(1, n0 + 1, dtype=np.uint64)
-        owner = np.zeros(n0, dtype=np.int32)
+        owner = partition_cells(
+            self.mapping, cells, self.n_dev, partition or self._lb_method,
+            pins=self._pins or None,
+        )
         self.initialized = True
         self._build_plan(cells, owner)
         self._allocate_fields()
@@ -750,6 +994,10 @@ class Grid:
         n0 = self.mapping.length.total_level0_cells
         if uniform_mod.is_uniform(cells, n0) and n0 < 2**31 - 2:
             return self._build_plan_uniform(cells, owner)
+        if self.n_dev > 1:
+            raise NotImplementedError(
+                f"refined cells on {self.n_dev} partitions wait for "
+                f"{NEXT_SLICE} (multi-device hybrid plans and AMR)")
         if n0 < 2**31 - 2 and os.environ.get("DCCRG_FORCE_GENERIC") != "1":
             return self._build_plan_hybrid(cells, owner, changed_hint)
         return self._build_plan_generic(cells, owner)
@@ -935,40 +1183,52 @@ class Grid:
 
     def device_row_ids(self) -> torch.Tensor:
         """``[n_dev, R]`` tensor of ``cell id - 1`` per row (``-1`` on
-        pad rows). On a complete level-0 grid it is made on the device
-        from an arange (rows are id order, int32); otherwise it is
-        uploaded from ``plan.local_ids`` (int64 once ids exceed int32).
-        Cached per structure epoch."""
+        pad rows), ghost rows included. On a complete level-0 grid on
+        one partition it is made on the device from an arange (rows are
+        id order, int32); otherwise it is uploaded from
+        ``plan.local_ids`` and ``plan.ghost_ids`` (int64 once ids
+        exceed int32). Cached per structure epoch."""
         plan = self.plan
         cached = getattr(plan, "_row_ids_dev", None)
         if cached is not None:
             return cached
         n0 = self.mapping.length.total_level0_cells
-        if len(plan.cells) == n0 and int(plan.cells[-1]) == n0:
+        if (self.n_dev == 1 and len(plan.cells) == n0
+                and int(plan.cells[-1]) == n0):
             idx = torch.arange(plan.R, dtype=torch.int32, device=self.device)
             arr = torch.where(idx < n0, idx, torch.full_like(idx, -1))[None, :]
         else:
             wide = int(plan.cells[-1]) > np.iinfo(np.int32).max
-            host = np.full((1, plan.R), -1, dtype=np.int64 if wide else np.int32)
-            host[0, :int(plan.n_local[0])] = plan.local_ids[0].astype(np.int64) - 1
+            host = np.full((self.n_dev, plan.R), -1,
+                           dtype=np.int64 if wide else np.int32)
+            for d in range(self.n_dev):
+                host[d, :int(plan.n_local[d])] = \
+                    plan.local_ids[d].astype(np.int64) - 1
+                ng = len(plan.ghost_ids[d])
+                if ng:  # ghost rows sit at [L, L + ng)
+                    host[d, plan.L:plan.L + ng] = \
+                        plan.ghost_ids[d].astype(np.int64) - 1
             arr = torch.as_tensor(host, device=self.device)
         plan._row_ids_dev = arr
         return arr
 
     def local_row_mask(self) -> torch.Tensor:
-        """``[n_dev, R] float32`` mask: 1 on local rows, 0 on pad rows
-        — the device-side reduction mask. Cached per structure epoch."""
+        """``[n_dev, R] float32`` mask: 1 on each partition's local rows,
+        0 on ghost and pad rows — the device-side reduction mask.
+        Cached per structure epoch."""
         plan = self.plan
         cached = getattr(plan, "_local_mask_dev", None)
         if cached is not None:
             return cached
         rows = torch.arange(plan.R, dtype=torch.int64, device=self.device)
-        arr = (rows < int(plan.n_local[0])).to(torch.float32)[None, :]
+        nl = torch.as_tensor(np.asarray(plan.n_local, dtype=np.int64),
+                             device=self.device)
+        arr = (rows[None, :] < nl[:, None]).to(torch.float32)
         plan._local_mask_dev = arr
         return arr
 
     def _host_rows(self, ids):
-        """(device, row) for each cell id (host lookup)."""
+        """(partition, row) for each cell id (host lookup)."""
         ids = np.atleast_1d(np.asarray(ids, dtype=np.uint64))
         cells = self.plan.cells
         pos = np.searchsorted(cells, ids)
@@ -977,30 +1237,55 @@ class Grid:
             raise KeyError("unknown cell id(s)")
         return self.plan.owner[pos], self.plan.row_of_pos[pos].astype(np.int64)
 
+    def _flat_rows(self, dev, rows) -> torch.Tensor:
+        """Rows of :func:`_flat` views for ``(partition, row)`` pairs."""
+        return torch.as_tensor(
+            np.asarray(dev, dtype=np.int64) * self.plan.R + rows,
+            device=self.device)
+
     def get(self, field: str, ids) -> np.ndarray:
-        """Host read of per-cell data (reference operator[] access).
-        bfloat16 fields come back as float32 (numpy has no bfloat16;
-        the widening is exact)."""
+        """Host read of per-cell data from the owner's row (reference
+        operator[] access). bfloat16 fields come back as float32 (numpy
+        has no bfloat16; the widening is exact)."""
         scalar = np.isscalar(ids) or np.asarray(ids).ndim == 0
-        _dev, rows = self._host_rows(ids)
-        arr = self.data[field]
-        out = _host_numpy(arr[0, torch.as_tensor(rows, device=arr.device)])
+        dev, rows = self._host_rows(ids)
+        flat = _flat(self.data[field])
+        out = _host_numpy(flat.index_select(0, self._flat_rows(dev, rows)))
         return out[0] if scalar else out
 
     def set(self, field: str, ids, values) -> None:
         """Host write of per-cell data (init / tests / boundary setup)."""
         self.set_many(ids, {field: values})
 
-    def set_many(self, ids, values_by_field) -> None:
-        """Host write of several fields for the same cell set; the row
-        resolution happens once. Writes into the field tensors in place."""
-        _dev, rows = self._host_rows(ids)
-        rows_t = torch.as_tensor(rows, device=self.device)
+    def set_many(self, ids, values_by_field, preserve_ghosts=True) -> None:
+        """Host write of several fields for the same cell set into the
+        owners' rows; the row resolution happens once. With
+        ``preserve_ghosts=False`` and ``ids`` covering every cell, the
+        fields start from zero tensors instead of being written in
+        place: ghost rows read zero until the next halo exchange. When
+        an id repeats, its last value wins."""
+        ids = np.atleast_1d(np.asarray(ids, dtype=np.uint64))
+        dev, rows = self._host_rows(ids)
+        flat = dev.astype(np.int64) * self.plan.R + rows
+        keep = None
+        if (len(ids) > 1 and not np.all(ids[1:] > ids[:-1])
+                and len(np.unique(flat)) != len(flat)):
+            _, last_rev = np.unique(flat[::-1], return_index=True)
+            keep = np.sort(len(flat) - 1 - last_rev)
+            flat = flat[keep]
+        flat_t = torch.as_tensor(flat, device=self.device)
+        fresh = not preserve_ghosts and len(ids) == len(self.plan.cells)
         for name, values in values_by_field.items():
-            _shape, dtype = self.fields[name]
+            shape, dtype = self.fields[name]
             vals = (values if isinstance(values, torch.Tensor)
                     else torch.as_tensor(np.asarray(values)))
-            self.data[name][0, rows_t] = vals.to(device=self.device, dtype=dtype)
+            vals = vals.to(device=self.device, dtype=dtype)
+            if keep is not None:
+                vals = vals.expand((len(ids),) + tuple(shape))[
+                    torch.as_tensor(keep, device=self.device)]
+            if fresh:
+                self.data[name] = torch.zeros_like(self.data[name])
+            _flat(self.data[name])[flat_t] = vals
 
     # neighbor-type bits (reference dccrg.hpp:2968-3075)
     HAS_NO_NEIGHBOR = 0
@@ -1050,6 +1335,73 @@ class Grid:
             keep = (masks & merged) > 0
         return cells[keep]
 
+    # -- iteration views by partition (dccrg.hpp:7594-7718) -----------
+
+    def _n_inner(self, d):
+        return int(self.plan.hoods[DEFAULT_NEIGHBORHOOD_ID].n_inner[d])
+
+    def _view_of(self, ids):
+        ids = np.sort(ids)
+        pos = np.searchsorted(self.plan.cells, ids)
+        return CellView(ids, self.plan.owner[pos])
+
+    def is_inner(self, cell) -> bool:
+        """True when no neighbor relation of the cell crosses a
+        partition boundary (dccrg_iterator_support.hpp:33-56)."""
+        pos = self._cell_pos(cell)
+        if pos is None:
+            raise ValueError(f"unknown cell {cell}")
+        d = int(self.plan.owner[pos])
+        return int(self.plan.row_of_pos[pos]) < self._n_inner(d)
+
+    def is_outer(self, cell) -> bool:
+        return not self.is_inner(cell)
+
+    def local_cells(self) -> CellView:
+        return CellView(self.plan.cells.copy(), self.plan.owner.copy())
+
+    def all_cells(self) -> CellView:
+        return self.local_cells()
+
+    def inner_cells(self) -> CellView:
+        return self._view_of(np.concatenate(
+            [self.plan.local_ids[d][:self._n_inner(d)]
+             for d in range(self.n_dev)]))
+
+    def outer_cells(self) -> CellView:
+        return self._view_of(np.concatenate(
+            [self.plan.local_ids[d][self._n_inner(d):self.plan.n_local[d]]
+             for d in range(self.n_dev)]))
+
+    def remote_cells(self) -> CellView:
+        """Cells with copies on a partition that does not own them."""
+        ghosts = [g for g in self.plan.ghost_ids if len(g)]
+        return self._view_of(np.unique(np.concatenate(ghosts)) if ghosts
+                             else np.empty(0, np.uint64))
+
+    def get_process(self, cell) -> int:
+        """Owning partition of a cell (the reference's cell_process)."""
+        pos = self._cell_pos(cell)
+        if pos is None:
+            raise ValueError(f"unknown cell {cell}")
+        return int(self.plan.owner[pos])
+
+    def get_comm_size(self) -> int:
+        """Partition count (the reference's communicator size)."""
+        return self.n_dev
+
+    def get_number_of_cells(self) -> int:
+        return len(self.plan.cells)
+
+    def neighbor_devices(self, neighborhood_id=DEFAULT_NEIGHBORHOOD_ID) -> np.ndarray:
+        """``[n_dev, n_dev]`` bool: ``[q, p]`` true when partition q
+        receives halo data from partition p — the peer sets of
+        Some_Reduce (dccrg_mpi_support.hpp:285-380)."""
+        c = self.plan.hoods[neighborhood_id].pair_compact
+        out = np.zeros((self.n_dev, self.n_dev), dtype=bool)
+        out[c["q"], c["p"]] = True
+        return out
+
     # -- neighbor queries (dccrg.hpp:831-3236) -------------------------
 
     def _cell_pos(self, cell):
@@ -1061,8 +1413,9 @@ class Grid:
         return pos
 
     def is_local(self, cell, device=None) -> bool:
-        """Whether ``cell`` exists (``device=None``) or is owned by
-        ``device``; on one device every cell is local."""
+        """Whether ``cell`` exists (``device=None``: host code sees every
+        partition, so every existing cell is local) or is owned by
+        partition ``device``."""
         pos = self._cell_pos(cell)
         if pos is None:
             return False
@@ -1110,6 +1463,32 @@ class Grid:
             raise ValueError(f"unknown cell {cell}")
         nbrs, offs = self._cell_neighbors_to(pos, self.plan.hoods[neighborhood_id])
         return list(zip(nbrs.tolist(), map(tuple, offs)))
+
+    def get_remote_neighbors_of(self, cell,
+                                neighborhood_id=DEFAULT_NEIGHBORHOOD_ID,
+                                sorted: bool = False):
+        """Neighbors of ``cell`` owned by another partition than the
+        cell (dccrg.hpp:3175-3234)."""
+        return self._remote_neighbors(cell, neighborhood_id, sorted, to=False)
+
+    def get_remote_neighbors_to(self, cell,
+                                neighborhood_id=DEFAULT_NEIGHBORHOOD_ID,
+                                sorted: bool = False):
+        """Cells that consider ``cell`` a neighbor and live on another
+        partition (dccrg.hpp:3236-3296)."""
+        return self._remote_neighbors(cell, neighborhood_id, sorted, to=True)
+
+    def _remote_neighbors(self, cell, neighborhood_id, sorted, to):
+        hood = self.plan.hoods.get(neighborhood_id)
+        pos = self._cell_pos(cell)
+        if hood is None or pos is None:
+            return np.empty(0, np.uint64)
+        get = self._cell_neighbors_to if to else self._cell_neighbors_of
+        nbrs, _ = get(pos, hood)
+        own = int(self.plan.owner[pos])
+        nbr_owner = self.plan.owner[np.searchsorted(self.plan.cells, nbrs)]
+        out = nbrs[nbr_owner != own]
+        return np.sort(out) if sorted else out
 
     def get_face_neighbors_of(self, cell):
         """[(neighbor id, direction)] with directions +-1/2/3 as in the
@@ -1240,6 +1619,14 @@ class Grid:
         self._build_plan(self.plan.cells, self.plan.owner)
         return True
 
+    def remove_neighborhood(self, neighborhood_id) -> None:
+        """Drop a user neighborhood and rebuild the plan."""
+        if neighborhood_id == DEFAULT_NEIGHBORHOOD_ID:
+            raise ValueError("cannot remove the default neighborhood")
+        self.neighborhoods.pop(neighborhood_id, None)
+        if self.initialized:
+            self._build_plan(self.plan.cells, self.plan.owner)
+
     # -- AMR requests and commit (dccrg.hpp:2456-3507) -----------------
 
     def refine_completely(self, cell) -> bool:
@@ -1313,6 +1700,9 @@ class Grid:
         previous plan."""
         from .amr import resolve_adaptation
 
+        if self.n_dev > 1:
+            raise NotImplementedError(
+                f"AMR commits on {self.n_dev} partitions wait for {NEXT_SLICE}")
         with telemetry.span("grid.adapt"):
             faults.fire("adapt.commit", phase="resolve")
             res = resolve_adaptation(
@@ -1364,6 +1754,8 @@ class Grid:
         old_plan = self.plan
         same_cells = (len(new_cells) == len(old_plan.cells)
                       and np.array_equal(new_cells, old_plan.cells))
+        if not same_cells:
+            self._cells_epoch += 1
         if same_cells:
             changed_hint = (old_plan.cells, np.empty(0, dtype=np.uint64))
         elif changed is not None:
@@ -1375,21 +1767,21 @@ class Grid:
 
     def _install_plan(self, plan):
         """Install a built plan as the live structure epoch and move
-        each surviving cell's row to its new row on the device (one
-        gather per field; rows of new cells, pad rows and the zero row
-        start at zero)."""
+        each surviving cell from its old (partition, row) to its new
+        one on the device (one gather per field over the flat rows of
+        every partition; rows of new cells, ghost and pad rows and the
+        zero row start at zero)."""
         old_plan = self.plan
         surviving = plan.cells[np.isin(plan.cells, old_plan.cells)]
-        _d, old_rows = self._host_rows(surviving)
+        src = self._flat_rows(*self._host_rows(surviving))
         self._finish_plan(plan)
         faults.fire("grid.restructure", phase="planned")
-        _d, new_rows = self._host_rows(surviving)
-        src = torch.as_tensor(old_rows, device=self.device)
-        dst = torch.as_tensor(new_rows, device=self.device)
+        dst = self._flat_rows(*self._host_rows(surviving))
         for name, (shape, dtype) in self.fields.items():
             moved = torch.zeros((self.n_dev, plan.R) + shape, dtype=dtype,
                                 device=self.device)
-            moved[0].index_copy_(0, dst, self.data[name][0].index_select(0, src))
+            _flat(moved).index_copy_(
+                0, dst, _flat(self.data[name]).index_select(0, src))
             self.data[name] = moved
         faults.fire("grid.restructure", phase="moved")
 
@@ -1441,32 +1833,271 @@ class Grid:
             vals = vals.reshape((len(parents), 8) + fshape).mean(axis=1)
             self.set(name, parents, vals)
 
-    def balance_load(self) -> None:
-        """Repartition cells over devices (dccrg.hpp:1046). On one
-        device every partition puts all cells on device 0, so this is
-        what the reference's one-device balance does: the plan is
-        rebuilt for the same cells and owners, and every cell keeps its
-        row and its data. The reference's ``balance.commit`` fault
-        phases fire in its order: ``partition`` and ``stage`` before any
+    # -- load balancing (dccrg.hpp:1046-1064, 3770-4182, 8482-8720) ----
+
+    def balance_load(self, use_zoltan: bool = True) -> None:
+        """Repartition cells over the partitions and move their data
+        (dccrg.hpp:1046): the three stages in a row.
+        ``use_zoltan=False`` keeps the partition but for pin requests
+        (the reference's flag). The ``balance.commit`` fault phases fire
+        in the reference's order: ``partition`` and ``stage`` before any
         change of state, ``finish`` before the rebuild and ``land``
-        after it."""
+        after it. Not transactional yet (the reference's
+        ``txn.grid_transaction`` is not ported): a failure before the
+        rebuild drops the staged balance and leaves the grid as it was;
+        one after it leaves the new partition installed."""
         with telemetry.span("grid.balance"):
-            owner = self.plan.owner.copy()
-            faults.fire("balance.commit", phase="partition")
-            faults.fire("balance.commit", phase="stage")
-            faults.fire("balance.commit", phase="finish")
-            self._restructure(self.plan.cells.copy(), owner)
-            faults.fire("balance.commit", phase="land")
+            try:
+                self.initialize_balance_load(use_zoltan)
+                self.continue_balance_load()
+                self.finish_balance_load()
+            except BaseException:
+                self._pending_owner = None
+                self._staged_balance = {}
+                raise
+
+    def initialize_balance_load(self, use_zoltan: bool = True) -> None:
+        """Stage 1: compute the new partition (dccrg.hpp:3770-3909):
+        the load balancing method (or the hierarchy levels) with the
+        cell weights, pin requests merged afterwards
+        (dccrg.hpp:8552-8576); the ``cut`` method reads the default
+        neighborhood's edges."""
+        if self._pending_owner is not None:
+            raise RuntimeError("balance_load already initialized")
+        self._staged_balance = {}
+        cells = self.plan.cells
+        if use_zoltan:
+            weights = None
+            if self._weights:
+                weights = np.ones(len(cells), dtype=np.float64)
+                for cid, w in self._weights.items():
+                    pos = np.searchsorted(cells, np.uint64(cid))
+                    if pos < len(cells) and cells[pos] == np.uint64(cid):
+                        weights[pos] = w
+            edges = None
+            methods = [lv.get("method") for lv in self._partitioning_levels]
+            if self._lb_method == "cut" or "cut" in methods:
+                # the edges depend on the cell set only: cached until it
+                # changes
+                cached = getattr(self, "_cut_edges", None)
+                if cached is not None and cached[0] == self._cells_epoch:
+                    edges = cached[1]
+                else:
+                    nl = self.plan.hoods[DEFAULT_NEIGHBORHOOD_ID].lists
+                    edges = (nl.of_source.astype(np.int64),
+                             np.searchsorted(cells, nl.of_neighbor))
+                    self._cut_edges = (self._cells_epoch, edges)
+            if self._partitioning_levels:
+                new_owner = partition_cells_hierarchical(
+                    self.mapping, cells, self.n_dev,
+                    self._partitioning_levels,
+                    weights=weights, pins=self._pins or None, edges=edges,
+                )
+            else:
+                new_owner = partition_cells(
+                    self.mapping, cells, self.n_dev, self._lb_method,
+                    weights=weights, pins=self._pins or None, edges=edges,
+                )
+        else:
+            new_owner = self.plan.owner.copy()
+            for cid, dest in self._pins.items():
+                pos = np.searchsorted(cells, np.uint64(cid))
+                if pos < len(cells) and cells[pos] == np.uint64(cid):
+                    new_owner[pos] = dest
+        faults.fire("balance.commit", phase="partition")
+        self._pending_owner = new_owner
+
+    def continue_balance_load(self, fields=None) -> None:
+        """Stage 2: capture the data of the cells that change owner, for
+        the given fields (dccrg.hpp:3932-3964). Callable repeatedly with
+        other fields (the reference's multi-stage protocol): what a
+        stage captures is what lands at ``finish_balance_load``, even
+        if the source changes in between. Fields no stage captured move
+        with their current values at finish. The capture is one device
+        gather of the moving rows per field."""
+        if self._pending_owner is None:
+            raise RuntimeError("initialize_balance_load not called")
+        names = list(fields) if fields is not None else list(self.fields)
+        for n in names:
+            if n not in self.fields:
+                raise KeyError(f"unknown field {n!r}")
+        faults.fire("balance.commit", phase="stage")
+        moving = self.plan.cells[self._pending_owner != self.plan.owner]
+        src = self._flat_rows(*self._host_rows(moving)) if len(moving) else None
+        for n in names:
+            self._staged_balance[n] = (
+                moving.copy(),
+                _flat(self.data[n]).index_select(0, src) if len(moving)
+                else None)
+
+    def staged_balance_data(self, field: str):
+        """(moving cell ids, values) a stage captured for a field — the
+        receiver-side peek between stages."""
+        ids, snap = self._staged_balance[field]
+        if snap is None:
+            return ids.copy(), None
+        return ids.copy(), _host_numpy(snap)
+
+    def finish_balance_load(self) -> None:
+        """Stage 3: install the new partition, rebuild the structure
+        (dccrg.hpp:3980-4182) and land the captured values at the
+        moved cells' new rows."""
+        if self._pending_owner is None:
+            raise RuntimeError("initialize_balance_load not called")
+        new_owner = self._pending_owner
+        faults.fire("balance.commit", phase="finish")
+        cells = self.plan.cells
+        moved = cells[new_owner != self.plan.owner]
+        pos = np.searchsorted(cells, moved)
+        self._balance_added = {d: moved[new_owner[pos] == d]
+                               for d in range(self.n_dev)}
+        self._balance_removed = {d: moved[self.plan.owner[pos] == d]
+                                 for d in range(self.n_dev)}
+        self._pending_owner = None
+        staged = self._staged_balance
+        self._staged_balance = {}
+        self._restructure(cells.copy(), new_owner)
+        faults.fire("balance.commit", phase="land")
+        dst = None
+        for n, (ids, snap) in staged.items():
+            if snap is None or n not in self.fields:
+                continue
+            if dst is None:
+                dst = self._flat_rows(*self._host_rows(ids))
+            _flat(self.data[n]).index_copy_(
+                0, dst, snap.to(self.data[n].dtype))
+
+    def get_cells_added_by_balance_load(self, device: int | None = None):
+        """Cells the last balance moved ONTO a partition (every moved
+        cell when ``device`` is None)."""
+        added = self._balance_added
+        if device is not None:
+            return added.get(int(device), np.empty(0, np.uint64)).copy()
+        return (np.sort(np.concatenate(list(added.values())))
+                if added else np.empty(0, np.uint64))
+
+    def get_cells_removed_by_balance_load(self, device: int | None = None):
+        """Cells the last balance moved OFF a partition."""
+        removed = self._balance_removed
+        if device is not None:
+            return removed.get(int(device), np.empty(0, np.uint64)).copy()
+        return (np.sort(np.concatenate(list(removed.values())))
+                if removed else np.empty(0, np.uint64))
+
+    def get_pin_requests(self) -> dict:
+        """Current pin requests ``{cell id: partition}``."""
+        return dict(self._pins)
+
+    # pinning (dccrg.hpp:5913-6139)
+
+    def pin(self, cell, process: int) -> bool:
+        """Force a cell onto a partition across future balances."""
+        if not self.is_local(cell) or not 0 <= int(process) < self.n_dev:
+            return False
+        self._pins[int(cell)] = int(process)
+        return True
+
+    def unpin(self, cell) -> bool:
+        return self._pins.pop(int(cell), None) is not None
+
+    def unpin_local_cells(self, device: int | None = None) -> None:
+        """Remove the pins of cells owned by ``device`` (every pin when
+        None); pins of cells that no longer exist go too."""
+        for cid in list(self._pins):
+            if not self.is_local(cid):
+                del self._pins[cid]
+            elif device is None or self.get_process(cid) == device:
+                del self._pins[cid]
+
+    def unpin_all_cells(self) -> None:
+        self._pins.clear()
+
+    # cell weights (dccrg.hpp:6318-6380)
+
+    def set_cell_weight(self, cell, weight: float) -> bool:
+        if not self.is_local(cell) or weight < 0:
+            return False
+        self._weights[int(cell)] = float(weight)
+        return True
+
+    def get_cell_weight(self, cell) -> float:
+        return self._weights.get(int(cell), 1.0)
+
+    # partitioning options (dccrg.hpp:5590-5880): recorded for parity;
+    # 'method' / 'LB_METHOD' selects the partitioner
+
+    def set_partitioning_option(self, name: str, value) -> None:
+        if name.upper() in ("LB_METHOD", "METHOD"):
+            self.set_load_balancing_method(str(value))
+        self._partitioning_options[name] = value
+
+    def get_partitioning_options(self, hierarchial_partitioning_level: int | None = None):
+        """The options dict, or (with a level) that hierarchy level's
+        option names (dccrg.hpp:5814)."""
+        if hierarchial_partitioning_level is None:
+            return dict(self._partitioning_options)
+        lv = self._hierarchy_level(hierarchial_partitioning_level)
+        return [k for k in lv if k not in ("processes", "method")]
+
+    # hierarchical partitioning (dccrg.hpp:5629-5880)
+
+    def _hierarchy_level(self, level: int) -> dict:
+        if not 0 <= int(level) < len(self._partitioning_levels):
+            raise IndexError(
+                f"no hierarchial partitioning level {level} "
+                f"(have {len(self._partitioning_levels)})")
+        return self._partitioning_levels[int(level)]
+
+    def add_partitioning_level(self, processes: int):
+        """Append a hierarchy level whose parts hold ``processes``
+        partitions each (dccrg.hpp:5634)."""
+        if int(processes) < 1:
+            raise ValueError("processes per part must be >= 1")
+        self._partitioning_levels.append({"processes": int(processes)})
+        return self
+
+    def remove_partitioning_level(self, hierarchial_partitioning_level: int):
+        self._hierarchy_level(hierarchial_partitioning_level)
+        del self._partitioning_levels[int(hierarchial_partitioning_level)]
+        return self
+
+    def add_partitioning_option(self, level: int, name: str, value):
+        """Set an option on a hierarchy level (dccrg.hpp:5731);
+        'LB_METHOD' / 'method' selects that level's partitioner."""
+        lv = self._hierarchy_level(level)
+        lv[name] = value
+        if name.upper() in ("LB_METHOD", "METHOD"):
+            method = str(value).lower()
+            if method not in PARTITION_METHODS:
+                raise ValueError(
+                    f"unknown method {value!r} for level {level}, have "
+                    f"{PARTITION_METHODS}")
+            lv["method"] = method
+        return self
+
+    def remove_partitioning_option(self, level: int, name: str):
+        lv = self._hierarchy_level(level)
+        lv.pop(name, None)
+        if name.upper() in ("LB_METHOD", "METHOD"):
+            lv.pop("method", None)
+        return self
+
+    def get_partitioning_option_value(self, level: int, name: str):
+        return self._hierarchy_level(level).get(name)
 
     def load_cells(self, cells) -> None:
         """Replace the grid structure with an arbitrary valid cell set
-        (the reference's load_cells, dccrg.hpp:3669-3738); the data of
-        every cell is reset."""
+        (the reference's load_cells, dccrg.hpp:3669-3738), partitioned
+        by the load balancing method and pins; the data of every cell
+        is reset."""
         cells = np.asarray(cells, dtype=np.uint64)
         if len(cells) > 1 and not np.all(cells[1:] >= cells[:-1]):
             cells = np.sort(cells)
         verify_tiling(self.mapping, cells)
-        self._build_plan(cells, np.zeros(len(cells), dtype=np.int32))
+        owner = partition_cells(self.mapping, cells, self.n_dev,
+                                self._lb_method, pins=self._pins or None)
+        self._cells_epoch += 1
+        self._build_plan(cells, owner)
         self._allocate_fields()
 
     # -- checkpoint / restart (dccrg.hpp:1109-2426) --------------------
@@ -1515,19 +2146,325 @@ class Grid:
             filename, cell_data, device=device, header_size=header_size,
             variable=variable, strict=strict)
 
-    # -- halo exchange (dccrg.hpp:978-1014) ----------------------------
+    # -- halo exchange (dccrg.hpp:978-1014, 5046-5413) -----------------
 
-    def update_copies_of_remote_neighbors(
-        self, neighborhood_id=DEFAULT_NEIGHBORHOOD_ID, fields=None
-    ) -> None:
-        """Refresh ghost copies of remote neighbors (dccrg.hpp:978). One
-        device has no ghost rows, so nothing moves; the neighborhood and
-        the field names are still checked."""
+    def set_transfer_predicate(self, field: str, fn) -> None:
+        """Per-peer selection of what a cell sends (the reference's
+        5-argument ``get_mpi_datatype``, dccrg_get_cell_datatype.hpp:
+        48-213): ``fn(cell_ids, sender, receiver, neighborhood_id) ->
+        bool array`` is sampled per partition pair when the exchange
+        tables are built; a False entry drops that cell's ``field``
+        payload for that pair on both sides. ``None`` clears it; a
+        closure whose behavior changes must be registered again."""
+        if not self.initialized:
+            raise RuntimeError(
+                "set_transfer_predicate() requires initialize() first "
+                "(predicates are sampled against the built plan)")
+        if fn is None:
+            self._transfer_predicates.pop(field, None)
+        else:
+            if field not in self.fields:
+                raise KeyError(f"unknown field {field!r}")
+            self._transfer_predicates[field] = fn
+        for hood in self.plan.hoods.values():
+            hood._pair_host.clear()
+            for k in [k for k in hood._dev
+                      if isinstance(k[0], tuple) and k[0][0] == "xg"]:
+                del hood._dev[k]
+            for attr in ("_split_outer", "_orp"):
+                if hasattr(hood, attr):
+                    delattr(hood, attr)
+
+    @staticmethod
+    def _pair_groups(c):
+        """(starts, ends) of the (sender, receiver) groups of a compact
+        pair record (entries are sorted by (p, q))."""
+        pq = c["p"] * np.int64(c["n_dev"]) + c["q"]
+        starts = np.r_[0, np.flatnonzero(np.diff(pq)) + 1] \
+            if len(pq) else np.empty(0, np.int64)
+        ends = np.r_[starts[1:], len(pq)] if len(pq) else starts
+        return starts.astype(np.int64), ends.astype(np.int64)
+
+    def _field_pair_compact(self, neighborhood_id, field):
+        """The hood's compact pair record, filtered by the field's
+        transfer predicate if set (surviving entries keep their slot
+        positions, so holes mirror the dense tables' -1 slots)."""
+        hood = self.plan.hoods[neighborhood_id]
+        c = hood.pair_compact
+        fn = self._transfer_predicates.get(field)
+        if fn is None:
+            return c
+        cached = hood._pair_host.get(("c", field))
+        if cached is not None:
+            return cached
+        keep = np.ones(len(c["p"]), dtype=bool)
+        starts, ends = self._pair_groups(c)
+        for s, e in zip(starts, ends):
+            p0, q0 = int(c["p"][s]), int(c["q"][s])
+            ids = self.plan.local_ids[p0][c["srow"][s:e]]
+            k = np.asarray(fn(ids, p0, q0, neighborhood_id), dtype=bool)
+            if k.shape != ids.shape:
+                raise ValueError(
+                    "transfer predicate must return one bool per cell")
+            keep[s:e] = k
+        out = dict(c)
+        for key in ("p", "q", "pos", "srow", "rrow"):
+            out[key] = c[key][keep]
+        hood._pair_host[("c", field)] = out
+        return out
+
+    def _field_pair_tables(self, neighborhood_id, field):
+        """(send_rows, recv_rows) dense ``[n_dev, n_dev, M]`` views for
+        one field: the all-to-all fallback and host introspection."""
+        hood = self.plan.hoods[neighborhood_id]
+        if self._transfer_predicates.get(field) is None:
+            return hood.send_rows, hood.recv_rows
+        cached = hood._pair_host.get(field)
+        if cached is not None:
+            return cached
+        out = uniform_mod.dense_pair_tables(self._field_pair_compact(
+            neighborhood_id, field))
+        hood._pair_host[field] = out
+        return out
+
+    # exchanges with at most this many peer offsets move one compact
+    # buffer per offset; more fall back to the dense all-to-all tables
+    _MAX_PEER_OFFSETS = 8
+
+    def _peer_deltas(self, neighborhood_id):
+        """Sorted partition-offset set ``{(q - p) mod n_dev}`` with halo
+        traffic, or None for the dense all-to-all fallback (more than
+        ``_MAX_PEER_OFFSETS`` offsets)."""
+        hood = self.plan.hoods[neighborhood_id]
+        if ("deltas",) in hood._pair_host:
+            return hood._pair_host[("deltas",)]
+        c = hood.pair_compact
+        deltas = tuple(sorted(set(
+            np.unique((c["q"] - c["p"]) % self.n_dev).tolist())))
+        if len(deltas) > self._MAX_PEER_OFFSETS:
+            deltas = None
+        hood._pair_host[("deltas",)] = deltas
+        return deltas
+
+    def _pair_tables_host(self, neighborhood_id, field_names):
+        """Per field and peer offset, the (send, recv) tables of the
+        reference's ``_pair_tables_device`` (dccrg_tpu/grid.py:2171),
+        as host arrays: ``[n_dev, Md]`` per offset (partition p sends
+        its rows to p + d, partition q receives from q - d; ``Md`` a
+        sticky ``("Md", hood, d)`` capacity), or the dense
+        ``[n_dev, n_dev, M]`` pair on the fallback. Memoized on the
+        hood."""
+        hood = self.plan.hoods[neighborhood_id]
+        deltas = self._peer_deltas(neighborhood_id)
+        sends, recvs = [], []
+        for n in field_names:
+            if deltas is None:
+                s, r = self._field_pair_tables(neighborhood_id, n)
+                sends.append(s)
+                recvs.append(r)
+                continue
+            fc = dvec = None
+            for d in deltas:
+                key = ("peer", n, d)
+                if key not in hood._pair_host:
+                    if fc is None:
+                        fc = self._field_pair_compact(neighborhood_id, n)
+                        dvec = (fc["q"] - fc["p"]) % self.n_dev
+                    sel = dvec == d
+                    # the last valid slot (predicates may leave holes)
+                    need = (int(fc["pos"][sel].max()) + 1
+                            if sel.any() else 1)
+                    Md = self._sticky_cap(("Md", neighborhood_id, d), need)
+                    Md = min(Md, fc["M"])
+                    sd = np.full((self.n_dev, Md), -1, dtype=np.int32)
+                    rd = np.full((self.n_dev, Md), -1, dtype=np.int32)
+                    inw = sel & (fc["pos"] < Md)
+                    sd[fc["p"][inw], fc["pos"][inw]] = fc["srow"][inw]
+                    rd[fc["q"][inw], fc["pos"][inw]] = fc["rrow"][inw]
+                    hood._pair_host[key] = (sd, rd)
+                sd, rd = hood._pair_host[key]
+                sends.append(sd)
+                recvs.append(rd)
+        return tuple(sends), tuple(recvs)
+
+    def _exchange_groups(self, neighborhood_id, field_names):
+        """Per field, one ``(src, dst)`` pair of int64 device tensors
+        per peer offset (one for the dense fallback): the senders' flat
+        rows (``p * R + row``) in receiver order and the receivers' ghost
+        rows they land in, the -1 slots of the tables left out. A send
+        is one ``index_select``, a receive one ``index_copy_``.
+        Memoized on the hood."""
+        hood = self.plan.hoods[neighborhood_id]
+        deltas = self._peer_deltas(neighborhood_id)
+        n_dev, R, dev = self.n_dev, self.plan.R, self.device
+        sends, recvs = self._pair_tables_host(neighborhood_id, field_names)
+        n_t = 1 if deltas is None else len(deltas)
+        out = []
+        for i, n in enumerate(field_names):
+            groups = []
+            for t in range(n_t):
+                key = (("xg", n, None if deltas is None else deltas[t]),
+                       str(dev))
+                hit = hood._dev.get(key)
+                if hit is None:
+                    sd, rd = sends[i * n_t + t], recvs[i * n_t + t]
+                    if deltas is None:  # rd [dst q, src p, M]
+                        q, p, m = np.nonzero(rd >= 0)
+                        src = p * R + sd[p, q, m]
+                        dst = q * R + rd[q, p, m]
+                    else:
+                        q, m = np.nonzero(rd >= 0)
+                        p = (q - deltas[t]) % n_dev
+                        src = p * R + sd[p, m]
+                        dst = q * R + rd[q, m]
+                    hit = (torch.as_tensor(src.astype(np.int64), device=dev),
+                           torch.as_tensor(dst.astype(np.int64), device=dev))
+                    hood._dev[key] = hit
+                groups.append(hit)
+            out.append(groups)
+        return out
+
+    def exchange_bytes(self, neighborhood_id=DEFAULT_NEIGHBORHOOD_ID,
+                       fields=None) -> int:
+        """Bytes one halo update of ``fields`` (every field when None)
+        moves between partitions: each sent cell's row of each field."""
+        names = tuple(sorted(fields)) if fields is not None else tuple(sorted(self.fields))
+        total = 0
+        for n in names:
+            shape, dtype = self.fields[n]
+            row = int(np.prod(shape, dtype=np.int64)) * \
+                torch.empty((), dtype=dtype).element_size()
+            total += row * self.get_number_of_update_send_cells(
+                neighborhood_id, field=n)
+        return total
+
+    def _exchange_names(self, neighborhood_id, fields):
         if neighborhood_id not in self.plan.hoods:
             raise KeyError(f"unknown neighborhood {neighborhood_id!r}")
         unknown = [n for n in (fields or ()) if n not in self.fields]
         if unknown:
             raise KeyError(f"unknown field(s) {unknown}")
+        return (tuple(sorted(fields)) if fields is not None
+                else tuple(sorted(self.fields)))
+
+    def update_copies_of_remote_neighbors(
+        self, neighborhood_id=DEFAULT_NEIGHBORHOOD_ID, fields=None
+    ) -> None:
+        """Refresh the ghost copies of remote neighbors (dccrg.hpp:978):
+        per exchanged field and peer offset, the senders' rows into the
+        receivers' ghost rows, in place; ``fields`` selects the fields
+        that move. One partition has no ghost rows, so nothing moves."""
+        self._check_not_in_flight(neighborhood_id)
+        names = self._exchange_names(neighborhood_id, fields)
+        if self.n_dev == 1:
+            return
+        with telemetry.span("grid.exchange"):
+            groups = self._exchange_groups(neighborhood_id, names)
+            fields = [self.data[n] for n in names]
+            idx = range(len(names))
+            _land_halos(fields, idx, groups,
+                        _send_halos(fields, idx, groups, None), None,
+                        self.plan.R)
+
+    def _check_not_in_flight(self, neighborhood_id):
+        entry = self._pending.get(neighborhood_id)
+        if entry is not None and entry[0] == self.plan.epoch:
+            raise RuntimeError(
+                f"neighborhood {neighborhood_id} already has an in-flight halo "
+                "update; call wait_remote_neighbor_copy_updates first"
+            )
+        if entry is not None:
+            # orphaned by a structure rebuild: superseded
+            del self._pending[neighborhood_id]
+
+    # split phase (dccrg.hpp:5046-5413): start takes the sends' copies;
+    # wait writes ONLY the received ghost rows of the then-current
+    # tensors, so local-row writes made in between survive (the
+    # reference's receives touch remote neighbors only,
+    # dccrg.hpp:10726-10935)
+    def start_remote_neighbor_copy_updates(self, neighborhood_id=DEFAULT_NEIGHBORHOOD_ID,
+                                           fields=None) -> None:
+        self._check_not_in_flight(neighborhood_id)
+        names = self._exchange_names(neighborhood_id, fields)
+        if self.n_dev == 1:
+            self._pending[neighborhood_id] = (self.plan.epoch, names, None)
+            return
+        with telemetry.span("grid.exchange.start"):
+            groups = self._exchange_groups(neighborhood_id, names)
+            payloads = _send_halos([self.data[n] for n in names],
+                                   range(len(names)), groups, None)
+        self._pending[neighborhood_id] = (self.plan.epoch, names,
+                                          (groups, payloads))
+
+    def wait_remote_neighbor_copy_updates(self, neighborhood_id=DEFAULT_NEIGHBORHOOD_ID) -> None:
+        if neighborhood_id not in self._pending:
+            return
+        epoch, names, payloads = self._pending.pop(neighborhood_id)
+        if epoch != self.plan.epoch:
+            raise RuntimeError(
+                "grid structure changed between start_remote_neighbor_copy_updates "
+                "and wait_remote_neighbor_copy_updates; the in-flight halo payload "
+                "is stale"
+            )
+        if payloads is None:  # one partition: nothing was sent
+            return
+        with telemetry.span("grid.exchange.wait"):
+            groups, sent = payloads
+            _land_halos([self.data[n] for n in names], range(len(names)),
+                        groups, sent, None, self.plan.R)
+
+    def wait_remote_neighbor_copy_update_receives(self, neighborhood_id=DEFAULT_NEIGHBORHOOD_ID) -> None:
+        self.wait_remote_neighbor_copy_updates(neighborhood_id)
+
+    def wait_remote_neighbor_copy_update_sends(self, neighborhood_id=DEFAULT_NEIGHBORHOOD_ID) -> None:
+        pass
+
+    def get_number_of_update_send_cells(
+        self, neighborhood_id=DEFAULT_NEIGHBORHOOD_ID, field: str | None = None
+    ) -> int:
+        """Cells sent per halo update (dccrg.hpp:5428); with ``field``,
+        after that field's transfer predicate."""
+        if field is None:
+            return len(self.plan.hoods[neighborhood_id].pair_compact["p"])
+        return len(self._field_pair_compact(neighborhood_id, field)["p"])
+
+    def get_number_of_update_receive_cells(
+        self, neighborhood_id=DEFAULT_NEIGHBORHOOD_ID, field: str | None = None
+    ) -> int:
+        if field is None:
+            return len(self.plan.hoods[neighborhood_id].pair_compact["q"])
+        return len(self._field_pair_compact(neighborhood_id, field)["q"])
+
+    def get_cells_to_send(self, neighborhood_id=DEFAULT_NEIGHBORHOOD_ID):
+        """``{(sender, receiver): cell ids}`` of one halo update, from
+        the senders' rows."""
+        c = self.plan.hoods[neighborhood_id].pair_compact
+        starts, ends = self._pair_groups(c)
+        out = {}
+        for s, e in zip(starts, ends):
+            p0, q0 = int(c["p"][s]), int(c["q"][s])
+            out[(p0, q0)] = self.plan.local_ids[p0][c["srow"][s:e]]
+        return out
+
+    def get_cells_to_receive(self, neighborhood_id=DEFAULT_NEIGHBORHOOD_ID):
+        """``{(sender, receiver): cell ids}`` from the receivers' ghost
+        rows, independently of :meth:`get_cells_to_send`."""
+        c = self.plan.hoods[neighborhood_id].pair_compact
+        starts, ends = self._pair_groups(c)
+        L = self.plan.L
+        out = {}
+        for s, e in zip(starts, ends):
+            p0, q0 = int(c["p"][s]), int(c["q"][s])
+            out[(p0, q0)] = self.plan.ghost_ids[q0][c["rrow"][s:e] - L]
+        return out
+
+    def get_neighborhood_of(self, neighborhood_id=DEFAULT_NEIGHBORHOOD_ID):
+        """The neighborhood's offset list."""
+        return np.asarray(self.neighborhoods[neighborhood_id]).copy()
+
+    def get_neighborhood_to(self, neighborhood_id=DEFAULT_NEIGHBORHOOD_ID):
+        """Negated offsets (the to-direction items)."""
+        return -self.get_neighborhood_of(neighborhood_id)
 
     # -- stencil execution ---------------------------------------------
 
@@ -1540,19 +2477,22 @@ class Grid:
         include_to=False,
         extra_args=(),
     ):
-        """Run a gather-based stencil kernel over all local cells.
+        """Run a gather-based stencil kernel over all local cells, one
+        partition at a time.
 
         ``kernel(cell_fields, nbr_fields, offs, mask, *extra)`` receives
-        ``cell_fields[name]`` ``[L, ...]``, ``nbr_fields[name]``
-        ``[L, S, ...]`` (neighbors gathered; masked slots hold zeros or
-        the zero row), ``offs`` ``[L, S, 3]`` (zero where the mask is
-        off) and ``mask`` ``[L, S]``; with ``include_to=True`` a second
-        (nbr_to_fields, to_offs, to_mask) triple follows the mask. It
-        returns a dict name -> ``[L, ...]`` for every name in
-        ``fields_out``; the updated rows are written into new field
-        tensors. A ``SlotwiseKernel`` is fed one slot at a time instead
-        (no ``include_to``). Extras that are Python numbers become
-        float32 tensors.
+        one partition's ``cell_fields[name]`` ``[L, ...]``,
+        ``nbr_fields[name]`` ``[L, S, ...]`` (neighbors gathered, ghost
+        copies included; masked slots hold zeros or the zero row),
+        ``offs`` ``[L, S, 3]`` (zero where the mask is off) and ``mask``
+        ``[L, S]``; with ``include_to=True`` a second (nbr_to_fields,
+        to_offs, to_mask) triple follows the mask. It returns a dict
+        name -> ``[L, ...]`` for every name in ``fields_out``; the
+        updated rows are written into new field tensors, ghost copies
+        unchanged (call update_copies_of_remote_neighbors). A
+        ``SlotwiseKernel`` is fed one slot at a time instead (no
+        ``include_to``). Extras that are Python numbers become float32
+        tensors.
         """
         fields_in = tuple(fields_in)
         fields_out = tuple(fields_out)
@@ -1566,14 +2506,57 @@ class Grid:
         for n, arr in zip(fields_out, out):
             self.data[n] = arr
 
-    def _pass_tables(self, hood, include_to, slotwise):
-        """(spec, host-to-device tables) of one stencil pass over
-        ``hood`` — the reference's table selection
-        (dccrg_tpu/grid.py:2720-2806) without its roll decomposition:
+    def _use_overlap(self) -> bool:
+        """The overlapped step (DCCRG_OVERLAP=0/1): the exchange's sends
+        run on a side CUDA stream while the bulk pass runs on pre-exchange
+        state, then the outer rows are recomputed after the receive (the
+        reference's solve-inner-while-messages-fly, dccrg.hpp:5046-5413).
+        It costs a surface-sized second pass, so it is on by default on
+        the card and off on the CPU, as the reference's default is on
+        accelerators only."""
+        env = os.environ.get("DCCRG_OVERLAP")
+        if env in ("0", "1"):
+            return env == "1"
+        return self.device.type == "cuda"
 
-        - ``closed``: a closed-form plan (no include_to) gathers by exact
-          3-D rolls and synthesizes its mask; its one table is
-          ``offs_const``;
+    def _side_stream(self):
+        """The CUDA stream the overlapped step's sends run on."""
+        s = getattr(self, "_side", None)
+        if s is None:
+            s = self._side = torch.cuda.Stream(device=self.device)
+        return s
+
+    def _roll_fixups(self, hood, p):
+        """Partition ``p``'s fixup rows and source rows per slot of a
+        partitioned closed-form plan's roll plan, the pad entries cut
+        off: int64 device tensors, memoized on the hood."""
+        L = self.plan.L
+        _shifts, wr, ws = hood.roll_plan(L)
+        out = []
+        for j in range(wr.shape[1]):
+            real = wr[p, j] < L
+            out.append(hood.dev(("roll_wr", p, j),
+                                lambda: wr[p, j][real].astype(np.int64),
+                                self.device))
+            out.append(hood.dev(("roll_ws", p, j),
+                                lambda: ws[p, j][real].astype(np.int64),
+                                self.device))
+        return out
+
+    def _pass_tables(self, hood, include_to, slotwise, part=0):
+        """(spec, host-to-device tables) of one stencil pass over
+        ``hood`` on partition ``part`` — the reference's table selection
+        (dccrg_tpu/grid.py:2720-2806) without the roll decomposition of
+        dense tables:
+
+        - ``closed``: a one-partition closed-form plan (no include_to)
+          gathers by exact 3-D rolls and synthesizes its mask; its one
+          table is ``offs_const``;
+        - ``closed_multi``: a partitioned closed-form plan rolls the
+          partition's rows by each slot's flat shift and copies the
+          roll plan's fixup rows (``_make_nbr_slot_gather``); its tables
+          are ``offs_const``, the partition's ``[L]`` grid indices (the
+          mask's source) and each slot's fixup rows and sources;
         - ``table``: the dense ``[L, S]`` rows and mask (slot-major
           ``[S, L]`` for a ``SlotwiseKernel``) with ``offs_const`` or the
           explicit ``nbr_offs``;
@@ -1582,102 +2565,316 @@ class Grid:
 
         Then ``scale_rows`` (hybrid plans), the hard-row tables cut to
         their real rows (``split``) and the to-tables (include_to)."""
-        dev = self.device
+        dev, p = self.device, int(part)
         split = hood.hard_nbr_rows is not None and not include_to
         merged = include_to and hood.hard_nbr_rows is not None
         cf = hood.closed_form if not include_to else None
+
+        def up(name, host):
+            return hood.dev((name, p), host, dev)
+
         if merged:
             kind, uniform_offs = "merged", False
-            if ("m_rows", str(dev)) not in hood._dev:
+            if (("m_rows", p), str(dev)) not in hood._dev:
                 m_rows, m_offs, m_mask = hood.merged_of_tables(self.plan.R - 1)
-                hood.dev("m_rows", m_rows[0], dev)
-                hood.dev("m_offs", m_offs[0], dev)
-                hood.dev("m_mask", m_mask[0], dev)
-            tables = [hood._dev[(n, str(dev))]
+                for q in range(self.n_dev):
+                    hood.dev(("m_rows", q), m_rows[q], dev)
+                    hood.dev(("m_offs", q), m_offs[q], dev)
+                    hood.dev(("m_mask", q), m_mask[q], dev)
+            tables = [hood._dev[((n, p), str(dev))]
                       for n in ("m_rows", "m_offs", "m_mask")]
         else:
             uniform_offs = hood.offs_const is not None
             if cf is not None:
-                kind = "closed"
+                kind = "closed_multi" if cf.get("multi") else "closed"
                 tables = [hood.dev("offs_const", hood.offs_const, dev)]
+                if kind == "closed_multi":
+                    tables.append(self.device_row_ids()[p, :self.plan.L])
+                    tables.extend(self._roll_fixups(hood, p))
             else:
                 kind = "table"
                 if slotwise:
-                    tables = [hood.dev("nbr_rows_t",
-                                       lambda: hood.nbr_rows[0].T, dev)]
+                    tables = [up("nbr_rows_t", lambda: hood.nbr_rows[p].T)]
                 else:
-                    tables = [hood.dev("nbr_rows", lambda: hood.nbr_rows[0],
-                                       dev)]
+                    tables = [up("nbr_rows", lambda: hood.nbr_rows[p])]
                 if uniform_offs:
                     tables.append(hood.dev("offs_const", hood.offs_const, dev))
                 else:
-                    tables.append(hood.dev("nbr_offs", lambda: hood.nbr_offs[0],
-                                           dev))
+                    tables.append(up("nbr_offs", lambda: hood.nbr_offs[p]))
                 if slotwise:
-                    tables.append(hood.dev("nbr_mask_t",
-                                           lambda: hood.nbr_mask[0].T, dev))
+                    tables.append(up("nbr_mask_t", lambda: hood.nbr_mask[p].T))
                 else:
-                    tables.append(hood.dev("nbr_mask", lambda: hood.nbr_mask[0],
-                                           dev))
+                    tables.append(up("nbr_mask", lambda: hood.nbr_mask[p]))
         scaled = uniform_offs and hood.scale_rows is not None
         if scaled:
-            tables.append(hood.dev("scale_rows", hood.scale_rows[0], dev))
+            tables.append(up("scale_rows", lambda: hood.scale_rows[p]))
         if split:
-            n_hard = int(np.count_nonzero(hood.hard_rows[0] < self.plan.L))
-            tables.append(hood.dev(
-                "hard_rows", lambda: hood.hard_rows[0, :n_hard].astype(np.int64),
-                dev))
-            tables.append(hood.dev("hard_nbr_rows",
-                                   lambda: hood.hard_nbr_rows[0, :n_hard], dev))
-            tables.append(hood.dev("hard_offs",
-                                   lambda: hood.hard_offs[0, :n_hard], dev))
-            tables.append(hood.dev("hard_mask",
-                                   lambda: hood.hard_mask[0, :n_hard], dev))
+            n_hard = int(np.count_nonzero(hood.hard_rows[p] < self.plan.L))
+            tables.append(up(
+                "hard_rows", lambda: hood.hard_rows[p, :n_hard].astype(np.int64)))
+            tables.append(up("hard_nbr_rows",
+                             lambda: hood.hard_nbr_rows[p, :n_hard]))
+            tables.append(up("hard_offs", lambda: hood.hard_offs[p, :n_hard]))
+            tables.append(up("hard_mask", lambda: hood.hard_mask[p, :n_hard]))
         if include_to:
-            tables.append(hood.dev("to_rows", lambda: hood.to_rows[0], dev))
-            tables.append(hood.dev("to_offs", lambda: hood.to_offs[0], dev))
-            tables.append(hood.dev("to_mask", lambda: hood.to_mask[0], dev))
+            tables.append(up("to_rows", lambda: hood.to_rows[p]))
+            tables.append(up("to_offs", lambda: hood.to_offs[p]))
+            tables.append(up("to_mask", lambda: hood.to_mask[p]))
         spec = (kind, _synth_key(cf), uniform_offs, scaled, split,
                 bool(include_to), slotwise)
         return spec, tables
+
+    def _partition_tables(self, hood, include_to, slotwise):
+        """``(spec, tables, n_tab)``: every partition's pass tables, in
+        partition order, ``n_tab`` each."""
+        per = [self._pass_tables(hood, include_to, slotwise, p)
+               for p in range(self.n_dev)]
+        return per[0][0], [t for _spec, tabs in per for t in tabs], len(per[0][1])
 
     def _make_stencil(self, kernel, fields_in, fields_out, neighborhood_id,
                       include_to, n_extra=0):
         """(program, bound tables) for a gather stencil:
         ``program(*tables, *fields_in, *fields_out, *extra) ->
-        fields_out`` (``[n_dev, R]`` tensors in and out). The table
+        fields_out`` (``[n_dev, R]`` tensors in and out), the table
         branch of the reference's ``_make_stencil``
-        (dccrg_tpu/grid.py:2720-2916): the bulk pass over the dense (or
-        closed-form) plan, then, on a split plan, the kernel over the
-        hard rows, whose results overwrite the bulk result's rows."""
+        (dccrg_tpu/grid.py:2720-2916) run partition by partition: the
+        bulk pass over the dense or closed-form plan, then, on a split
+        plan, the kernel over the hard rows, whose results overwrite the
+        bulk result's rows."""
         fields_in = tuple(fields_in)
         fields_out = tuple(fields_out)
         slotwise = isinstance(kernel, SlotwiseKernel)
         if slotwise and include_to:
             raise ValueError("SlotwiseKernel does not support include_to")
         hood = self.plan.hoods[neighborhood_id]
-        L, R = self.plan.L, self.plan.R
-        spec, tables = self._pass_tables(hood, include_to, slotwise)
-        key = ("stencil", kernel, fields_in, fields_out, n_extra, L, R, spec)
+        L, R, n_dev = self.plan.L, self.plan.R, self.n_dev
+        spec, tables, n_tab = self._partition_tables(hood, include_to, slotwise)
+        key = ("stencil", kernel, fields_in, fields_out, n_extra, L, R, spec,
+               n_dev)
         fn = self._program_cache.get(key)
         if fn is not None:
             return fn, tables
 
-        n_in, n_out, n_tab = len(fields_in), len(fields_out), len(tables)
+        n_in, n_out, n_all = len(fields_in), len(fields_out), n_dev * n_tab
 
         def fn(*args):
-            ins = args[n_tab:n_tab + n_in]
-            outs_cur = args[n_tab + n_in:n_tab + n_in + n_out]
-            extra = args[n_tab + n_in + n_out:]
-            flat = {n: f[0] for n, f in zip(fields_in, ins)}
-            cell_fields = {n: f[:L] for n, f in flat.items()}
-            run = _make_pass(spec, args[:n_tab], L, fields_out)
-            result = run(kernel, cell_fields, flat, extra)
-            outs = []
-            for n, cur in zip(fields_out, outs_cur):
-                fl = cur[0].clone()
-                fl[:L] = result[n].to(fl.dtype)
-                outs.append(fl[None])
+            ins = args[n_all:n_all + n_in]
+            outs = [cur.clone() for cur in args[n_all + n_in:n_all + n_in + n_out]]
+            extra = args[n_all + n_in + n_out:]
+            for p in range(n_dev):
+                flat = {n: f[p] for n, f in zip(fields_in, ins)}
+                cell_fields = {n: f[:L] for n, f in flat.items()}
+                run = _make_pass(spec, args[p * n_tab:(p + 1) * n_tab], L,
+                                 fields_out)
+                result = run(kernel, cell_fields, flat, extra)
+                for n, o in zip(fields_out, outs):
+                    o[p, :L] = result[n].to(o.dtype)
+            return tuple(outs)
+
+        self._program_cache[key] = fn
+        return fn, tables
+
+    # -- the overlapped step's outer re-pass (dccrg_tpu/grid.py:2473-2718)
+
+    def _outer_tables(self, neighborhood_id, hood, use_roll, r_shifts, roll):
+        """Host tables of the overlapped step's outer re-pass:
+        ``(outer_rows [n_dev, Wo] int32, pad R-1; outer_nbr_rows
+        [n_dev, Wo, S] int32)`` — the rows ``[n_inner, n_local)`` of each
+        partition and their neighbor rows in the full (local + ghost)
+        rows. None when the overlap cannot pay: no outer rows, or outer
+        rows are the majority. ``use_roll``: the neighbor rows come from
+        the roll plan (row + shift, the fixups over it; masked slots may
+        hold junk, which the re-pass zeroes). Memoized on the hood."""
+        if getattr(hood, "_outer_skip", False):
+            return None
+        cached = getattr(hood, "_outer_host", None)
+        if cached is not None:
+            return cached
+        plan = self.plan
+        R = plan.R
+        n_inner = np.asarray(hood.n_inner, dtype=np.int64)
+        n_local = np.asarray(plan.n_local, dtype=np.int64)
+        n_out_d = n_local - n_inner
+        if int(n_out_d.max(initial=0)) == 0 or (
+                2 * int(n_out_d.sum()) > int(n_local.sum())):
+            hood._outer_skip = True
+            return None
+        W = self._sticky_cap(("outerW", neighborhood_id), int(n_out_d.max()))
+        orow = np.full((self.n_dev, W), R - 1, dtype=np.int32)
+        for d in range(self.n_dev):
+            k = int(n_out_d[d])
+            orow[d, :k] = np.arange(n_inner[d], n_local[d], dtype=np.int32)
+        if use_roll:
+            shifts = np.asarray(r_shifts, dtype=np.int64)
+            S = len(shifts)
+            onr64 = orow.astype(np.int64)[:, :, None] + shifts[None, None, :]
+            wr = np.asarray(roll[1])
+            ws = np.asarray(roll[2])
+            for d in range(self.n_dev):
+                lo, hi = int(n_inner[d]), int(n_local[d])
+                for j in range(S):
+                    wrow = wr[d, j]
+                    sel = (wrow >= lo) & (wrow < hi)
+                    onr64[d, wrow[sel] - lo, j] = ws[d, j][sel]
+            onr = np.clip(onr64, 0, R - 1).astype(np.int32)
+            for d in range(self.n_dev):
+                onr[d, int(n_out_d[d]):] = R - 1
+        else:
+            nbr = np.asarray(hood.nbr_rows)
+            S = nbr.shape[2]
+            onr = np.full((self.n_dev, W, S), R - 1, dtype=np.int32)
+            for d in range(self.n_dev):
+                k = int(n_out_d[d])
+                onr[d, :k] = nbr[d, orow[d, :k]]
+        hood._outer_host = (orow, onr)
+        return hood._outer_host
+
+    def _refreshed_ghost_mask(self, neighborhood_id, names):
+        """``[n_dev, R]`` bool: the ghost rows that receive fresh bytes
+        when ``names`` exchange (after the transfer predicates); the
+        zero row excluded."""
+        R = self.plan.R
+        m = np.zeros((self.n_dev, R), dtype=bool)
+        for n in names:
+            c = self._field_pair_compact(neighborhood_id, n)
+            m[c["q"], c["rrow"]] = True
+        m[:, R - 1] = False
+        return m
+
+    def _split_outer_tables(self, neighborhood_id, hood, use_roll,
+                            r_shifts, roll, relevant):
+        """Ghost-split outer tables: like :meth:`_outer_tables`, but only
+        the local rows whose gather reads a ghost row refreshed by
+        exchanging ``relevant``. Returns ``(orow [n_dev, W], onr
+        [n_dev, W, S], rows_total)`` or None when no row qualifies;
+        memoized per ``(use_roll, relevant)`` on the hood."""
+        cache = getattr(hood, "_split_outer", None)
+        if cache is None:
+            cache = hood._split_outer = {}
+        key = (bool(use_roll), tuple(relevant))
+        if key in cache:
+            return cache[key]
+        plan = self.plan
+        R = plan.R
+        n_local = np.asarray(plan.n_local, dtype=np.int64)
+        refreshed = self._refreshed_ghost_mask(neighborhood_id, relevant)
+        row_sets = []
+        if use_roll:
+            # ghost reads are always roll-plan fixups; pad fixups are
+            # (0, 0) and row 0 is never a refreshed ghost
+            wr = np.asarray(roll[1])
+            ws = np.asarray(roll[2])
+            for d in range(self.n_dev):
+                sel = refreshed[d][ws[d]]
+                rows = np.unique(wr[d][sel]).astype(np.int64)
+                row_sets.append(rows[rows < n_local[d]])
+        else:
+            nbr = np.asarray(hood.nbr_rows)
+            msk = np.asarray(hood.nbr_mask)
+            for d in range(self.n_dev):
+                k = int(n_local[d])
+                hit = (msk[d, :k] & refreshed[d][nbr[d, :k]]).any(axis=1)
+                row_sets.append(np.nonzero(hit)[0].astype(np.int64))
+        rows_total = int(sum(len(r) for r in row_sets))
+        if rows_total == 0:
+            cache[key] = None
+            return None
+        W = self._sticky_cap(("gsplitW", neighborhood_id, key),
+                             int(max(len(r) for r in row_sets)))
+        orow = np.full((self.n_dev, W), R - 1, dtype=np.int32)
+        for d, rows in enumerate(row_sets):
+            orow[d, :len(rows)] = rows
+        if use_roll:
+            shifts = np.asarray(r_shifts, dtype=np.int64)
+            S = len(shifts)
+            onr64 = orow.astype(np.int64)[:, :, None] + shifts[None, None, :]
+            wr = np.asarray(roll[1])
+            ws = np.asarray(roll[2])
+            for d, rows in enumerate(row_sets):
+                if not len(rows):
+                    continue
+                for j in range(S):
+                    wrow = wr[d, j]
+                    pos = np.searchsorted(rows, wrow)
+                    sel = (pos < len(rows)) & (
+                        rows[np.minimum(pos, len(rows) - 1)] == wrow)
+                    onr64[d, pos[sel], j] = ws[d, j][sel]
+            onr = np.clip(onr64, 0, R - 1).astype(np.int32)
+            for d, rows in enumerate(row_sets):
+                onr[d, len(rows):] = R - 1
+        else:
+            nbr = np.asarray(hood.nbr_rows)
+            S = nbr.shape[2]
+            onr = np.full((self.n_dev, W, S), R - 1, dtype=np.int32)
+            for d, rows in enumerate(row_sets):
+                onr[d, :len(rows)] = nbr[d, rows]
+        cache[key] = (orow, onr, rows_total)
+        return cache[key]
+
+    def _make_outer_repass(self, kernel, fields_in, fields_out,
+                           neighborhood_id, exchange_names):
+        """A fix-the-refreshed-rows pass for split-overlap treatments of
+        stencils outside the step loop: recomputes the plain ``kernel``
+        at exactly the local rows whose gather reads a ghost row
+        refreshed by exchanging ``exchange_names``, writing the results
+        into already-computed bulk outputs (the caller ran the bulk
+        stencil on pre-exchange state and landed the halos). Returns
+        ``(fn, tables)`` with ``out = fn(*tables, *fields_in tensors,
+        *bulk_out tensors)`` (``[n_dev, R, ...]`` in and out), or None
+        on a split (hybrid) plan or when no row qualifies."""
+        hood = self.plan.hoods[neighborhood_id]
+        if hood.hard_nbr_rows is not None:
+            return None
+        msk = np.asarray(hood.nbr_mask)
+        if getattr(msk, "ndim", 0) != 3:
+            return None
+        exch = tuple(sorted(exchange_names))
+        st = self._split_outer_tables(neighborhood_id, hood, False,
+                                      None, None, exch)
+        if st is None:
+            return None
+        orow_h, onr_h, _rows = st
+        L, R, n_dev = self.plan.L, self.plan.R, self.n_dev
+        n_local = np.asarray(self.plan.n_local, dtype=np.int64)
+        dev = self.device
+        tables = []
+        for d in range(n_dev):
+            rows = orow_h[d][orow_h[d] < n_local[d]].astype(np.int64)
+            k = len(rows)
+            om = msk[d, rows]
+            if hood.offs_const is not None:
+                oo = (om[..., None] * np.asarray(hood.offs_const)[None, :, :]
+                      ).astype(np.int32)
+                if hood.scale_rows is not None:
+                    oo = oo * np.asarray(hood.scale_rows)[d, rows][:, None, None]
+            else:
+                oo = np.asarray(hood.nbr_offs)[d, rows]
+            for name, host in (("rows", rows), ("nbr", onr_h[d, :k]),
+                               ("mask", om), ("offs", oo)):
+                tables.append(hood.dev(("orp", exch, name, d), host, dev))
+        fields_in = tuple(fields_in)
+        fields_out = tuple(fields_out)
+        key = ("outer_repass", kernel, fields_in, fields_out,
+               neighborhood_id, exch, L, R, n_dev)
+        fn = self._program_cache.get(key)
+        if fn is not None:
+            return fn, tables
+        nin, nout = len(fields_in), len(fields_out)
+
+        def fn(*args):
+            tabs, args = args[:4 * n_dev], args[4 * n_dev:]
+            ins = args[:nin]
+            outs = [b.clone() for b in args[nin:nin + nout]]
+            for d in range(n_dev):
+                rows, onr, om, oo = tabs[4 * d:4 * d + 4]
+                if not rows.numel():
+                    continue
+                cell = {n: f[d].index_select(0, rows)
+                        for n, f in zip(fields_in, ins)}
+                nbr = {n: f[d][onr] for n, f in zip(fields_in, ins)}
+                res = kernel(cell, nbr, oo, om)
+                for n, o in zip(fields_out, outs):
+                    o[d].index_copy_(0, rows, res[n].to(o.dtype))
             return tuple(outs)
 
         self._program_cache[key] = fn
@@ -1702,19 +2899,27 @@ class Grid:
 
         With ``bulk`` (the default) an eligible loop goes through the
         bulk executor (ops/roll_executor.py): on a CUDA grid every pass
-        launches the CUDA bulk kernel. Otherwise a closed-form plan
-        takes the plain roll path (``"roll"``: every slot gathers its
-        neighbors with an exact 3-D ``torch.roll``) and any other plan
-        the table path (``"table"``: gathers by index from the dense
-        tables, then the hard-row pass of a split plan), the table
-        branch of the reference's loop (dccrg_tpu/grid.py:2976-3068,
-        one device). A plain grid kernel (``kernel(cell_fields,
-        nbr_fields, offs, mask, *extra)``, not a ``SlotwiseKernel``) gets
-        the ``[L, S]`` neighbour stacks, the pre-masked ``[L, S, 3]``
-        offsets and the ``[L, S]`` mask.
+        launches the CUDA bulk kernel (one partition only, as the
+        reference's executor). Otherwise a closed-form plan takes the
+        plain roll path (``"roll"``: an exact 3-D ``torch.roll`` per
+        slot on one partition, a flat roll plus the fixup rows on
+        several) and any other plan the table path (``"table"``: gathers
+        by index from the dense tables, then the hard-row pass of a
+        split plan), the reference's loop (dccrg_tpu/grid.py:2920-3313)
+        partition by partition. A plain grid kernel
+        (``kernel(cell_fields, nbr_fields, offs, mask, *extra)``, not a
+        ``SlotwiseKernel``) gets the ``[L, S]`` neighbour stacks, the
+        pre-masked ``[L, S, 3]`` offsets and the ``[L, S]`` mask.
 
-        ``exchange_fields`` must be a subset of ``fields_out``. On one
-        device there are no ghost rows, so nothing is exchanged.
+        Each step first refreshes the ghost rows of ``exchange_fields``
+        (a subset of ``fields_out``; static fields' ghosts are refreshed
+        once per structure epoch by the caller). With the overlap on
+        (:meth:`_use_overlap`) the exchange's sends start on a side
+        stream, the bulk pass runs on pre-exchange state, the receives
+        land and the outer rows (or, for a kernel declaring
+        ``ghost_deps``, just the rows reading a refreshed ghost) are
+        recomputed before the step's results are written;
+        ``last_overlap`` says which mode was compiled.
         """
         fields_in = tuple(fields_in)
         fields_out = tuple(fields_out)
@@ -1736,35 +2941,149 @@ class Grid:
                 return built
         hood = self.plan.hoods[neighborhood_id]
         slotwise = isinstance(kernel, SlotwiseKernel)
-        L, R = self.plan.L, self.plan.R
+        L, R, n_dev = self.plan.L, self.plan.R, self.n_dev
         static_in = tuple(n for n in fields_in if n not in fields_out)
-        spec, tables = self._pass_tables(hood, False, slotwise)
-        key = ("steploop", kernel, fields_in, fields_out, n_extra, L, R, spec)
+        spec, tables, n_tab = self._partition_tables(hood, False, slotwise)
+        exch_idx = tuple(fields_out.index(n) for n in exchange_fields)
+        xnames = tuple(fields_out[j] for j in exch_idx)
+        groups = (self._exchange_groups(neighborhood_id, xnames)
+                  if n_dev > 1 and exch_idx else [])
+        n_groups = tuple(len(g) for g in groups)
+        for g in groups:
+            for src, dst in g:
+                tables += [src, dst]
+        n_x = len(tables) - n_dev * n_tab
+
+        # the overlap and its ghost split (dccrg_tpu/grid.py:3032-3107)
+        use_roll = spec[0] == "closed_multi"
+        roll = hood.roll_plan(L) if use_roll else None
+        r_shifts = roll[0] if use_roll else None
+        overlap = (n_dev > 1 and hood.n_inner is not None and bool(exch_idx)
+                   and self._use_overlap())
+        deps = getattr(kernel, "ghost_deps", None)
+        o_mode, repass, ot, okey = None, fields_out, None, ("outer",)
+        rows_full = rows_split = 0
+        if overlap:
+            rows_full = int((np.asarray(self.plan.n_local)
+                             - np.asarray(hood.n_inner)).sum())
+        if overlap and deps is not None and ghost_split_enabled():
+            repass = tuple(F for F in fields_out
+                           if set(deps.get(F, fields_in)) & set(xnames))
+            relevant = tuple(sorted(set().union(set(), *(
+                set(deps.get(F, fields_in)) & set(xnames)
+                for F in repass))))
+            st = (self._split_outer_tables(
+                neighborhood_id, hood, use_roll, r_shifts, roll, relevant)
+                if repass else None)
+            if st is None:
+                # no output reads an exchanged ghost: no re-pass at all
+                o_mode, repass = "none", ()
+            elif repass == fields_out and st[2] >= rows_full:
+                o_mode, repass = None, fields_out  # the split saves nothing
+            elif 2 * st[2] > int(np.asarray(self.plan.n_local).sum()):
+                overlap, repass = False, fields_out
+            else:
+                o_mode, rows_split, ot = "split", st[2], st[:2]
+                okey = ("gsplit",) + relevant
+        if overlap and o_mode is None:
+            ot = self._outer_tables(neighborhood_id, hood, use_roll,
+                                    r_shifts, roll)
+            if ot is None:
+                overlap = False
+            else:
+                o_mode, rows_split = "full", rows_full
+        o_tabs = o_mode in ("full", "split")
+        if o_tabs:
+            orow, onr = ot
+            for p in range(n_dev):
+                k = int(np.count_nonzero(orow[p] < L))
+                tables.append(hood.dev(okey + ("rows", p),
+                                       orow[p, :k].astype(np.int64),
+                                       self.device))
+                tables.append(hood.dev(okey + ("nbr", p),
+                                       onr[p, :k].astype(np.int64),
+                                       self.device))
+        self.last_overlap = {
+            "mode": o_mode or "off",
+            "rows_full": rows_full * len(fields_out) if overlap else 0,
+            "rows_split": (rows_split * len(repass) if o_tabs else 0)
+            if overlap else 0,
+            "repass_fields": repass if overlap else fields_out,
+        }
+
+        key = ("steploop", kernel, fields_in, fields_out, exch_idx, n_extra,
+               L, R, spec, n_dev, n_groups, overlap, o_mode, repass)
         fn = self._program_cache.get(key)
         if fn is not None:
             return fn, tables, static_in
 
-        n_static, n_out, n_tab = len(static_in), len(fields_out), len(tables)
+        n_static, n_out = len(static_in), len(fields_out)
+        n_part = n_dev * n_tab
+        n_all = len(tables)
+        side = (self._side_stream()
+                if overlap and self.device.type == "cuda" else None)
 
         def fn(n_steps, *args):
-            tabs, args = args[:n_tab], args[n_tab:]
-            statics = {n: a[0] for n, a in zip(static_in, args[:n_static])}
-            # fresh state tensors: the caller's arrays stay untouched,
+            tabs, args = args[:n_all], args[n_all:]
+            xt = tabs[n_part:n_part + n_x]
+            xg, i = [], 0
+            for cnt in n_groups:
+                xg.append([(xt[i + 2 * t], xt[i + 2 * t + 1])
+                           for t in range(cnt)])
+                i += 2 * cnt
+            otab = tabs[n_part + n_x:]
+            statics = dict(zip(static_in, args[:n_static]))
+            # fresh state tensors: the caller's tensors stay untouched,
             # and the steps then update the copies in place
-            state = [a[0].clone() for a in args[n_static:n_static + n_out]]
+            state = [a.clone() for a in args[n_static:n_static + n_out]]
             extra = args[n_static + n_out:]
-            run = _make_pass(spec, tabs, L, fields_out)
+            runs = [_make_pass(spec, tabs[p * n_tab:(p + 1) * n_tab], L,
+                               fields_out) for p in range(n_dev)]
+
+            def bulk_pass(full, p):
+                flat = {n: full[n][p] for n in fields_in}
+                return runs[p](kernel, {n: f[:L] for n, f in flat.items()},
+                               flat, extra)
+
+            def write(p, result):
+                for j, n in enumerate(fields_out):
+                    state[j][p, :L] = result[n].to(state[j].dtype)
+
             for _ in range(int(n_steps)):
                 full = dict(statics)
                 full.update(zip(fields_out, state))
-                flat = {n: full[n] for n in fields_in}
-                cell_fields = {n: f[:L] for n, f in flat.items()}
-                result = run(kernel, cell_fields, flat, extra)
-                for j, n in enumerate(fields_out):
-                    state[j][:L] = result[n].to(state[j].dtype)
-            return tuple(s[None] for s in state)
+                if not overlap:
+                    if xg:
+                        _land_halos(state, exch_idx, xg,
+                                    _send_halos(state, exch_idx, xg, None),
+                                    None, R)
+                    for p in range(n_dev):
+                        write(p, bulk_pass(full, p))
+                    continue
+                # sends read local rows only, so they start before the
+                # bulk pass with no dependency on it; the bulk pass reads
+                # pre-exchange ghosts, so rows [0, n_inner) come out
+                # final and the outer rows are redone once the halos land
+                payloads = _send_halos(state, exch_idx, xg, side)
+                results = [bulk_pass(full, p) for p in range(n_dev)]
+                _land_halos(state, exch_idx, xg, payloads, side, R)
+                for p in range(n_dev if o_tabs else 0):
+                    rows, nbr = otab[2 * p], otab[2 * p + 1]
+                    if not rows.numel():
+                        continue
+                    flat = {n: full[n][p] for n in fields_in}
+                    o_res = runs[p].repass(kernel, flat, extra, rows, nbr,
+                                           use_roll)
+                    res = dict(results[p])
+                    for n in repass:
+                        res[n] = res[n].index_copy(
+                            0, rows, o_res[n].to(res[n].dtype))
+                    results[p] = res
+                for p, res in enumerate(results):
+                    write(p, res)
+            return tuple(state)
 
-        fn.step_path = "roll" if spec[0] == "closed" else "table"
+        fn.step_path = "roll" if spec[0] in ("closed", "closed_multi") else "table"
         self._program_cache[key] = fn
         return fn, tables, static_in
 
@@ -1791,6 +3110,14 @@ class Grid:
                 kernel, fields_in, fields_out, exchange_fields,
                 neighborhood_id, n_extra=len(extra_args), bulk=bulk,
             )
+            ov = self.last_overlap
+            if fn.step_path != "bulk" and ov is not None and ov["mode"] != "off":
+                # the ghost split's measuring stick: re-pass row slots
+                # recomputed against the full re-pass's
+                telemetry.inc("dccrg_outer_repass_rows_total",
+                              ov["rows_split"] * int(n_steps), mode=ov["mode"])
+                telemetry.inc("dccrg_outer_repass_rows_full_total",
+                              ov["rows_full"] * int(n_steps))
             out = fn(
                 int(n_steps),
                 *tables,

@@ -358,7 +358,7 @@ def build_hybrid_plan(mapping, topology, neighborhoods, cells, owner, n_dev,
 
     if n_dev != 1:
         raise NotImplementedError(
-            "multi-device hybrid plans are not ported (one device only)")
+            "multi-device hybrid plans wait for ROADMAP.md queue 1, item 5b")
     mark = _phase_timer()
     if arena is None:
         arena = PlanArena()

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from . import checkpoint as checkpoint_mod
+from . import comm
 from .resilience import ResilienceExhaustedError
 
 _U32 = 0xFFFFFFFF
@@ -187,26 +188,28 @@ def slot_fingerprints(x: torch.Tensor, n_own: int) -> torch.Tensor:
 
 
 def grid_fingerprint(grid, fields=None) -> dict:
-    """``{field: (s1, s2)}`` over the grid's OWNED cell bytes, the
-    rows :func:`dccrg_tpu_torch.checkpoint.state_digest` hashes, equal
-    to :func:`fingerprint_rows` of those rows and to the reference's
-    fingerprint of a grid holding the same bytes. Computed on the
-    grid's device (:func:`device_fingerprint`, one host read per
-    field) where a row is one word per element: 32-bit types and
-    scalar 16-bit fields; other types on the host."""
+    """``{field: (s1, s2)}`` over the grid's OWNED cell bytes (rows
+    ``[0, n_local[p])`` of every partition), the rows
+    :func:`dccrg_tpu_torch.checkpoint.state_digest` hashes, equal to
+    :func:`fingerprint_rows` of those rows and to the reference's
+    fingerprint of a grid holding the same bytes; the sums wrap, so the
+    partition does not change it. Computed on the grid's device
+    (:func:`device_fingerprint`, one host read per field) where a row is
+    one word per element: 32-bit types and scalar 16-bit fields; other
+    types on the host."""
     out = {}
-    n_own = int(grid.plan.n_local[0])
     for name in sorted(fields if fields is not None else grid.fields):
         shape, dtype = grid.fields[name]
-        x = grid.data[name][0]
+        x = checkpoint_mod.owned_rows(grid, name)
         size = x.element_size()
         if size == 4 or (size == 2 and tuple(shape) == ()):
-            s1, s2 = device_fingerprint(x, n_own).tolist()
+            s1, s2 = device_fingerprint(x, x.shape[0]).tolist()
             out[name] = (int(s1), int(s2))
         else:
-            rows = np.frombuffer(checkpoint_mod.tensor_bytes(x[:n_own]),
+            rows = np.frombuffer(checkpoint_mod.tensor_bytes(x),
                                  dtype=checkpoint_mod.storage_dtype(dtype))
-            out[name] = fingerprint_rows(rows.reshape((n_own,) + tuple(shape)))
+            out[name] = fingerprint_rows(
+                rows.reshape((x.shape[0],) + tuple(shape)))
     return out
 
 
@@ -228,13 +231,17 @@ def file_fingerprint(path: str, cell_data, header_size: int = 0,
 
 
 def conservation_sums(grid, fields) -> np.ndarray:
-    """Per-field sums over the grid's owned cells, each reduced on the
-    device and cast to float32 as the reference's ``field_sums`` does,
-    read by the host once: ``[len(fields)]`` float64."""
+    """Per-field sums over the grid's owned cells: each partition's sum
+    cast to float32, then summed over the partitions, as the
+    reference's ``comm.field_sums`` path does
+    (dccrg_tpu/integrity.py:348-391); read by the host once:
+    ``[len(fields)]`` float64."""
     names = tuple(fields)
     if not names:
         return np.zeros(0, dtype=np.float64)
-    n_own = int(grid.plan.n_local[0])
-    sums = torch.stack([grid.data[n][0, :n_own].sum().to(torch.float32)
-                        for n in names])
-    return sums.cpu().numpy().astype(np.float64)
+    parts = torch.stack([
+        torch.stack([grid.data[n][p, :int(grid.plan.n_local[p])].sum()
+                     .to(torch.float32) for n in names])
+        for p in range(grid.n_dev)])
+    return comm.pull_replicated(comm.all_reduce(parts, "sum")[0]).astype(
+        np.float64)

@@ -22,7 +22,8 @@ import numpy as np
 import torch
 
 from ..dense import DenseGrid
-from ..grid import Grid, SlotwiseKernel, resolve_device
+from ..grid import (NEXT_SLICE, Grid, SlotwiseKernel, resolve_device,
+                    single_device)
 from ..ops.advection_kernel import make_rotation_step
 
 HUMP_X0, HUMP_Y0, HUMP_RADIUS = 0.25, 0.5, 0.15
@@ -136,7 +137,10 @@ class GridAdvection:
     ``Grid.run_steps`` loop, face-neighbor neighborhood
     (set_neighborhood_length(0), dccrg.hpp:8015-8076). Periodic in x
     and y as the reference configuration (2d.cpp:237); ``periodic``
-    overrides that. Runs on the card unless ``device`` says otherwise."""
+    overrides that. Runs on the card unless ``device`` says otherwise;
+    a list of devices runs it on that many partitions, taking the
+    ``block`` partition as the reference does (contiguous slabs keep the
+    closed-form plan and talk to one or two peers)."""
 
     def __init__(self, n=256, nz=None, device=None, cfl=0.5,
                  dtype=torch.float32, periodic=(True, True, False)):
@@ -156,10 +160,11 @@ class GridAdvection:
             .set_neighborhood_length(0)
             .set_geometry("cartesian", start=(0.0, 0.0, 0.0),
                           level_0_cell_length=(dx, dx, 1.0 / nz))
-            .initialize(device)
+            .initialize(device, partition="block")
         )
         # init on the device: the cell center is affine in the row id on
-        # this uniform grid, so no host center arrays are made
+        # this uniform grid, so no host center arrays are made (ghost
+        # rows take their cells' values, pad rows zero)
         ridx = self.grid.device_row_ids()
         valid = ridx >= 0
         r = torch.where(valid, ridx, 0)
@@ -225,14 +230,16 @@ class AdvectionSolver:
     replicates the 2-D problem along z (the 512^3 configuration of
     BASELINE.json). Plain PyTorch on ``DenseGrid``: the reference
     computes this step in XLA, outside any Pallas kernel. Runs on the
-    card unless ``device`` says otherwise; ``mesh`` must be None (the
-    reference's multi-device mesh is a later slice of the port)."""
+    card unless ``device`` says otherwise; ``mesh`` must be None and
+    ``device`` one device (the reference's multi-device dense solver
+    waits for ROADMAP queue 1 item 5b)."""
 
     def __init__(self, n=64, nz=None, mesh=None, dtype=torch.float32, cfl=0.5,
                  device=None):
         if mesh is not None:
             raise NotImplementedError(
-                "a device mesh: this port's AdvectionSolver runs on one device")
+                f"AdvectionSolver on a device mesh waits for {NEXT_SLICE}")
+        device = single_device(device, "AdvectionSolver")
         nz = nz if nz is not None else 1
         self.n, self.nz, self.cfl = n, nz, cfl
         self.grid = DenseGrid(

@@ -1,4 +1,4 @@
-"""Conway's game of life on the port's grid, one device.
+"""Conway's game of life on the port's grid.
 
 Port of ``dccrg_tpu/models/game_of_life.py``, the reference's minimal
 stencil application (examples/simple_game_of_life.cpp: cell struct
@@ -27,16 +27,18 @@ def life_kernel(cell, nbr, offs, mask):
 
 class GameOfLife:
     def __init__(self, length=(10, 10, 1), periodic=(False, False, False),
-                 device=None, max_refinement_level=0):
-        """``max_refinement_level > 0`` allows running the game on a
-        refined grid (the reference's refined variants)."""
+                 device=None, partition=None, max_refinement_level=0):
+        """``device`` as for ``Grid.initialize`` (a list of devices runs
+        the game on that many partitions, partitioned by ``partition``);
+        ``max_refinement_level > 0`` allows running the game on a
+        refined grid (the reference's refined variants, one partition)."""
         self.grid = (
             Grid(cell_data={"live": torch.int32, "total": torch.int32})
             .set_initial_length(length)
             .set_periodic(*periodic)
             .set_maximum_refinement_level(max_refinement_level)
             .set_neighborhood_length(1)
-            .initialize(device)
+            .initialize(device, partition=partition)
         )
 
     def refine(self, ids) -> None:

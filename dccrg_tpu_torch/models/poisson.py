@@ -30,7 +30,8 @@ import numpy as np
 import torch
 
 from ..dense import DenseGrid
-from ..grid import Grid, as_torch_dtype, resolve_device
+from ..grid import (NEXT_SLICE, Grid, as_torch_dtype, resolve_device,
+                    single_device)
 from ..neighbors import face_masks, make_neighborhood
 from ..ops.poisson_kernel import rdd2_coefficients
 
@@ -108,7 +109,9 @@ class PoissonSolver:
     Either wraps an existing grid declared with ``poisson_fields`` (the
     reference solver is grid-agnostic the same way,
     poisson_solve.hpp:252-258) or builds a uniform one from ``length``
-    on ``device`` (``"cuda"`` when None).
+    on ``device`` (``"cuda"`` when None). A grid of more than one
+    partition raises NotImplementedError: the solve exchanges no ghost
+    rows yet (ROADMAP queue 1, item 5b).
     """
 
     def __init__(self, length=None, device=None, periodic=(True, True, True),
@@ -123,8 +126,12 @@ class PoissonSolver:
                 .set_periodic(*periodic)
                 .set_maximum_refinement_level(max_refinement_level)
                 .set_neighborhood_length(1)
-                .initialize(device)
+                .initialize(single_device(device, "PoissonSolver"))
             )
+        if self.grid.n_dev != 1:
+            raise NotImplementedError(
+                f"PoissonSolver on {self.grid.n_dev} partitions waits for "
+                f"{NEXT_SLICE}")
         missing = [n for n in POISSON_FIELDS if n not in self.grid.fields]
         if missing:
             raise ValueError(f"grid lacks Poisson fields {missing}")

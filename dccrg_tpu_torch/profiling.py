@@ -3,6 +3,7 @@
     python -m dccrg_tpu_torch.profiling [--path main] [--n 512] [--steps 20]
     python -m dccrg_tpu_torch.profiling --path fleet [--n 64]
     python -m dccrg_tpu_torch.profiling --path amr [--n 128] [--steps 20]
+    python -m dccrg_tpu_torch.profiling --path multi [--n 512] [--parts 4]
 
 ``--path main`` (the default) traces ``--steps`` steps of
 ``GridAdvection(n).run`` after two warm-up steps. ``--path fleet``
@@ -13,7 +14,10 @@ integrity on) through ``GridBatch`` after one warm-up quantum.
 ``--path amr`` traces ``--steps`` table-path steps of
 bench/recommit_bench.py's refined grid (``amr_slab_grid``: ``n``^3,
 two slab commits) with its diffuse kernel, after one warm-up step.
-Each prints one JSON line
+``--path multi`` traces ``--steps`` steps of ``GridAdvection(n)`` on
+``--parts`` partitions of the card (the plain roll path with its fixup
+rows, the halo exchange and, by default, the overlapped step's side
+stream and outer re-pass) after one warm-up step. Each prints one JSON line
 per device kernel (device time and launches per step, or per quantum)
 and one summary line: wall time (CUDA events around the traced run, the
 profiler's own host cost included), device busy time, the device's busy
@@ -40,11 +44,11 @@ def _card():
     return out.stdout.strip().splitlines()[0] if out.returncode == 0 else None
 
 
-def _trace(run, per, unit, summary):
-    """Trace ``run()`` with torch.profiler and print the device kernels
-    (time and launches divided by ``per``, in ``unit``) and the dict
-    ``summary()`` returns after the run, with the wall and busy figures
-    added."""
+def trace_counts(run):
+    """Trace ``run()`` with torch.profiler: ``(wall_ms, rows)`` with the
+    wall time by CUDA events around the run (the profiler's own host
+    cost included) and one ``(device_us, launches, name)`` row per
+    device kernel, copy or set, busiest first."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -64,6 +68,15 @@ def _trace(run, per, unit, summary):
             if ev.device_type == DeviceType.CUDA
             and ev.self_device_time_total > 0]
     rows.sort(reverse=True)
+    return wall_ms, rows
+
+
+def _trace(run, per, unit, summary):
+    """Trace ``run()`` (:func:`trace_counts`) and print the device
+    kernels (time and launches divided by ``per``, in ``unit``) and the
+    dict ``summary()`` returns after the run, with the wall and busy
+    figures added."""
+    wall_ms, rows = trace_counts(run)
     busy_ms = sum(r[0] for r in rows) / 1e3
     for dev_us, count, key in rows[:15]:
         print(json.dumps({"kernel": key[:80],
@@ -169,12 +182,28 @@ def profile_amr(n, steps, card):
                         hood.hard_rows[0] < g.plan.L)), "card": card})
 
 
+def profile_multi(n, steps, parts, card):
+    from .models.advection import GridAdvection
+
+    adv = GridAdvection(n=n, device=["cuda"] * parts)
+    adv.run(1)
+    torch.cuda.synchronize()
+    _trace(lambda: adv.run(steps), steps, "step",
+           lambda: {"profile": "multi", "n": n, "parts": parts,
+                    "steps": steps, "path": adv.grid.last_step_path,
+                    "overlap": adv.grid.last_overlap["mode"], "card": card})
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--path", choices=("main", "fleet", "amr"), default="main")
+    p.add_argument("--path", choices=("main", "fleet", "amr", "multi"),
+                   default="main")
     p.add_argument("--n", type=int, default=None,
-                   help="grid edge (default 512 main, 64 fleet, 128 amr)")
+                   help="grid edge (default 512 main and multi, 64 fleet, "
+                        "128 amr)")
     p.add_argument("--steps", type=int, default=20)
+    p.add_argument("--parts", type=int, default=4,
+                   help="partitions of --path multi")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("profiling: needs a CUDA device", file=sys.stderr)
@@ -183,6 +212,8 @@ def main(argv=None) -> int:
         profile_main_path(args.n or 512, args.steps, _card())
     elif args.path == "amr":
         profile_amr(args.n or 128, args.steps, _card())
+    elif args.path == "multi":
+        profile_multi(args.n or 512, args.steps, args.parts, _card())
     else:
         profile_fleet(args.n or 64, _card())
     return 0

@@ -906,8 +906,12 @@ def check_finite(grid, fields=None) -> bool:
     names = _inexact_fields(grid, fields)
     if not names:
         return True
-    return bool(torch.stack([torch.isfinite(grid.data[n]).all()
-                             for n in names]).all())
+    # every partition's all(isfinite), then one min over the partitions
+    # (comm.all_finite, the reference's probe,
+    # dccrg_tpu/resilience.py:1105-1136)
+    from . import comm
+
+    return bool(int(comm.all_finite([grid.data[n] for n in names])[0]))
 
 
 def find_nonfinite_cells(grid, fields=None) -> dict:

@@ -116,8 +116,10 @@ def test_device_selection():
 
 
 def test_single_device_only():
+    """Partitions share one device: a list naming distinct devices
+    waits for the slice that places them on their own cards."""
     from dccrg_tpu_torch import Grid
 
     g = Grid(cell_data={"rho": torch.float32}).set_initial_length((4, 4, 4))
-    with pytest.raises(NotImplementedError):
-        g.initialize(["cpu", "cpu"])
+    with pytest.raises(NotImplementedError, match="item 5b"):
+        g.initialize(["cpu", "meta"])

@@ -338,3 +338,64 @@ def test_dense_advection_on_the_card(device, n, nz):
                                cpu.grid.to_host("rho"), rtol=1e-6, atol=1e-7)
     assert abs(card.total_mass() - m0) < 1e-6 * m0
     assert abs(card.l2_error() - cpu.l2_error()) < 1e-7
+
+
+def _exchange_grid(device_list, partition):
+    g = (port.Grid(cell_data={"v": torch.float32, "w": torch.bfloat16})
+         .set_initial_length((12, 10, 16)).set_periodic(True, False, True)
+         .set_neighborhood_length(1)
+         .initialize(device_list, partition=partition))
+    cells = g.plan.cells
+    g.set("v", cells, (cells % 97).astype(np.float32))
+    g.set("w", cells, (cells % 13).astype(np.float32))
+    return g
+
+
+@pytest.mark.parametrize("partition", ["block", "morton"])
+def test_partitioned_exchange_on_the_card(device, partition):
+    """The halo exchange of four partitions on the card, sync and split:
+    every partition's ghost rows equal its CPU twin's and hold their
+    owners' values; the zero row stays zero."""
+    got = _exchange_grid([device] * 4, partition)
+    want = _exchange_grid(["cpu"] * 4, partition)
+    for g in (got, want):
+        g.update_copies_of_remote_neighbors(fields=["v"])
+        g.start_remote_neighbor_copy_updates(fields=["w"])
+        g.wait_remote_neighbor_copy_updates()
+    for f in ("v", "w"):
+        assert torch.equal(got.data[f].cpu(), want.data[f])
+        assert float(got.data[f][:, -1].float().abs().sum()) == 0.0
+    host = got.data["v"].cpu().numpy()
+    for d in range(4):
+        ghosts = got.plan.ghost_ids[d]
+        np.testing.assert_array_equal(
+            host[d, got.plan.L:got.plan.L + len(ghosts)],
+            (ghosts % 97).astype(np.float32))
+
+
+@pytest.mark.parametrize("overlap", ["0", "1"])
+def test_partitioned_advection_on_the_card(device, overlap, monkeypatch):
+    """``GridAdvection`` on four partitions of the card (the plain roll
+    path with its fixups, no kernel) against the same run on the CPU
+    and against one partition on the card (kernel A), with the overlap
+    (side-stream sends) off and on: bit for bit."""
+    monkeypatch.setenv("DCCRG_OVERLAP", overlap)
+    four = GridAdvection(n=24, nz=32, device=[device] * 4)
+    cpu = GridAdvection(n=24, nz=32, device=["cpu"] * 4)
+    one = GridAdvection(n=24, nz=32, device=device)
+    start = one.density()
+    for g in (four, cpu):
+        g.grid.set("density", g.grid.plan.cells, start)
+        g.grid.update_copies_of_remote_neighbors(fields=["density"])
+    dt = 0.5 * one.max_time_step()
+    roll_executor.bulk_pass.launches = 0
+    four.run(6, dt)
+    assert roll_executor.bulk_pass.launches == 0
+    assert four.grid.last_step_path == "roll"
+    assert four.grid.last_overlap["mode"] == ("full" if overlap == "1"
+                                              else "off")
+    cpu.run(6, dt)
+    one.run(6, dt)
+    assert roll_executor.bulk_pass.launches == 6
+    np.testing.assert_array_equal(four.density(), cpu.density())
+    np.testing.assert_array_equal(four.density(), one.density())

@@ -364,8 +364,8 @@ def resolve_adaptation(
             for k in kids0:
                 weights.pop(int(k), None)
 
-    # the reference's fault site after the pins/weights inheritance
-    # (the port's grid passes neither, so nothing has changed yet)
+    # the pins/weights dicts were just changed in place (inheritance);
+    # the port has no transaction to restore them on a fault here
     faults.fire("adapt.resolve", phase="pins")
 
     return AmrResult(

@@ -13,15 +13,16 @@ PyTorch counterpart of ``dccrg_tpu/grid.py``:
   ``[n_dev, R, ...]``, one row block per partition. A partition's rows
   are ``[inner | outer | pad | ghost copies | pad | zero row]``
   (``R = L + G + 1``; one partition has no ghosts, ``R = L + 1``).
-- **Partitions**: ``initialize([dev] * n)`` runs a level-0 grid on n
-  partitions, every one on the same device (the next slice of the port
+- **Partitions**: ``initialize([dev] * n)`` runs the grid on n
+  partitions, every one on the same device (a later slice of the port
   puts each on its own card). The partitioner (partition.py) assigns
   owners; the halo exchange (``update_copies_of_remote_neighbors``, the
   split-phase calls and the step loop) moves each partition's send
   rows into the ghost rows of its peers with one ``index_select`` and
   one ``index_copy_`` per peer offset; ``balance_load`` repartitions
   and moves the data with one gather per field. Refined grids run on
-  one partition.
+  partitions too: the hybrid and generic plans carry ghost rows, and an
+  AMR commit moves cells between partitions.
 - **Stencils**: on a closed-form plan an eligible step loop goes
   through the bulk executor (ops/roll_executor.py, a CUDA kernel on the
   card); everything else gathers neighbors slot by slot with exact 3-D
@@ -31,13 +32,14 @@ PyTorch counterpart of ``dccrg_tpu/grid.py``:
   hard-row tables and write those rows over the bulk result.
 - **AMR**: ``refine_completely`` and friends queue requests,
   ``stop_refining`` resolves them (amr.py), rebuilds the plan and moves
-  the surviving cells' rows on the device.
+  the surviving cells' rows, on any partition, on the device.
 
 With ``n_dev > 1`` a stencil runs partition by partition over the
 closed-form plan (a flat roll plus exact fixup rows, a ``block``
-partition) or the dense tables; the overlapped step runs the exchange's
-sends on a side CUDA stream under the bulk pass and recomputes the
-outer rows after the receive.
+partition) or the dense tables, then a hybrid plan's hard rows; the
+overlapped step runs the exchange's sends on a side CUDA stream under
+the bulk pass, recomputes the outer rows after the receive and runs the
+hard rows last, on the received ghosts.
 """
 
 from __future__ import annotations
@@ -85,7 +87,8 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-# What waits for the slice that places partitions on distinct cards.
+# What waits for the slices that place partitions on distinct cards
+# (item 5b.1) and take the dense grid and the solvers onto partitions.
 NEXT_SLICE = "ROADMAP.md queue 1, item 5b"
 
 
@@ -93,8 +96,8 @@ def resolve_partitions(device=None) -> list:
     """The partitions an entry point runs on, one device each: ``device``
     may be None (one partition on the card), a device, or a list of
     devices (one partition each). Every partition lives on the same
-    device in this slice; a list naming distinct devices raises
-    NotImplementedError."""
+    device; a list naming distinct devices raises NotImplementedError
+    (item 5b.1 of ROADMAP.md's queue 1)."""
     if isinstance(device, (list, tuple)):
         if not device:
             raise ValueError("an empty device list")
@@ -104,7 +107,7 @@ def resolve_partitions(device=None) -> list:
     if any(d != devs[0] for d in devs[1:]):
         raise NotImplementedError(
             f"partitions on distinct devices {sorted(set(map(str, devs)))}: "
-            f"every partition shares one device until {NEXT_SLICE}")
+            f"every partition shares one device until {NEXT_SLICE}.1")
     return devs
 
 
@@ -335,6 +338,10 @@ def _make_pass(spec, tabs, L, fields_out):
     closed-form plan, then on a split plan the kernel over the hard
     rows, their results written over the bulk result's rows (the
     reference's merge order, dccrg_tpu/grid.py:2882-2893).
+    ``run(..., hard=False)`` leaves the hard rows out, and
+    ``run.hard(kernel, cell_fields, flat, extra, result)`` runs them
+    alone over ``result`` (the overlapped step runs them after the
+    halos land, as the reference's loop does).
     ``run.repass(kernel, flat, extra, rows, nbr_rows, zero_masked)``
     runs the kernel as a dense kernel at a row subset whose ``[k, S]``
     neighbor rows are given (the overlapped step's outer rows).
@@ -396,7 +403,7 @@ def _make_pass(spec, tabs, L, fields_out):
         if scaled:
             noffs = noffs * sc0[:, None, None]
 
-    def run(kernel, cell_fields, flat, extra):
+    def run(kernel, cell_fields, flat, extra, hard=True):
         if slotwise:
             result = _run_slotwise(kernel, cell_fields, flat, slot_gather,
                                    offs_col, mask_col, n_slots, extra)
@@ -408,16 +415,21 @@ def _make_pass(spec, tabs, L, fields_out):
                                 toffs, tmask, *extra)
             else:
                 result = kernel(cell_fields, nbr, noffs, nmask, *extra)
-        if split:
-            # second pass over the hard rows (near refinement) with
-            # their own, wider tables; results overwrite those rows
-            h_cell = {n: v.index_select(0, hr) for n, v in cell_fields.items()}
-            h_nbr = {n: h_gather(v) for n, v in flat.items()}
-            h_result = kernel(h_cell, h_nbr, hof, hm, *extra)
-            result = dict(result)
-            for n in fields_out:
-                result[n] = result[n].index_put(
-                    (hr,), h_result[n].to(result[n].dtype))
+        return run_hard(kernel, cell_fields, flat, extra, result) if hard \
+            else result
+
+    def run_hard(kernel, cell_fields, flat, extra, result):
+        if not split:
+            return result
+        # second pass over the hard rows (near refinement) with their
+        # own, wider tables; results overwrite those rows
+        h_cell = {n: v.index_select(0, hr) for n, v in cell_fields.items()}
+        h_nbr = {n: h_gather(v) for n, v in flat.items()}
+        h_result = kernel(h_cell, h_nbr, hof, hm, *extra)
+        result = dict(result)
+        for n in fields_out:
+            result[n] = result[n].index_put(
+                (hr,), h_result[n].to(result[n].dtype))
         return result
 
     def repass(kernel, flat, extra, rows, nbr_rows, zero_masked):
@@ -440,6 +452,7 @@ def _make_pass(spec, tabs, L, fields_out):
         return kernel(cell, nbr, offs, m, *extra)
 
     run.repass = repass
+    run.hard = run_hard
     return run
 
 
@@ -899,10 +912,10 @@ class Grid:
         """Build the level-0 grid (dccrg.hpp:480-562) on the partitions
         ``device`` names: None is one partition on the card, a device
         one partition there, a list of n devices n partitions (each the
-        same device in this slice; distinct devices raise
-        NotImplementedError). ``partition`` picks the partitioner of
-        the level-0 cells (partition.PARTITION_METHODS), the load
-        balancing method when None."""
+        same device; distinct devices raise NotImplementedError).
+        ``partition`` picks the partitioner of the level-0 cells
+        (partition.PARTITION_METHODS), the load balancing method when
+        None."""
         self._require_uninitialized()
         self.devices = resolve_partitions(device)
         self.device = self.devices[0]
@@ -994,10 +1007,6 @@ class Grid:
         n0 = self.mapping.length.total_level0_cells
         if uniform_mod.is_uniform(cells, n0) and n0 < 2**31 - 2:
             return self._build_plan_uniform(cells, owner)
-        if self.n_dev > 1:
-            raise NotImplementedError(
-                f"refined cells on {self.n_dev} partitions wait for "
-                f"{NEXT_SLICE} (multi-device hybrid plans and AMR)")
         if n0 < 2**31 - 2 and os.environ.get("DCCRG_FORCE_GENERIC") != "1":
             return self._build_plan_hybrid(cells, owner, changed_hint)
         return self._build_plan_generic(cells, owner)
@@ -1094,47 +1103,98 @@ class Grid:
         return plan
 
     def _build_plan_generic(self, cells, owner):
-        """The generic builder (dccrg_tpu/grid.py:990-1077), one
-        device: the full neighbor lists of every hood, rows in cell
-        order, each cell's entries left-compacted into ``[1, L, S]``
+        """The generic builder (dccrg_tpu/grid.py:990-1077): the full
+        neighbor lists of every hood; a cell with a neighbor on another
+        partition (of- or to-list of the default hood) is outer, its
+        partition's rows ``[inner | outer]``; each partition's ghost
+        rows hold the remote cells its of- and to-gathers read, in id
+        order; each cell's entries left-compacted into ``[n_dev, L, S]``
         tables with explicit offsets."""
-        n = len(cells)
+        n_dev = self.n_dev
         hood_lists = {
             hid: build_neighbor_lists(self.mapping, self.topology, cells, offs)
             for hid, offs in self.neighborhoods.items()
         }
-        L = self._sticky_cap("L", max(1, n))
-        layout = dict(
-            L=L, R=L + 1, n_local=np.array([n], dtype=np.int64),
-            local_ids=[cells.copy()], row_of_pos=np.arange(n, dtype=np.int32),
-            ghost_ids=[np.empty(0, np.uint64)],
-        )
+        hood_gidx = {
+            hid: (np.searchsorted(cells, hl.of_neighbor),
+                  np.searchsorted(cells, hl.to_neighbor))
+            for hid, hl in hood_lists.items()
+        }
+        nl = hood_lists[DEFAULT_NEIGHBORHOOD_ID]
+        nbr_idx, to_nbr_idx = hood_gidx[DEFAULT_NEIGHBORHOOD_ID]
+        outer_flag = np.zeros(len(cells), dtype=bool)
+        outer_flag[nl.of_source[owner[nl.of_source] != owner[nbr_idx]]] = True
+        outer_flag[nl.to_source[owner[nl.to_source] != owner[to_nbr_idx]]] = True
+
+        local_ids, ghost_ids = [], []
+        n_inner = np.zeros(n_dev, np.int64)
+        for d in range(n_dev):
+            mine = owner == d
+            inner = cells[mine & ~outer_flag]
+            local_ids.append(np.concatenate([inner, cells[mine & outer_flag]]))
+            n_inner[d] = len(inner)
+            gh = []
+            for hid, hl in hood_lists.items():
+                of_g, to_g = hood_gidx[hid]
+                m = (owner[hl.of_source] == d) & (owner[of_g] != d)
+                gh.append(hl.of_neighbor[m])
+                m2 = (owner[hl.to_source] == d) & (owner[to_g] != d)
+                gh.append(hl.to_neighbor[m2])
+            ghost_ids.append(np.unique(np.concatenate(gh)))
+
+        n_local = np.array([len(x) for x in local_ids], dtype=np.int64)
+        L = self._sticky_cap("L", max(1, int(n_local.max())))
+        G = max(len(x) for x in ghost_ids) if n_dev > 1 else 0
+        G = self._sticky_cap("G", G) if G else 0
+        # row_by_gidx[d, position] -> row on partition d (-1: none);
+        # row_of_pos is the owner's row
+        row_by_gidx = np.full((n_dev, len(cells)), -1, dtype=np.int32)
+        row_of_pos = np.full(len(cells), -1, dtype=np.int32)
+        for d in range(n_dev):
+            lpos = np.searchsorted(cells, local_ids[d])
+            lrows = np.arange(len(local_ids[d]), dtype=np.int32)
+            row_by_gidx[d, lpos] = lrows
+            row_of_pos[lpos] = lrows
+            if len(ghost_ids[d]):
+                row_by_gidx[d, np.searchsorted(cells, ghost_ids[d])] = (
+                    L + np.arange(len(ghost_ids[d]), dtype=np.int32))
+        layout = dict(L=L, R=L + G + 1, n_local=n_local, local_ids=local_ids,
+                      row_of_pos=row_of_pos, ghost_ids=ghost_ids)
         plan = self._new_plan(cells, owner, layout)
-        n_inner = np.array([n], dtype=np.int64)
         for hid, offs in self.neighborhoods.items():
             plan.hoods[hid] = self._build_hood_plan(
                 plan, hood_lists[hid], offs,
-                n_inner if hid == DEFAULT_NEIGHBORHOOD_ID else None, hid)
+                n_inner if hid == DEFAULT_NEIGHBORHOOD_ID else None,
+                hood_gidx[hid], row_by_gidx, hid)
         return plan
 
-    def _build_hood_plan(self, plan, nl, offsets, n_inner, hid):
+    def _build_hood_plan(self, plan, nl, offsets, n_inner, gidx, row_by_gidx,
+                         hid):
         """One hood of the generic plan (dccrg_tpu/grid.py:1220-1306):
-        rows of a cell's entries in stream order, slot = rank within the
-        cell, ``S`` a sticky capacity."""
-        L, R = plan.L, plan.R
-        cells = plan.cells
+        each entry's row on its source's partition, slot = rank within
+        the (partition, row) group in stream order, ``S`` a sticky
+        capacity; the send/receive lists from the ghost rows."""
+        n_dev, L, R = plan.n_dev, plan.L, plan.R
+        cells, owner = plan.cells, plan.owner
 
-        def build_table(src_pos, nbr_pos, offs_arr):
-            # one device: a cell's row is its position in the cell list
-            key = np.asarray(src_pos, dtype=np.int64)
+        def build_table(src_gidx, nbr_gidx, offs_arr):
+            entry_dev = owner[src_gidx].astype(np.int64)
+            src_rows = row_by_gidx[entry_dev, src_gidx].astype(np.int64)
+            nrows = row_by_gidx[entry_dev, nbr_gidx]
+            # a neighbour without a row on its reader's partition would
+            # alias the zero row
+            if len(nrows) and int(nrows.min()) < 0:
+                raise AssertionError(
+                    "ghost coverage bug: neighbor without a row on its "
+                    "reader's partition")
+            key = entry_dev * L + src_rows
             order = np.argsort(key, kind="stable")
             ksort = key[order]
             m = len(ksort)
             if m == 0:
-                return (np.full((1, L, 1), R - 1, dtype=np.int32),
-                        np.zeros((1, L, 1, 3), dtype=np.int32),
-                        np.zeros((1, L, 1), dtype=bool))
-            # slot = rank of the entry within its row group
+                return (np.full((n_dev, L, 1), R - 1, dtype=np.int32),
+                        np.zeros((n_dev, L, 1, 3), dtype=np.int32),
+                        np.zeros((n_dev, L, 1), dtype=bool))
             change = np.empty(m, dtype=bool)
             change[0] = True
             change[1:] = ksort[1:] != ksort[:-1]
@@ -1142,27 +1202,29 @@ class Grid:
                 np.where(change, np.arange(m), 0))
             slot = np.arange(m) - group_start
             S = self._sticky_cap(("S", hid), max(1, int(slot.max()) + 1))
-            rows = np.full((L * S,), R - 1, dtype=np.int32)
-            offs = np.zeros((L * S, 3), dtype=np.int32)
-            mask = np.zeros((L * S,), dtype=bool)
+            rows = np.full((n_dev * L * S,), R - 1, dtype=np.int32)
+            offs = np.zeros((n_dev * L * S, 3), dtype=np.int32)
+            mask = np.zeros((n_dev * L * S,), dtype=bool)
             flat = ksort * S + slot
-            rows[flat] = nbr_pos[order]
+            rows[flat] = nrows[order]
             offs[flat] = offs_arr[order]
             mask[flat] = True
-            return (rows.reshape(1, L, S), offs.reshape(1, L, S, 3),
-                    mask.reshape(1, L, S))
+            return (rows.reshape(n_dev, L, S), offs.reshape(n_dev, L, S, 3),
+                    mask.reshape(n_dev, L, S))
 
         nbr_rows, nbr_offs, nbr_mask = build_table(
-            nl.of_source, np.searchsorted(cells, nl.of_neighbor),
-            nl.of_offset)
+            nl.of_source, gidx[0], nl.of_offset)
 
         def to_tables():
-            return build_table(nl.to_source,
-                               np.searchsorted(cells, nl.to_neighbor),
-                               nl.to_offset)
+            return build_table(nl.to_source, gidx[1], nl.to_offset)
 
+        ghost_pos = [np.searchsorted(cells, plan.ghost_ids[q])
+                     for q in range(n_dev)]
         pair_compact = uniform_mod.build_pair_tables(
-            [np.empty(0, np.int64)], 1, None, None, None,
+            ghost_pos, n_dev,
+            lambda keys: owner[keys],
+            lambda p_s, keys: row_by_gidx[p_s, keys],
+            lambda q_s, keys, gpos: row_by_gidx[q_s, keys],
             lambda needed: self._sticky_cap(("M", hid), needed))
         return _HoodPlan(
             offsets=offsets,
@@ -1691,18 +1753,22 @@ class Grid:
         cells stays readable through get_old_data() until
         clear_refined_unrefined_data().
 
+        On n partitions a child takes its refined parent's partition, a
+        merged parent its first child's (``amr.resolve_adaptation``;
+        pins and weights pass to the children), and every surviving
+        cell moves to its new partition and row in one gather per field
+        (``_install_plan``).
+
         Not transactional yet: the reference rolls a failed commit back
         (its ``txn.grid_transaction``), which the port has not taken. A
         fault before the resolve finishes (the ``adapt.commit``
         ``resolve`` phase, ``adapt.resolve``) leaves the grid and its
         requests unchanged; an exception after it leaves the request
-        sets cleared, and one inside the plan rebuild the grid on its
-        previous plan."""
+        sets cleared (and the pins and weights of refined cells passed
+        on), and one inside the plan rebuild the grid on its previous
+        plan."""
         from .amr import resolve_adaptation
 
-        if self.n_dev > 1:
-            raise NotImplementedError(
-                f"AMR commits on {self.n_dev} partitions wait for {NEXT_SLICE}")
         with telemetry.span("grid.adapt"):
             faults.fire("adapt.commit", phase="resolve")
             res = resolve_adaptation(
@@ -1714,6 +1780,8 @@ class Grid:
                 self._unrefines,
                 self._dont_refines,
                 self._dont_unrefines,
+                pins=self._pins,
+                weights=self._weights,
                 topology=self.topology,
                 hood_len=self._hood_len,
             )
@@ -1724,14 +1792,14 @@ class Grid:
             self._dont_unrefines.clear()
 
             # preserve the data of disappearing cells for the app's
-            # projection: one device-side gather per field, pulled to host
+            # projection: one device-side gather per field over every
+            # partition's rows, pulled to host
             old_ids = np.concatenate([res.refined_parents, res.removed_cells])
             self._removed_data = {}
             if len(old_ids):
-                _dev, rows = self._host_rows(old_ids)
-                rows_t = torch.as_tensor(rows, device=self.device)
+                rows_t = self._flat_rows(*self._host_rows(old_ids))
                 for name in self.fields:
-                    vals = self.data[name][0].index_select(0, rows_t)
+                    vals = _flat(self.data[name]).index_select(0, rows_t)
                     self._removed_data[name] = (old_ids, _host_numpy(vals))
             else:
                 self._removed_data = {name: (old_ids, None) for name in self.fields}
@@ -3018,6 +3086,7 @@ class Grid:
             return fn, tables, static_in
 
         n_static, n_out = len(static_in), len(fields_out)
+        split = spec[4]
         n_part = n_dev * n_tab
         n_all = len(tables)
         side = (self._side_stream()
@@ -3040,10 +3109,10 @@ class Grid:
             runs = [_make_pass(spec, tabs[p * n_tab:(p + 1) * n_tab], L,
                                fields_out) for p in range(n_dev)]
 
-            def bulk_pass(full, p):
+            def bulk_pass(full, p, hard=True):
                 flat = {n: full[n][p] for n in fields_in}
                 return runs[p](kernel, {n: f[:L] for n, f in flat.items()},
-                               flat, extra)
+                               flat, extra, hard)
 
             def write(p, result):
                 for j, n in enumerate(fields_out):
@@ -3063,22 +3132,30 @@ class Grid:
                 # sends read local rows only, so they start before the
                 # bulk pass with no dependency on it; the bulk pass reads
                 # pre-exchange ghosts, so rows [0, n_inner) come out
-                # final and the outer rows are redone once the halos land
+                # final and the outer rows are redone once the halos
+                # land (the state is updated in place, so ``full`` then
+                # reads the fresh ghosts); the hard rows of a split plan
+                # run last, on the fresh ghosts, over the re-pass
                 payloads = _send_halos(state, exch_idx, xg, side)
-                results = [bulk_pass(full, p) for p in range(n_dev)]
+                results = [bulk_pass(full, p, hard=not split)
+                           for p in range(n_dev)]
                 _land_halos(state, exch_idx, xg, payloads, side, R)
-                for p in range(n_dev if o_tabs else 0):
-                    rows, nbr = otab[2 * p], otab[2 * p + 1]
-                    if not rows.numel():
-                        continue
+                for p in range(n_dev):
+                    rows, nbr = (otab[2 * p], otab[2 * p + 1]) if o_tabs \
+                        else (None, None)
                     flat = {n: full[n][p] for n in fields_in}
-                    o_res = runs[p].repass(kernel, flat, extra, rows, nbr,
-                                           use_roll)
-                    res = dict(results[p])
-                    for n in repass:
-                        res[n] = res[n].index_copy(
-                            0, rows, o_res[n].to(res[n].dtype))
-                    results[p] = res
+                    if rows is not None and rows.numel():
+                        o_res = runs[p].repass(kernel, flat, extra, rows,
+                                               nbr, use_roll)
+                        res = dict(results[p])
+                        for n in repass:
+                            res[n] = res[n].index_copy(
+                                0, rows, o_res[n].to(res[n].dtype))
+                        results[p] = res
+                    if split:
+                        results[p] = runs[p].hard(
+                            kernel, {n: f[:L] for n, f in flat.items()},
+                            flat, extra, results[p])
                 for p, res in enumerate(results):
                     write(p, res)
             return tuple(state)

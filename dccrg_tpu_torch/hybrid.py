@@ -1,4 +1,4 @@
-"""Hybrid structure plan for refined (AMR-carrying) grids, one device.
+"""Hybrid structure plan for refined (AMR-carrying) grids.
 
 Port of ``dccrg_tpu/hybrid.py``: its NumPy paths, and its native fast
 paths (the batched level lookup, the in-place far/easy/hard table
@@ -22,15 +22,15 @@ level:
   (``neighbors.find_neighbors_of``), so engine cost scales with the
   refinement surface, not the grid.
 
-Stencil tables are split: far/easy rows share a dense ``[1, L, k]``
+All three classes merge into the row layout, ghost sets and
+send/receive lists of the generic builder: on n partitions every
+cross-partition edge makes both of its cells outer and gives each side
+a ghost row of the other, found once per edge at its source's class.
+Stencil tables are split: far/easy rows share a dense ``[n_dev, L, k]``
 table whose offsets are per-slot constants scaled by a per-row cell
-size, hard rows get their own compact ``[1, H, S_hard]`` tables with
-explicit offsets; stencils run the kernel over both and merge
+size, hard rows get their own compact ``[n_dev, H, S_hard]`` tables
+with explicit offsets; stencils run the kernel over both and merge
 (grid.py). The neighbors_to tables are built lazily on first use.
-
-One device only: every cell is local, there are no ghost rows and the
-send/receive lists are empty (the multi-device layout is a later slice
-of the port).
 """
 
 from __future__ import annotations
@@ -334,13 +334,13 @@ def _merge_streams(fresh, reused):
 
 def build_hybrid_plan(mapping, topology, neighborhoods, cells, owner, n_dev,
                       cap=None, reuse=None, arena=None, changed_hint=None):
-    """All plan pieces for a refined single-device grid.
+    """All plan pieces for a refined grid on ``n_dev`` partitions.
 
     Returns ``(layout, hood_data)`` like uniform.build_uniform_plan:
     layout holds local_ids / ghost_ids / n_local / n_inner / L / R /
     row_of_pos / scale_rows; hood_data maps hood id -> dict with the
-    split gather tables, a lazy neighbors_to thunk and the (empty)
-    send/receive lists.
+    split gather tables, a lazy neighbors_to thunk and the send/receive
+    lists.
 
     ``arena`` is the grid's :class:`PlanArena` (opened with ``begin``
     by the caller). ``reuse`` is the grid's epoch-to-epoch cache of the
@@ -349,16 +349,15 @@ def build_hybrid_plan(mapping, topology, neighborhoods, cells, owner, n_dev,
     positions are remapped. ``changed_hint`` is ``(prev_cells,
     changed_ids)``: when ``prev_cells`` is the reuse cache's cell list
     (the same object), ``changed_ids`` replaces the set difference of
-    the two epochs' cell lists.
+    the two epochs' cell lists (an owner-only rebuild, a balance, passes
+    an empty set and reuses every stream).
     """
     from . import native
     from .amr import _box_dilate
+    from .grid import DEFAULT_NEIGHBORHOOD_ID
     from .neighbors import find_neighbors_of
     from .uniform import _NeighborMaps, build_pair_tables
 
-    if n_dev != 1:
-        raise NotImplementedError(
-            "multi-device hybrid plans wait for ROADMAP.md queue 1, item 5b")
     mark = _phase_timer()
     if arena is None:
         arena = PlanArena()
@@ -377,6 +376,7 @@ def build_hybrid_plan(mapping, topology, neighborhoods, cells, owner, n_dev,
     n = len(cells)
     # the in-place table writers emit int32 position sentinels
     use_native = native.lib() is not None and n < 2**31 - 2
+    multi = n_dev > 1
 
     # level-major ids: the level-0 subset is exactly the sorted prefix
     # of ids <= n0 (dccrg_mapping.hpp:154-209)
@@ -399,6 +399,11 @@ def build_hybrid_plan(mapping, topology, neighborhoods, cells, owner, n_dev,
     far_slots = np.nonzero(far)[0]
     hard0_slots = np.nonzero(present & hard_lat)[0]
 
+    # owner per level-0 slot (refined slots hold garbage, only ever
+    # indexed through far sources, whose windows are always present)
+    owner0 = arena.take((n0,), np.int32, fill=0)
+    owner0[lvl0_gidx] = owner[:n_lvl0]
+
     maps = _NeighborMaps(dims, periodic)
 
     # --- per-level (>= 1) classification: easy vs hard ----------------
@@ -416,8 +421,8 @@ def build_hybrid_plan(mapping, topology, neighborhoods, cells, owner, n_dev,
             continue
         blk = _LevelBlock(mapping, periodic, cells, l, a, b, arena=arena)
         # one native batch resolves every symmetrized offset for the
-        # whole block (classification, easy tables and the lazy
-        # to-tables all draw on this cache)
+        # whole block (classification, easy tables, boundary edges and
+        # the lazy to-tables all draw on this cache)
         blk.precompute(check_offs)
         easy = np.ones(b - a, dtype=bool)
         for off in check_offs:
@@ -522,39 +527,119 @@ def build_hybrid_plan(mapping, topology, neighborhoods, cells, owner, n_dev,
     faults.fire("hybrid.recommit", phase="cached")
     mark(f"hard streams (reused {0 if reusable is None else len(reusable)}"
          f"/{len(hard_cells)})")
-    # one device: no cross-device edge, so no outer cells and no ghosts
-    mark("classification")
 
-    # --- row layout ----------------------------------------------------
+    # --- boundary classification + ghost sets -------------------------
+    # every cross-partition of-edge (c -> v) makes both endpoints outer
+    # (c via its of-list, v via its to-list) and creates two ghost
+    # reads: partition(c) reads v, partition(v) reads c. Edges are
+    # enumerated once, at their source's class (far lattice, easy block
+    # or hard stream), which covers the full edge set.
+    outer = np.zeros(n, dtype=bool)
+    ghost_reader = [np.empty(0, np.int32)]
+    ghost_pos = [np.empty(0, np.int64)]
+
+    def note_cross(sp, npos, default):
+        if default:
+            outer[sp] = True
+            outer[npos] = True
+        ghost_reader.append(owner[sp])
+        ghost_pos.append(npos)
+        ghost_reader.append(owner[npos])
+        ghost_pos.append(sp)
+
+    if multi:
+        for hid, offs in neighborhoods.items():
+            default = hid == DEFAULT_NEIGHBORHOOD_ID
+            for o in np.asarray(offs, dtype=np.int64).reshape(-1, 3):
+                ng, valid = maps.shift(o)
+                m = far & valid
+                cross = np.nonzero(m & (owner0[ng] != owner0))[0]
+                if len(cross):
+                    note_cross(pos0[cross], pos0[ng[cross]], default)
+                for blk, easy in blocks:
+                    pos_n, _valid, exist = blk.lookup(o)
+                    sel = np.nonzero(
+                        easy & exist & (owner[pos_n] != owner[blk.a:blk.b])
+                    )[0]
+                    if len(sel):
+                        note_cross(blk.a + sel, pos_n[sel], default)
+            s_p, s_n, _, _ = streams[hid]
+            cm = np.nonzero(owner[s_p] != owner[s_n])[0]
+            if len(cm):
+                note_cross(s_p[cm], s_n[cm], default)
+    mark("classification")
+    g_r = np.concatenate(ghost_reader)
+    g_p = np.concatenate(ghost_pos)
+
+    # --- row layout: [inner | outer] local rows, then ghost rows -------
+    local_ids, ghost_ids, ghost_pos_sorted = [], [], []
+    n_inner = np.zeros(n_dev, np.int64)
+    for d in range(n_dev):
+        mine = owner == d
+        inner = cells[mine & ~outer]
+        outerc = cells[mine & outer]
+        local_ids.append(np.concatenate([inner, outerc]))
+        n_inner[d] = len(inner)
+        gp = np.unique(g_p[g_r == d])
+        ghost_pos_sorted.append(gp)
+        ghost_ids.append(cells[gp])
+
     from .grid import bucket_capacity
 
     if cap is None:
         cap = lambda name, needed: bucket_capacity(needed)
-    local_ids = [cells.copy()]
-    n_local = np.array([n], dtype=np.int64)
-    n_inner = np.array([n], dtype=np.int64)
-    L = cap("L", max(1, n))
-    R = L + 1  # final row = permanent zero pad
+    n_local = np.array([len(x) for x in local_ids], dtype=np.int64)
+    n_ghost = np.array([len(x) for x in ghost_ids], dtype=np.int64)
+    L = cap("L", max(1, int(n_local.max())))
+    G = int(n_ghost.max()) if multi else 0
+    G = cap("G", G) if G else 0
+    R = L + G + 1  # final row = permanent zero pad
 
-    # rows are cell order: every cell is local
+    # every cell is local to exactly one partition, so the scatter below
+    # writes every entry
     row_of_pos = arena.take((n,), np.int32)
-    row_of_pos[:] = np.arange(n, dtype=np.int32)
+    for d in range(n_dev):
+        lpos = np.searchsorted(cells, local_ids[d])
+        row_of_pos[lpos] = np.arange(len(local_ids[d]), dtype=np.int32)
+
+    def resolve_rows(pos_arr, dev_arr):
+        """Row of each cell (by position) on the given reader
+        partition: its local row when the reader owns it, its ghost row
+        otherwise."""
+        pos_arr = np.asarray(pos_arr, dtype=np.int64)
+        dev_arr = np.asarray(dev_arr)
+        rows = np.empty(len(pos_arr), dtype=np.int32)
+        loc = owner[pos_arr] == dev_arr
+        rows[loc] = row_of_pos[pos_arr[loc]]
+        rm = np.nonzero(~loc)[0]
+        for d in np.unique(dev_arr[rm]):
+            mm = rm[dev_arr[rm] == d]
+            gps = ghost_pos_sorted[d]
+            gi = np.minimum(np.searchsorted(gps, pos_arr[mm]),
+                            max(len(gps) - 1, 0))
+            if len(mm) and (len(gps) == 0 or np.any(gps[gi] != pos_arr[mm])):
+                raise AssertionError(
+                    "ghost coverage bug: neighbor without a row on its "
+                    "reader's partition")
+            rows[mm] = (L + gi).astype(np.int32)
+        return rows
 
     far_pos = pos0[far_slots]
-    far_rowidx = row_of_pos[far_pos].astype(np.int64)
+    far_dev = owner[far_pos].astype(np.int64)
+    far_rowidx = far_dev * L + row_of_pos[far_pos]
     if use_native:
-        # level-0 slot -> row, for the native far-row writer
+        # level-0 slot -> row on its owner, for the native far-row writer
         row_of_pos0 = arena.take((n0,), np.int32, fill=0)
         row_of_pos0[lvl0_gidx] = row_of_pos[:n_lvl0]
 
     # per-row cell size in index units (far/easy rows; hard rows get
     # explicit offsets, pad rows never pass a mask)
-    scale_rows = arena.take((L,), np.int32, fill=0)
+    scale_rows = arena.take((n_dev * L,), np.int32, fill=0)
     scale_rows[far_rowidx] = size0
     easy_rowidx = {}
     for blk, easy in blocks:
         ei = np.nonzero(easy)[0]
-        ridx = row_of_pos[blk.a + ei].astype(np.int64)
+        ridx = owner[blk.a + ei].astype(np.int64) * L + row_of_pos[blk.a + ei]
         easy_rowidx[blk.level] = (ei, ridx)
         scale_rows[ridx] = blk.size
     mark("row layout")
@@ -563,7 +648,7 @@ def build_hybrid_plan(mapping, topology, neighborhoods, cells, owner, n_dev,
     hood_data = {}
     # rows covered by the far/easy full-width writes below: the pad
     # fill only needs the complement (hard + pad rows)
-    covered = arena.take((L,), bool, fill=False)
+    covered = arena.take((n_dev * L,), bool, fill=False)
     covered[far_rowidx] = True
     for _blk_c, _easy_c in blocks:
         covered[easy_rowidx[_blk_c.level][1]] = True
@@ -578,17 +663,25 @@ def build_hybrid_plan(mapping, topology, neighborhoods, cells, owner, n_dev,
 
         # far + easy + uncovered partition the rows, so every entry is
         # written below — no full-table pre-fill pass
-        rows_t = arena.take((L, k), np.int32)
-        mask_t = arena.take((L, k), bool)
+        rows_t = arena.take((n_dev * L, k), np.int32)
+        mask_t = arena.take((n_dev * L, k), bool)
         rows_t[uncovered_rows] = R - 1
         mask_t[uncovered_rows] = False
 
         # far rows: the level-0 lattice maps, written straight into the
-        # table by the native writer when it is on (one device: no
-        # owner, so it reports no cross-device fixups)
+        # table by the native writer when it is on; an entry whose
+        # neighbour another partition owns comes back as a ``-2 - slot``
+        # sentinel and is resolved to its ghost row here
         if use_native:
-            native.far_tables(dims, periodic, offs, far_slots, far_rowidx,
-                              row_of_pos0, None, R - 1, rows_t, mask_t)
+            fix = native.far_tables(dims, periodic, offs, far_slots, far_rowidx,
+                                    row_of_pos0, owner0 if multi else None,
+                                    R - 1, rows_t, mask_t)
+            if len(fix):
+                ci, cj = fix // k, fix % k
+                nslot = (-2 - rows_t[far_rowidx[ci], cj]).astype(np.int64)
+                rows_t[far_rowidx[ci], cj] = resolve_rows(
+                    pos0[nslot], far_dev[ci])
+            mark(f"tables[{hid}]: far direct ({len(fix)} fixups)")
         else:
             fr = np.empty((len(far_slots), k), dtype=np.int32)
             fm = np.empty((len(far_slots), k), dtype=bool)
@@ -597,15 +690,15 @@ def build_hybrid_plan(mapping, topology, neighborhoods, cells, owner, n_dev,
                 vf = valid[far_slots]
                 rows = np.full(len(far_slots), R - 1, dtype=np.int32)
                 vv = np.nonzero(vf)[0]
-                rows[vv] = row_of_pos[pos0[ng[far_slots][vv]]]
+                rows[vv] = resolve_rows(pos0[ng[far_slots][vv]], far_dev[vv])
                 fr[:, j] = rows
                 fm[:, j] = vf
             rows_t[far_rowidx] = fr
             mask_t[far_rowidx] = fm
             del fr, fm
-        mark(f"tables[{hid}]: far scatter")
+            mark(f"tables[{hid}]: far scatter")
 
-        # easy rows: level-l index arithmetic
+        # easy rows: level-l index arithmetic, all offsets batched
         for blk, easy in blocks:
             ei, ridx = easy_rowidx[blk.level]
             E = len(ei)
@@ -614,11 +707,22 @@ def build_hybrid_plan(mapping, topology, neighborhoods, cells, owner, n_dev,
             batch = blk.batch_rows(offs) if use_native else None
             if batch is not None:
                 pos_all, valid_all, sel = batch
-                native.easy_tables(ei, ridx, sel, pos_all, valid_all,
-                                   blk.b - blk.a, row_of_pos, None, None,
-                                   R - 1, rows_t, mask_t)
-                mark(f"tables[{hid}]: easy block l{blk.level}")
+                edev32 = (np.ascontiguousarray(owner[blk.a + ei])
+                          if multi else None)
+                fix = native.easy_tables(
+                    ei, ridx, sel, pos_all, valid_all, blk.b - blk.a,
+                    row_of_pos, owner if multi else None, edev32,
+                    R - 1, rows_t, mask_t,
+                )
+                if len(fix):
+                    ce, cj = fix // k, fix % k
+                    p = (-2 - rows_t[ridx[ce], cj]).astype(np.int64)
+                    rows_t[ridx[ce], cj] = resolve_rows(
+                        p, owner[blk.a + ei[ce]].astype(np.int64))
+                mark(f"tables[{hid}]: easy block l{blk.level} "
+                     f"({len(fix)} fixups)")
                 continue
+            edev = owner[blk.a + ei].astype(np.int64)
             posm = np.empty((E, k), dtype=np.int64)
             validm = np.empty((E, k), dtype=bool)
             for j, o in enumerate(offs):
@@ -628,28 +732,40 @@ def build_hybrid_plan(mapping, topology, neighborhoods, cells, owner, n_dev,
             rows = np.full(E * k, R - 1, dtype=np.int32)
             vv = np.nonzero(validm.reshape(-1))[0]
             if len(vv):
-                rows[vv] = row_of_pos[posm.reshape(-1)[vv]]
+                rows[vv] = resolve_rows(posm.reshape(-1)[vv],
+                                        np.repeat(edev, k)[vv])
             rows_t[ridx] = rows.reshape(E, k)
             mask_t[ridx] = validm
             mark(f"tables[{hid}]: easy block l{blk.level}")
 
-        # hard rows: compact tables from the stream, grouped by source
+        # hard rows: compact per-partition tables from the stream,
+        # grouped by source
         hard_rows_dev = hard_nbr_dev = hard_offs_dev = hard_mask_dev = None
         if nE and use_native:
             # fused native writer: shape probe, then grouping + entry
             # scatter + pad fill in one sequential pass — every table
             # byte written exactly once
-            _nG, s_need, counts = native.hard_counts(s_p, None, 1)
+            _nG, s_need, counts = native.hard_counts(
+                s_p, owner if multi else None, n_dev)
             S_hard = cap(("S_hard", hid), max(1, int(s_need)))
             Hmax = cap(("Hmax", hid), max(1, int(counts.max())))
-            hard_rows_dev = arena.take((1, Hmax), np.int32)
-            hard_nbr_dev = arena.take((1, Hmax, S_hard), np.int32)
-            hard_offs_dev = arena.take((1, Hmax, S_hard, 3), np.int32)
-            hard_mask_dev = arena.take((1, Hmax, S_hard), bool)
-            native.hard_fill(s_p, s_n, s_off, None, row_of_pos, 1, Hmax,
-                             S_hard, L, R - 1, hard_rows_dev, hard_nbr_dev,
-                             hard_offs_dev, hard_mask_dev)
-            mark(f"tables[{hid}]: hard assembly")
+            mark(f"tables[{hid}]: hard grouping (H {int(counts.max())}"
+                 f"/{Hmax}, S {int(s_need)}/{S_hard})")
+            hard_rows_dev = arena.take((n_dev, Hmax), np.int32)
+            hard_nbr_dev = arena.take((n_dev, Hmax, S_hard), np.int32)
+            hard_offs_dev = arena.take((n_dev, Hmax, S_hard, 3), np.int32)
+            hard_mask_dev = arena.take((n_dev, Hmax, S_hard), bool)
+            fix = native.hard_fill(
+                s_p, s_n, s_off, owner if multi else None, row_of_pos,
+                n_dev, Hmax, S_hard, L, R - 1,
+                hard_rows_dev, hard_nbr_dev, hard_offs_dev, hard_mask_dev,
+            )
+            if len(fix):
+                flat = hard_nbr_dev.reshape(-1)
+                rdev = fix // (Hmax * S_hard)  # reader partition of the entry
+                p = (-2 - flat[fix]).astype(np.int64)
+                flat[fix] = resolve_rows(p, rdev)
+            mark(f"tables[{hid}]: hard assembly ({len(fix)} fixups)")
         elif nE:
             # slot = rank within the (contiguous, source-sorted) group
             changed = np.empty(nE, dtype=bool)
@@ -660,20 +776,30 @@ def build_hybrid_plan(mapping, topology, neighborhoods, cells, owner, n_dev,
             S_hard = cap(("S_hard", hid), max(1, int(slot.max()) + 1))
             grp = np.cumsum(changed) - 1  # entry -> group [0, nG)
             gsel = np.nonzero(changed)[0]  # one entry per source cell
-            nG = len(gsel)
-            Hmax = cap(("Hmax", hid), max(1, nG))
-            hard_rows_dev = arena.take((1, Hmax), np.int32,
+            g_dev = owner[s_p[gsel]].astype(np.int64)
+            g_row = row_of_pos[s_p[gsel]]
+            counts = np.bincount(g_dev, minlength=n_dev)
+            # dense position per partition: consecutive in stream
+            # (= cell id) order
+            gorder = np.argsort(g_dev, kind="stable")
+            dense_idx = np.empty(len(gsel), dtype=np.int64)
+            dev_first = np.concatenate([[0], np.cumsum(counts)[:-1]])
+            dense_idx[gorder] = np.arange(len(gsel)) - dev_first[g_dev[gorder]]
+            Hmax = cap(("Hmax", hid), max(1, int(counts.max())))
+            hard_rows_dev = arena.take((n_dev, Hmax), np.int32,
                                        fill=L)  # pad=L: dropped
-            hard_nbr_dev = arena.take((1, Hmax, S_hard), np.int32,
+            hard_nbr_dev = arena.take((n_dev, Hmax, S_hard), np.int32,
                                       fill=R - 1)
-            hard_offs_dev = arena.take((1, Hmax, S_hard, 3), np.int32,
+            hard_offs_dev = arena.take((n_dev, Hmax, S_hard, 3), np.int32,
                                        fill=0)
-            hard_mask_dev = arena.take((1, Hmax, S_hard), bool,
+            hard_mask_dev = arena.take((n_dev, Hmax, S_hard), bool,
                                        fill=False)
-            hard_rows_dev[0, :nG] = row_of_pos[s_p[gsel]]
-            hard_nbr_dev[0, grp, slot] = row_of_pos[s_n]
-            hard_offs_dev[0, grp, slot] = s_off.astype(np.int32)
-            hard_mask_dev[0, grp, slot] = True
+            hard_rows_dev[g_dev, dense_idx] = g_row.astype(np.int32)
+            e_dev = g_dev[grp]
+            e_pos = dense_idx[grp]
+            hard_nbr_dev[e_dev, e_pos, slot] = resolve_rows(s_n, owner[s_p])
+            hard_offs_dev[e_dev, e_pos, slot] = s_off.astype(np.int32)
+            hard_mask_dev[e_dev, e_pos, slot] = True
             mark(f"tables[{hid}]: hard assembly")
 
         offs_const = offs.astype(np.int32)  # [k, 3], CELL units (x scale_rows)
@@ -682,16 +808,16 @@ def build_hybrid_plan(mapping, topology, neighborhoods, cells, owner, n_dev,
             # far/easy per-slot offsets (hard rows carry theirs in the
             # compact hard tables); runs after bind, so the take lands
             # on the plan's owned list
-            out = arena.take((L, k, 3), np.int32, owner=owned)
+            out = arena.take((n_dev * L, k, 3), np.int32, owner=owned)
             np.multiply(mask_t[:, :, None], offs_const[None, :, :], out=out)
             out *= scale_rows[:, None, None]
-            return out.reshape(1, L, k, 3)
+            return out.reshape(n_dev, L, k, 3)
 
         hood_data[hid] = {
-            "nbr_rows": rows_t.reshape(1, L, k),
+            "nbr_rows": rows_t.reshape(n_dev, L, k),
             "nbr_offs": offs_thunk,
             "offs_const": offs_const,
-            "nbr_mask": mask_t.reshape(1, L, k),
+            "nbr_mask": mask_t.reshape(n_dev, L, k),
             "hard_rows": hard_rows_dev,
             "hard_nbr_rows": hard_nbr_dev,
             "hard_offs": hard_offs_dev,
@@ -701,9 +827,12 @@ def build_hybrid_plan(mapping, topology, neighborhoods, cells, owner, n_dev,
 
     faults.fire("hybrid.recommit", phase="tables")
 
-    # --- send / receive lists (none on one device) --------------------
+    # --- send / receive lists -----------------------------------------
     pair_compact = build_pair_tables(
-        [np.empty(0, np.int64)], 1, None, None, None,
+        ghost_pos_sorted, n_dev,
+        lambda keys: owner[keys],
+        lambda p_s, keys: row_of_pos[keys],
+        lambda q_s, keys, gpos: (L + gpos).astype(np.int32),
         lambda needed: cap(("M", "hybrid"), needed),
     )
     for hid in neighborhoods:
@@ -792,37 +921,44 @@ def build_hybrid_plan(mapping, topology, neighborhoods, cells, owner, n_dev,
                 tslot = np.empty(0, dtype=np.int64)
                 T_hard = 0
             T = max(k, T_hard, 1)
-            to_rows = arena.take((L, T), np.int32, fill=R - 1, owner=owned)
-            to_offs = arena.take((L, T, 3), np.int32, fill=0, owner=owned)
-            to_mask = arena.take((L, T), bool, fill=False, owner=owned)
+            to_rows = arena.take((n_dev * L, T), np.int32, fill=R - 1,
+                                 owner=owned)
+            to_offs = arena.take((n_dev * L, T, 3), np.int32, fill=0,
+                                 owner=owned)
+            to_mask = arena.take((n_dev * L, T), bool, fill=False,
+                                 owner=owned)
             # far rows: to-neighbor at slot j is the level-0 cell at -o
             for j, o in enumerate(offs):
                 ng, valid = maps.shift((-int(o[0]), -int(o[1]), -int(o[2])))
                 vf = valid[far_slots]
                 vv = np.nonzero(vf)[0]
                 if len(vv):
-                    to_rows[far_rowidx[vv], j] = row_of_pos[pos0[ng[far_slots][vv]]]
+                    rw = resolve_rows(pos0[ng[far_slots][vv]], far_dev[vv])
+                    to_rows[far_rowidx[vv], j] = rw
                     to_mask[far_rowidx[vv], j] = True
                     to_offs[far_rowidx[vv], j] = (-o * size0).astype(np.int32)
             # easy rows: to-neighbor at slot j is the level-l cell at -o
             for blk, easy in blocks:
                 ei, ridx = easy_rowidx[blk.level]
+                edev = owner[blk.a + ei].astype(np.int64)
                 for j, o in enumerate(offs):
                     pos_n, valid, exist = blk.lookup((-int(o[0]), -int(o[1]), -int(o[2])))
                     vv = np.nonzero(valid[ei])[0]
                     if len(vv):
-                        to_rows[ridx[vv], j] = row_of_pos[pos_n[ei[vv]]]
+                        rw = resolve_rows(pos_n[ei[vv]], edev[vv])
+                        to_rows[ridx[vv], j] = rw
                         to_mask[ridx[vv], j] = True
                         to_offs[ridx[vv], j] = (-o * blk.size).astype(np.int32)
             if nT:
-                vrow = row_of_pos[tv].astype(np.int64)
-                to_rows[vrow, tslot] = row_of_pos[tc]
+                vdev = owner[tv].astype(np.int64)
+                vrow = vdev * L + row_of_pos[tv]
+                to_rows[vrow, tslot] = resolve_rows(tc, owner[tv])
                 to_mask[vrow, tslot] = True
                 to_offs[vrow, tslot] = toff.astype(np.int32)
             return (
-                to_rows.reshape(1, L, T),
-                to_offs.reshape(1, L, T, 3),
-                to_mask.reshape(1, L, T),
+                to_rows.reshape(n_dev, L, T),
+                to_offs.reshape(n_dev, L, T, 3),
+                to_mask.reshape(n_dev, L, T),
             )
 
         return thunk
@@ -831,8 +967,8 @@ def build_hybrid_plan(mapping, topology, neighborhoods, cells, owner, n_dev,
         hood_data[hid]["to_thunk"] = make_to_thunk(hid, offs_in)
 
     layout = dict(
-        local_ids=local_ids, ghost_ids=[np.empty(0, np.uint64)],
-        n_local=n_local, n_inner=n_inner, L=L, R=R, row_of_pos=row_of_pos,
-        scale_rows=scale_rows.reshape(1, L),
+        local_ids=local_ids, ghost_ids=ghost_ids, n_local=n_local,
+        n_inner=n_inner, L=L, R=R, row_of_pos=row_of_pos,
+        scale_rows=scale_rows.reshape(n_dev, L),
     )
     return layout, hood_data

@@ -1,5 +1,5 @@
 """Adaptive advection on PyTorch: the reference advection test's full
-loop on the AMR grid, one device.
+loop on the AMR grid, on one partition or n partitions of a device.
 
 Port of ``dccrg_tpu/models/advection_amr.py`` (tests/advection/2d.cpp:
 321-442, solve.hpp:44-333, adapter.hpp:47-311): upwind finite-volume
@@ -17,7 +17,11 @@ the grid's table path: the dense far/easy tables, then the hard rows
 near refinement.
 
 Static per-cell quantities (edge lengths, velocities at the center,
-index length) are fields refreshed once per structure epoch.
+index length) are fields refreshed once per structure epoch and
+exchanged once, so the per-step exchange moves only the density (the
+reference's transfer-count trick, tests/advection/cell.hpp:31-55). The
+CFL limit and the total mass are per-partition reductions combined
+over the partitions (``comm.all_reduce``).
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import comm
 from ..grid import Grid
 from ..neighbors import face_masks
 
@@ -117,11 +122,14 @@ def make_diff_kernel(diff_threshold: float):
 class AmrAdvection:
     """The reference test's main program (tests/advection/2d.cpp):
     solve / adapt every ``adapt_n`` / balance every ``balance_n``, on
-    ``device`` (the card when None)."""
+    ``device`` (the card when None; ``[dev] * n`` for n partitions of
+    it, cut by ``partition``, the grid's load balancing method when
+    None)."""
 
     def __init__(self, length=(32, 32, 1), max_refinement_level=1,
                  device=None, cfl=0.5, diff_increase=0.02,
-                 diff_threshold=0.025, unrefine_sensitivity=0.5):
+                 diff_threshold=0.025, unrefine_sensitivity=0.5,
+                 partition=None):
         self.cfl = cfl
         self.diff_increase = diff_increase
         self.diff_threshold = diff_threshold
@@ -140,7 +148,7 @@ class AmrAdvection:
             .set_neighborhood_length(1)
             .set_geometry("cartesian", start=(0.0, 0.0, 0.0),
                           level_0_cell_length=cell_len)
-            .initialize(device)
+            .initialize(device, partition=partition)
         )
         self._flux_kernel = make_flux_kernel()
         self._fused_kernel = make_fused_step_kernel()
@@ -159,6 +167,8 @@ class AmrAdvection:
         centers = g.geometry.get_center(cells)
         lengths = g.geometry.get_length(cells)
         v = velocity(centers)
+        # the static fields cover every cell: fresh tensors, whose ghost
+        # rows the exchange below fills for the whole epoch
         g.set_many(cells, {
             "vx": v[:, 0].astype(np.float32),
             "vy": v[:, 1].astype(np.float32),
@@ -167,14 +177,16 @@ class AmrAdvection:
             "ly": lengths[:, 1].astype(np.float32),
             "lz": lengths[:, 2].astype(np.float32),
             "ilen": g.mapping.get_cell_length_in_indices(cells).astype(np.int32),
-        })
+        }, preserve_ghosts=False)
         g.update_copies_of_remote_neighbors(fields=list(STATIC_FIELDS))
 
     # -- time stepping (2d.cpp:321-343) --------------------------------
 
     def max_time_step(self) -> float:
         """Global CFL limit (solve.hpp:289-333), once per structure
-        epoch: it depends only on the static velocity/length fields."""
+        epoch: it depends only on the static velocity/length fields.
+        Each partition's minimum over its rows (ghost rows hold copies,
+        pad rows no velocity), then the minimum over the partitions."""
         g = self.grid
         cached = getattr(self, "_cfl_cache", None)
         if cached is not None and cached[0] == g.plan.epoch:
@@ -183,10 +195,9 @@ class AmrAdvection:
         for lname, vname in (("lx", "vx"), ("ly", "vy"), ("lz", "vz")):
             l = g.data[lname]
             v = torch.abs(g.data[vname])
-            s = torch.min(torch.where(v > 0, l / torch.clamp(v, min=1e-30),
-                                      torch.inf))
-            steps.append(float(s))
-        dt = float(min(steps))
+            s = torch.where(v > 0, l / torch.clamp(v, min=1e-30), torch.inf)
+            steps.append(comm.all_reduce(s.amin(dim=1), "min")[0])
+        dt = float(torch.stack(steps).min())
         self._cfl_cache = (g.plan.epoch, dt)
         return dt
 
@@ -230,8 +241,7 @@ class AmrAdvection:
         g = self.grid
         max_lvl = g.mapping.max_refinement_level
         diff, ilen = g.data["max_diff"], g.data["ilen"]
-        rows = torch.arange(diff.shape[1], device=diff.device)[None, :]
-        local = rows < int(g.plan.n_local[0])
+        local = g.local_row_mask() > 0
         lvl = max_lvl - torch.round(
             torch.log2(torch.clamp(ilen, min=1).to(torch.float32))
         ).to(torch.int32)
@@ -244,10 +254,15 @@ class AmrAdvection:
                 torch.where((diff <= refine_t) & (diff >= unref_t) & (lvl > 0),
                             KEEP, 0)))
         code = torch.where(local, code, 0).to(torch.int8).cpu().numpy()
-        _d, row = np.nonzero(code)
+        d, row = np.nonzero(code)
         if len(row) == 0:
             return np.empty(0, np.uint64), np.empty(0, np.int8)
-        return g.plan.local_ids[0][row], code[0, row]
+        ids = np.empty(len(d), dtype=np.uint64)
+        for dev in range(g.n_dev):
+            m = d == dev
+            if m.any():
+                ids[m] = g.plan.local_ids[dev][row[m]]
+        return ids, code[d, row]
 
     def adapt(self) -> tuple:
         """check_for_adaptation + adapt_grid: returns (created, removed)."""
@@ -284,11 +299,23 @@ class AmrAdvection:
     # -- diagnostics ---------------------------------------------------
 
     def total_mass(self) -> float:
+        """Sum of density times cell volume in float64: each
+        partition's sum over its local rows, then the sum over the
+        partitions (one host read). The volumes come from the geometry
+        in float64, uploaded once per structure epoch."""
         g = self.grid
-        cells = g.get_cells()
-        rho = g.get("density", cells).astype(np.float64)
-        vol = np.prod(g.geometry.get_length(cells), axis=1)
-        return float(np.sum(rho * vol))
+        plan = g.plan
+        vol = getattr(plan, "_volume_rows", None)
+        if vol is None:
+            host = np.zeros((g.n_dev, plan.R), dtype=np.float64)
+            for d in range(g.n_dev):
+                ids = plan.local_ids[d]
+                if len(ids):
+                    host[d, :len(ids)] = np.prod(
+                        g.geometry.get_length(ids), axis=1)
+            vol = plan._volume_rows = torch.as_tensor(host, device=g.device)
+        part = (g.data["density"].to(torch.float64) * vol).sum(dim=1)
+        return float(comm.all_reduce(part, "sum")[0])
 
     def run(self, steps: int, adapt_n: int = 0, balance_n: int = 0,
             fused: bool = True) -> None:

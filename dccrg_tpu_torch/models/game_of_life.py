@@ -31,7 +31,8 @@ class GameOfLife:
         """``device`` as for ``Grid.initialize`` (a list of devices runs
         the game on that many partitions, partitioned by ``partition``);
         ``max_refinement_level > 0`` allows running the game on a
-        refined grid (the reference's refined variants, one partition)."""
+        refined grid (the reference's refined variants), on any number of
+        partitions."""
         self.grid = (
             Grid(cell_data={"live": torch.int32, "total": torch.int32})
             .set_initial_length(length)

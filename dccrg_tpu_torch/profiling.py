@@ -2,7 +2,7 @@
 
     python -m dccrg_tpu_torch.profiling [--path main] [--n 512] [--steps 20]
     python -m dccrg_tpu_torch.profiling --path fleet [--n 64]
-    python -m dccrg_tpu_torch.profiling --path amr [--n 128] [--steps 20]
+    python -m dccrg_tpu_torch.profiling --path amr [--n 128] [--parts 1]
     python -m dccrg_tpu_torch.profiling --path multi [--n 512] [--parts 4]
 
 ``--path main`` (the default) traces ``--steps`` steps of
@@ -13,7 +13,8 @@ bucket of 128 ``diffuse`` jobs of ``n``^3 cells
 integrity on) through ``GridBatch`` after one warm-up quantum.
 ``--path amr`` traces ``--steps`` table-path steps of
 bench/recommit_bench.py's refined grid (``amr_slab_grid``: ``n``^3,
-two slab commits) with its diffuse kernel, after one warm-up step.
+two slab commits; on ``--parts`` ``block`` partitions, one by default)
+with its diffuse kernel, after one warm-up step.
 ``--path multi`` traces ``--steps`` steps of ``GridAdvection(n)`` on
 ``--parts`` partitions of the card (the plain roll path with its fixup
 rows, the halo exchange and, by default, the overlapped step's side
@@ -137,20 +138,21 @@ def amr_diffuse(cell, nbr, offs, mask):
     return {"density": cell["density"] + 0.01 * s}
 
 
-def amr_slab_grid(n, device, on_commit=None):
+def amr_slab_grid(n, device, on_commit=None, partition=None):
     """bench/recommit_bench.py:90-118's refined grid: an n^3 level-0 grid
     (max level 1, neighbourhood length 1, one float32 density); commit 1
     refines the first n^3/64 cells (a z-slab), commit 2 the last n^3/64
     level-0 cells; density ``arange % 97`` as the bench sets it.
-    ``on_commit(commit)`` wraps each ``stop_refining`` call (the caller
-    times it)."""
+    ``device`` may list partitions (``[dev] * n``, cut by
+    ``partition``). ``on_commit(commit)`` wraps each ``stop_refining``
+    call (the caller times it)."""
     from .grid import Grid
 
     g = (Grid(cell_data={"density": torch.float32})
          .set_initial_length((n, n, n))
          .set_maximum_refinement_level(1)
          .set_neighborhood_length(1)
-         .initialize(device))
+         .initialize(device, partition=partition))
     n0 = n ** 3
     nref = n0 // 64
     for first in (True, False):
@@ -167,8 +169,8 @@ def amr_slab_grid(n, device, on_commit=None):
     return g
 
 
-def profile_amr(n, steps, card):
-    g = amr_slab_grid(n, "cuda")
+def profile_amr(n, steps, card, parts=1):
+    g = amr_slab_grid(n, ["cuda"] * parts, partition="block")
     g.run_steps(amr_diffuse, ["density"], ["density"], 1)
     torch.cuda.synchronize()
     if g.last_step_path != "table":
@@ -176,10 +178,12 @@ def profile_amr(n, steps, card):
     hood = g.plan.hoods[-0xDCC]
     _trace(lambda: g.run_steps(amr_diffuse, ["density"], ["density"], steps),
            steps, "step",
-           lambda: {"profile": "amr", "n": n, "steps": steps,
+           lambda: {"profile": "amr", "n": n, "parts": parts, "steps": steps,
                     "cells": len(g.plan.cells), "L": g.plan.L,
                     "hard_rows": int(np.count_nonzero(
-                        hood.hard_rows[0] < g.plan.L)), "card": card})
+                        hood.hard_rows < g.plan.L)),
+                    "overlap": (g.last_overlap or {}).get("mode"),
+                    "card": card})
 
 
 def profile_multi(n, steps, parts, card):
@@ -202,8 +206,9 @@ def main(argv=None) -> int:
                    help="grid edge (default 512 main and multi, 64 fleet, "
                         "128 amr)")
     p.add_argument("--steps", type=int, default=20)
-    p.add_argument("--parts", type=int, default=4,
-                   help="partitions of --path multi")
+    p.add_argument("--parts", type=int, default=None,
+                   help="partitions (default 4 for --path multi, 1 for "
+                        "--path amr)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("profiling: needs a CUDA device", file=sys.stderr)
@@ -211,9 +216,9 @@ def main(argv=None) -> int:
     if args.path == "main":
         profile_main_path(args.n or 512, args.steps, _card())
     elif args.path == "amr":
-        profile_amr(args.n or 128, args.steps, _card())
+        profile_amr(args.n or 128, args.steps, _card(), args.parts or 1)
     elif args.path == "multi":
-        profile_multi(args.n or 512, args.steps, args.parts, _card())
+        profile_multi(args.n or 512, args.steps, args.parts or 4, _card())
     else:
         profile_fleet(args.n or 64, _card())
     return 0

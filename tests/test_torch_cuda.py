@@ -399,3 +399,45 @@ def test_partitioned_advection_on_the_card(device, overlap, monkeypatch):
     assert roll_executor.bulk_pass.launches == 6
     np.testing.assert_array_equal(four.density(), cpu.density())
     np.testing.assert_array_equal(four.density(), one.density())
+
+
+def _refined_parts(device_list, n=32):
+    """profiling.amr_slab_grid's deployment at n^3 (two slab commits)
+    on ``device_list``'s partitions, ``block``."""
+    from dccrg_tpu_torch.profiling import amr_slab_grid
+
+    return amr_slab_grid(n, device_list, partition="block")
+
+
+@pytest.mark.parametrize("overlap", ["0", "1"])
+def test_refined_partitions_on_the_card(device, overlap, monkeypatch):
+    """A 32^3 refined grid on three partitions of the card: its plans
+    equal its CPU build's (ghost ids, far/easy and hard tables, pair
+    tables) and 4 table-path steps, with the overlap off and on, equal
+    one partition's run of the same grid on the card, bit for bit."""
+    from dccrg_tpu_torch.profiling import amr_diffuse
+
+    monkeypatch.setenv("DCCRG_OVERLAP", overlap)
+    three = _refined_parts([device] * 3)
+    cpu = _refined_parts(["cpu"] * 3)
+    one = _refined_parts(device)
+    pc, pg = cpu.plan, three.plan
+    np.testing.assert_array_equal(pg.owner, pc.owner)
+    assert (pg.L, pg.R) == (pc.L, pc.R)
+    for d in range(3):
+        np.testing.assert_array_equal(pg.local_ids[d], pc.local_ids[d])
+        np.testing.assert_array_equal(pg.ghost_ids[d], pc.ghost_ids[d])
+    hg, hc = pg.hoods[DEFAULT_NEIGHBORHOOD_ID], pc.hoods[DEFAULT_NEIGHBORHOOD_ID]
+    for name in ("nbr_rows", "nbr_mask", "scale_rows", "hard_rows",
+                 "hard_nbr_rows", "hard_offs", "hard_mask", "send_rows",
+                 "recv_rows", "n_inner"):
+        np.testing.assert_array_equal(getattr(hg, name), getattr(hc, name),
+                                      err_msg=name)
+    for g in (three, one):
+        g.update_copies_of_remote_neighbors()
+        g.run_steps(amr_diffuse, ["density"], ["density"], 4)
+        assert g.last_step_path == "table"
+    assert three.last_overlap["mode"] == ("off" if overlap == "0" else "full")
+    cells = pg.cells
+    np.testing.assert_array_equal(three.get("density", cells),
+                                  one.get("density", cells))

@@ -624,16 +624,17 @@ def test_partitioned_checkpoint_bytes(tmp_path, n, partition):
 # what waits for the next slice
 
 def test_next_slice_raises():
+    # AMR on partitions is ported (tests/test_torch_amr_partitions*.py):
+    # the commit and load_cells run; what stays raises
     g = Grid(cell_data={"v": torch.float32}).set_initial_length(
         (4, 4, 1)).set_maximum_refinement_level(1).initialize(["cpu"] * 2)
     g.refine_completely(1)
-    with pytest.raises(NotImplementedError, match="item 5b"):
-        g.stop_refining()
     kids = g.mapping.get_all_children(np.uint64(1))
+    np.testing.assert_array_equal(g.stop_refining(), kids)
     refined = np.sort(np.concatenate([np.arange(2, 17, dtype=np.uint64),
                                       kids]))
-    with pytest.raises(NotImplementedError, match="item 5b"):
-        g.load_cells(refined)
+    g.load_cells(refined)
+    np.testing.assert_array_equal(g.plan.cells, refined)
     with pytest.raises(NotImplementedError, match="item 5b"):
         DenseGrid((4, 4, 4), {"u": torch.float32}, device=["cpu", "cpu"])
     from dccrg_tpu_torch.fleet import FleetJob, GridBatch

@@ -55,19 +55,25 @@ def _equal(a, b, what):
     np.testing.assert_array_equal(b, a, err_msg=what)
 
 
+PAIR_KEYS = ("n_dev", "M", "p", "q", "pos", "srow", "rrow")
+
+
 def assert_plans_equal(r, p, lists=True):
-    """Layout, every hood's dense, hard, to- and pair tables and (with
+    """Layout (every partition's local and ghost ids), every hood's
+    dense, hard, to- and pair tables (dense and compact) and (with
     ``lists``) the flat neighbor lists: bit for bit."""
     rp, pp = r.plan, p.plan
     _equal(rp.cells, pp.cells, "cells")
     _equal(rp.owner, pp.owner, "owner")
-    assert (rp.L, rp.R) == (pp.L, pp.R), ((rp.L, rp.R), (pp.L, pp.R))
+    assert (rp.n_dev, rp.L, rp.R) == (pp.n_dev, pp.L, pp.R), (
+        (rp.n_dev, rp.L, rp.R), (pp.n_dev, pp.L, pp.R))
     _equal(rp.n_local, pp.n_local, "n_local")
     _equal(rp.row_of_pos, pp.row_of_pos, "row_of_pos")
     for a, b, what in ((rp.local_ids, pp.local_ids, "local_ids"),
                        (rp.ghost_ids, pp.ghost_ids, "ghost_ids")):
-        assert len(a) == len(b) == 1
-        _equal(a[0], b[0], what)
+        assert len(a) == len(b) == rp.n_dev
+        for d in range(rp.n_dev):
+            _equal(a[d], b[d], f"{what}[{d}]")
     assert set(rp.hoods) == set(pp.hoods)
     for hid in rp.hoods:
         a, b = rp.hoods[hid], pp.hoods[hid]
@@ -80,7 +86,9 @@ def assert_plans_equal(r, p, lists=True):
                 _equal(x, y, f"{hid} {name}")
         _equal(a.n_inner if a.n_inner is not None else [],
                b.n_inner if b.n_inner is not None else [], f"{hid} n_inner")
-        assert a.pair_compact["M"] == b.pair_compact["M"], hid
+        for k in PAIR_KEYS:
+            _equal(np.asarray(a.pair_compact[k]), np.asarray(b.pair_compact[k]),
+                   f"{hid} pair {k}")
         if lists:
             for f in LIST_FIELDS:
                 _equal(getattr(a.lists, f), getattr(b.lists, f), f"{hid} {f}")

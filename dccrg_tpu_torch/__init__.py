@@ -23,7 +23,13 @@ their CRC sidecar, salvage, delta-chain loads and the numerics watchdog
 and the distributed level-0 grid on partitions of one device: the
 partitioner (partition.py), the partition reductions (comm.py), the
 partitioned plans (uniform.py), and in ``Grid`` the halo exchange, the
-overlapped step and load balancing (``Grid.initialize([dev] * n)``).
+overlapped step and load balancing (``Grid.initialize([dev] * n)``),
+and adaptive refinement across those partitions; the dense grid on a
+mesh of blocks (``dense_mesh``) with ``AdvectionSolver`` and
+``DensePoissonSolver`` on it, and ``PoissonSolver`` on partitions; and
+atomic, verified grid mutations: the ``DCCRG_DEBUG=1`` verifiers
+(verify.py) and ``grid_transaction`` around the commit, the balance and
+``load_cells`` (txn.py).
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``); kernels are built with ``nvcc`` at their first CUDA
 call, never on import.
@@ -34,7 +40,7 @@ from .grid import (DEFAULT_NEIGHBORHOOD_ID, CellView, Grid, SlotwiseKernel,
                    bucket_capacity)
 from .partition import PARTITION_METHODS, partition_cells
 from .length import GridLength
-from .dense import DenseGrid
+from .dense import DenseGrid, dense_mesh
 from .fleet import FleetJob, GridBatch, run_solo, template_grid
 from .integrity import register_conserved
 from .mapping import Mapping
@@ -44,16 +50,22 @@ from .neighbors import (NeighborLists, StructureError, build_neighbor_lists,
                         validate_neighborhood, verify_tiling)
 from .topology import GridTopology
 from .types import ERROR_CELL, ERROR_INDEX, as_cell_array, as_index_array
+from .verify import VerificationError, verify_all
+from .txn import (CrossRankAbortedError, GridInvariantError,
+                  MutationAbortedError, MutationError)
 
 __all__ = [
-    "CartesianGeometry", "CellView", "DEFAULT_NEIGHBORHOOD_ID", "DenseGrid",
+    "CartesianGeometry", "CellView", "CrossRankAbortedError",
+    "DEFAULT_NEIGHBORHOOD_ID", "DenseGrid",
     "ERROR_CELL", "ERROR_INDEX", "FleetJob", "Grid", "GridBatch",
-    "GridLength", "GridTopology",
+    "GridInvariantError", "GridLength", "GridTopology",
+    "MutationAbortedError", "MutationError", "VerificationError",
     "Mapping", "NeighborLists", "NoGeometry", "PARTITION_METHODS",
     "SlotwiseKernel",
     "StretchedCartesianGeometry", "StructureError", "as_cell_array",
     "as_index_array", "bucket_capacity", "build_neighbor_lists",
     "face_masks", "find_neighbors_of", "find_neighbors_to_subset",
     "make_neighborhood", "partition_cells", "register_conserved", "run_solo",
-    "template_grid", "validate_neighborhood", "verify_tiling",
+    "dense_mesh", "template_grid", "validate_neighborhood", "verify_all",
+    "verify_tiling",
 ]

@@ -59,11 +59,52 @@ from .neighbors import (build_neighbor_lists, find_neighbors_of,
 from .partition import (PARTITION_METHODS, partition_cells,
                         partition_cells_hierarchical)
 from .topology import GridTopology
+from .txn import grid_transaction
 from .types import ERROR_CELL
 from . import uniform as uniform_mod
+from . import verify as verify_mod
 
 # Parity with the reference's default neighborhood id (dccrg.hpp:99).
 DEFAULT_NEIGHBORHOOD_ID = -0xDCC
+
+_allocator_tuned = False
+_libc = None  # set by _tune_allocator; None = opted out or unavailable
+
+
+def _tune_allocator():
+    """Raise glibc's mmap and trim thresholds before the first plan
+    build (the reference's ``_tune_allocator``, dccrg_tpu/grid.py:74):
+    large numpy temporaries otherwise go through mmap and fault in every
+    page on every rebuild. Applied once and lazily, so importing the
+    package leaves the process's malloc alone; ``DCCRG_NO_MALLOPT=1``
+    opts out."""
+    global _allocator_tuned, _libc
+    if _allocator_tuned:
+        return
+    _allocator_tuned = True
+    if os.environ.get("DCCRG_NO_MALLOPT") == "1":
+        return
+    try:
+        import ctypes
+
+        libc = ctypes.CDLL("libc.so.6")
+        libc.mallopt(-3, 1 << 30)  # M_MMAP_THRESHOLD
+        libc.mallopt(-1, 1 << 30)  # M_TRIM_THRESHOLD
+        _libc = libc
+    except Exception:
+        pass
+
+
+def _trim_allocator():
+    """Hand the freed heap back to the OS after a large plan build
+    (``malloc_trim(0)``): with the raised trim threshold ``free`` alone
+    never trims. Called once the build's frame is gone."""
+    if _libc is None:
+        return
+    try:
+        _libc.malloc_trim(0)
+    except Exception:
+        pass
 
 
 def _host_numpy(t: torch.Tensor) -> np.ndarray:
@@ -87,9 +128,9 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-# What waits for the slices that place partitions on distinct cards
-# (item 5b.1) and take the dense grid and the solvers onto partitions.
-NEXT_SLICE = "ROADMAP.md queue 1, item 5b"
+# What waits for the slice that places partitions on distinct cards:
+# the only refusal left in the port.
+NEXT_SLICE = "ROADMAP.md queue 1, item 5b.1"
 
 
 def resolve_partitions(device=None) -> list:
@@ -97,7 +138,7 @@ def resolve_partitions(device=None) -> list:
     may be None (one partition on the card), a device, or a list of
     devices (one partition each). Every partition lives on the same
     device; a list naming distinct devices raises NotImplementedError
-    (item 5b.1 of ROADMAP.md's queue 1)."""
+    (``NEXT_SLICE``)."""
     if isinstance(device, (list, tuple)):
         if not device:
             raise ValueError("an empty device list")
@@ -107,18 +148,19 @@ def resolve_partitions(device=None) -> list:
     if any(d != devs[0] for d in devs[1:]):
         raise NotImplementedError(
             f"partitions on distinct devices {sorted(set(map(str, devs)))}: "
-            f"every partition shares one device until {NEXT_SLICE}.1")
+            f"every partition shares one device until {NEXT_SLICE}")
     return devs
 
 
 def single_device(device, what: str) -> torch.device:
     """``device`` resolved for an entry point that runs on one
     partition; a list of more than one device raises
-    NotImplementedError naming the slice that ports it."""
+    NotImplementedError naming ``NEXT_SLICE``."""
     if isinstance(device, (list, tuple)):
         if len(device) != 1:
             raise NotImplementedError(
-                f"{what} on {len(device)} devices waits for {NEXT_SLICE}")
+                f"{what} runs on one device; {len(device)} devices wait "
+                f"for {NEXT_SLICE}")
         device = device[0]
     return resolve_device(device)
 
@@ -858,6 +900,12 @@ class Grid:
         self._hybrid_reuse = {}  # hard-shell stream cache (hybrid.py)
         self._plan_arena = None  # pooled plan tables (hybrid.PlanArena)
         self._watchdog_accum = 0  # steps since the last DCCRG_WATCHDOG check
+        self._txn_depth = 0  # reentrancy counter (txn.grid_transaction)
+        self._txn_plan = None  # the open transaction's rollback plan
+        self._txn_frozen = None  # ids of the snapshot's field tensors
+        # DCCRG_DEBUG=1: the verifiers after every rebuild, and verify_all
+        # at every transactional mutation boundary (txn.py)
+        self._debug = os.environ.get("DCCRG_DEBUG") == "1"
 
     # -- fluent pre-initialize setters (dccrg.hpp:8242-8357) ----------
 
@@ -956,6 +1004,8 @@ class Grid:
         self.initialized = True
         self._build_plan(cells, owner)
         self._allocate_fields()
+        if self._debug:
+            verify_mod.pin_requests_succeeded(self)
         return self
 
     # capacities whose arrays are small but whose need varies a lot
@@ -991,13 +1041,24 @@ class Grid:
         send/receive-list pipeline, dccrg.hpp:8371-8420).
         ``changed_hint`` is ``(prev_cells, changed_ids)`` from a commit
         that knows its dirty set; only the hybrid builder reads it."""
-        self._finish_plan(self._build_plan_impl(cells, owner, changed_hint))
+        self._finish_plan(self._construct_plan(cells, owner, changed_hint))
+
+    def _construct_plan(self, cells, owner, changed_hint=None):
+        """A plan for ``(cells, owner)``, not installed (the reference's
+        ``_construct_plan``, dccrg_tpu/grid.py:944): after a build of
+        more than 2^20 cells the allocator is trimmed, once the impl's
+        frame and its temporaries are gone."""
+        plan = self._build_plan_impl(cells, owner, changed_hint)
+        if len(cells) > 1 << 20:
+            _trim_allocator()
+        return plan
 
     def _build_plan_impl(self, cells, owner, changed_hint=None):
         """The reference's dispatch (dccrg_tpu/grid.py:964-1077): the
         closed-form (or forced dense-table) plan for a complete level-0
         grid, the hybrid plan for a refined one, and the generic
         builder under ``DCCRG_FORCE_GENERIC=1``."""
+        _tune_allocator()
         if len(cells) > 1 and not np.all(cells[:-1] < cells[1:]):
             order = np.argsort(cells, kind="stable")
             cells = cells[order]
@@ -1015,6 +1076,15 @@ class Grid:
         old = getattr(self, "plan", None)
         plan.epoch = old.epoch + 1 if old is not None else 0
         self.plan = plan
+        # continuous self-checking, as the reference's DEBUG builds
+        # (dccrg.hpp:12454-13036). Inside a transaction its post-commit
+        # verify_all covers these on the final state; user data is still
+        # moving here, so _install_plan checks it after the move. Pin
+        # placement is checked where pins are applied.
+        if self._debug and not self._txn_depth:
+            verify_mod.is_consistent(self)
+            verify_mod.verify_neighbors(self)
+            verify_mod.verify_remote_neighbor_info(self)
 
     def _lists_thunk(self, cells, offs):
         mapping, topology = self.mapping, self.topology
@@ -1073,7 +1143,10 @@ class Grid:
         if self._plan_arena is None:
             self._plan_arena = hybrid_mod.PlanArena()
         arena = self._plan_arena
-        arena.begin(protect=(getattr(self, "plan", None),))
+        # the live plan and the open transaction's rollback plan keep
+        # their buffers: an aborted build never scribbles on a plan a
+        # rollback restores
+        arena.begin(protect=(getattr(self, "plan", None), self._txn_plan))
         layout, hood_data = hybrid_mod.build_hybrid_plan(
             self.mapping, self.topology, self.neighborhoods, cells, owner,
             self.n_dev, cap=self._sticky_cap, reuse=self._hybrid_reuse,
@@ -1347,7 +1420,7 @@ class Grid:
                     torch.as_tensor(keep, device=self.device)]
             if fresh:
                 self.data[name] = torch.zeros_like(self.data[name])
-            _flat(self.data[name])[flat_t] = vals
+            _flat(self._own(name))[flat_t] = vals
 
     # neighbor-type bits (reference dccrg.hpp:2968-3075)
     HAS_NO_NEIGHBOR = 0
@@ -1759,17 +1832,14 @@ class Grid:
         cell moves to its new partition and row in one gather per field
         (``_install_plan``).
 
-        Not transactional yet: the reference rolls a failed commit back
-        (its ``txn.grid_transaction``), which the port has not taken. A
-        fault before the resolve finishes (the ``adapt.commit``
-        ``resolve`` phase, ``adapt.resolve``) leaves the grid and its
-        requests unchanged; an exception after it leaves the request
-        sets cleared (and the pins and weights of refined cells passed
-        on), and one inside the plan rebuild the grid on its previous
-        plan."""
+        Atomic (txn.py): a failure anywhere in the commit rolls the grid
+        back bit for bit, request sets, pins and weights included, and
+        raises :class:`~dccrg_tpu_torch.txn.MutationAbortedError`; the
+        same commit can then be retried."""
         from .amr import resolve_adaptation
 
-        with telemetry.span("grid.adapt"):
+        with telemetry.span("grid.adapt"), \
+                grid_transaction(self, op="stop_refining"):
             faults.fire("adapt.commit", phase="resolve")
             res = resolve_adaptation(
                 self.mapping,
@@ -1830,7 +1900,7 @@ class Grid:
             changed_hint = (old_plan.cells, changed)
         else:
             changed_hint = None
-        plan = self._build_plan_impl(new_cells, new_owner, changed_hint)
+        plan = self._construct_plan(new_cells, new_owner, changed_hint)
         self._install_plan(plan)
 
     def _install_plan(self, plan):
@@ -1852,6 +1922,17 @@ class Grid:
                 0, dst, _flat(self.data[name]).index_select(0, src))
             self.data[name] = moved
         faults.fire("grid.restructure", phase="moved")
+        if self._debug and not self._txn_depth:
+            verify_mod.verify_user_data(self)
+
+    def _own(self, name) -> torch.Tensor:
+        """``data[name]``, safe to write in place: a tensor the open
+        transaction's snapshot holds is cloned and installed first, so a
+        rollback restores it unchanged (txn.py)."""
+        t = self.data[name]
+        if self._txn_frozen and id(t) in self._txn_frozen:
+            t = self.data[name] = t.clone()
+        return t
 
     def get_removed_cells(self) -> np.ndarray:
         """Cells removed by the last stop_refining (dccrg.hpp:3519)."""
@@ -1910,19 +1991,17 @@ class Grid:
         (the reference's flag). The ``balance.commit`` fault phases fire
         in the reference's order: ``partition`` and ``stage`` before any
         change of state, ``finish`` before the rebuild and ``land``
-        after it. Not transactional yet (the reference's
-        ``txn.grid_transaction`` is not ported): a failure before the
-        rebuild drops the staged balance and leaves the grid as it was;
-        one after it leaves the new partition installed."""
-        with telemetry.span("grid.balance"):
-            try:
-                self.initialize_balance_load(use_zoltan)
-                self.continue_balance_load()
-                self.finish_balance_load()
-            except BaseException:
-                self._pending_owner = None
-                self._staged_balance = {}
-                raise
+        after it.
+
+        Atomic (txn.py): the three stages run in one transaction, so a
+        failure in any of them rolls the whole balance back
+        (:class:`~dccrg_tpu_torch.txn.MutationAbortedError`) and the grid
+        keeps its partition, data placement and staging."""
+        with telemetry.span("grid.balance"), \
+                grid_transaction(self, op="balance_load"):
+            self.initialize_balance_load(use_zoltan)
+            self.continue_balance_load()
+            self.finish_balance_load()
 
     def initialize_balance_load(self, use_zoltan: bool = True) -> None:
         """Stage 1: compute the new partition (dccrg.hpp:3770-3909):
@@ -1932,6 +2011,10 @@ class Grid:
         neighborhood's edges."""
         if self._pending_owner is not None:
             raise RuntimeError("balance_load already initialized")
+        with grid_transaction(self, op="initialize_balance_load"):
+            self._initialize_balance_load_impl(use_zoltan)
+
+    def _initialize_balance_load_impl(self, use_zoltan: bool) -> None:
         self._staged_balance = {}
         cells = self.plan.cells
         if use_zoltan:
@@ -1989,14 +2072,19 @@ class Grid:
         for n in names:
             if n not in self.fields:
                 raise KeyError(f"unknown field {n!r}")
-        faults.fire("balance.commit", phase="stage")
-        moving = self.plan.cells[self._pending_owner != self.plan.owner]
-        src = self._flat_rows(*self._host_rows(moving)) if len(moving) else None
-        for n in names:
-            self._staged_balance[n] = (
-                moving.copy(),
-                _flat(self.data[n]).index_select(0, src) if len(moving)
-                else None)
+        # validate=False: a stage only captures gathered rows; no
+        # structure the verifiers check changes
+        with grid_transaction(self, op="continue_balance_load",
+                              validate=False):
+            faults.fire("balance.commit", phase="stage")
+            moving = self.plan.cells[self._pending_owner != self.plan.owner]
+            src = (self._flat_rows(*self._host_rows(moving)) if len(moving)
+                   else None)
+            for n in names:
+                self._staged_balance[n] = (
+                    moving.copy(),
+                    _flat(self.data[n]).index_select(0, src) if len(moving)
+                    else None)
 
     def staged_balance_data(self, field: str):
         """(moving cell ids, values) a stage captured for a field — the
@@ -2009,9 +2097,14 @@ class Grid:
     def finish_balance_load(self) -> None:
         """Stage 3: install the new partition, rebuild the structure
         (dccrg.hpp:3980-4182) and land the captured values at the
-        moved cells' new rows."""
+        moved cells' new rows. Atomic: a failure rolls back to the staged
+        state, so finish can be retried."""
         if self._pending_owner is None:
             raise RuntimeError("initialize_balance_load not called")
+        with grid_transaction(self, op="finish_balance_load"):
+            self._finish_balance_load_impl()
+
+    def _finish_balance_load_impl(self) -> None:
         new_owner = self._pending_owner
         faults.fire("balance.commit", phase="finish")
         cells = self.plan.cells
@@ -2026,13 +2119,16 @@ class Grid:
         self._staged_balance = {}
         self._restructure(cells.copy(), new_owner)
         faults.fire("balance.commit", phase="land")
+        if self._debug:
+            verify_mod.pin_requests_succeeded(self)
         dst = None
         for n, (ids, snap) in staged.items():
             if snap is None or n not in self.fields:
                 continue
             if dst is None:
                 dst = self._flat_rows(*self._host_rows(ids))
-            _flat(self.data[n]).index_copy_(
+            # the moved rows land in the tensors _restructure made
+            _flat(self._own(n)).index_copy_(
                 0, dst, snap.to(self.data[n].dtype))
 
     def get_cells_added_by_balance_load(self, device: int | None = None):
@@ -2162,11 +2258,14 @@ class Grid:
         if len(cells) > 1 and not np.all(cells[1:] >= cells[:-1]):
             cells = np.sort(cells)
         verify_tiling(self.mapping, cells)
-        owner = partition_cells(self.mapping, cells, self.n_dev,
-                                self._lb_method, pins=self._pins or None)
-        self._cells_epoch += 1
-        self._build_plan(cells, owner)
-        self._allocate_fields()
+        with grid_transaction(self, op="load_cells"):
+            owner = partition_cells(self.mapping, cells, self.n_dev,
+                                    self._lb_method, pins=self._pins or None)
+            self._cells_epoch += 1
+            self._build_plan(cells, owner)
+            self._allocate_fields()
+            if self._debug:
+                verify_mod.pin_requests_succeeded(self)
 
     # -- checkpoint / restart (dccrg.hpp:1109-2426) --------------------
 
@@ -2428,7 +2527,7 @@ class Grid:
             return
         with telemetry.span("grid.exchange"):
             groups = self._exchange_groups(neighborhood_id, names)
-            fields = [self.data[n] for n in names]
+            fields = [self._own(n) for n in names]
             idx = range(len(names))
             _land_halos(fields, idx, groups,
                         _send_halos(fields, idx, groups, None), None,
@@ -2478,7 +2577,7 @@ class Grid:
             return
         with telemetry.span("grid.exchange.wait"):
             groups, sent = payloads
-            _land_halos([self.data[n] for n in names], range(len(names)),
+            _land_halos([self._own(n) for n in names], range(len(names)),
                         groups, sent, None, self.plan.R)
 
     def wait_remote_neighbor_copy_update_receives(self, neighborhood_id=DEFAULT_NEIGHBORHOOD_ID) -> None:

@@ -21,9 +21,8 @@ import math
 import numpy as np
 import torch
 
-from ..dense import DenseGrid
-from ..grid import (NEXT_SLICE, Grid, SlotwiseKernel, resolve_device,
-                    single_device)
+from ..dense import AXES, BLOCKS, WHOLE, DenseGrid
+from ..grid import Grid, SlotwiseKernel, resolve_device
 from ..ops.advection_kernel import make_rotation_step
 
 HUMP_X0, HUMP_Y0, HUMP_RADIUS = 0.25, 0.5, 0.15
@@ -221,7 +220,7 @@ class GridAdvection:
 
 
 class AdvectionSolver:
-    """Dense-path advection on [0,1]^3, on one device.
+    """Dense-path advection on [0,1]^3.
 
     Port of the reference's ``AdvectionSolver``
     (dccrg_tpu/models/advection.py:257): tests/advection/2d.cpp's
@@ -230,16 +229,12 @@ class AdvectionSolver:
     replicates the 2-D problem along z (the 512^3 configuration of
     BASELINE.json). Plain PyTorch on ``DenseGrid``: the reference
     computes this step in XLA, outside any Pallas kernel. Runs on the
-    card unless ``device`` says otherwise; ``mesh`` must be None and
-    ``device`` one device (the reference's multi-device dense solver
-    waits for ROADMAP queue 1 item 5b)."""
+    card unless ``device`` says otherwise; ``mesh`` (a ``dense_mesh``)
+    splits the grid into blocks, each stepped on its halo-padded block.
+    """
 
     def __init__(self, n=64, nz=None, mesh=None, dtype=torch.float32, cfl=0.5,
                  device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                f"AdvectionSolver on a device mesh waits for {NEXT_SLICE}")
-        device = single_device(device, "AdvectionSolver")
         nz = nz if nz is not None else 1
         self.n, self.nz, self.cfl = n, nz, cfl
         self.grid = DenseGrid(
@@ -249,6 +244,7 @@ class AdvectionSolver:
             periodic=(True, True, False),
             start=(0.0, 0.0, 0.0),
             cell_length=(1.0 / n, 1.0 / n, 1.0 / nz),
+            mesh=mesh,
         )
         self.grid.init_fields(lambda x, y, z: {
             "rho": hump_density(x, y),
@@ -256,12 +252,15 @@ class AdvectionSolver:
             "vy": x - 0.5,
             "vz": torch.zeros_like(z),
         })
-        # velocities are constant in time: halo-pad them once and pass
-        # the padded blocks into every step, so each step pads only rho
+        # velocities are constant in time: halo-pad them once, block by
+        # block (the padded blocks laid side by side, as the reference's
+        # shard_map pad returns them), and pass the padded blocks into
+        # every step, so each step exchanges only rho
         self._vel_padded = tuple(self.grid.pad_with_halo(self.grid.arrays[f], 1)
                                  for f in ("vx", "vy", "vz"))
-        self._step = self.grid.make_step(self._kernel, ("rho",), ("rho",),
-                                         halo=1)
+        self._step = self.grid.make_step(
+            self._kernel, ("rho",), ("rho",), halo=1,
+            extra_specs=(BLOCKS, BLOCKS, BLOCKS, WHOLE))
         self.time = 0.0
 
     # -- CFL (solve.hpp:289-333) --------------------------------------
@@ -304,13 +303,13 @@ class AdvectionSolver:
             flux_hi = vface_hi * torch.where(vface_hi >= 0, rho_c, rho_p)
             flux_lo = vface_lo * torch.where(vface_lo >= 0, rho_m, rho_c)
             if not self.grid.periodic[d]:
-                # missing neighbor => no flux through that face. One
-                # device holds the whole axis, so the block's global
-                # index is its local one (the reference offsets it by
-                # the mesh position, lax.axis_index)
+                # missing neighbor => no flux through that face, at the
+                # cell's GLOBAL index: mesh position x block extent +
+                # local index
                 shape = [1, 1, 1]
                 shape[d] = nloc[d]
-                glob = torch.arange(nloc[d], device=rho.device).view(shape)
+                glob = (self.grid.axis_index(AXES[d]) * nloc[d]
+                        + torch.arange(nloc[d], device=rho.device).view(shape))
                 flux_hi = torch.where(glob < self.grid.length[d] - 1, flux_hi, 0.0)
                 flux_lo = torch.where(glob > 0, flux_lo, 0.0)
             out = out + (flux_lo - flux_hi) * (dt / float(self.grid.cell_length[d]))

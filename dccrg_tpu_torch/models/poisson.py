@@ -1,4 +1,4 @@
-"""Poisson solvers on one device.
+"""Poisson solvers on partitions of one device.
 
 Port of ``dccrg_tpu/models/poisson.py``, the equivalent of the
 reference's tests/poisson solver family (tests/poisson/poisson_solve.hpp):
@@ -6,22 +6,27 @@ reference's tests/poisson solver family (tests/poisson/poisson_solve.hpp):
 - ``PoissonSolver``: the Numerical-Recipes 2.7.6 biconjugate scheme over
   grid cells, with per-cell per-direction geometry factors, boundary
   (Dirichlet) cells and skipped cells, on the general ``Grid``
-  (``apply_stencil`` over a face neighborhood). One device, all cells at
-  refinement level 0; the factor arithmetic keeps its AMR branches
-  (``ilen``, the f/4 weights of finer neighbors) so it reads as the
-  reference does.
-- ``DensePoissonSolver``: conjugate gradients on ``DenseGrid`` with the
-  7-point Laplacian as plain PyTorch on the halo-padded block — the
-  dense yardstick of the Poisson bench.
+  (``apply_stencil`` over a face neighborhood), on one or n partitions:
+  ``p0``/``p1`` ghosts are exchanged before each matvec, and the fused
+  solve can overlap that exchange with the matvecs (the ghost split).
+  The factor arithmetic keeps its AMR branches (``ilen``, the f/4
+  weights of finer neighbors) so it reads as the reference does.
+- ``DensePoissonSolver``: conjugate gradients on ``DenseGrid`` (one
+  block or a ``dense_mesh`` of blocks) with the 7-point Laplacian as
+  plain PyTorch on each halo-padded block — the dense yardstick of the
+  Poisson bench.
 - ``cg_solve``: plain conjugate gradients over any ``matvec`` callable
   on tensors, shared by ``DensePoissonSolver`` and ``CudaPoissonSolver``
   (ops/poisson_kernel.py, kernel C).
 
 Global dot products are ``torch.sum`` reductions read back to the host
-with ``float()``, as the reference reads its jnp sums. The reference's
-fused solve is one XLA program with a device while-loop; PyTorch has
-none, so the port's fused solve keeps every scalar of the iteration on
-the device and reads one flag per iteration for the loop condition.
+with ``float()``, as the reference reads its jnp sums; on n partitions
+each partition sums its local rows and the partition sums are added
+(comm.py's reduction over the partition axis). The reference's fused
+solve is one XLA program with a device while-loop; PyTorch has none, so
+the port's fused solve keeps every scalar of the iteration on the
+device and reads one flag per iteration for the loop condition.
+Partitions on distinct cards wait for ROADMAP.md queue 1, item 5b.1.
 """
 
 from __future__ import annotations
@@ -29,9 +34,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..dense import DenseGrid
-from ..grid import (NEXT_SLICE, Grid, as_torch_dtype, resolve_device,
-                    single_device)
+from ..dense import AXES, DenseGrid
+from ..grid import Grid, as_torch_dtype, resolve_device
 from ..neighbors import face_masks, make_neighborhood
 from ..ops.poisson_kernel import rdd2_coefficients
 
@@ -104,14 +108,13 @@ def _matvec_kernel(transpose: bool):
 
 
 class PoissonSolver:
-    """Biconjugate Poisson solve on the general grid, one device.
+    """Biconjugate Poisson solve on the general grid.
 
     Either wraps an existing grid declared with ``poisson_fields`` (the
     reference solver is grid-agnostic the same way,
     poisson_solve.hpp:252-258) or builds a uniform one from ``length``
-    on ``device`` (``"cuda"`` when None). A grid of more than one
-    partition raises NotImplementedError: the solve exchanges no ghost
-    rows yet (ROADMAP queue 1, item 5b).
+    on ``device`` (``"cuda"`` when None; a list of n devices is n
+    partitions, as ``Grid.initialize`` takes them).
     """
 
     def __init__(self, length=None, device=None, periodic=(True, True, True),
@@ -126,12 +129,8 @@ class PoissonSolver:
                 .set_periodic(*periodic)
                 .set_maximum_refinement_level(max_refinement_level)
                 .set_neighborhood_length(1)
-                .initialize(single_device(device, "PoissonSolver"))
+                .initialize(device)
             )
-        if self.grid.n_dev != 1:
-            raise NotImplementedError(
-                f"PoissonSolver on {self.grid.n_dev} partitions waits for "
-                f"{NEXT_SLICE}")
         missing = [n for n in POISSON_FIELDS if n not in self.grid.fields]
         if missing:
             raise ValueError(f"grid lacks Poisson fields {missing}")
@@ -143,6 +142,7 @@ class PoissonSolver:
         self._tr = _matvec_kernel(transpose=True)
         self._prepared_epoch = None
         self._solve_mask = None
+        self.last_overlap = None  # whether the last fused solve overlapped
 
     def _cache_key(self, cells_to_solve, cells_to_skip):
         return (
@@ -240,8 +240,16 @@ class PoissonSolver:
 
     # -- reductions ----------------------------------------------------
 
+    def _psum(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum of an ``[n_dev, R]`` tensor: on n partitions each
+        partition's sum, then the sum over the partitions."""
+        if self.grid.n_dev == 1:
+            return torch.sum(x)
+        return x.reshape(x.shape[0], -1).sum(dim=1).sum()
+
     def _dot(self, a: str, b: str) -> float:
-        return float(torch.sum(self.grid.data[a] * self.grid.data[b] * self._solve_mask))
+        return float(self._psum(self.grid.data[a] * self.grid.data[b]
+                                * self._solve_mask))
 
     def _exchange_p(self, fields) -> None:
         self.grid.update_copies_of_remote_neighbors(
@@ -266,20 +274,55 @@ class PoissonSolver:
         on the device: alpha, beta, the three dots and the ``go`` flag
         are 0-dim tensors combined with ``torch.where`` exactly as the
         reference's while-loop body (poisson.py:389-429), and the host
-        reads one flag per iteration for the loop condition. One device
-        runs no exchange programs. Returns (solution, iterations,
-        squared residual) as tensors."""
+        reads one flag per iteration for the loop condition.
+
+        On n partitions (the reference's ``_fused_solve_fn``,
+        poisson.py:273-441) ``p0``'s ghosts are exchanged before the
+        initial residual and ``p0``'s and ``p1``'s before each
+        iteration's matvecs. With the overlap on (``Grid._use_overlap``
+        and ``DCCRG_GHOST_SPLIT`` not 0) the iteration starts the sends,
+        runs both matvecs on the pre-exchange state, lands the receives
+        and re-runs only the rows whose gather reads a refreshed ghost
+        (``Grid._make_outer_repass``), for ``Ap0`` and for ``A^T p1``.
+        Returns (solution, iterations, squared residual) as tensors."""
+        from ..grid import _land_halos, _send_halos, ghost_split_enabled
+
         g = self.grid
+        hid = POISSON_NEIGHBORHOOD_ID
         fields_in_fwd = ("p0", "ilen", "ctype", "scale") + tuple(
             n for pair in _F_NAMES for n in pair)
         fields_in_tr = ("p1",) + fields_in_fwd[1:]
         fwd_fn, fwd_tables = g._make_stencil(
-            self._fwd, fields_in_fwd, ("Ap0",), POISSON_NEIGHBORHOOD_ID, False)
+            self._fwd, fields_in_fwd, ("Ap0",), hid, False)
         tr_fn, tr_tables = g._make_stencil(
-            self._tr, fields_in_tr, ("r1",), POISSON_NEIGHBORHOOD_ID, False)
+            self._tr, fields_in_tr, ("r1",), hid, False)
         statics = tuple(g.data[n] for n in fields_in_fwd[1:])
         mask = self._solve_mask
         dtype, dev = self.dtype, mask.device
+        single = g.n_dev == 1
+        R = g.plan.R
+
+        rp_fwd = rp_tr = None
+        if not single and g._use_overlap() and ghost_split_enabled():
+            rp_fwd = g._make_outer_repass(self._fwd, fields_in_fwd, ("Ap0",),
+                                          hid, ("p0",))
+            rp_tr = g._make_outer_repass(self._tr, fields_in_tr, ("r1",),
+                                         hid, ("p1",))
+        overlap = rp_fwd is not None and rp_tr is not None
+        self.last_overlap = overlap
+        if not single:
+            g1 = g._exchange_groups(hid, ("p0",))
+            g2 = g._exchange_groups(hid, ("p0", "p1"))
+            side = (g._side_stream()
+                    if overlap and g.device.type == "cuda" else None)
+
+        def exchange1(p0):
+            _land_halos([p0], (0,), g1, _send_halos([p0], (0,), g1, None),
+                        None, R)
+
+        def exchange2(p0, p1):
+            _land_halos([p0, p1], (0, 1), g2,
+                        _send_halos([p0, p1], (0, 1), g2, None), None, R)
 
         def fwd(p0, scratch):
             return fwd_fn(*fwd_tables, p0, *statics, scratch)[0]
@@ -288,12 +331,17 @@ class PoissonSolver:
             return tr_fn(*tr_tables, p1, *statics, scratch)[0]
 
         def dot(a, b):
-            return torch.sum(a * b * mask)
+            return self._psum(a * b * mask)
 
         solution, rhs = g.data["solution"], g.data["rhs"]
         rtol_t = torch.tensor(rtol, dtype=dtype, device=dev)
-        # initial residual (initialize_solver, :986-1041)
-        Ap0 = fwd(solution, g.data["Ap0"])
+        # initial residual (initialize_solver, :986-1041); the exchange
+        # lands in a copy, so the grid's solution keeps its ghost rows
+        p0 = solution
+        if not single:
+            p0 = solution.clone()
+            exchange1(p0)
+        Ap0 = fwd(p0, g.data["Ap0"])
         r0 = (rhs - Ap0) * mask
         dot_r0 = dot(r0, r0)
         b2 = dot(rhs, rhs)
@@ -303,7 +351,8 @@ class PoissonSolver:
             tiny)
 
         s = {
-            "solution": solution, "r0": r0, "r1": r0, "p0": r0, "p1": r0,
+            "solution": solution, "r0": r0, "r1": r0, "p0": r0,
+            "p1": r0,
             "Ap0": Ap0, "dot_r": dot_r0, "residual": dot_r0,
             "it": torch.tensor(0, dtype=torch.int32, device=dev),
             "go": torch.tensor(True, device=dev),
@@ -311,8 +360,20 @@ class PoissonSolver:
         while bool(s["go"] & (s["residual"] > target)
                    & (s["it"] < max_iterations)):
             p0, p1 = s["p0"], s["p1"]
-            Ap0 = fwd(p0, s["Ap0"])
-            Atp1 = tr(p1, s["r1"])
+            if overlap:
+                # the sends read local rows only: they fly under both
+                # matvecs, then only the refreshed rows are redone
+                sent = _send_halos([p0, p1], (0, 1), g2, side)
+                Ap0 = fwd(p0, s["Ap0"])
+                Atp1 = tr(p1, s["r1"])
+                _land_halos([p0, p1], (0, 1), g2, sent, side, R)
+                Ap0 = rp_fwd[0](*rp_fwd[1], p0, *statics, Ap0)[0]
+                Atp1 = rp_tr[0](*rp_tr[1], p1, *statics, Atp1)[0]
+            else:
+                if not single:
+                    exchange2(p0, p1)
+                Ap0 = fwd(p0, s["Ap0"])
+                Atp1 = tr(p1, s["r1"])
             dot_p = dot(p1, Ap0)
             go = (dot_p != 0) & (s["dot_r"] != 0)
             safe_p = torch.where(dot_p == 0, 1, dot_p)
@@ -408,24 +469,27 @@ class PoissonSolver:
         return {"iterations": iterations, "residual": float(np.sqrt(max(residual, 0.0)))}
 
     def _remove_mean(self, field: str) -> None:
-        total = float(torch.sum(self.grid.data[field] * self._solve_mask))
-        cnt = float(torch.sum(self._solve_mask))
+        total = float(self._psum(self.grid.data[field] * self._solve_mask))
+        cnt = float(self._psum(self._solve_mask))
         self.grid.data[field] = (
             self.grid.data[field] - (total / max(cnt, 1.0)) * self._solve_mask
         )
 
 
 class DensePoissonSolver:
-    """CG on the dense path (uniform grids, big problems), one device."""
+    """CG on the dense path (uniform grids, big problems); ``mesh`` (a
+    ``dense_mesh``) splits the grid into blocks, each matvec'd on its
+    halo-padded block, the dots taken over every block."""
 
     def __init__(self, length, device=None, periodic=(True, True, True),
-                 dtype=torch.float32):
+                 dtype=torch.float32, mesh=None):
         self.grid = DenseGrid(
             length,
             {"p": dtype, "Ap": dtype},
             device=device,
             periodic=periodic,
             cell_length=tuple(1.0 / l for l in length),
+            mesh=mesh,
         )
         self.periodic = tuple(periodic)
         self.dtype = as_torch_dtype(dtype)
@@ -450,10 +514,12 @@ class DensePoissonSolver:
                 t_hi = p[hi] - p[core]
                 if not grid.periodic[d]:
                     # homogeneous Neumann: drop missing-neighbor terms,
-                    # matching PoissonSolver's masked stencil
+                    # matching PoissonSolver's masked stencil, at the
+                    # cell's global index
                     shape = [1, 1, 1]
                     shape[d] = nloc[d]
-                    g = torch.arange(nloc[d], device=p.device).reshape(shape)
+                    g = (grid.axis_index(AXES[d]) * nloc[d]
+                         + torch.arange(nloc[d], device=p.device).reshape(shape))
                     t_lo = torch.where(g > 0, t_lo, 0.0)
                     t_hi = torch.where(g < grid.length[d] - 1, t_hi, 0.0)
                 out = out + rdx2[d] * (t_lo + t_hi)

@@ -169,6 +169,37 @@ def amr_slab_grid(n, device, on_commit=None, partition=None):
     return g
 
 
+def plan_digest(grid) -> str:
+    """SHA-256 of a grid's structure plan: cells, owners, the row layout
+    of every partition and every hood's dense, hard and pair tables —
+    equal digests mean plans equal bit for bit."""
+    import hashlib
+
+    h = hashlib.sha256()
+
+    def put(a):
+        a = np.ascontiguousarray(np.asarray(a))
+        h.update(f"{a.dtype.str}{a.shape}".encode())
+        h.update(a.tobytes())
+
+    plan = grid.plan
+    h.update(f"{plan.n_dev} {plan.L} {plan.R}".encode())
+    for name in ("cells", "owner", "row_of_pos", "n_local"):
+        put(getattr(plan, name))
+    for d in range(plan.n_dev):
+        put(plan.local_ids[d])
+        put(plan.ghost_ids[d])
+    for hid in sorted(plan.hoods):
+        hood = plan.hoods[hid]
+        for name in ("nbr_rows", "nbr_mask", "scale_rows", "hard_rows",
+                     "hard_nbr_rows", "hard_offs", "hard_mask", "n_inner"):
+            v = getattr(hood, name)
+            put(np.zeros(0) if v is None else v)
+        for key in ("p", "q", "pos", "srow", "rrow"):
+            put(hood.pair_compact[key])
+    return h.hexdigest()
+
+
 def profile_amr(n, steps, card, parts=1):
     g = amr_slab_grid(n, ["cuda"] * parts, partition="block")
     g.run_steps(amr_diffuse, ["density"], ["density"], 1)

@@ -18,6 +18,7 @@ from dccrg_tpu.grid import Grid as RefGrid
 from dccrg_tpu_torch import faults, integrity, telemetry
 from dccrg_tpu_torch.checkpoint import state_digest
 from dccrg_tpu_torch.grid import Grid
+from dccrg_tpu_torch.txn import MutationAbortedError
 
 
 def make_pair(length=(8, 1, 1), n=4, fields=("v",), partition=None,
@@ -233,8 +234,11 @@ def test_balance_fault_leaves_grid_unchanged(phase):
     before = (p.plan.owner.copy(), state_digest(p), p.plan.epoch)
     plan = faults.FaultPlan()
     plan.mutation_error(site="balance.commit", phase=phase)
-    with plan, pytest.raises(faults.InjectedMutationError):
+    # the balance is transactional: the injected error is the cause of
+    # the rollback's MutationAbortedError, as in the reference
+    with plan, pytest.raises(MutationAbortedError) as ei:
         p.balance_load()
+    assert isinstance(ei.value.__cause__, faults.InjectedMutationError)
     assert plan.fired("balance.commit") == 1
     np.testing.assert_array_equal(p.plan.owner, before[0])
     assert (state_digest(p), p.plan.epoch) == before[1:]

@@ -441,3 +441,29 @@ def test_refined_partitions_on_the_card(device, overlap, monkeypatch):
     cells = pg.cells
     np.testing.assert_array_equal(three.get("density", cells),
                                   one.get("density", cells))
+
+
+@pytest.mark.parametrize("shape", [(2, 1, 2), (1, 2, 2)])
+def test_dense_mesh_on_the_card(device, shape):
+    """AdvectionSolver and DensePoissonSolver on a mesh of blocks of the
+    card: bit for bit with one block, the z split masked at the global
+    index."""
+    from dccrg_tpu_torch.dense import dense_mesh
+
+    mesh = dense_mesh([device] * 4, shape)
+    one = AdvectionSolver(n=32, nz=8, device=device)
+    blocks = AdvectionSolver(n=32, nz=8, mesh=mesh)
+    for s in (one, blocks):
+        for f, v in (("vz", 0.3),):
+            s.grid.arrays[f] = s.grid.arrays[f] * 0 + v
+        s._vel_padded = tuple(s.grid.pad_with_halo(s.grid.arrays[f], 1)
+                              for f in ("vx", "vy", "vz"))
+        for _ in range(4):
+            s.step(0.004)
+    assert torch.equal(blocks.grid.arrays["rho"], one.grid.arrays["rho"])
+    rhs = torch.rand((16, 16, 16), device=device, dtype=torch.float64)
+    rhs = (rhs - rhs.mean()).to(torch.float32)
+    per = (True, True, False)
+    x1, i1 = DensePoissonSolver((16,) * 3, periodic=per, device=device).solve(rhs)
+    xm, im = DensePoissonSolver((16,) * 3, periodic=per, mesh=mesh).solve(rhs)
+    assert i1 == im and torch.equal(x1, xm)

@@ -92,8 +92,18 @@ def test_non_periodic_z_faces_masked(vz):
 
 
 def test_mesh_raises():
-    with pytest.raises(NotImplementedError):
-        AdvectionSolver(n=8, mesh=mesh3((1, 1, 1)), device="cpu")
+    """A mesh naming distinct devices waits for item 5b.1; a mesh of
+    blocks on one device runs, bit for bit with one block."""
+    from dccrg_tpu_torch.dense import dense_mesh as port_mesh
+
+    with pytest.raises(NotImplementedError, match="5b.1"):
+        AdvectionSolver(n=8, mesh=port_mesh(["cpu", "meta"], (2, 1, 1)))
+    one = AdvectionSolver(n=8, nz=4, device="cpu")
+    blocks = AdvectionSolver(n=8, nz=4, mesh=port_mesh(["cpu"] * 4, (2, 1, 2)))
+    for s in (one, blocks):
+        s.step()
+    np.testing.assert_array_equal(blocks.grid.to_host("rho"),
+                                  one.grid.to_host("rho"))
 
 
 def test_mass_conservation():

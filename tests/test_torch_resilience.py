@@ -555,10 +555,10 @@ def test_fault_before_any_change_leaves_grid_unchanged(site, phase, op):
         assert plan.fired(site) == 1
         errors.append(ei.value)
     ref_err, port_err = errors
-    # the reference's transaction wraps the injected error; the port
-    # (no transactions yet) raises the injected error itself
-    assert type(port_err).__name__ == type(ref_err.__cause__).__name__
-    assert isinstance(port_err, faults.InjectedMutationError)
+    # both packages' transactions wrap the injected error
+    assert type(port_err).__name__ == type(ref_err).__name__
+    assert type(port_err.__cause__).__name__ == type(ref_err.__cause__).__name__
+    assert isinstance(port_err.__cause__, faults.InjectedMutationError)
     assert np.array_equal(p.plan.cells, before[0])
     assert state_digest(p) == before[1] and p.plan.epoch == before[2]
     # the pending request survived: the retry commits what the

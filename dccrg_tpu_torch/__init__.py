@@ -29,7 +29,11 @@ mesh of blocks (``dense_mesh``) with ``AdvectionSolver`` and
 ``DensePoissonSolver`` on it, and ``PoissonSolver`` on partitions; and
 atomic, verified grid mutations: the ``DCCRG_DEBUG=1`` verifiers
 (verify.py) and ``grid_transaction`` around the commit, the balance and
-``load_cells`` (txn.py).
+``load_cells`` (txn.py); and the model zoo (models/mhd.py and
+models/vlasov.py, registered with the fleet at ``import
+dccrg_tpu_torch.models``; models/particles.py, models/scalability.py),
+the VTK writer and phase timers (utils/), and the background plan build
+and async checkpoint save (background.py).
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``); kernels are built with ``nvcc`` at their first CUDA
 call, never on import.

@@ -31,8 +31,8 @@ fingerprints and the conservation sums of its input and output state,
 read to the host once per quantum (:attr:`GridBatch.last_inv`).
 
 The job queue, admission, drain/backfill and per-job checkpoints live
-in the reference's ``scheduler.py``, which waits for the checkpoint
-slice of the port; so do its knobs (slots per bucket, steps per
+in the reference's ``scheduler.py``, which waits for ROADMAP queue 1,
+item 7; so do its knobs (slots per bucket, steps per
 quantum) and the job state it keeps (retries, SLOs, save cadence).
 """
 
@@ -47,7 +47,8 @@ from . import checkpoint as checkpoint_mod
 from . import faults, integrity
 from .convert import _to_numpy, _to_tensor
 from .grid import (DEFAULT_NEIGHBORHOOD_ID, Grid, SlotwiseKernel,
-                   as_torch_dtype, single_device)
+                   _GatheredNeighbors, as_torch_dtype, single_device,
+                   slot_sum)
 
 _F32 = torch.float32
 
@@ -117,10 +118,15 @@ def register_kernel_spec(name: str, *, cell_data, fields_in,
 
 
 def _kernel_spec(name: str):
-    """The registered spec for a kernel name. The reference imports its
-    model zoo on a miss; the port has no zoo yet, so a zoo name is an
-    unknown kernel here."""
-    return FLEET_KERNEL_SPECS.get(name)
+    """The registered spec for a kernel name, importing the model zoo
+    once on a miss (importing ``dccrg_tpu_torch.models`` registers the
+    zoo kernels)."""
+    spec = FLEET_KERNEL_SPECS.get(name)
+    if spec is None and name not in FLEET_KERNELS:
+        from . import models  # noqa: F401 - registers the zoo
+
+        spec = FLEET_KERNEL_SPECS.get(name)
+    return spec
 
 
 def _masked_sum(nbr, mask):
@@ -128,11 +134,8 @@ def _masked_sum(nbr, mask):
     and slot order, rounded once to ``nbr``'s dtype (the reference's
     ``jnp.sum`` accumulates bfloat16 in float32). Slot by slot, so a
     slot of a batch adds in the same order as a solo grid."""
-    w = torch.where(mask, nbr, nbr.new_zeros(())).to(_F32)
-    s = w[..., 0]
-    for j in range(1, w.shape[-1]):
-        s = s + w[..., j]
-    return s.to(nbr.dtype)
+    return slot_sum(torch.where(mask, nbr, nbr.new_zeros(())).to(_F32)
+                    ).to(nbr.dtype)
 
 
 def _diffuse_kernel(c, nbr, offs, mask, dt):
@@ -490,7 +493,10 @@ class GridBatch:
 
             def vstep(state, extras):
                 cell = {n: state[n][:, :L] for n in fin}
-                nbr = {n: state[n][:, rows] for n in fin}
+                # a field's neighbour stack is gathered when the kernel
+                # first reads it: a vlasov job never gathers its wide f
+                nbr = _GatheredNeighbors({n: state[n] for n in fin},
+                                         lambda t: t[:, rows])
                 ex = tuple(extras[:, i:i + 1] for i in range(n_extra))
                 out = kernel(cell, nbr, offs, mask, *ex)
                 new = dict(state)
@@ -654,6 +660,11 @@ class GridBatch:
         are frozen exactly. With integrity on, the quantum also
         measures the per-slot invariants of its input and output state,
         read to the host once and published on :attr:`last_inv`."""
+        # quantum boundaries are the fleet's step boundaries: a plan a
+        # background recommit finished for the scratch grid installs
+        # here, never mid-quantum (DCCRG_BG_RECOMMIT, as Grid.run_steps)
+        if self.grid.bg_pending():
+            self.grid.bg_install()
         budget = np.asarray(budget, dtype=np.int32)
         q = int(budget.max()) if len(budget) else 0
         if q <= 0:

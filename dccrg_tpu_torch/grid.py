@@ -44,13 +44,15 @@ hard rows last, on the received ghosts.
 
 from __future__ import annotations
 
+import logging
 import os
+import time
 from dataclasses import dataclass, field as dataclass_field
 
 import numpy as np
 import torch
 
-from . import faults, resilience, telemetry
+from . import background, faults, resilience, telemetry
 from .geometry import CartesianGeometry, NoGeometry, StretchedCartesianGeometry
 from .mapping import Mapping
 from .neighbors import (build_neighbor_lists, find_neighbors_of,
@@ -63,6 +65,8 @@ from .txn import grid_transaction
 from .types import ERROR_CELL
 from . import uniform as uniform_mod
 from . import verify as verify_mod
+
+logger = logging.getLogger(__name__)
 
 # Parity with the reference's default neighborhood id (dccrg.hpp:99).
 DEFAULT_NEIGHBORHOOD_ID = -0xDCC
@@ -269,6 +273,18 @@ def _make_roll3d_gather(synth, L, lead=0):
     return gather
 
 
+def slot_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis (a kernel's neighbour slots or a field's
+    lanes), one slot after the other: the order is fixed whatever the
+    leading shape and however many trailing zero slots a table's
+    capacity adds, so a row's sum is the same bits on any plan, batch
+    or device (a library reduction picks its order by shape)."""
+    s = x[..., 0]
+    for j in range(1, x.shape[-1]):
+        s = s + x[..., j]
+    return s
+
+
 class _GatheredNeighbors(dict):
     """``[L, S, ...]`` neighbor stacks of the stencil's input fields,
     gathered on first access: PyTorch runs eagerly, so a field the kernel
@@ -288,6 +304,25 @@ class _GatheredNeighbors(dict):
 
     def __contains__(self, name):
         return name in self._fields
+
+    # iteration covers every input field, gathering each as it is read
+    def __iter__(self):
+        return iter(self._fields)
+
+    def __len__(self):
+        return len(self._fields)
+
+    def keys(self):
+        return self._fields.keys()
+
+    def items(self):
+        return ((n, self[n]) for n in self._fields)
+
+    def values(self):
+        return (self[n] for n in self._fields)
+
+    def get(self, name, default=None):
+        return self[name] if name in self._fields else default
 
 
 def _make_roll_fixup_gather(shifts, L, fixups):
@@ -347,12 +382,14 @@ def _run_slotwise(kernel, cell_fields, fields, gather, offs_col, mask_col,
     """The one slot loop every slot-wise call site shares:
     init -> slot per stencil leg -> finish. ``fields`` maps name ->
     backing tensor, ``gather(arr, j, mask_j)`` produces slot j's
-    neighbor column. PyTorch runs eagerly, so each slot's gathered
-    columns are freed before the next slot's are made."""
+    neighbor column, when the slot function first reads it. PyTorch
+    runs eagerly, so each slot's gathered columns are freed before the
+    next slot's are made."""
     carry = kernel.init(cell_fields, *extra)
     for j in range(n_slots):
         mj = mask_col(j)
-        nbr_j = {n: gather(v, j, mj) for n, v in fields.items()}
+        nbr_j = _GatheredNeighbors(
+            fields, lambda v, j=j, mj=mj: gather(v, j, mj))
         carry = kernel.slot(carry, cell_fields, nbr_j, offs_col(j), mj,
                             *extra)
     return kernel.finish(carry, cell_fields, *extra)
@@ -466,7 +503,7 @@ def _make_pass(spec, tabs, L, fields_out):
         # second pass over the hard rows (near refinement) with their
         # own, wider tables; results overwrite those rows
         h_cell = {n: v.index_select(0, hr) for n, v in cell_fields.items()}
-        h_nbr = {n: h_gather(v) for n, v in flat.items()}
+        h_nbr = _GatheredNeighbors(flat, h_gather)
         h_result = kernel(h_cell, h_nbr, hof, hm, *extra)
         result = dict(result)
         for n in fields_out:
@@ -478,13 +515,15 @@ def _make_pass(spec, tabs, L, fields_out):
         # the reference's outer re-pass body (dccrg_tpu/grid.py:3247-3265)
         m = mask_rows(rows)
         cell = {n: v.index_select(0, rows) for n, v in flat.items()}
-        nbr = {}
-        for n, v in flat.items():
+
+        def gather(v):
             g = v[nbr_rows]
             if zero_masked:  # a roll's masked slots hold junk
                 mexp = m.reshape(tuple(m.shape) + (1,) * (g.dim() - 2))
                 g = torch.where(mexp, g, g.new_zeros(()))
-            nbr[n] = g
+            return g
+
+        nbr = _GatheredNeighbors(flat, gather)
         if uniform_offs:
             offs = m[:, :, None] * raw_offs[None, :, :]
             if scaled:
@@ -903,6 +942,15 @@ class Grid:
         self._txn_depth = 0  # reentrancy counter (txn.grid_transaction)
         self._txn_plan = None  # the open transaction's rollback plan
         self._txn_frozen = None  # ids of the snapshot's field tensors
+        # cached per-epoch data items (dccrg.hpp:7404-7518): name -> fn,
+        # and their values, recomputed at every structure rebuild
+        self._cell_items = {}
+        self._cell_item_values = {}
+        self._neighbor_items = {}
+        self._neighbor_item_values = {}
+        # the background plan build awaiting its swap (DCCRG_BG_RECOMMIT)
+        self._bg_build = None
+        self.last_bg_install = None  # seconds of the last swap, by part
         # DCCRG_DEBUG=1: the verifiers after every rebuild, and verify_all
         # at every transactional mutation boundary (txn.py)
         self._debug = os.environ.get("DCCRG_DEBUG") == "1"
@@ -1008,6 +1056,54 @@ class Grid:
             verify_mod.pin_requests_succeeded(self)
         return self
 
+    def clone(self, cell_data=None) -> "Grid":
+        """A new grid with this one's structure (cells, partitions,
+        neighbour tables, neighborhoods, pins, weights, partitioning
+        options) and its own zero-initialized cell data, optionally of
+        another schema: the reference's cross-Cell_Data copy constructor
+        (dccrg.hpp:344-446). The clone's plan is built anew, so it
+        shares no table, no arena buffer and no tensor with this grid;
+        a write to either leaves the other unchanged."""
+        if not self.initialized:
+            raise RuntimeError("clone() requires an initialized grid")
+        spec = cell_data if cell_data is not None else dict(self.fields)
+        other = Grid(cell_data=spec)
+        other._length = self._length
+        other._max_ref_lvl = self._max_ref_lvl
+        other._periodic = self._periodic
+        other._hood_len = self._hood_len
+        other._lb_method = self._lb_method
+        other._geometry_kind = self._geometry_kind
+        other._pins = dict(self._pins)
+        other._weights = dict(self._weights)
+        other._partitioning_options = dict(self._partitioning_options)
+        other._partitioning_levels = [dict(lv) for lv in
+                                      self._partitioning_levels]
+        other.devices = list(self.devices)
+        other.device = self.device
+        other.n_dev = self.n_dev
+        other._proc_local_dev = self._proc_local_dev.copy()
+        other.mapping = Mapping(
+            tuple(int(v) for v in self.mapping.length.get()),
+            self.mapping.max_refinement_level,
+        )
+        other.topology = GridTopology(self._periodic)
+        kind, params = self._geometry_kind
+        if kind == "none":
+            other.geometry = NoGeometry(other.mapping, other.topology)
+        elif kind == "cartesian":
+            other.geometry = CartesianGeometry(other.mapping, other.topology,
+                                               **params)
+        else:
+            other.geometry = StretchedCartesianGeometry(
+                other.mapping, other.topology, **params)
+        other.neighborhoods = {hid: offs.copy()
+                               for hid, offs in self.neighborhoods.items()}
+        other.initialized = True
+        other._build_plan(self.plan.cells.copy(), self.plan.owner.copy())
+        other._allocate_fields()
+        return other
+
     # capacities whose arrays are small but whose need varies a lot
     # epoch-to-epoch: give them a 2x band so shapes virtually never change
     _WIDE_CAPS = ("G", "M", "S", "S_hard", "Hmax", "T_hard", "rollW", "removed")
@@ -1040,7 +1136,10 @@ class Grid:
         (the reference's initialize_neighbors + remote-neighbor +
         send/receive-list pipeline, dccrg.hpp:8371-8420).
         ``changed_hint`` is ``(prev_cells, changed_ids)`` from a commit
-        that knows its dirty set; only the hybrid builder reads it."""
+        that knows its dirty set; only the hybrid builder reads it. A
+        pending background build installs first: builds are serialized
+        per grid."""
+        self.bg_install(wait=True)
         self._finish_plan(self._construct_plan(cells, owner, changed_hint))
 
     def _construct_plan(self, cells, owner, changed_hint=None):
@@ -1076,6 +1175,7 @@ class Grid:
         old = getattr(self, "plan", None)
         plan.epoch = old.epoch + 1 if old is not None else 0
         self.plan = plan
+        self._update_data_items()
         # continuous self-checking, as the reference's DEBUG builds
         # (dccrg.hpp:12454-13036). Inside a transaction its post-commit
         # verify_all covers these on the final state; user data is still
@@ -1369,6 +1469,13 @@ class Grid:
         pos = np.searchsorted(cells, ids)
         if np.any(pos >= len(cells)) or np.any(
                 cells[np.minimum(pos, len(cells) - 1)] != ids):
+            if self._bg_build is not None:
+                # a deferred recommit may hold the epoch these ids
+                # belong to (adapt, then project onto the new
+                # children): a data access that needs the new epoch is
+                # a swap boundary — install (blocking) and retry
+                self.bg_install(wait=True)
+                return self._host_rows(ids)
             raise KeyError("unknown cell id(s)")
         return self.plan.owner[pos], self.plan.row_of_pos[pos].astype(np.int64)
 
@@ -1739,6 +1846,87 @@ class Grid:
                 return np.uint64(c)
         return ERROR_CELL
 
+    def get_maximum_refinement_level_difference(self) -> int:
+        """Parity with dccrg.hpp:6752: neighbours differ by at most one
+        refinement level."""
+        return 1
+
+    # -- cached data items (dccrg.hpp:7404-7518: user mixins whose
+    # update() runs at cache rebuild, e.g. Is_Local / Center in
+    # tests/advection/cell.hpp). An item is a vectorized function over
+    # the whole cell (or neighbour-entry) set, evaluated on the host at
+    # every structure rebuild: initialize, commit, balance, load and a
+    # background plan's install.
+
+    def add_cell_data_item(self, name: str, fn) -> None:
+        """Register ``fn(grid, ids) -> array``, recomputed at every
+        structure rebuild and cached for the epoch."""
+        self._cell_items[name] = fn
+        if self.initialized:
+            self._cell_item_values[name] = np.asarray(
+                fn(self, self.plan.cells))
+
+    def remove_cell_data_item(self, name: str) -> None:
+        self._cell_items.pop(name, None)
+        self._cell_item_values.pop(name, None)
+
+    def cell_data_item(self, name: str, ids=None) -> np.ndarray:
+        """The cached item values, for all cells (plan order) or the
+        given ids."""
+        vals = self._cell_item_values[name]
+        if ids is None:
+            return vals.copy()
+        scalar = np.isscalar(ids) or np.asarray(ids).ndim == 0
+        ids = np.atleast_1d(np.asarray(ids, dtype=np.uint64))
+        cells = self.plan.cells
+        pos = np.searchsorted(cells, ids)
+        if np.any(pos >= len(cells)) or np.any(
+                cells[np.minimum(pos, len(cells) - 1)] != ids):
+            raise KeyError("unknown cell id(s)")
+        out = vals[pos]
+        return out[0] if scalar else out
+
+    def add_neighbor_data_item(self, name: str, fn,
+                               neighborhood_id=DEFAULT_NEIGHBORHOOD_ID) -> None:
+        """Register ``fn(grid, src_ids, nbr_ids, offsets) -> array`` over
+        the neighborhood's flat neighbour entries, recomputed at every
+        structure rebuild."""
+        self._neighbor_items[name] = (fn, neighborhood_id)
+        if self.initialized:
+            nl = self.plan.hoods[neighborhood_id].lists
+            self._neighbor_item_values[name] = np.asarray(
+                fn(self, self.plan.cells[nl.of_source], nl.of_neighbor,
+                   nl.of_offset))
+
+    def remove_neighbor_data_item(self, name: str) -> None:
+        self._neighbor_items.pop(name, None)
+        self._neighbor_item_values.pop(name, None)
+
+    def neighbor_data_item(self, name: str, cell=None) -> np.ndarray:
+        """Item values for all neighbour entries, or one cell's."""
+        vals = self._neighbor_item_values[name]
+        if cell is None:
+            return vals.copy()
+        _, hid = self._neighbor_items[name]
+        nl = self.plan.hoods[hid].lists
+        pos = self._cell_pos(cell)
+        if pos is None:
+            raise ValueError(f"unknown cell {cell}")
+        return vals[nl.of_source == pos]
+
+    def _update_data_items(self) -> None:
+        for name, fn in self._cell_items.items():
+            self._cell_item_values[name] = np.asarray(fn(self, self.plan.cells))
+        # drop items whose neighborhood has been removed
+        for name in [n for n, (_, hid) in self._neighbor_items.items()
+                     if hid not in self.plan.hoods]:
+            self.remove_neighbor_data_item(name)
+        for name, (fn, hid) in self._neighbor_items.items():
+            nl = self.plan.hoods[hid].lists
+            self._neighbor_item_values[name] = np.asarray(
+                fn(self, self.plan.cells[nl.of_source], nl.of_neighbor,
+                   nl.of_offset))
+
     # -- user neighborhoods (dccrg.hpp:6491-6681) ----------------------
 
     def add_neighborhood(self, neighborhood_id, offsets) -> bool:
@@ -1877,29 +2065,45 @@ class Grid:
             self._removed_cells = res.removed_cells
             self._new_cells = res.new_cells
             self._unrefined_parents = res.unrefined_parents
-            self._restructure(res.cells, res.owner, changed=res.changed_cells)
+            self._restructure(res.cells, res.owner, changed=res.changed_cells,
+                              defer_ok=True)
             return res.new_cells.copy()
 
-    def _restructure(self, new_cells, new_owner, changed=None):
+    def _restructure(self, new_cells, new_owner, changed=None,
+                     defer_ok=False):
         """Rebuild the plan for a new cell set and carry the surviving
         cells' data over (the reference's rebuild, dccrg.hpp:10642-10690,
         with the data movement folded in). ``changed`` is the commit's
-        dirty set of ids, handed to the hybrid builder."""
-        with telemetry.span("grid.recommit"):
-            self._restructure_impl(new_cells, new_owner, changed)
+        dirty set of ids, handed to the hybrid builder.
 
-    def _restructure_impl(self, new_cells, new_owner, changed):
+        With ``DCCRG_BG_RECOMMIT=1`` and ``defer_ok`` (the
+        ``stop_refining`` commit; a balance lands its staged data on the
+        new plan at once, so it never defers) the plan is built on a
+        background worker while stepping continues on the live plan;
+        :meth:`run_steps` (and ``GridBatch.step``) installs the finished
+        plan at the next step boundary (:meth:`bg_install`). Until the
+        swap, queries and checkpoints see the previous epoch."""
+        with telemetry.span("grid.recommit"):
+            self._restructure_impl(new_cells, new_owner, changed, defer_ok)
+
+    def _restructure_impl(self, new_cells, new_owner, changed,
+                          defer_ok=False):
+        # builds are serialized per grid: a pending background plan
+        # installs (or rebuilds inline) before a new one starts
+        self.bg_install(wait=True)
         old_plan = self.plan
         same_cells = (len(new_cells) == len(old_plan.cells)
                       and np.array_equal(new_cells, old_plan.cells))
-        if not same_cells:
-            self._cells_epoch += 1
         if same_cells:
             changed_hint = (old_plan.cells, np.empty(0, dtype=np.uint64))
         elif changed is not None:
             changed_hint = (old_plan.cells, changed)
         else:
             changed_hint = None
+        if defer_ok and background.bg_recommit_enabled():
+            self._bg_build = background.PlanBuildWorker(
+                self, new_cells, new_owner, changed_hint).start()
+            return
         plan = self._construct_plan(new_cells, new_owner, changed_hint)
         self._install_plan(plan)
 
@@ -1908,8 +2112,13 @@ class Grid:
         each surviving cell from its old (partition, row) to its new
         one on the device (one gather per field over the flat rows of
         every partition; rows of new cells, ghost and pad rows and the
-        zero row start at zero)."""
+        zero row start at zero). Always on the thread that owns the
+        grid: the swap point of a background build."""
         old_plan = self.plan
+        if not (len(plan.cells) == len(old_plan.cells)
+                and np.array_equal(plan.cells, old_plan.cells)):
+            # the cell-set epoch (caches keyed on the cell set)
+            self._cells_epoch += 1
         surviving = plan.cells[np.isin(plan.cells, old_plan.cells)]
         src = self._flat_rows(*self._host_rows(surviving))
         self._finish_plan(plan)
@@ -1933,6 +2142,95 @@ class Grid:
         if self._txn_frozen and id(t) in self._txn_frozen:
             t = self.data[name] = t.clone()
         return t
+
+    # -- background recommit (DCCRG_BG_RECOMMIT; see background.py) ----
+
+    def bg_pending(self) -> bool:
+        """True while a background plan build is in flight or awaiting
+        its step-boundary swap."""
+        return self._bg_build is not None
+
+    def bg_install(self, wait: bool = False) -> bool:
+        """The step-boundary swap point: install the background-built
+        plan if it is finished (``wait=True`` blocks for it; the
+        residual stall lands in ``dccrg_recommit_stall_seconds``) and
+        move the surviving cells' data, as the synchronous restructure
+        would. A worker failure falls back to the inline rebuild here.
+        The install runs in its own transaction, so a failure mid-swap
+        (injected faults included) rolls back to the live pre-swap epoch
+        and raises MutationAbortedError. Returns True when a plan was
+        installed; :attr:`last_bg_install` then holds the seconds of
+        the wait, the swap and the build (on the worker)."""
+        bg = self._bg_build
+        if bg is None:
+            return False
+        if not bg.ready() and not wait:
+            return False
+        t0 = time.perf_counter()
+        bg.wait()
+        t1 = time.perf_counter()
+        # consumed before the swap transaction: its entry barrier (and
+        # any nested mutation) must not re-enter this install
+        self._bg_build = None
+        with telemetry.span("grid.recommit.swap"), \
+                grid_transaction(self, op="bg_recommit_swap"):
+            if bg.error is not None or bg.plan is None:
+                logger.warning(
+                    "background recommit worker failed (%r); rebuilding "
+                    "inline", bg.error)
+                plan = self._construct_plan(bg.cells, bg.owner,
+                                            bg.changed_hint)
+            else:
+                plan = bg.plan
+            self._install_plan(plan)
+        t2 = time.perf_counter()
+        telemetry.observe("dccrg_recommit_stall_seconds", t2 - t1,
+                          where="swap")
+        self.last_bg_install = {"wait": t1 - t0, "swap": t2 - t1,
+                                "build": bg.seconds}
+        return True
+
+    def bg_discard(self) -> None:
+        """Drop a pending background build without installing it (the
+        transaction-rollback path: an aborted mutation leaves the live
+        plan and the snapshot plan as they were). Blocks until the
+        worker has stopped touching the arena; the orphaned
+        generation's buffers are reclaimed by the next build."""
+        bg = self._bg_build
+        if bg is None:
+            return
+        bg.done.wait()
+        self._bg_build = None
+
+    def _prewarm_plan(self, plan) -> None:
+        """Derive on the background worker the host tables the first
+        post-swap step would otherwise derive on the step loop, memoized
+        on the new plan's hoods: on n partitions, the per-peer-offset
+        exchange tables of every field without a transfer predicate (one
+        shared pair record, so the capacities they take do not depend on
+        the order the fields are met in) and, when the overlapped step
+        runs, the outer re-pass rows. The reference prewarms its roll
+        decomposition of table plans; the port gathers by index and has
+        none. Host work only; best-effort (a failure re-surfaces at the
+        first step)."""
+        if plan.n_dev < 2:
+            return
+        try:
+            names = tuple(n for n in sorted(self.fields)
+                          if n not in self._transfer_predicates)
+            for hid in plan.hoods:
+                self._pair_tables_host(hid, names, plan=plan)
+            hid = DEFAULT_NEIGHBORHOOD_ID
+            hood = plan.hoods[hid]
+            if hood.n_inner is not None and self._use_overlap():
+                cf = hood.closed_form
+                use_roll = cf is not None and bool(cf.get("multi"))
+                roll = hood.roll_plan(plan.L) if use_roll else None
+                self._outer_tables(hid, hood, use_roll,
+                                   roll[0] if use_roll else None, roll,
+                                   plan=plan)
+        except Exception:  # noqa: BLE001 - prewarm must never kill a build
+            logger.debug("plan prewarm failed", exc_info=True)
 
     def get_removed_cells(self) -> np.ndarray:
         """Cells removed by the last stop_refining (dccrg.hpp:3519)."""
@@ -2269,6 +2567,13 @@ class Grid:
 
     # -- checkpoint / restart (dccrg.hpp:1109-2426) --------------------
 
+    def write_vtk_file(self, filename: str, fields=None) -> None:
+        """ASCII VTK dump of the leaf cells (dccrg.hpp:3320-3392), see
+        :func:`dccrg_tpu_torch.utils.vtk.write_vtk_file`."""
+        from .utils.vtk import write_vtk_file
+
+        write_vtk_file(self, filename, fields=fields)
+
     def save_grid_data(self, filename: str, header: bytes = b"",
                        variable=None) -> None:
         """Write the ``.dc`` bytes (checkpoint.save_grid_data)."""
@@ -2352,11 +2657,14 @@ class Grid:
         ends = np.r_[starts[1:], len(pq)] if len(pq) else starts
         return starts.astype(np.int64), ends.astype(np.int64)
 
-    def _field_pair_compact(self, neighborhood_id, field):
+    def _field_pair_compact(self, neighborhood_id, field, plan=None):
         """The hood's compact pair record, filtered by the field's
         transfer predicate if set (surviving entries keep their slot
-        positions, so holes mirror the dense tables' -1 slots)."""
-        hood = self.plan.hoods[neighborhood_id]
+        positions, so holes mirror the dense tables' -1 slots).
+        ``plan`` defaults to the live plan (a background build passes
+        its new one)."""
+        plan = self.plan if plan is None else plan
+        hood = plan.hoods[neighborhood_id]
         c = hood.pair_compact
         fn = self._transfer_predicates.get(field)
         if fn is None:
@@ -2368,7 +2676,7 @@ class Grid:
         starts, ends = self._pair_groups(c)
         for s, e in zip(starts, ends):
             p0, q0 = int(c["p"][s]), int(c["q"][s])
-            ids = self.plan.local_ids[p0][c["srow"][s:e]]
+            ids = plan.local_ids[p0][c["srow"][s:e]]
             k = np.asarray(fn(ids, p0, q0, neighborhood_id), dtype=bool)
             if k.shape != ids.shape:
                 raise ValueError(
@@ -2380,17 +2688,18 @@ class Grid:
         hood._pair_host[("c", field)] = out
         return out
 
-    def _field_pair_tables(self, neighborhood_id, field):
+    def _field_pair_tables(self, neighborhood_id, field, plan=None):
         """(send_rows, recv_rows) dense ``[n_dev, n_dev, M]`` views for
         one field: the all-to-all fallback and host introspection."""
-        hood = self.plan.hoods[neighborhood_id]
+        plan = self.plan if plan is None else plan
+        hood = plan.hoods[neighborhood_id]
         if self._transfer_predicates.get(field) is None:
             return hood.send_rows, hood.recv_rows
         cached = hood._pair_host.get(field)
         if cached is not None:
             return cached
         out = uniform_mod.dense_pair_tables(self._field_pair_compact(
-            neighborhood_id, field))
+            neighborhood_id, field, plan))
         hood._pair_host[field] = out
         return out
 
@@ -2398,11 +2707,11 @@ class Grid:
     # buffer per offset; more fall back to the dense all-to-all tables
     _MAX_PEER_OFFSETS = 8
 
-    def _peer_deltas(self, neighborhood_id):
+    def _peer_deltas(self, neighborhood_id, plan=None):
         """Sorted partition-offset set ``{(q - p) mod n_dev}`` with halo
         traffic, or None for the dense all-to-all fallback (more than
         ``_MAX_PEER_OFFSETS`` offsets)."""
-        hood = self.plan.hoods[neighborhood_id]
+        hood = (self.plan if plan is None else plan).hoods[neighborhood_id]
         if ("deltas",) in hood._pair_host:
             return hood._pair_host[("deltas",)]
         c = hood.pair_compact
@@ -2413,7 +2722,7 @@ class Grid:
         hood._pair_host[("deltas",)] = deltas
         return deltas
 
-    def _pair_tables_host(self, neighborhood_id, field_names):
+    def _pair_tables_host(self, neighborhood_id, field_names, plan=None):
         """Per field and peer offset, the (send, recv) tables of the
         reference's ``_pair_tables_device`` (dccrg_tpu/grid.py:2171),
         as host arrays: ``[n_dev, Md]`` per offset (partition p sends
@@ -2421,12 +2730,13 @@ class Grid:
         sticky ``("Md", hood, d)`` capacity), or the dense
         ``[n_dev, n_dev, M]`` pair on the fallback. Memoized on the
         hood."""
-        hood = self.plan.hoods[neighborhood_id]
-        deltas = self._peer_deltas(neighborhood_id)
+        plan = self.plan if plan is None else plan
+        hood = plan.hoods[neighborhood_id]
+        deltas = self._peer_deltas(neighborhood_id, plan)
         sends, recvs = [], []
         for n in field_names:
             if deltas is None:
-                s, r = self._field_pair_tables(neighborhood_id, n)
+                s, r = self._field_pair_tables(neighborhood_id, n, plan)
                 sends.append(s)
                 recvs.append(r)
                 continue
@@ -2435,7 +2745,8 @@ class Grid:
                 key = ("peer", n, d)
                 if key not in hood._pair_host:
                     if fc is None:
-                        fc = self._field_pair_compact(neighborhood_id, n)
+                        fc = self._field_pair_compact(neighborhood_id, n,
+                                                      plan)
                         dvec = (fc["q"] - fc["p"]) % self.n_dev
                     sel = dvec == d
                     # the last valid slot (predicates may leave holes)
@@ -2843,7 +3154,8 @@ class Grid:
 
     # -- the overlapped step's outer re-pass (dccrg_tpu/grid.py:2473-2718)
 
-    def _outer_tables(self, neighborhood_id, hood, use_roll, r_shifts, roll):
+    def _outer_tables(self, neighborhood_id, hood, use_roll, r_shifts, roll,
+                      plan=None):
         """Host tables of the overlapped step's outer re-pass:
         ``(outer_rows [n_dev, Wo] int32, pad R-1; outer_nbr_rows
         [n_dev, Wo, S] int32)`` — the rows ``[n_inner, n_local)`` of each
@@ -2857,7 +3169,7 @@ class Grid:
         cached = getattr(hood, "_outer_host", None)
         if cached is not None:
             return cached
-        plan = self.plan
+        plan = self.plan if plan is None else plan
         R = plan.R
         n_inner = np.asarray(hood.n_inner, dtype=np.int64)
         n_local = np.asarray(plan.n_local, dtype=np.int64)
@@ -3278,6 +3590,11 @@ class Grid:
         compile_step_loop); ``last_step_path`` records the path that
         ran. Extras become float32 tensors where they are Python
         numbers, as the reference's weakly typed scalars do."""
+        # the background-recommit swap point: a finished plan installs
+        # here, at a step boundary; an unfinished build keeps the loop
+        # on the live plan (DCCRG_BG_RECOMMIT)
+        if self._bg_build is not None:
+            self.bg_install()
         fields_in = tuple(fields_in)
         fields_out = tuple(fields_out)
         extra_args = _as_extra(extra_args)

@@ -36,6 +36,7 @@ with explicit offsets; stencils run the kernel over both and merge
 from __future__ import annotations
 
 import os
+import threading
 import time
 import weakref
 
@@ -96,6 +97,11 @@ class PlanArena:
     - :meth:`bind` transfers ownership of everything taken to the newly
       built plan. Lazy table thunks append to the same ownership list
       after the fact, so late-materialized to-tables are pooled too.
+
+    A background build (``DCCRG_BG_RECOMMIT``) takes from the pool on
+    its worker thread while the live plan's lazy thunks may take on the
+    step loop's thread, so the pool is guarded by a lock; builds stay
+    serialized (one in flight per grid).
     """
 
     def __init__(self):
@@ -104,23 +110,30 @@ class PlanArena:
         self._pending = []   # buffers taken by the in-flight build
         self.hits = 0        # takes served from the pool
         self.misses = 0      # takes that allocated fresh pages
+        self._lock = threading.RLock()
+        #: set by the background worker for its build: fresh allocations
+        #: are page-touched at take time, so a grown table's first-touch
+        #: faults land on the worker, never on the step loop at the swap
+        self.prefault = False
 
     def begin(self, protect=()):
         """Open a build: reclaim every unprotected generation."""
         protected = {id(p) for p in protect if p is not None}
-        survivors = []
-        for ref, bufs in self._owned:
-            plan = ref()
-            if plan is not None and id(plan) in protected:
-                survivors.append((ref, bufs))
-            else:
-                for b in bufs:
-                    self._free.setdefault(b.dtype.str, []).append(b)
-        self._owned = survivors
-        for b in self._pending:
-            self._free.setdefault(b.dtype.str, []).append(b)
-        self._pending = []
-        return self._pending
+        with self._lock:
+            survivors = []
+            for ref, bufs in self._owned:
+                plan = ref()
+                if plan is not None and id(plan) in protected:
+                    survivors.append((ref, bufs))
+                else:
+                    for b in bufs:
+                        self._free.setdefault(b.dtype.str, []).append(b)
+            self._owned = survivors
+            for b in self._pending:
+                self._free.setdefault(b.dtype.str, []).append(b)
+            pending = []
+            self._pending = pending
+        return pending
 
     def take(self, shape, dtype, fill=None, owner=None):
         """A ``shape``/``dtype`` array backed by a pooled buffer (the
@@ -129,24 +142,35 @@ class PlanArena:
         buffer on (defaults to the current build's)."""
         dtype = np.dtype(dtype)
         n = int(np.prod(shape, dtype=np.int64)) if shape else 1
-        pool = self._free.get(dtype.str, ())
-        best = None
-        for i, b in enumerate(pool):
-            if b.size >= n and (best is None or b.size < pool[best].size):
-                best = i
-        if best is not None:
-            buf = pool.pop(best)
-            self.hits += 1
-        else:
-            # geometric growth: a drifting refined region re-allocates
-            # O(log) times ever
-            cap = max(1 << max(0, int(n - 1).bit_length()), 1)
-            buf = np.empty(cap, dtype=dtype)
-            self.misses += 1
-        (self._pending if owner is None else owner).append(buf)
+        fresh = False
+        with self._lock:
+            pool = self._free.get(dtype.str, ())
+            best = None
+            for i, b in enumerate(pool):
+                if b.size >= n and (best is None or b.size < pool[best].size):
+                    best = i
+            if best is not None:
+                buf = pool.pop(best)
+                self.hits += 1
+            else:
+                # geometric growth: a drifting refined region
+                # re-allocates O(log) times ever
+                cap = max(1 << max(0, int(n - 1).bit_length()), 1)
+                buf = np.empty(cap, dtype=dtype)
+                self.misses += 1
+                fresh = True
+            (self._pending if owner is None else owner).append(buf)
         view = buf[:n].reshape(shape)
         if fill is not None:
             _fill_chunked(view, fill)
+        elif fresh and self.prefault and owner is None:
+            # a background build's grown table with no fill pass: touch
+            # one byte per page of the used extent here, on the worker.
+            # Only the build's own takes: a live plan's lazy thunk
+            # taking on the step loop (owner = its plan's list) must
+            # never pay a page-touch pass there
+            flat = view.reshape(-1).view(np.uint8)
+            flat[::4096] = flat[::4096]
         return view
 
     def current_owner(self):
@@ -157,14 +181,17 @@ class PlanArena:
     def bind(self, plan):
         """Transfer the in-flight build's buffers to ``plan``; returns
         the ownership list so lazy thunks can keep appending to it."""
-        owned = self._pending
-        self._owned.append((weakref.ref(plan), owned))
-        self._pending = []
+        with self._lock:
+            owned = self._pending
+            self._owned.append((weakref.ref(plan), owned))
+            self._pending = []
         return owned
 
     def stats(self) -> dict:
-        pooled = sum(b.nbytes for bufs in self._free.values() for b in bufs)
-        owned = sum(b.nbytes for _r, bufs in self._owned for b in bufs)
+        with self._lock:
+            pooled = sum(b.nbytes for bufs in self._free.values()
+                         for b in bufs)
+            owned = sum(b.nbytes for _r, bufs in self._owned for b in bufs)
         return {"hits": self.hits, "misses": self.misses,
                 "free_bytes": int(pooled), "owned_bytes": int(owned)}
 

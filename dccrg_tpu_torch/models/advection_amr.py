@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from .. import comm
-from ..grid import Grid
+from ..grid import Grid, slot_sum
 from ..neighbors import face_masks
 
 STATIC_FIELDS = ("vx", "vy", "vz", "lx", "ly", "lz", "ilen")
@@ -85,7 +85,9 @@ def make_flux_kernel():
             m = dt * v * area / vol_c
             flux = flux - torch.where(face_pos, up_pos * m, 0.0)
             flux = flux + torch.where(face_neg, up_neg * m, 0.0)
-        return {"flux": torch.sum(flux, dim=1)}
+        # slot by slot: a plan rebuilt with other capacities (a restart)
+        # adds the same terms in the same order
+        return {"flux": slot_sum(flux)}
 
     return kernel
 
@@ -158,6 +160,28 @@ class AmrAdvection:
         self.grid.set("density", cells,
                       hump(self.grid.geometry.get_center(cells)).astype(np.float32))
         self.time = 0.0
+
+    @classmethod
+    def from_grid(cls, grid, cfl=0.5, diff_increase=0.02,
+                  diff_threshold=0.025, unrefine_sensitivity=0.5,
+                  time=0.0):
+        """Wrap an existing grid carrying this app's field schema (one
+        restored with ``Grid.from_file`` or ``Grid.load_checkpoint``):
+        the restart path of the reference's advection test. The static
+        fields are recomputed and exchanged; the density is the
+        grid's."""
+        app = cls.__new__(cls)
+        app.cfl = cfl
+        app.diff_increase = diff_increase
+        app.diff_threshold = diff_threshold
+        app.unrefine_sensitivity = unrefine_sensitivity
+        app.grid = grid
+        app._flux_kernel = make_flux_kernel()
+        app._fused_kernel = make_fused_step_kernel()
+        app._diff_kernel = make_diff_kernel(diff_threshold)
+        app._refresh_static()
+        app.time = time
+        return app
 
     # -- static per-epoch fields ---------------------------------------
 

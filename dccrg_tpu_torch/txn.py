@@ -161,6 +161,8 @@ _DICT_ATTRS = (
     "_cap_memo",
     "_balance_added",
     "_balance_removed",
+    "_cell_item_values",
+    "_neighbor_item_values",
     "_hybrid_reuse",
     "_pending",
 )
@@ -207,10 +209,12 @@ def _put(grid, name, val):
 
 
 def _discard_bg(grid) -> None:
-    """Rollback hook for a background plan build submitted inside the
-    aborted transaction. The port has no background builds yet (ROADMAP
-    queue 1, item 6b, brings ``background.py``), so this does nothing
-    until then."""
+    """Rollback hook: drop a background plan build submitted inside the
+    aborted transaction (a build pending at entry was installed by the
+    entry barrier). Waits for the worker to stop touching the arena and
+    the build caches before the snapshot restores them."""
+    if getattr(grid, "_bg_build", None) is not None:
+        grid.bg_discard()
 
 
 @contextmanager
@@ -228,6 +232,14 @@ def grid_transaction(grid, op: str = "mutation", validate=None):
         finally:
             grid._txn_depth -= 1
         return
+
+    # background-recommit barrier (DCCRG_BG_RECOMMIT): a pending
+    # background build installs before the snapshot, so the mutation
+    # sees (and a rollback restores) the final structure epoch and no
+    # worker writes arena tables while this mutation rebuilds them. The
+    # install runs in its own, completed, transaction.
+    if getattr(grid, "_bg_build", None) is not None:
+        grid.bg_install(wait=True)
 
     snap = snapshot_state(grid)
     grid._txn_depth = 1

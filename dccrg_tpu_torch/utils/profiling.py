@@ -1,0 +1,95 @@
+"""Per-phase timing and transfer accounting.
+
+Port of ``dccrg_tpu/utils/profiling.py``. The reference dccrg has no
+profiling subsystem; its apps time phases with MPI_Wtime and reduce
+min/avg/max over ranks (tests/advection/2d.cpp:330-340, 453-503) and
+compute halo bandwidth from the grid's transfer counters
+(2d.cpp:345-350). :class:`PhaseTimer` accumulates named phase
+durations, waiting for the card at both ends of a phase when given a
+device (``torch.cuda.synchronize``), and :func:`halo_bytes_per_update`
+mirrors the byte accounting.
+
+For kernel-level analysis use ``python -m dccrg_tpu_torch.profiling``
+(``torch.profiler``); this is the lightweight always-on layer.
+"""
+
+from __future__ import annotations
+
+import time
+from collections import defaultdict
+from contextlib import contextmanager
+
+import numpy as np
+import torch
+
+
+def device_sync(device):
+    """A ``sync`` callable for :class:`PhaseTimer` that waits for the
+    work queued on ``device``: ``torch.cuda.synchronize`` on a CUDA
+    device, None (host work is synchronous) elsewhere."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    return lambda: torch.cuda.synchronize(device)
+
+
+class PhaseTimer:
+    def __init__(self, sync=None):
+        """``sync``: optional callable blocking until device work
+        finishes (e.g. :func:`device_sync` of the grid's device)."""
+        self._sync = sync
+        self.totals = defaultdict(float)
+        self.counts = defaultdict(int)
+
+    @contextmanager
+    def phase(self, name: str):
+        if self._sync:
+            self._sync()
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            if self._sync:
+                self._sync()
+            self.totals[name] += time.perf_counter() - t0
+            self.counts[name] += 1
+
+    def reset(self) -> None:
+        self.totals.clear()
+        self.counts.clear()
+
+    def report(self) -> dict:
+        """{phase: {total, count, mean}}, the average the reference
+        prints per rank."""
+        return {
+            k: {"total": self.totals[k], "count": self.counts[k],
+                "mean": self.totals[k] / max(self.counts[k], 1)}
+            for k in self.totals
+        }
+
+    def __repr__(self):
+        rows = [
+            f"{k}: {v['total']:.4f}s / {v['count']} = {v['mean'] * 1e3:.2f}ms"
+            for k, v in sorted(self.report().items())
+        ]
+        return "PhaseTimer(" + "; ".join(rows) + ")"
+
+
+def halo_bytes_per_update(grid, neighborhood_id=None, fields=None) -> int:
+    """Bytes moved by one ``update_copies_of_remote_neighbors`` call:
+    the reference's get_number_of_update_send_cells times the payload
+    size (tests/advection/2d.cpp:345-350), per field, after the field's
+    transfer predicate."""
+    from ..grid import DEFAULT_NEIGHBORHOOD_ID
+
+    hood_id = (neighborhood_id if neighborhood_id is not None
+               else DEFAULT_NEIGHBORHOOD_ID)
+    names = fields if fields is not None else list(grid.fields)
+    total = 0
+    for name in names:
+        shape, dtype = grid.fields[name]
+        per_cell = (int(np.prod(shape, dtype=np.int64)) if shape else 1) \
+            * torch.empty((), dtype=dtype).element_size()
+        total += grid.get_number_of_update_send_cells(hood_id, field=name) \
+            * per_cell
+    return total

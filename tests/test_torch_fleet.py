@@ -416,7 +416,11 @@ def test_job_records_and_unknown_kernel():
     with pytest.raises(port.JobSpecError):
         port.job_from_row({"name": "x", "length": [4, 4]})
     with pytest.raises(port.UnknownKernelError):
-        port.job_from_row({"name": "x", "kernel": "mhd"}, validate_kernel=True)
+        port.job_from_row({"name": "x", "kernel": "no_such_kernel"},
+                          validate_kernel=True)
+    # a zoo name resolves: the fleet imports the port's zoo on a miss
+    assert port.job_from_row({"name": "x", "kernel": "mhd"},
+                             validate_kernel=True).resolved_kernel()
 
 
 def test_entry_points_default_to_the_card(monkeypatch):

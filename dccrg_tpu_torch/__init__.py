@@ -33,7 +33,12 @@ atomic, verified grid mutations: the ``DCCRG_DEBUG=1`` verifiers
 models/vlasov.py, registered with the fleet at ``import
 dccrg_tpu_torch.models``; models/particles.py, models/scalability.py),
 the VTK writer and phase timers (utils/), and the background plan build
-and async checkpoint save (background.py).
+and async checkpoint save (background.py); and run supervision: the
+coordination layer on ``torch.distributed`` (coord.py), delta
+checkpoints, the OOM fallback chain, ``ResilientRunner`` and the device
+probes (resilience.py), and preemption, step deadlines, the numbered
+checkpoint store with its retention GC and ``resume_latest``
+(supervise.py).
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``); kernels are built with ``nvcc`` at their first CUDA
 call, never on import.
@@ -57,8 +62,27 @@ from .types import ERROR_CELL, ERROR_INDEX, as_cell_array, as_index_array
 from .verify import VerificationError, verify_all
 from .txn import (CrossRankAbortedError, GridInvariantError,
                   MutationAbortedError, MutationError)
+from .faults import FaultPlan
+from .coord import (BarrierTimeoutError, CheckpointCommitError,
+                    DistributedInitError, Membership, PeerDeadError,
+                    barrier, distributed_init, trip_consensus)
+from .resilience import (CheckpointCorruptionError, DeviceProbeError,
+                         NumericsError, ResilienceExhaustedError,
+                         ResilientRunner, guarded_step, load_checkpoint,
+                         save_checkpoint, safe_devices)
+from .supervise import (RESUMABLE_EXIT, CheckpointStore, PreemptedError,
+                        StepTimeoutError, SupervisedRunner,
+                        gc_checkpoints, resume_latest)
 
 __all__ = [
+    "BarrierTimeoutError", "CheckpointCommitError",
+    "CheckpointCorruptionError", "CheckpointStore", "DeviceProbeError",
+    "DistributedInitError", "FaultPlan", "Membership", "NumericsError",
+    "PeerDeadError", "PreemptedError", "RESUMABLE_EXIT",
+    "ResilienceExhaustedError", "ResilientRunner", "StepTimeoutError",
+    "SupervisedRunner", "barrier", "distributed_init", "gc_checkpoints",
+    "guarded_step", "load_checkpoint", "resume_latest", "safe_devices",
+    "save_checkpoint", "trip_consensus",
     "CartesianGeometry", "CellView", "CrossRankAbortedError",
     "DEFAULT_NEIGHBORHOOD_ID", "DenseGrid",
     "ERROR_CELL", "ERROR_INDEX", "FleetJob", "Grid", "GridBatch",

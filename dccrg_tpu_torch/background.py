@@ -164,6 +164,10 @@ def freeze_grid(grid, fields=None):
     snap.devices = [snap.device] * grid.n_dev
     snap.plan = copy.copy(grid.plan)
     snap.plan.row_of_pos = np.array(grid.plan.row_of_pos, copy=True)
+    # the dirty set travels with the snapshot (a private copy), so a
+    # delta save through the frozen grid sees the live grid's set
+    dirty = getattr(grid, "_ckpt_dirty", None)
+    snap._ckpt_dirty = set(dirty) if isinstance(dirty, set) else dirty
     # the snapshot never aliases live background machinery: a save of
     # the frozen copy may not drain or install the real grid's builds
     snap._bg_build = None

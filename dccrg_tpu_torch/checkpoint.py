@@ -396,16 +396,24 @@ def _interleave(nc, fixed, var_host, var_nbytes, fixed_bytes, var_spec):
 
 
 def save_grid_data(grid, filename: str, header: bytes = b"",
-                   variable=None) -> None:
+                   variable=None, *, fields=None) -> None:
     """Write the grid and all cell data (dccrg.hpp:1109-1736), the
     payload streamed in chunks of :data:`CHUNK` cells with the device
     pull of chunk k+1 (on a worker thread) overlapping the file write
     of chunk k. ``variable={"field": "count_field"}`` stores that field
-    truncated to each cell's count (dccrg.hpp:2108-2123)."""
+    truncated to each cell's count (dccrg.hpp:2108-2123). ``fields``
+    restricts the save to a subset of the grid's fields (the delta
+    checkpoint's path): the file is a valid ``.dc`` of the sub-schema,
+    in the byte layout of a full save."""
     from concurrent.futures import ThreadPoolExecutor
 
     cells = grid.plan.cells
-    fixed_spec, fixed_bytes, var_spec = _payload_spec_of(grid.fields, variable)
+    schema = grid.fields
+    if fields is not None:
+        schema = {n: grid.fields[n] for n in fields}
+        variable = {n: cf for n, cf in (variable or {}).items()
+                    if n in schema}
+    fixed_spec, fixed_bytes, var_spec = _payload_spec_of(schema, variable)
 
     meta = bytearray()
     meta += header
@@ -626,6 +634,9 @@ def _scatter_payloads(grid, raw, cells, offsets, fixed_spec, fixed_bytes,
                 t = t.view(torch.bfloat16)
             grid.data[name] = t.to(grid.device)
             del hosts[name]
+    # a wholesale load resets the delta-checkpoint baseline: every
+    # field's saved bytes may now differ from the previous chain's
+    grid._mark_ckpt_dirty()
 
 
 def load_grid_data(grid, filename: str, header_size: int = 0,

@@ -42,6 +42,7 @@ def fields_from_numpy(grid, arrays, L=None) -> None:
             raise TypeError(f"{name}: dtype {arr.dtype.name}, the field is "
                             f"{_dtype_name(dtype)}")
         grid.data[name] = _to_tensor(arr, dtype).to(grid.device)
+    grid._mark_ckpt_dirty()
 
 
 def fields_to_numpy(grid) -> dict:

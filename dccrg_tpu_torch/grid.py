@@ -942,6 +942,14 @@ class Grid:
         self._txn_depth = 0  # reentrancy counter (txn.grid_transaction)
         self._txn_plan = None  # the open transaction's rollback plan
         self._txn_frozen = None  # ids of the snapshot's field tensors
+        # delta-checkpoint dirty tracking (the incremental saves of
+        # supervise.CheckpointStore): the fields whose SAVED bytes may
+        # differ from the last checkpoint baseline (None = every field,
+        # the state every wholesale load or rebuild resets to), and the
+        # structure epoch a delta chain is valid within (any change of
+        # the cell set or the partitions bumps it and forces a keyframe)
+        self._ckpt_dirty = None
+        self._ckpt_epoch = 0
         # cached per-epoch data items (dccrg.hpp:7404-7518): name -> fn,
         # and their values, recomputed at every structure rebuild
         self._cell_items = {}
@@ -1175,6 +1183,10 @@ class Grid:
         old = getattr(self, "plan", None)
         plan.epoch = old.epoch + 1 if old is not None else 0
         self.plan = plan
+        # the forced mode this plan was built under, which the fallback
+        # chain (resilience._apply_mode) compares before a rebuild
+        self._plan_gather_mode = ("tables" if os.environ.get(
+            "DCCRG_FORCE_TABLES") == "1" else None)
         self._update_data_items()
         # continuous self-checking, as the reference's DEBUG builds
         # (dccrg.hpp:12454-13036). Inside a transaction its post-commit
@@ -1410,11 +1422,30 @@ class Grid:
             lists=nl,
         )
 
+    @property
+    def _multiproc(self) -> bool:
+        """True when the grid's partitions span processes this one
+        cannot address (a process group, or a test faking the split
+        through ``_proc_local_dev``)."""
+        return not bool(self._proc_local_dev.all())
+
     def _allocate_fields(self):
         self.data = {}
         for name, (shape, dtype) in self.fields.items():
             self.data[name] = torch.zeros((self.n_dev, self.plan.R) + shape,
                                           dtype=dtype, device=self.device)
+        self._mark_ckpt_dirty()
+
+    def _mark_ckpt_dirty(self, fields=None) -> None:
+        """Record fields whose saved bytes may have changed since the
+        last delta-checkpoint baseline (read by the incremental saves of
+        :mod:`dccrg_tpu_torch.supervise`); ``None`` marks every field.
+        Ghost-only writes (the halo receives) never call this: a
+        checkpoint serializes owned rows only."""
+        if fields is None:
+            self._ckpt_dirty = None
+        elif getattr(self, "_ckpt_dirty", None) is not None:
+            self._ckpt_dirty.update(fields)
 
     def device_row_ids(self) -> torch.Tensor:
         """``[n_dev, R]`` tensor of ``cell id - 1`` per row (``-1`` on
@@ -1506,6 +1537,7 @@ class Grid:
         fields start from zero tensors instead of being written in
         place: ghost rows read zero until the next halo exchange. When
         an id repeats, its last value wins."""
+        self._mark_ckpt_dirty(values_by_field)
         ids = np.atleast_1d(np.asarray(ids, dtype=np.uint64))
         dev, rows = self._host_rows(ids)
         flat = dev.astype(np.int64) * self.plan.R + rows
@@ -2119,6 +2151,11 @@ class Grid:
                 and np.array_equal(plan.cells, old_plan.cells)):
             # the cell-set epoch (caches keyed on the cell set)
             self._cells_epoch += 1
+        # any restructure (cell set OR partitions) ends the delta
+        # checkpoint's structure epoch: the offset table derives from
+        # the cells, so the next periodic save is a keyframe
+        self._ckpt_epoch += 1
+        self._mark_ckpt_dirty()
         surviving = plan.cells[np.isin(plan.cells, old_plan.cells)]
         src = self._flat_rows(*self._host_rows(surviving))
         self._finish_plan(plan)
@@ -2560,6 +2597,7 @@ class Grid:
             owner = partition_cells(self.mapping, cells, self.n_dev,
                                     self._lb_method, pins=self._pins or None)
             self._cells_epoch += 1
+            self._ckpt_epoch += 1
             self._build_plan(cells, owner)
             self._allocate_fields()
             if self._debug:
@@ -2983,6 +3021,7 @@ class Grid:
                  *(self.data[n] for n in fields_out), *extra_args)
         for n, arr in zip(fields_out, out):
             self.data[n] = arr
+        self._mark_ckpt_dirty(fields_out)
 
     def _use_overlap(self) -> bool:
         """The overlapped step (DCCRG_OVERLAP=0/1): the exchange's sends
@@ -3620,6 +3659,7 @@ class Grid:
             )
             for n, arr in zip(fields_out, out):
                 self.data[n] = arr
+        self._mark_ckpt_dirty(fields_out)
         self.last_step_path = fn.step_path
         # DCCRG_WATCHDOG=N: check the stepped fields for NaN/Inf every
         # ~N steps (one device reduction, one host read), so a silent
@@ -3630,3 +3670,23 @@ class Grid:
             if self._watchdog_accum >= wd:
                 self._watchdog_accum = 0
                 resilience.assert_finite(self, fields_out)
+
+    def run_steps_guarded(
+        self,
+        kernel,
+        fields_in,
+        fields_out,
+        n_steps,
+        exchange_fields=None,
+        neighborhood_id=DEFAULT_NEIGHBORHOOD_ID,
+        extra_args=(),
+    ) -> str:
+        """:meth:`run_steps` with graceful OOM degradation: on a device
+        OOM the dispatch walks the fallback chain (current -> plain path
+        on the grid's plan -> dense tables), logging each downgrade.
+        Returns the mode that completed (see resilience.guarded_step)."""
+        return resilience.guarded_step(
+            self, kernel, fields_in, fields_out, n_steps,
+            exchange_fields=exchange_fields,
+            neighborhood_id=neighborhood_id, extra_args=extra_args,
+        )

@@ -238,6 +238,7 @@ class AmrAdvection:
         )
         g.data["density"] = g.data["density"] + g.data["flux"]
         g.data["flux"] = torch.zeros_like(g.data["flux"])
+        g._mark_ckpt_dirty(("density", "flux"))
         self.time += dt
         return dt
 
@@ -312,6 +313,7 @@ class AmrAdvection:
         g.clear_refined_unrefined_data()
         self._refresh_static()
         g.data["flux"] = torch.zeros_like(g.data["flux"])
+        g._mark_ckpt_dirty(("flux",))
         return created, removed
 
     # -- load balancing (2d.cpp:425-438) -------------------------------

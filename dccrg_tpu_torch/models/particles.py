@@ -177,6 +177,7 @@ class ParticleModel:
         max_over = int(g.data["overflow"].max())
         if max_over > 0:
             g.data["pos"], g.data["count"] = snap_pos, snap_cnt
+            g._mark_ckpt_dirty(("pos", "count"))
             self.ensure_capacity(self.capacity + max_over)
             self._collect()
 
@@ -233,3 +234,6 @@ class ParticleModel:
         # too; the next exchange refreshes them)
         _flat(grown)[:, :old.shape[2]] = _flat(old)
         g.data["pos"] = grown
+        # a new capacity changes the field's schema: every save until
+        # the next baseline is a keyframe
+        g._mark_ckpt_dirty()

@@ -411,6 +411,9 @@ class PoissonSolver:
         if self._cache_key(cells_to_solve, cells_to_skip) != self._prepared_epoch:
             self.prepare(cells_to_solve, cells_to_skip)
         mask = self._solve_mask
+        # the solve writes these fields by assignment, past the grid's
+        # own writers: mark them for the delta checkpoints
+        g._mark_ckpt_dirty(("solution", "rhs", "p0", "p1", "r0", "r1", "Ap0"))
         # with no Dirichlet classification every boundary closure —
         # periodic wrap or missing-neighbor zero flux alike — is
         # Neumann, so the operator always has the constant nullspace

@@ -1,6 +1,7 @@
-"""Checkpoint integrity and the numerics watchdog of the port
-(counterpart of ``dccrg_tpu/resilience.py``, its one-device checkpoint
-half, the read side of delta chains and the watchdog).
+"""Checkpoint integrity, delta checkpoints, the numerics watchdog, the
+OOM fallback chain, the auto-rollback runner and the device probes of
+the port (counterpart of ``dccrg_tpu/resilience.py``, whole but for the
+multi-process save route).
 
 **Checkpoint integrity**: :func:`save_checkpoint` writes the ``.dc``
 bytes atomically (temp file in the same directory, fsync, rename, with
@@ -12,9 +13,9 @@ the file). :func:`load_checkpoint` verifies the sidecar and raises
 :class:`CheckpointCorruptionError` naming the bad chunk, or with
 ``strict=False`` salvages every intact chunk (corrupt cells come back
 zeroed and are listed in the :class:`SalvageReport`). A delta
-checkpoint of the reference (a ``.dcd`` chained to a keyframe through
-its sidecar) loads chain-aware: the chain is verified and materialized
-into a scratch file first.
+checkpoint (a ``.dcd`` chained to a keyframe through its sidecar,
+written by :func:`save_delta_checkpoint`) loads chain-aware: the chain
+is verified and materialized into a scratch file first.
 
 **Numerics watchdog**: :func:`check_finite` is one device reduction
 over the watched fields and one host read; :func:`assert_finite`
@@ -22,9 +23,26 @@ turns a trip into a :class:`NumericsError` naming fields and cells.
 ``DCCRG_WATCHDOG=N`` makes ``Grid.run_steps`` check every ~N steps
 (off by default).
 
-The delta saves, the auto-rollback runner, the OOM fallback chain and
-the device probes are the reference's supervision layer, not ported
-yet.
+**OOM fallback chain**: :func:`guarded_step` (``Grid.run_steps_guarded``)
+walks *current -> roll -> tables* on a device OOM (``torch.OutOfMemoryError``
+or an injected ``RESOURCE_EXHAUSTED``): ``current`` is the caller's
+``run_steps`` (kernel A on an eligible grid on the card), ``roll`` the
+plain path on the grid's plan (``bulk=False``), ``tables`` the
+dense-table plan (``DCCRG_FORCE_TABLES=1`` and a plan rebuild). A
+downgrade to ``tables`` keeps the table plan for every later step,
+guarded or plain, until a structural rebuild; a call in which every
+mode fails puts back the plan it found.
+
+**Auto-rollback**: :class:`ResilientRunner` checkpoints every
+``checkpoint_every`` steps, probes for non-finite values (and, opted in,
+conservation drift) every ``check_every`` steps, and on a trip rolls back
+to the last verified checkpoint, bit for bit with an undisturbed run.
+
+**Device probes**: :func:`safe_devices` asks a subprocess, killed on
+timeout, how many cards answer before this process touches one.
+``python -m dccrg_tpu_torch.resilience [--timeout S]`` is the probe for
+shell scripts; ``verify``, ``chain``, ``audit`` and ``gc`` subcommands
+maintain checkpoint directories without a card.
 """
 
 from __future__ import annotations
@@ -33,13 +51,17 @@ import json
 import logging
 import os
 import struct
+import subprocess
+import sys
 import time
 import zlib
+from contextlib import contextmanager
 from dataclasses import dataclass, field as dataclass_field
 
 import numpy as np
 import torch
 
+from . import background
 from . import checkpoint as checkpoint_mod
 from . import faults, telemetry
 
@@ -87,6 +109,10 @@ class NumericsError(RuntimeError):
 
 class ResilienceExhaustedError(RuntimeError):
     """Every bounded recovery attempt failed; the error is surfaced."""
+
+
+class DeviceProbeError(RuntimeError):
+    """The device backend did not answer a probe within its budget."""
 
 
 class RunInterrupted(RuntimeError):
@@ -538,16 +564,23 @@ def materialize_chain(filename: str, out_path: str, cell_data,
 @telemetry.traced("ckpt.save")
 def save_checkpoint(grid, filename: str, header: bytes = b"",
                     variable=None, sidecar: bool = True, retries: int = 2,
-                    backoff: float = 0.1,
-                    chunk_bytes: int = CRC_CHUNK) -> str:
+                    backoff: float = 0.1, chunk_bytes: int = CRC_CHUNK,
+                    *, fields=None, sidecar_extra=None) -> str:
     """Atomic checkpoint save: the ``.dc`` bytes stream into a temp
     file in the target directory, fsync, then one rename — a crash at
     any point leaves either the old or the new checkpoint complete,
     never a torn file under the final name. Transient I/O errors retry
     with exponential backoff. With ``sidecar`` (default) the per-chunk
     CRC32 sidecar, with the live grid's payload fingerprint, is
-    written after the rename."""
-    telemetry.inc("dccrg_saves_total", kind="keyframe")
+    written after the rename.
+
+    ``fields`` restricts the save to a field subset and
+    ``sidecar_extra`` merges extra keys (the delta parent link) into
+    the sidecar record: the incremental-save plumbing; use
+    :func:`save_delta_checkpoint` rather than passing them directly."""
+    kind = ("delta" if sidecar_extra and "delta" in sidecar_extra
+            else "keyframe")
+    telemetry.inc("dccrg_saves_total", kind=kind)
     t_save = time.perf_counter()
     phase = checkpoint_mod.phase
     tmp = filename + f".tmp.{os.getpid()}"
@@ -557,7 +590,8 @@ def save_checkpoint(grid, filename: str, header: bytes = b"",
         try:
             with phase("write"):
                 checkpoint_mod.save_grid_data(grid, tmp, header=header,
-                                              variable=variable)
+                                              variable=variable,
+                                              fields=fields)
             faults.fire("checkpoint.write", path=filename, attempt=attempt)
             with phase("fsync"), open(tmp, "rb+") as f:
                 f.flush()
@@ -568,8 +602,10 @@ def save_checkpoint(grid, filename: str, header: bytes = b"",
                 with phase("sidecar"):
                     rec = _sidecar_record(tmp, header_size=len(header),
                                           chunk_bytes=chunk_bytes)
+                if sidecar_extra:
+                    rec.update(sidecar_extra)
                 with phase("integrity"):
-                    integ = _integrity_record(grid, variable)
+                    integ = _integrity_record(grid, fields, variable)
                 if integ:
                     rec["integrity"] = integ
             # drop any previous sidecar BEFORE the rename: a crash in
@@ -606,23 +642,81 @@ def save_checkpoint(grid, filename: str, header: bytes = b"",
     # the good bytes: the at-rest corruption CRCs exist for
     faults.corrupt_file(filename)
     telemetry.observe("dccrg_ckpt_save_seconds",
-                      time.perf_counter() - t_save, kind="keyframe")
+                      time.perf_counter() - t_save, kind=kind)
     return filename
 
 
-def _integrity_record(grid, variable) -> dict:
+@telemetry.traced("ckpt.delta")
+def save_delta_checkpoint(grid, filename: str, *, parent_path: str,
+                          parent_step: int, step: int, fields,
+                          header: bytes = b"", variable=None,
+                          retries: int = 2, backoff: float = 0.1,
+                          chunk_bytes: int = CRC_CHUNK) -> str:
+    """Incremental checkpoint: save only ``fields`` (the dirty set
+    since ``parent_path``) as a ``.dcd`` file, a valid ``.dc`` of the
+    sub-schema saved with the same atomic temp + fsync + rename, whose
+    sidecar records the parent link ``{file, step, digest}``. A chain
+    is only valid within one structure epoch and with fixed-size fields
+    (:meth:`dccrg_tpu_torch.supervise.CheckpointStore.save` forces a
+    keyframe otherwise). Restored chain-aware by :func:`load_checkpoint`
+    and ``resume_latest``, bit for bit an uninterrupted full save."""
+    extra = delta_sidecar_extra(parent_path, parent_step=parent_step,
+                                step=step, fields=fields,
+                                variable=variable)
+    return save_checkpoint(grid, filename, header=header,
+                           variable=variable, retries=retries,
+                           backoff=backoff, chunk_bytes=chunk_bytes,
+                           fields=extra["delta"]["fields"],
+                           sidecar_extra=extra)
+
+
+def delta_sidecar_extra(parent_path: str, *, parent_step: int, step: int,
+                        fields, variable=None) -> dict:
+    """The delta save's ``sidecar_extra`` record: the sorted dirty
+    field list plus the parent link ``{file, step, digest}`` (the digest
+    of the parent's CURRENT sidecar, so a replaced parent is detected
+    at load). Split out of :func:`save_delta_checkpoint` so the async
+    save can resolve the link synchronously, while the drained parent
+    is durable, before handing the write to its thread. Raises
+    :class:`CheckpointCorruptionError` when the parent has no sidecar
+    (the caller falls back to a keyframe)."""
+    fields = sorted(fields)
+    var = variable or {}
+    ragged = set(var) | set(var.values())
+    if ragged & set(fields):
+        raise ValueError(
+            f"delta fields {sorted(ragged & set(fields))} are ragged "
+            "(or ragged counts): their per-cell byte sizes move the "
+            "offset table — only a full keyframe may capture that")
+    parent_rec = read_sidecar(parent_path)
+    if parent_rec is None:
+        raise CheckpointCorruptionError(
+            f"{parent_path}: delta parent has no sidecar; save a "
+            "keyframe instead")
+    digest = record_digest(parent_rec)
+    if faults.take_delta_parent_corrupt():
+        digest ^= 0x5A5A5A5A  # injected parent-link corruption
+    return {"delta": {
+        "fields": fields, "step": int(step),
+        "parent": {"file": os.path.basename(parent_path),
+                   "step": int(parent_step),
+                   "digest": int(digest)}}}
+
+
+def _integrity_record(grid, fields, variable) -> dict:
     """The sidecar ``integrity`` record: the payload fingerprint
     ``{field: [s1, s2, nbytes]}`` of the grid's LIVE device state
-    (:func:`dccrg_tpu_torch.integrity.grid_fingerprint`), which
-    :func:`audit_checkpoint` later re-derives from the file's payload
-    columns alone. Ragged (variable) fields are excluded. Empty when
-    ``DCCRG_INTEGRITY=0``."""
+    (:func:`dccrg_tpu_torch.integrity.grid_fingerprint`) for the saved
+    fields, which :func:`audit_checkpoint` later re-derives from the
+    file's payload columns alone. Ragged (variable) fields are
+    excluded. Empty when ``DCCRG_INTEGRITY=0``."""
     from . import integrity
 
     if not integrity.integrity_enabled():
         return {}
     var = variable or {}
-    names = [n for n in sorted(grid.fields) if n not in var]
+    names = [n for n in sorted(fields if fields is not None
+                               else grid.fields) if n not in var]
     if not names:
         return {}
     out = {}
@@ -914,29 +1008,14 @@ def check_finite(grid, fields=None) -> bool:
     return bool(int(comm.all_finite([grid.data[n] for n in names])[0]))
 
 
-def find_nonfinite_cells(grid, fields=None) -> dict:
-    """``{field: cell ids}`` for every watched inexact field holding a
-    NaN/Inf in a local row (host-side and O(grid): run it only after
-    :func:`check_finite` tripped). The reference's
-    ``verify.find_nonfinite_cells``."""
-    out = {}
-    cells = grid.get_cells()
-    for name in _inexact_fields(grid, fields):
-        vals = np.asarray(grid.get(name, cells))
-        bad = ~np.isfinite(vals)
-        while bad.ndim > 1:
-            bad = bad.any(axis=-1)
-        if bad.any():
-            out[name] = np.asarray(cells)[bad]
-    return out
-
-
 def assert_finite(grid, fields=None, step=None) -> None:
     """Raise :class:`NumericsError` (naming fields and cell ids) when
     the watchdog probe trips."""
     if check_finite(grid, fields):
         return
-    details = find_nonfinite_cells(grid, fields)
+    from . import verify
+
+    details = verify.find_nonfinite_cells(grid, fields)
     where = "" if step is None else f" at step {step}"
     names = {n: ids[:8].tolist() for n, ids in details.items()}
     raise NumericsError(
@@ -950,3 +1029,759 @@ def watchdog_interval(default: int = 0) -> int:
         return int(os.environ.get("DCCRG_WATCHDOG", "") or default)
     except ValueError:
         return default
+
+
+# ---------------------------------------------------------------------
+# OOM-aware step dispatch: the fallback chain
+# ---------------------------------------------------------------------
+
+_GATHER_ENV = ("DCCRG_FORCE_TABLES",)
+FALLBACK_CHAIN = ("current", "roll", "tables")
+
+
+def _is_resource_exhausted(e: BaseException) -> bool:
+    """A device OOM: the caching allocator's ``torch.OutOfMemoryError``,
+    an injected :class:`~dccrg_tpu_torch.faults.SimulatedResourceExhausted`,
+    or an error carrying the reference's ``RESOURCE_EXHAUSTED`` marker."""
+    return (isinstance(e, (torch.OutOfMemoryError,
+                           faults.SimulatedResourceExhausted))
+            or "RESOURCE_EXHAUSTED" in str(e))
+
+
+# the env each forced mode pins (None = unset). The port reads
+# DCCRG_FORCE_TABLES at plan build (uniform.py) and nothing of the
+# reference's DCCRG_ROLL_STENCIL or DCCRG_BULK: both fallback modes
+# leave the bulk executor (kernel A) through run_steps(bulk=False),
+# "roll" on the plan the grid has, "tables" on a dense-table plan.
+_MODE_ENV = {
+    "roll": {"DCCRG_FORCE_TABLES": None},
+    "tables": {"DCCRG_FORCE_TABLES": "1"},
+}
+
+
+def _plan_mode(mode: str):
+    """The ``Grid._plan_gather_mode`` a mode's plan is built under."""
+    return "tables" if mode == "tables" else None
+
+
+def _apply_mode(grid, mode: str) -> None:
+    """Pin the env for ``mode`` and rebuild the plan only when it was
+    built under another ``DCCRG_FORCE_TABLES`` (``Grid._finish_plan``
+    records it as ``_plan_gather_mode``). Cells and partitions (and the
+    sticky capacity memo) are unchanged by the rebuild, so the row
+    layout, and with it every field tensor, stays valid."""
+    if mode == "current":
+        return
+    for v, val in _MODE_ENV[mode].items():
+        if val is None:
+            os.environ.pop(v, None)
+        else:
+            os.environ[v] = val
+    if getattr(grid, "_plan_gather_mode", None) != _plan_mode(mode):
+        grid._build_plan(grid.plan.cells, grid.plan.owner)
+
+
+@contextmanager
+def _restore_env():
+    saved = {v: os.environ.get(v) for v in _GATHER_ENV}
+    try:
+        yield saved
+    finally:
+        for v, val in saved.items():
+            if val is None:
+                os.environ.pop(v, None)
+            else:
+                os.environ[v] = val
+
+
+def guarded_step(grid, kernel, fields_in, fields_out, n_steps=1, *,
+                 exchange_fields=None, neighborhood_id=None,
+                 extra_args=()) -> str:
+    """Dispatch ``Grid.run_steps`` with graceful OOM degradation.
+
+    On a device OOM (:func:`_is_resource_exhausted`, real or injected
+    through ``faults.resource_exhausted``) the dispatch walks the
+    fallback chain *current -> roll -> tables*, logging each downgrade,
+    and returns the mode that completed. ``current`` is ``run_steps``
+    as the caller would call it (kernel A on an eligible grid on the
+    card); ``roll`` runs ``bulk=False`` on the grid's plan, ``tables``
+    ``bulk=False`` on a plan rebuilt under ``DCCRG_FORCE_TABLES=1``. A
+    fallback that repeats the configuration that just failed is
+    skipped: ``tables`` on a plan already built under
+    ``DCCRG_FORCE_TABLES=1``, where ``current`` takes the same table
+    path (the bulk executor declines a table plan). A successful
+    downgrade is remembered on the grid: later guarded dispatches start
+    from the working mode, and a ``tables`` plan stays for plain
+    ``run_steps`` too until a structural rebuild. When every mode runs
+    out of memory, the plan the call found is put back and
+    :class:`ResilienceExhaustedError` surfaces with the last error
+    chained. The caller's env is restored either way.
+
+    A failed mode's exception is kept without its traceback: the
+    traceback's frames hold the failed step's tensors, which must be
+    freed before the next mode allocates its own."""
+    from .grid import DEFAULT_NEIGHBORHOOD_ID
+
+    hood = (DEFAULT_NEIGHBORHOOD_ID if neighborhood_id is None
+            else neighborhood_id)
+    entry = getattr(grid, "_plan_gather_mode", None)
+    failed = []
+    with _restore_env():
+        sticky = getattr(grid, "_sticky_gather_mode", None)
+        if sticky is not None:
+            chain = [m for m in FALLBACK_CHAIN[1:]
+                     if FALLBACK_CHAIN.index(m) >= FALLBACK_CHAIN.index(sticky)]
+        else:
+            chain = ["current", "roll"] + (
+                [] if entry == _plan_mode("tables") else ["tables"])
+        for mode in chain:
+            try:
+                _apply_mode(grid, mode)
+                faults.fire("step.dispatch", mode=mode)
+                grid.run_steps(kernel, fields_in, fields_out, n_steps,
+                               exchange_fields=exchange_fields,
+                               neighborhood_id=hood, extra_args=extra_args,
+                               bulk=mode == "current")
+                if mode != "current":
+                    grid._sticky_gather_mode = mode
+                if failed:
+                    logger.warning(
+                        "step completed in fallback mode %r (exhausted: "
+                        "%s); the downgrade sticks for later guarded "
+                        "dispatches", mode, [m for m, _ in failed])
+                return mode
+            except Exception as e:  # noqa: BLE001 - filtered just below
+                if not _is_resource_exhausted(e):
+                    raise
+                logger.warning(
+                    "device out of memory dispatching step in mode %r; "
+                    "falling back (%s)", mode, e)
+                e.__traceback__ = None
+                failed.append((mode, e))
+        # every mode failed: the grid goes back to the plan it came in
+        # with, so a plain run_steps takes the caller's path again
+        try:
+            _apply_mode(grid, "tables" if entry == "tables" else "roll")
+        except Exception as e:  # noqa: BLE001 - filtered just below
+            if not _is_resource_exhausted(e):
+                raise
+            logger.warning("device out of memory putting back the "
+                           "grid's plan (%s)", e)
+            e.__traceback__ = None
+    raise ResilienceExhaustedError(
+        f"every mode in {[m for m, _ in failed]} exhausted device "
+        "memory") from failed[-1][1]
+
+
+# ---------------------------------------------------------------------
+# the resilient step loop: watchdog + checkpoint + rollback
+# ---------------------------------------------------------------------
+
+# trip codes the per-step consensus reduces (max wins), by priority:
+# _TRIP_INTERRUPT is a step-boundary interrupt (a preemption signal
+# observed by dccrg_tpu_torch.supervise) any real trip outranks;
+# _TRIP_ROLLBACK.._TRIP_OOM are recoverable (every rank rolls back
+# together; _TRIP_CORRUPT is the integrity layer's verdict); >=
+# _TRIP_FATAL means a rank hit a non-recoverable error and every other
+# rank raises in sync
+_TRIP_INTERRUPT = 1
+_TRIP_ROLLBACK = 2   # MutationAbortedError
+_TRIP_NUMERICS = 3
+_TRIP_CORRUPT = 4    # integrity invariant (SDC) verdict
+_TRIP_OOM = 5
+_TRIP_FATAL = 6
+
+
+class ResilientRunner:
+    """Run a step loop that survives numerical blow-ups.
+
+    ``step_fn(grid, step_index)`` advances the simulation by one step
+    (typically a ``run_steps`` or :func:`guarded_step` call). Every
+    ``checkpoint_every`` steps the state is checkpointed atomically
+    (CRC sidecar included); every ``check_every`` steps the watchdog
+    probes for non-finite values. On a trip the runner
+
+    1. dumps a diagnostic bundle (step, offending fields, cell ids)
+       into ``diagnostics_dir``,
+    2. rolls the grid back to the last *verified* checkpoint,
+    3. backs off exponentially and resumes.
+
+    ``max_retries`` consecutive trips without passing the previous trip
+    point raise :class:`ResilienceExhaustedError`. The checkpoint holds
+    exact field bytes and the steps are deterministic, so a recovered
+    run reconverges to the bitwise state of an undisturbed one.
+
+    ``conserved_fields`` (opt-in) names fields whose global sum the step
+    conserves: at every watchdog boundary their sums are compared with
+    the values at the last checkpoint, and a drift past
+    ``integrity.sum_tolerance`` trips a rollback (silent corruption the
+    finite check cannot see). ``interrupt_poll`` is the supervision
+    layer's step-boundary hook: truthy stops the loop with
+    :class:`RunInterrupted`. ``checkpoint_seconds`` adds a wall-clock
+    cadence (monotonic clock, step boundaries only)."""
+
+    def __init__(self, grid, step_fn, checkpoint_path, *, fields=None,
+                 check_every=None, checkpoint_every=10,
+                 checkpoint_seconds=0.0, max_retries=3,
+                 backoff=0.05, header=b"", variable=None,
+                 diagnostics_dir=None, interrupt_poll=None,
+                 conserved_fields=None):
+        self.grid = grid
+        self.step_fn = step_fn
+        self.conserved_fields = tuple(conserved_fields or ())
+        self._integrity_base = None  # sums at the rollback target
+        self.interrupt_poll = interrupt_poll
+        self.checkpoint_path = checkpoint_path
+        self.fields = fields
+        self.check_every = (check_every if check_every is not None
+                            else (watchdog_interval(0) or 1))
+        self.checkpoint_every = checkpoint_every
+        self.checkpoint_seconds = float(checkpoint_seconds or 0.0)
+        self._last_save_t = None
+        self.max_retries = max_retries
+        self.backoff = backoff
+        self.header = header
+        self.variable = variable
+        self.diagnostics_dir = (diagnostics_dir
+                                or os.path.dirname(os.path.abspath(
+                                    checkpoint_path)))
+        self.step = 0
+        self.trips = []  # diagnostic bundles, newest last
+        self.rollbacks = 0
+        self.checkpoints = 0
+        self._ckpt_step = None
+        self._retry_streak = 0
+        self._streak_step = -1
+
+    # -- checkpoint plumbing ------------------------------------------
+
+    def _write_checkpoint(self) -> str:
+        """Write the periodic checkpoint; returns the path written. The
+        supervision layer's store-backed runner overrides this to route
+        through :meth:`dccrg_tpu_torch.supervise.CheckpointStore.save`.
+
+        With ``DCCRG_ASYNC_SAVE=1`` the write runs on a writer thread
+        against a :func:`dccrg_tpu_torch.background.freeze_grid`
+        snapshot, overlapped with the following steps: the same bytes,
+        published atomically; :meth:`_drain_saves` is the barrier every
+        reader of the file (rollback, run end) takes first."""
+        if background.async_save_enabled():
+            saver = self._active_saver(create=True)
+            saver.drain()  # one in flight; an earlier failure raises here
+            frozen = background.freeze_grid(self.grid)
+            path = self.checkpoint_path
+            saver.submit(
+                lambda: save_checkpoint(frozen, path, header=self.header,
+                                        variable=self.variable),
+                label=path)
+            return path
+        save_checkpoint(self.grid, self.checkpoint_path,
+                        header=self.header, variable=self.variable)
+        return self.checkpoint_path
+
+    def _active_saver(self, create: bool = False):
+        """The :class:`~dccrg_tpu_torch.background.AsyncSaver` carrying
+        this runner's in-flight write, or None (the store-backed runner
+        returns its store's saver)."""
+        if create and getattr(self, "_saver", None) is None:
+            self._saver = background.AsyncSaver()
+        return getattr(self, "_saver", None)
+
+    def _drain_saves(self, swallow: bool = False) -> None:
+        """Block until no periodic write is in flight. ``swallow=True``
+        (rollback and emergency paths) logs a writer failure instead of
+        raising: its ``on_fail`` hooks already re-pointed the rollback
+        target at the last durable save."""
+        saver = self._active_saver()
+        if saver is None:
+            return
+        try:
+            saver.drain()
+        except Exception as e:  # noqa: BLE001 - policy filter below
+            if not swallow:
+                raise
+            logger.error("async checkpoint write failed (%s); the last "
+                         "durable checkpoint is the rollback target", e)
+
+    def _save(self) -> None:
+        prev = (self.checkpoint_path, self._ckpt_step, self._last_save_t,
+                self._integrity_base)
+        self.checkpoint_path = self._write_checkpoint()
+        self._ckpt_step = self.step
+        self._last_save_t = time.monotonic()
+        self.checkpoints += 1
+        if self._integrity_on():
+            # the conservation baseline, recorded at the rollback target
+            self._integrity_base = self._conservation_sums()
+        saver = self._active_saver()
+        if saver is not None and saver.pending():
+            # the bookkeeping above is speculative while the write is in
+            # flight: a writer failure reverts the rollback target to
+            # the last DURABLE checkpoint at the drain barrier
+            def _restore(_err, prev=prev):
+                (self.checkpoint_path, self._ckpt_step,
+                 self._last_save_t, self._integrity_base) = prev
+                self.checkpoints -= 1
+
+            saver.add_on_fail(_restore)
+
+    def _integrity_on(self) -> bool:
+        from . import integrity
+
+        return bool(self.conserved_fields) and integrity.integrity_enabled()
+
+    def _conservation_sums(self):
+        from . import integrity
+
+        return integrity.conservation_sums(self.grid,
+                                           self.conserved_fields)
+
+    def _integrity_drift(self):
+        """None when clean, else a details dict naming each conserved
+        field whose global sum drifted beyond tolerance since the last
+        checkpoint."""
+        from . import integrity
+
+        if not self._integrity_on() or self._integrity_base is None:
+            return None
+        telemetry.inc("dccrg_integrity_checks_total", where="runner")
+        with telemetry.span("integrity.check"):
+            now = self._conservation_sums()
+        steps = max(1, self.step - (self._ckpt_step or 0))
+        details = {}
+        for i, name in enumerate(self.conserved_fields):
+            shape, _dt = self.grid.fields[name]
+            n_el = len(self.grid.plan.cells) * int(
+                np.prod(shape, dtype=int) or 1)
+            tol = integrity.sum_tolerance(self._integrity_base[i],
+                                          n_el, steps)
+            drift = abs(float(now[i]) - float(self._integrity_base[i]))
+            if drift > tol:
+                details[name] = np.empty(0, np.uint64)
+                logger.warning(
+                    "integrity drift in %r: conservation sum moved "
+                    "%g (tolerance %g) since the step-%s checkpoint "
+                    "— silent corruption", name, drift, tol,
+                    self._ckpt_step)
+        return details or None
+
+    def _rollback(self) -> None:
+        # chain-aware when the target is a delta (a broken chain
+        # surfaces as DeltaChainError)
+        t0 = time.perf_counter()
+        self._drain_saves(swallow=True)
+        with telemetry.span("runner.rollback"):
+            load_checkpoint_into(self.grid, self.checkpoint_path,
+                                 header_size=len(self.header),
+                                 variable=self.variable)
+        self.step = self._ckpt_step
+        self.rollbacks += 1
+        telemetry.inc("dccrg_rollbacks_total")
+        telemetry.observe("dccrg_rollback_seconds",
+                          time.perf_counter() - t0)
+
+    # -- trip handling ------------------------------------------------
+
+    def _dump_diagnostics(self, details) -> dict:
+        bundle = {
+            "step": self.step,
+            "rollback_to": self._ckpt_step,
+            "retry": self._retry_streak,
+            "fields": {n: ids[:64].tolist() for n, ids in details.items()},
+            "checkpoint": self.checkpoint_path,
+            "wall_time": time.time(),
+        }
+        path = os.path.join(
+            self.diagnostics_dir,
+            f"dccrg_diag_step{self.step}_try{self._retry_streak}.json")
+        try:
+            with open(path, "w") as f:
+                json.dump(bundle, f, indent=1)
+            bundle["path"] = path
+        except OSError as e:  # diagnostics must never kill recovery
+            logger.warning("could not write diagnostic bundle: %s", e)
+        self.trips.append(bundle)
+        return bundle
+
+    def _trip(self, details=None, kind="numerics") -> None:
+        from . import verify
+
+        if details is None:
+            details = verify.find_nonfinite_cells(self.grid, self.fields)
+        if self.step > self._streak_step:
+            self._retry_streak = 0  # progress since the last trip
+        self._streak_step = self.step
+        self._retry_streak += 1
+        telemetry.inc("dccrg_trips_total", kind=kind)
+        bundle = self._dump_diagnostics(details)
+        logger.warning(
+            "watchdog trip (%s) at step %d (fields %s); rolling back "
+            "to step %s (retry %d/%d)", kind, self.step,
+            list(details) or "<ghost rows>", self._ckpt_step,
+            self._retry_streak, self.max_retries)
+        if self._retry_streak > self.max_retries:
+            msg = (f"watchdog tripped {self._retry_streak} times at "
+                   f"step {self.step} without progress; diagnostics: "
+                   f"{bundle.get('path', '<unwritten>')}")
+            if kind == "corrupt":
+                from . import integrity
+
+                raise integrity.IntegrityError(
+                    "integrity invariants failed on every retry — "
+                    "persistent silent corruption; " + msg,
+                    details={n: "invariant drift" for n in details})
+            raise ResilienceExhaustedError(msg)
+        if self.backoff:
+            time.sleep(self.backoff * (2 ** (self._retry_streak - 1)))
+        self._rollback()
+
+    # -- the loop -----------------------------------------------------
+
+    def run(self, n_steps: int) -> "ResilientRunner":
+        """Advance to ``n_steps`` total steps, recovering as needed.
+        Returns self (``.step``, ``.trips``, ``.rollbacks``,
+        ``.checkpoints`` carry the story).
+
+        Every trip decision goes through
+        :func:`dccrg_tpu_torch.coord.trip_consensus` (a MAX reduction of
+        a per-rank trip code) before it is acted on, so in a process
+        group every rank rolls back to the same checkpoint together."""
+        from . import coord
+        from .txn import MutationAbortedError
+
+        if self._ckpt_step is None:
+            self._save()  # a rollback target always exists
+        membership = coord.get_membership()
+        while self.step < n_steps:
+            if membership is not None:
+                # renew this rank's heartbeat lease at step boundaries
+                # (throttled to the heartbeat cadence)
+                membership.heartbeat()
+            code, details = 0, None
+            try:
+                self.step_fn(self.grid, self.step)
+            except MutationAbortedError as e:
+                # a structural mutation inside the step failed and rolled
+                # itself back: recover like a watchdog trip
+                logger.warning("step %d: %s", self.step, e)
+                code, details = _TRIP_ROLLBACK, {"mutation": np.asarray(
+                    e.cells, dtype=np.uint64)}
+            except NumericsError as e:
+                # the DCCRG_WATCHDOG hook inside run_steps tripped
+                logger.warning("step %d: %s", self.step, e)
+                code, details = _TRIP_NUMERICS, (e.details if e.details
+                                                 else None)
+            except Exception as e:  # noqa: BLE001 - filtered just below
+                if not _is_resource_exhausted(e):
+                    # non-recoverable: tell the peers before dying (they
+                    # wait in this step's consensus), deadline-bounded
+                    coord.broadcast_fatal(self.grid, _TRIP_FATAL)
+                    raise
+                # a device OOM that escaped the step: recover like a
+                # trip (the rollback frees the live tensors)
+                logger.warning("step %d: %s", self.step, e)
+                e.__traceback__ = None
+                code, details = _TRIP_OOM, {"resource_exhausted":
+                                            np.empty(0, np.uint64)}
+            if (code == 0 and self.interrupt_poll is not None
+                    and self.interrupt_poll()):
+                # the step completed cleanly but an interrupt is pending
+                # on this rank: the LOWEST-priority code, so a real trip
+                # elsewhere still wins (the flag stays set)
+                code = _TRIP_INTERRUPT
+            agreed = coord.trip_consensus(self.grid, code)
+            if agreed >= _TRIP_FATAL:
+                raise ResilienceExhaustedError(
+                    f"a peer rank failed fatally at step {self.step} "
+                    "(non-recoverable exception on another rank; see "
+                    "its log) — stopping in sync instead of hanging "
+                    "in its abandoned collectives")
+            if agreed >= _TRIP_ROLLBACK:
+                if code in (0, _TRIP_INTERRUPT):
+                    # another rank tripped; this one rolls back with it
+                    details = {"remote_rank_trip": np.empty(0, np.uint64)}
+                self._trip(details=details)
+                continue
+            if agreed == _TRIP_INTERRUPT:
+                # every rank completed this step cleanly and agreed to
+                # stop: the grid holds step+1 completed steps
+                self.step += 1
+                if not check_finite(self.grid, self.fields):
+                    # never hand poisoned state to the emergency save:
+                    # recover first; the pending interrupt stops the run
+                    # at the first clean boundary after the rollback
+                    self._trip()
+                    continue
+                raise RunInterrupted(self.step)
+            self.step += 1
+            faults.poison_step(self.grid, self.step)
+            faults.flip_step(self.grid, self.step)
+            ckpt_due = (bool(self.checkpoint_every)
+                        and self.step % self.checkpoint_every == 0)
+            if not ckpt_due and self.checkpoint_seconds > 0:
+                due = (self._last_save_t is not None
+                       and time.monotonic() - self._last_save_t
+                       >= self.checkpoint_seconds)
+                # clocks drift across ranks: any rank due -> all save
+                ckpt_due = bool(coord.trip_consensus(self.grid, int(due)))
+            # a checkpoint step ALWAYS checks first: the rollback target
+            # never captures unverified state
+            if (ckpt_due or self.step % self.check_every == 0
+                    or self.step == n_steps):
+                if not check_finite(self.grid, self.fields):
+                    self._trip()
+                    continue
+                drift = self._integrity_drift()
+                if self._integrity_on() and int(coord.trip_consensus(
+                        self.grid,
+                        _TRIP_CORRUPT if drift else 0)) >= _TRIP_CORRUPT:
+                    self._trip(details=drift or {
+                        "remote_rank_corrupt": np.empty(0, np.uint64)},
+                        kind="corrupt")
+                    continue
+            if ckpt_due:
+                self._save()
+        # a write still in flight at the end must be durable before the
+        # caller reads the files; a failure surfaces here
+        self._drain_saves()
+        return self
+
+
+# ---------------------------------------------------------------------
+# device probing that cannot hang
+# ---------------------------------------------------------------------
+
+def safe_devices(timeout: float = 90.0, retries: int = 2,
+                 backoff: float = 2.0, platform=None):
+    """The usable devices, found without risking a hang: a SUBPROCESS
+    (killed on timeout) counts the cards with
+    ``torch.cuda.device_count()`` first, with bounded retries and
+    exponential backoff; only a probe that found a card lets this
+    process return ``[torch.device("cuda", i), ...]``. ``platform="cpu"``
+    probes only the interpreter and returns ``[torch.device("cpu")]``.
+    Raises :class:`DeviceProbeError` when the budget is spent; a failed
+    probe never falls back to the CPU."""
+    cpu = platform == "cpu"
+    if platform not in (None, "cpu", "cuda", "gpu"):
+        raise ValueError(f"unknown platform {platform!r}")
+    code = ("import torch; print(1)" if cpu else
+            "import torch, sys; n = torch.cuda.device_count(); print(n); "
+            "sys.exit(0 if n > 0 else 3)")
+    last = "no probe attempted"
+    for attempt in range(retries + 1):
+        try:
+            faults.fire("device.probe", attempt=attempt)
+            out = subprocess.run(
+                [sys.executable, "-c", code], timeout=timeout,
+                capture_output=True, text=True)
+            if out.returncode == 0:
+                if cpu:
+                    return [torch.device("cpu")]
+                n = torch.cuda.device_count()
+                if n > 0:
+                    return [torch.device("cuda", i) for i in range(n)]
+                last = "the probe saw a card this process does not"
+            elif out.returncode == 3:
+                last = "no CUDA device is available"
+            else:
+                last = (out.stderr or out.stdout).strip()[-200:]
+        except (subprocess.TimeoutExpired, faults.InjectedProbeHang) as e:
+            last = f"probe timed out after {timeout}s ({type(e).__name__})"
+        if attempt < retries:
+            delay = backoff * (2 ** attempt)
+            logger.warning("device probe failed (%s); retry %d/%d in %.1fs",
+                           last, attempt + 1, retries, delay)
+            time.sleep(delay)
+    raise DeviceProbeError(
+        f"device backend unreachable after {retries + 1} probe(s): {last}")
+
+
+_PROBED_DEVICES: dict = {}
+
+
+def probed_devices(timeout: float = 120.0, retries: int = 1,
+                   backoff: float = 2.0, platform=None) -> list:
+    """Memoized :func:`safe_devices`: ONE subprocess probe per process
+    and requested platform (the first caller's budget wins)."""
+    if platform not in _PROBED_DEVICES:
+        _PROBED_DEVICES[platform] = list(safe_devices(
+            timeout=timeout, retries=retries, backoff=backoff,
+            platform=platform))
+    return _PROBED_DEVICES[platform]
+
+
+def _tool_main(argv) -> int:
+    """Checkpoint maintenance subcommands, callable without a card:
+    ``verify <file>`` re-checksums one checkpoint against its sidecar
+    (a delta verifies its whole chain); ``chain <dir>`` prints every
+    keyframe->delta chain with per-link status; ``audit <file>``
+    compares the payload fingerprint with the sidecar's record; ``gc
+    <dir> --keep-last K --keep-every N`` applies the retention policy
+    (a DRY RUN unless ``--apply``; it never deletes the only checkpoint
+    that passes verification)."""
+    import argparse
+
+    ap = argparse.ArgumentParser(prog="python -m dccrg_tpu_torch.resilience",
+                                 description=_tool_main.__doc__)
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    v = sub.add_parser("verify", help="verify a checkpoint's CRC "
+                                      "sidecar (a delta checkpoint "
+                                      "verifies its WHOLE chain)")
+    v.add_argument("file")
+    c = sub.add_parser("chain", help="print every keyframe->delta "
+                                     "chain in a checkpoint directory "
+                                     "with per-link verification "
+                                     "status")
+    c.add_argument("dir")
+    c.add_argument("--stem", default=None,
+                   help="only checkpoints named <stem>_<step>.dc[d]")
+    a = sub.add_parser("audit", help="at-rest audit: recompute a "
+                                     "checkpoint's payload fingerprint "
+                                     "and compare it with the record "
+                                     "its sidecar captured from the "
+                                     "live grid at save time")
+    a.add_argument("file")
+    g = sub.add_parser("gc", help="prune a checkpoint directory by the "
+                                  "keep-last-K / keep-every-N retention "
+                                  "policy, whole chains only (dry run "
+                                  "unless --apply)")
+    g.add_argument("dir")
+    g.add_argument("--keep-last", type=int, default=3)
+    g.add_argument("--keep-every", type=int, default=0)
+    g.add_argument("--stem", default=None,
+                   help="only checkpoints named <stem>_<step>.dc[d]")
+    g.add_argument("--apply", action="store_true",
+                   help="actually delete (default: report only)")
+    args = ap.parse_args(argv)
+
+    if args.cmd == "audit":
+        # CRC pass first: a file that fails its chunk CRCs is plain
+        # detectable corruption, not the silent class
+        try:
+            bad = verify_checkpoint(args.file)
+        except CheckpointCorruptionError as e:
+            print(f"CORRUPT {args.file}: {e}")
+            return 1
+        if bad:
+            print(f"CORRUPT {args.file}: chunk CRC mismatch "
+                  f"(chunks {bad}) — detectable corruption, not SDC")
+            return 1
+        try:
+            rep = audit_checkpoint(args.file)
+        except CheckpointCorruptionError as e:
+            print(f"CORRUPT {args.file}: {e}")
+            return 1
+        if rep is None:
+            print(f"NO-RECORD {args.file}: sidecar carries no "
+                  "integrity fingerprint (pre-SDC save or "
+                  "DCCRG_INTEGRITY=0)")
+            return 2
+        rc = 0
+        for name in sorted(rep):
+            ok, got, want = rep[name]
+            if ok:
+                print(f"OK {args.file}: field {name} fingerprint "
+                      f"({got[0]:#010x}, {got[1]:#010x})")
+            else:
+                rc = 1
+                print(f"SDC {args.file}: field {name} payload "
+                      f"fingerprint ({got[0]:#010x}, {got[1]:#010x}) "
+                      f"!= device-state record ({want[0]:#010x}, "
+                      f"{want[1]:#010x}) — the CRCs sealed corrupted "
+                      "bytes")
+        return rc
+
+    if args.cmd == "verify":
+        if is_delta_checkpoint(args.file):
+            try:
+                links = verify_chain(args.file)
+            except CheckpointCorruptionError as e:
+                print(f"CORRUPT {args.file}: {e}")
+                return 1
+            print(f"OK {args.file} (chain of {len(links)}: "
+                  + " -> ".join(os.path.basename(p) for p in links) + ")")
+            return 0
+        try:
+            bad = verify_checkpoint(args.file)
+        except CheckpointCorruptionError as e:
+            print(f"CORRUPT {args.file}: {e}")
+            return 1
+        if bad:
+            rec = read_sidecar(args.file)
+            ranges = _rec_ranges(rec)
+            names = ", ".join(_chunk_name(i, ranges) for i in bad)
+            print(f"CORRUPT {args.file}: checksum mismatch in {names}")
+            return 1
+        print(f"OK {args.file}")
+        return 0
+
+    from . import supervise  # lazy: resilience imports standalone
+
+    if args.cmd == "chain":
+        chains = supervise.chain_report(args.dir, stem=args.stem)
+        bad = 0
+        for stem_name, links in chains:
+            head = links[-1][0]
+            print(f"chain {stem_name} @ step {head} "
+                  f"({len(links)} link(s)):")
+            for step, path, kind, status in links:
+                if status != "OK":
+                    bad += 1
+                print(f"  {kind:<8} step {step:>8}  {status:<12} "
+                      f"{os.path.basename(path)}")
+        if not chains:
+            print(f"no numbered checkpoints in {args.dir}")
+        return 1 if bad else 0
+
+    rep = supervise.gc_checkpoints(
+        args.dir, keep_last=args.keep_last, keep_every=args.keep_every,
+        stem=args.stem, apply=args.apply)
+    verb = "pruned" if args.apply else "would prune"
+    for step, path in rep.dropped:
+        print(f"{verb} step {step}: {path}")
+    for path in rep.stale_temps:
+        print(f"{verb} stale temp file: {path}")
+    if rep.rescued is not None:
+        print(f"kept step {rep.rescued} beyond policy: it is the only "
+              "checkpoint that passes verification")
+    if rep.refused:
+        print(f"REFUSED: {rep.refused}")
+    print(f"{'applied' if rep.applied else 'dry-run'}: "
+          f"{len(rep.kept)} kept, {len(rep.dropped)} "
+          f"{'pruned' if rep.applied else 'prunable'}, "
+          f"{len(rep.stale_temps)} stale temp file(s)"
+          + ("" if args.apply else " — pass --apply to prune"))
+    return 0
+
+
+def _main(argv=None) -> int:
+    """CLI probe for shell scripts: ``python -m
+    dccrg_tpu_torch.resilience [--timeout S] [--retries N] [--platform
+    P]`` exits 0 and prints the devices when the backend answers, 1
+    otherwise, and never hangs. ``verify <file>``, ``audit <file>``,
+    ``chain <dir>`` and ``gc <dir> [--keep-last K] [--keep-every N]
+    [--apply]`` maintain checkpoints without touching a card (see
+    :func:`_tool_main`)."""
+    import argparse
+
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0] in ("verify", "gc", "chain", "audit"):
+        return _tool_main(argv)
+    ap = argparse.ArgumentParser(description=_main.__doc__)
+    ap.add_argument("--timeout", type=float, default=90.0)
+    ap.add_argument("--retries", type=int, default=0)
+    ap.add_argument("--backoff", type=float, default=2.0)
+    ap.add_argument("--platform", default=None)
+    args = ap.parse_args(argv)
+    try:
+        devs = safe_devices(timeout=args.timeout, retries=args.retries,
+                            backoff=args.backoff, platform=args.platform)
+        print("OK", devs)
+        return 0
+    except DeviceProbeError as e:
+        print("DOWN", e)
+        return 1
+
+
+if __name__ == "__main__":  # pragma: no cover - exercised via subprocess
+    sys.exit(_main())

@@ -142,7 +142,9 @@ _REF_ATTRS = (
     "plan",
     "_pending_owner",
     "_cells_epoch",
+    "_ckpt_epoch",
     "_cut_edges",
+    "_plan_gather_mode",
     "_removed_cells",
     "_new_cells",
     "_unrefined_parents",
@@ -167,8 +169,11 @@ _DICT_ATTRS = (
     "_pending",
 )
 
-# Set attributes: the AMR request queues the commit clears.
-_SET_ATTRS = ("_refines", "_unrefines", "_dont_refines", "_dont_unrefines")
+# Set attributes: the AMR request queues the commit clears, and the
+# delta-checkpoint dirty-field set (grown with ``update``; its None
+# sentinel, everything dirty, passes through the isinstance guard).
+_SET_ATTRS = ("_refines", "_unrefines", "_dont_refines", "_dont_unrefines",
+              "_ckpt_dirty")
 
 
 def snapshot_state(grid) -> dict:

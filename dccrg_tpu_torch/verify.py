@@ -400,24 +400,34 @@ def verify_partition_coverage(grid) -> None:
 
 
 def find_nonfinite_cells(grid, fields=None) -> dict:
-    """Locate non-finite values: ``{field: cell ids}`` for every
-    watched inexact field holding a NaN/Inf in a LOCAL row (ghost
-    copies mirror some other device's local row, so local rows cover
-    every real offender). Host-side and O(grid) — run it only after
-    the cheap device-side probe (resilience.check_finite) has tripped,
-    to name the offenders in the diagnostic bundle."""
+    """Locate non-finite values: ``{field: cell ids}`` (id-sorted) for
+    every watched inexact field holding a NaN/Inf in a LOCAL row (ghost
+    copies mirror some other partition's local row, so local rows cover
+    every real offender). Run it only after the cheap probe
+    (resilience.check_finite) has tripped, to name the offenders in the
+    diagnostic bundle. The rows are found on the grid's device and only
+    the offending rows' ids are looked up on the host (each partition's
+    ``plan.local_ids``), so a trip on a large grid costs one pass over
+    each field, not a host copy of it."""
+    import torch
+
     out = {}
-    cells = grid.get_cells()
     names = list(fields) if fields is not None else list(grid.fields)
     for name in names:
-        if not grid.fields[name][1].is_floating_point:
+        dtype = grid.fields[name][1]
+        if not (dtype.is_floating_point or dtype.is_complex):
             continue
-        vals = np.asarray(grid.get(name, cells))
-        bad = ~np.isfinite(vals)
-        while bad.ndim > 1:
-            bad = bad.any(axis=-1)
-        if bad.any():
-            out[name] = np.asarray(cells)[bad]
+        hits = []
+        for p in range(grid.n_dev):
+            bad = ~torch.isfinite(
+                grid.data[name][p, :int(grid.plan.n_local[p])])
+            if bad.dim() > 1:
+                bad = bad.reshape(bad.shape[0], -1).any(dim=1)
+            rows = torch.nonzero(bad).flatten().cpu().numpy()
+            if len(rows):
+                hits.append(np.asarray(grid.plan.local_ids[p])[rows])
+        if hits:
+            out[name] = np.sort(np.concatenate(hits))
     return out
 
 

@@ -26,7 +26,10 @@ thread that owns the grid.
 :class:`AsyncSaver` (``DCCRG_ASYNC_SAVE=1``) runs a checkpoint write on
 a writer thread against a :func:`freeze_grid` snapshot, whose field
 bytes were copied to the host on the caller's thread; :meth:`drain` is
-the barrier every reader of the written files takes.
+the barrier every reader of the written files takes. Under a process
+split, :func:`freeze_grid_mp` takes the snapshot instead: it copies
+only this rank's partitions, and its two-phase save crosses ranks
+through the store alone.
 """
 
 from __future__ import annotations
@@ -170,6 +173,57 @@ def freeze_grid(grid, fields=None):
     snap._ckpt_dirty = set(dirty) if isinstance(dirty, set) else dirty
     # the snapshot never aliases live background machinery: a save of
     # the frozen copy may not drain or install the real grid's builds
+    snap._bg_build = None
+    return snap
+
+
+def freeze_grid_mp(grid, fields=None, variable=None):
+    """A :func:`freeze_grid` counterpart for a grid under a process
+    split, so the two-phase save can run on an :class:`AsyncSaver`
+    writer thread (dccrg_tpu/background.py:195-245). That save touches
+    the card in two places, and the snapshot removes both here, on the
+    caller's thread:
+
+    - payload reads go through ``grid._shard_read``: every LOCAL
+      partition's rows are copied to the host now, and the snapshot's
+      ``_shard_read`` reads those copies;
+    - the variable fields' counts go through
+      ``checkpoint._replicated_pull`` (a collective in a process
+      group): the pull of every count field of ``variable`` is taken
+      now into ``_frozen_pulls``, which the save reads first.
+
+    What crosses ranks after that is store traffic: the prepare, commit
+    and done barriers, and the CRC exchange, which ``_ckpt_crc_via_kv``
+    sends through key-value records posted before the commit barrier
+    instead of a collective. Every rank must still freeze and submit
+    the same save, and the save-attempt counter advances on the SOURCE
+    grid (``_mp_epoch_src``), so a later save never reuses a barrier
+    tag. The frozen bytes are exactly what a synchronous save at the
+    freeze point would write."""
+    from .grid import partition_rows
+
+    snap = copy.copy(grid)
+    names = sorted(grid.data) if fields is None else sorted(fields)
+    host = {n: {d: _host_copy(grid.data[n][d]) for d in range(grid.n_dev)
+                if grid._proc_local_dev[d]} for n in names}
+    snap._shard_read = lambda field, dev, rows: partition_rows(
+        host[field].__getitem__, dev, rows)
+    snap._frozen_pulls = {}
+    if variable:
+        from . import checkpoint as checkpoint_mod
+
+        cells = np.asarray(grid.get_cells())
+        for cf in sorted(set(variable.values())):
+            snap._frozen_pulls[cf] = checkpoint_mod._replicated_pull(
+                grid, cf, cells)
+    snap._ckpt_crc_via_kv = True
+    snap._mp_epoch_src = grid
+    # the layout pin of freeze_grid: the save reads row_of_pos, and an
+    # arena recycle must not change it under the writer
+    snap.plan = copy.copy(grid.plan)
+    snap.plan.row_of_pos = np.array(grid.plan.row_of_pos, copy=True)
+    dirty = getattr(grid, "_ckpt_dirty", None)
+    snap._ckpt_dirty = set(dirty) if isinstance(dirty, set) else dirty
     snap._bg_build = None
     return snap
 

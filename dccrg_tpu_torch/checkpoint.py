@@ -35,16 +35,29 @@ among them) first and the ragged rows second.
 A partitioned grid saves and loads in one process: every partition's
 rows are this process's, so the payload is gathered and scattered by
 flat row (``partition * R + row``) and the file's bytes do not depend on
-the partition. The reference's multi-process slice writers and the
-load-done barrier wait for the multi-process slice of the port.
+the partition.
+
+**Under a process split** (``Grid._proc_local_dev`` partial: a process
+group, or a test faking the split) a save takes the reference's
+TWO-PHASE COMMIT (:func:`_save_process_slice`): every rank streams its
+own partitions' payload runs into ``<file>.mp-tmp`` with a CRC32 per
+run, a timeout-guarded commit barrier collects the CRCs (through the
+group's ``all_gather_object``, the :mod:`coord` key-value store for a
+:func:`~dccrg_tpu_torch.background.freeze_grid_mp` snapshot, or the
+in-process stage of a faked split), and the committing rank verifies
+every slice before the atomic rename. The file's bytes equal a
+one-process save's. A load scatters only this rank's cells, and a
+real group then meets at the load-done barrier.
 """
 
 from __future__ import annotations
 
 import hashlib
+import json
 import os
 import struct
 import time
+import zlib
 from contextlib import contextmanager
 
 import numpy as np
@@ -396,7 +409,9 @@ def _interleave(nc, fixed, var_host, var_nbytes, fixed_bytes, var_spec):
 
 
 def save_grid_data(grid, filename: str, header: bytes = b"",
-                   variable=None, *, fields=None) -> None:
+                   variable=None, *, sidecar: bool = False,
+                   sidecar_chunk_bytes: int | None = None,
+                   fields=None, sidecar_extra=None) -> None:
     """Write the grid and all cell data (dccrg.hpp:1109-1736), the
     payload streamed in chunks of :data:`CHUNK` cells with the device
     pull of chunk k+1 (on a worker thread) overlapping the file write
@@ -404,7 +419,14 @@ def save_grid_data(grid, filename: str, header: bytes = b"",
     truncated to each cell's count (dccrg.hpp:2108-2123). ``fields``
     restricts the save to a subset of the grid's fields (the delta
     checkpoint's path): the file is a valid ``.dc`` of the sub-schema,
-    in the byte layout of a full save."""
+    in the byte layout of a full save.
+
+    Under a process split the save takes the two-phase commit
+    (:func:`_save_process_slice`); ``sidecar=True`` then has the
+    committing rank write the resilience CRC32 sidecar, extended with
+    the per-rank slice table, and ``sidecar_extra`` is merged into it.
+    Without a split the sidecar is ``resilience.save_checkpoint``'s job
+    and these keywords are ignored."""
     from concurrent.futures import ThreadPoolExecutor
 
     cells = grid.plan.cells
@@ -426,32 +448,40 @@ def save_grid_data(grid, filename: str, header: bytes = b"",
 
     offset0 = len(meta) + 16 * len(cells)
     counts = {}
-    if var_spec:
-        # per-cell byte sizes: variable fields add count * row bytes
+    sizes = None
+    if var_spec or grid._multiproc:
+        # per-cell byte sizes: variable fields add count * row bytes.
+        # Counts must be the same on every rank (the offset table is
+        # replicated): _replicated_pull
         sizes = np.full(len(cells), fixed_bytes, dtype=np.uint64)
         for name, count_field, row_shape, dtype, row_bytes, cap in var_spec:
-            c = np.asarray(grid.get(count_field, cells)).astype(np.int64)
+            c = _replicated_pull(grid, count_field, cells).astype(np.int64)
             if np.any(c < 0) or np.any(c > cap):
                 raise ValueError(f"count field {count_field!r} out of range for {name!r}")
             counts[name] = c
             sizes += (c * row_bytes).astype(np.uint64)
-        offsets = offset0 + np.concatenate(
-            [[np.uint64(0)], np.cumsum(sizes)[:-1]]).astype(np.uint64)
+        if var_spec:
+            offsets = offset0 + np.concatenate(
+                [[np.uint64(0)], np.cumsum(sizes)[:-1]]).astype(np.uint64)
+        else:  # packed cells, the cumulative sum in closed form
+            offsets = (np.arange(len(cells), dtype=np.uint64)
+                       * np.uint64(fixed_bytes) + np.uint64(offset0))
     else:
         offsets = None  # packed: cell i's payload at offset0 + i * fixed_bytes
+
+    if grid._multiproc:
+        _save_process_slice(grid, filename, bytes(meta), cells, offsets,
+                            sizes, counts, fixed_spec, fixed_bytes,
+                            var_spec, header_size=len(header),
+                            sidecar=sidecar,
+                            sidecar_chunk_bytes=sidecar_chunk_bytes,
+                            sidecar_extra=sidecar_extra)
+        return
 
     starts = list(range(0, len(cells), CHUNK))
     with open(filename, "wb") as f, ThreadPoolExecutor(1) as pool:
         f.write(bytes(meta))
-        for start in starts:
-            end = min(start + CHUNK, len(cells))
-            pairs = np.empty((end - start, 2), dtype=np.uint64)
-            pairs[:, 0] = cells[start:end]
-            if offsets is None:
-                pairs[:, 1] = np.arange(start, end, dtype=np.uint64) \
-                    * np.uint64(fixed_bytes) + np.uint64(offset0)
-            else:
-                pairs[:, 1] = offsets[start:end]
+        for pairs in _pair_chunks(cells, offsets, offset0, fixed_bytes):
             f.write(pairs)
         fut = None
         for i, start in enumerate(starts):
@@ -468,6 +498,58 @@ def save_grid_data(grid, filename: str, header: bytes = b"",
             # (leaving the pool's block waits for the worker's pull)
             faults.fire("checkpoint.chunk", chunk=i, path=filename)
             f.write(buf)
+
+
+def _pair_chunks(cells, offsets, offset0, fixed_bytes):
+    """The ``(uint64 cell id, uint64 offset)`` table in chunks of
+    :data:`CHUNK` rows (``offsets`` None: packed cells)."""
+    for start in range(0, len(cells), CHUNK):
+        end = min(start + CHUNK, len(cells))
+        pairs = np.empty((end - start, 2), dtype=np.uint64)
+        pairs[:, 0] = cells[start:end]
+        if offsets is None:
+            pairs[:, 1] = np.arange(start, end, dtype=np.uint64) \
+                * np.uint64(fixed_bytes) + np.uint64(offset0)
+        else:
+            pairs[:, 1] = offsets[start:end]
+        yield pairs
+
+
+def _replicated_pull(grid, field, cells) -> np.ndarray:
+    """Per-cell host values that are the same on every rank (the
+    offset table of a save under a process split depends on them; the
+    reference allgathers its cell lists, dccrg.hpp:1109-1736). Without
+    a split this is ``grid.get``. In a process group each rank reads
+    its own partitions' rows and ``all_gather_object`` merges them; a
+    faked split holds every row in its one process and reads them
+    directly.
+
+    A :func:`~dccrg_tpu_torch.background.freeze_grid_mp` snapshot
+    carries the pull precomputed (``_frozen_pulls``, taken on the
+    caller's thread at freeze time): the writer thread launches
+    nothing and takes part in no collective."""
+    from . import coord
+    from .grid import _flat, _host_numpy
+
+    frozen = getattr(grid, "_frozen_pulls", None)
+    if frozen is not None and field in frozen \
+            and len(frozen[field]) == len(cells):
+        return frozen[field]
+    if not grid._multiproc:
+        return np.asarray(grid.get(field, cells))
+    dev, rows = grid._host_rows(cells)
+    if coord.process_count() <= 1:
+        return _host_numpy(_flat(grid.data[field]).index_select(
+            0, grid._flat_rows(dev, rows)))
+    mine = np.flatnonzero(grid._proc_local_dev[dev])
+    vals = _host_numpy(grid._shard_read(field, dev[mine], rows[mine]))
+    parts = [None] * coord.process_count()
+    torch.distributed.all_gather_object(parts, (mine, vals))
+    shape, dtype = grid.fields[field]
+    out = np.zeros((len(cells),) + tuple(shape), dtype=vals.dtype)
+    for pos, v in parts:
+        out[pos] = v
+    return out
 
 
 _TMP_MARKERS = (".tmp.", ".salvage.", ".chain.")
@@ -515,6 +597,410 @@ def stale_temp_files(dirpath: str) -> list:
 
 
 # ---------------------------------------------------------------------
+# the two-phase multi-process save
+# ---------------------------------------------------------------------
+
+# Faked-split CRC staging: {tmp_path: {dev: (rank, [crc per run])}}.
+# A process group never touches this (its CRCs cross ranks at the
+# commit barrier); the table bridges the SEQUENTIAL per-rank passes of a
+# faked split in one process. The meta-writing pass resets the entry,
+# so an aborted earlier attempt never leaks stale CRCs into a later
+# save.
+_MP_CRC_STAGE: dict = {}
+
+
+def _device_runs(n_dev, owner, offsets, sizes):
+    """Per-partition contiguous payload runs ``[(dev, positions, lo,
+    hi)]`` in partition order (each partition's runs in position
+    order), derived from the replicated plan alone, so every rank
+    computes the same run table (the frame of reference of the commit's
+    CRC exchange). One pass over ``owner`` finds the runs; the
+    reference's table (dccrg_tpu/checkpoint.py:499-515) exactly."""
+    n = len(owner)
+    if n == 0:
+        return []
+    starts = np.concatenate(
+        [[0], np.flatnonzero(owner[1:] != owner[:-1]) + 1])
+    ends = np.append(starts[1:], n)
+    runs = []
+    for lo, hi in zip(starts.tolist(), ends.tolist()):
+        runs.append((int(owner[lo]), np.arange(lo, hi, dtype=np.int64),
+                     int(offsets[lo]), int(offsets[hi - 1] + sizes[hi - 1])))
+    runs.sort(key=lambda r: (r[0], r[2]))
+    return runs
+
+
+def _crc_kv_key(base, rank):
+    return f"dccrg_crc:{base}:{rank}"
+
+
+def _kv_wait(kv, key, timeout_s: float = 10.0):
+    """``kv.get(key)``, polled until the key appears or ``timeout_s``
+    passes (None then)."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        val = kv.get(key)
+        if val is not None or time.monotonic() >= deadline:
+            return val
+        time.sleep(0.01)
+
+
+def _post_run_crcs_kv(grid, runs, local_crcs, rank, base):
+    """Writer-thread half of the key-value CRC exchange: post this
+    rank's per-run CRC32s under the attempt-tagged key BEFORE the
+    commit barrier, so every posted record is visible once it releases.
+    Store traffic only, no collective: what lets an
+    :class:`~dccrg_tpu_torch.background.AsyncSaver` thread run the
+    whole two-phase save. The record is CRC-framed
+    (:func:`~dccrg_tpu_torch.coord.seal_record`): a rank that dies
+    mid-post reads as a torn record, which the committer treats as a
+    dead rank."""
+    from . import coord
+
+    by_dev: dict = {}
+    for gri, (d, _seg, _lo, _hi) in enumerate(runs):
+        by_dev.setdefault(d, []).append(gri)
+    payload = {str(d): [int(local_crcs[g]) & 0xFFFFFFFF for g in gris]
+               for d, gris in by_dev.items() if grid._proc_local_dev[d]}
+    rec = coord.seal_record(
+        json.dumps({"rank": int(rank), "devs": payload}, sort_keys=True))
+    coord.default_kv().set(_crc_kv_key(base, rank), rec)
+
+
+def _read_run_crcs_kv(grid, by_dev, base):
+    """Committer half of the key-value CRC exchange: merge every rank's
+    posted record into ``{dev: (rank, [crc, ...])}``. A rank that never
+    posted, or posted a torn record, leaves its partitions absent; the
+    committer's missing-slice check names it."""
+    from . import coord
+
+    kv = coord.default_kv()
+    out: dict = {}
+    for r in range(coord.process_count()):
+        key = _crc_kv_key(base, r)
+        rec = _kv_wait(kv, key)
+        if rec is None:  # dead before posting: its partitions stay absent
+            continue
+        try:
+            msg = json.loads(coord.unseal_record(rec, key=key))
+        except coord.TornRecordError:
+            continue  # a torn post is a dead rank to the committer
+        for ds, crcs in msg["devs"].items():
+            out[int(ds)] = (int(msg["rank"]), [int(c) for c in crcs])
+    return out
+
+
+def _gather_run_crcs(grid, runs, local_crcs, rank, tmp, real,
+                     via_kv=False, base=""):
+    """Collect every rank's per-run CRC32s into one table ``{dev: (rank,
+    [crc, ...])}``. A process group exchanges through
+    ``torch.distributed.all_gather_object`` after the commit barrier
+    (the reference's ``comm.host_all_gather``); ``via_kv`` (a
+    :func:`~dccrg_tpu_torch.background.freeze_grid_mp` snapshot) reads
+    the key-value records every rank posted before the barrier instead,
+    so the exchange is legal on a writer thread. A faked split merges
+    the in-process stage table (its passes run one after the other)."""
+    by_dev: dict = {}
+    for gri, (d, _seg, _lo, _hi) in enumerate(runs):
+        by_dev.setdefault(d, []).append(gri)
+    if real and via_kv:
+        return _read_run_crcs_kv(grid, by_dev, base)
+    mine = {d: (rank, [int(local_crcs[g]) & 0xFFFFFFFF for g in gris])
+            for d, gris in by_dev.items() if grid._proc_local_dev[d]}
+    if not real:
+        stage = _MP_CRC_STAGE.setdefault(tmp, {})
+        stage.update(mine)
+        return dict(stage)
+    from . import coord
+
+    parts = [None] * coord.process_count()
+    torch.distributed.all_gather_object(parts, mine)
+    out: dict = {}
+    for part in parts:
+        out.update(part or {})
+    return out
+
+
+def _mp_piece_bytes(grid, counts, idx, fixed_spec, fixed_bytes, var_spec):
+    """Serialize the cells at sorted positions ``idx`` (all on this
+    rank's partitions) through ``grid._shard_read``: the same layout
+    as :func:`_chunk_payload`, read partition by partition."""
+    dev = grid.plan.owner[idx]
+    rows = grid.plan.row_of_pos[idx].astype(np.int64)
+    n = len(idx)
+
+    def column(name):
+        t = grid._shard_read(name, dev, rows).contiguous()
+        return t.view(torch.uint8).reshape(n, -1).numpy()
+
+    if fixed_spec:
+        fixed = np.concatenate([column(s[0]) for s in fixed_spec], axis=1)
+    else:
+        fixed = np.empty((n, 0), dtype=np.uint8)
+    if not var_spec:
+        return fixed
+    var_host = {name: column(name) for name, *_ in var_spec}
+    var_nbytes = {
+        name: counts[name][idx].astype(np.int64) * row_bytes
+        for name, count_field, row_shape, dtype, row_bytes, cap in var_spec
+    }
+    return _interleave(n, fixed, var_host, var_nbytes, fixed_bytes,
+                       var_spec)
+
+
+def _mp_piece(grid, counts, idx, fixed_spec, fixed_bytes, var_spec):
+    if grid.device.type == "cuda":
+        with torch.cuda.device(grid.device):
+            return _mp_piece_bytes(grid, counts, idx, fixed_spec,
+                                   fixed_bytes, var_spec)
+    return _mp_piece_bytes(grid, counts, idx, fixed_spec, fixed_bytes,
+                           var_spec)
+
+
+def _save_process_slice(grid, filename, meta, cells, offsets, sizes, counts,
+                        fixed_spec, fixed_bytes, var_spec, header_size=0,
+                        sidecar=False, sidecar_chunk_bytes=None,
+                        sidecar_extra=None):
+    """Two-phase-commit save under a process split
+    (dccrg_tpu/checkpoint.py:593-783).
+
+    Every rank writes its OWN partitions' payload runs (the reference
+    dccrg's collective MPI-IO write with per-rank file views,
+    dccrg.hpp:1594-1659), into ``<file>.mp-tmp``, never the final name,
+    with a CRC32 per run:
+
+    1. **prepare**: the meta-writing rank lays down the replicated
+       metadata and cell/offset table and pre-sizes the temp file; a
+       timeout-guarded barrier releases the slice writers; every rank
+       writes its runs (the one-deep prefetch pipeline of the
+       one-process save) and fsyncs.
+    2. **commit**: a second barrier, then the CRC exchange
+       (:func:`_gather_run_crcs`); the committing rank re-reads the temp
+       file, verifies every slice against its writer's CRC (raising
+       :class:`~dccrg_tpu_torch.coord.CheckpointCommitError` naming
+       the dead or torn ranks), fsyncs and renames atomically.
+
+    A rank death or I/O fault at any rank and phase leaves either the
+    old or the new checkpoint intact under the final name; a lost rank
+    becomes a :class:`~dccrg_tpu_torch.coord.BarrierTimeoutError`.
+    With ``sidecar`` the committing rank also writes the CRC32 sidecar
+    with the per-rank slice table ``[dev, rank, lo, hi, crc]``, so a
+    salvage load can name a dead rank's cells."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from . import coord
+
+    real = coord.process_count() > 1  # vs. a faked split
+    rank = coord.process_rank(grid)
+    writes_meta = getattr(grid, "_ckpt_writes_meta", None)
+    if writes_meta is None:
+        writes_meta = (coord.process_index() == 0) if real else True
+    commits = getattr(grid, "_ckpt_commits", None)
+    if commits is None:
+        commits = writes_meta
+    tmp = filename + MP_TMP_SUFFIX
+    # a per-grid save-attempt epoch in every barrier tag: the ranks
+    # enter a save together even after an attempt failed at different
+    # points on different ranks, so tagging by attempt re-aligns the
+    # barrier sequence on a collective retry. A freeze_grid_mp snapshot
+    # counts through its SOURCE grid (_mp_epoch_src): bumping only the
+    # shallow copy would hand the next save the same attempt number
+    attempt_src = getattr(grid, "_mp_epoch_src", None) or grid
+    attempt = getattr(attempt_src, "_mp_save_epoch", 0) + 1
+    attempt_src._mp_save_epoch = attempt
+    grid._mp_save_epoch = attempt
+    base = f"{os.path.basename(filename)}#{attempt}"
+    end = int(offsets[-1] + sizes[-1]) if len(cells) else len(meta)
+    runs = _device_runs(grid.n_dev, grid.plan.owner, offsets, sizes)
+
+    # -- phase 1: prepare: meta + slice runs into the temp file --------
+    faults.fire("checkpoint.mp", phase="meta", rank=rank, path=filename)
+    if writes_meta:
+        _MP_CRC_STAGE.pop(tmp, None)  # a fresh attempt (faked split)
+        with open(tmp, "wb") as f:
+            f.write(meta)
+            for pairs in _pair_chunks(cells, offsets, 0, 0):
+                f.write(pairs)
+            f.truncate(end)  # pre-size so every rank can write its runs
+            f.flush()
+            os.fsync(f.fileno())
+    coord.barrier(f"save_prepare:{base}")
+
+    mine = [g for g, r in enumerate(runs) if grid._proc_local_dev[r[0]]]
+    local_crcs: dict = {g: 0 for g in mine}
+    with phase("slices"), open(tmp, "r+b") as f, \
+            ThreadPoolExecutor(1) as pool:
+        # a run's pieces share one seek; the pull of piece k+1 (on the
+        # worker) overlaps the write of piece k
+        pieces = [
+            (g, s == 0, runs[g][1][s : s + CHUNK], runs[g][2])
+            for g in mine
+            for s in range(0, len(runs[g][1]), CHUNK)
+        ]
+
+        def assemble(piece):
+            return _mp_piece(grid, counts, piece[2], fixed_spec,
+                             fixed_bytes, var_spec)
+
+        fut = pool.submit(assemble, pieces[0]) if pieces else None
+        for i, (g, is_run_start, _idx, lo) in enumerate(pieces):
+            buf = fut.result()
+            if i + 1 < len(pieces):
+                fut = pool.submit(assemble, pieces[i + 1])
+            faults.fire("checkpoint.mp", phase="slice", rank=rank,
+                        piece=i, path=filename)
+            if is_run_start:
+                f.seek(lo)
+            f.write(buf)
+            local_crcs[g] = zlib.crc32(buf, local_crcs[g])
+        f.flush()
+        os.fsync(f.fileno())
+    faults.fire("checkpoint.mp", phase="written", rank=rank, path=filename)
+
+    # -- phase 2: commit barrier, CRC exchange, verify + publish ------
+    via_kv = real and bool(getattr(grid, "_ckpt_crc_via_kv", False))
+    if via_kv:
+        # post BEFORE the barrier: once it releases, every surviving
+        # rank's record is readable
+        _post_run_crcs_kv(grid, runs, local_crcs, rank, base)
+    coord.barrier(f"save_commit:{base}")
+    crc_table = _gather_run_crcs(grid, runs, local_crcs, rank, tmp, real,
+                                 via_kv=via_kv, base=base)
+    status_key = f"dccrg_commit:{base}"
+    kv = coord.default_kv() if real else None
+    if commits:
+        # the metadata and offset table are REPLICATED: the committer
+        # recomputes their CRC locally, so a tear there needs no
+        # exchange to be caught
+        meta_crc = zlib.crc32(meta)
+        for pairs in _pair_chunks(cells, offsets, 0, 0):
+            meta_crc = zlib.crc32(pairs, meta_crc)
+        commit_err = None
+        try:
+            with phase("commit"):
+                _commit_process_slices(grid, filename, tmp, runs,
+                                       crc_table, header_size, sidecar,
+                                       sidecar_chunk_bytes, rank,
+                                       meta_crc & 0xFFFFFFFF,
+                                       len(meta) + 16 * len(cells),
+                                       sidecar_extra=sidecar_extra)
+        except faults.InjectedRankDeath:
+            raise  # a dead rank coordinates nothing
+        except Exception as e:  # noqa: BLE001 - re-raised below
+            commit_err = e
+        _MP_CRC_STAGE.pop(tmp, None)
+        if kv is not None:
+            # publish the outcome BEFORE the done barrier: the peers
+            # read it right after and learn of an abort at once instead
+            # of mistaking a live but aborted committer for a dead one
+            kv.set(status_key,
+                   "ok" if commit_err is None
+                   else f"commit aborted on rank {rank}: {commit_err}")
+        if commit_err is not None:
+            try:
+                coord.barrier(f"save_done:{base}")
+            except Exception:  # the abort outranks a straggling peer
+                pass
+            raise commit_err
+    coord.barrier(f"save_done:{base}")
+    if not commits and kv is not None:
+        status = _kv_wait(kv, status_key)  # None: the barrier governs
+        if status is not None and status != "ok":
+            raise coord.CheckpointCommitError(
+                f"{filename}: {status}; the previous checkpoint is "
+                "untouched")
+
+
+def _commit_process_slices(grid, filename, tmp, runs, crc_table,
+                           header_size, sidecar, sidecar_chunk_bytes, rank,
+                           meta_crc, payload_start, sidecar_extra=None):
+    """The committing rank's half of the two-phase save: verify the
+    replicated metadata block (against ``meta_crc``, recomputed
+    locally) and every payload slice of the temp file against its
+    writer's CRC, then publish atomically (the old sidecar dropped, the
+    rename, the directory fsync, the new sidecar), the rename discipline
+    of ``resilience.save_checkpoint``."""
+    from . import coord, resilience
+
+    faults.fire("checkpoint.mp", phase="commit", rank=rank, path=filename)
+    by_dev: dict = {}
+    for gri, (d, _seg, lo, hi) in enumerate(runs):
+        by_dev.setdefault(d, []).append((gri, lo, hi))
+    missing = sorted(d for d in by_dev if d not in crc_table
+                     or len(crc_table[d][1]) != len(by_dev[d]))
+    if missing:
+        raise coord.CheckpointCommitError(
+            f"{filename}: commit aborted — no slice CRCs from device(s) "
+            f"{missing} (their rank died before the commit barrier); the "
+            "previous checkpoint is untouched",
+            ranks=[crc_table[d][0] for d in missing if d in crc_table])
+    # ONE sequential pass over the temp file gives all three CRC
+    # layouts: the metadata block (chunk 0 of the tiling), the
+    # sidecar's chunks and the per-rank slice spans (sorted by start
+    # for the streaming overlay, then put back in run order)
+    entries = [(d, k, lo, hi)
+               for d in sorted(by_dev)
+               for k, (_gri, lo, hi) in enumerate(by_dev[d])]
+    order = sorted(range(len(entries)), key=lambda i: entries[i][2])
+    cb = sidecar_chunk_bytes or resilience.CRC_CHUNK
+    file_bytes = os.path.getsize(tmp)
+    chunk_ranges = resilience._chunk_ranges(payload_start, file_bytes, cb)
+    chunk_crcs, sorted_crcs = resilience._stream_crcs(
+        tmp, chunk_ranges, [(entries[i][2], entries[i][3]) for i in order],
+        cb)
+    got = [0] * len(entries)
+    for k, i in enumerate(order):
+        got[i] = sorted_crcs[k]
+    if chunk_crcs[0] != meta_crc:
+        raise coord.CheckpointCommitError(
+            f"{filename}: commit aborted — the metadata/offset-table "
+            "block of the temp file does not match its replicated bytes "
+            "(torn prepare write); the previous checkpoint is untouched")
+    slices = []  # [dev, rank, lo, hi, crc] rows for the sidecar
+    torn = []
+    for i, (d, k, lo, hi) in enumerate(entries):
+        wrank, want = crc_table[d]
+        if got[i] != (want[k] & 0xFFFFFFFF):
+            torn.append((d, wrank))
+        slices.append([int(d), int(wrank), int(lo), int(hi),
+                       int(want[k] & 0xFFFFFFFF)])
+    if torn:
+        devs = sorted({d for d, _r in torn})
+        ranks = sorted({r for _d, r in torn})
+        raise coord.CheckpointCommitError(
+            f"{filename}: commit aborted — slice(s) of device(s) {devs} "
+            f"(written by rank(s) {ranks}) fail their CRC32 in the temp "
+            "file (torn write / rank died mid-slice); the previous "
+            "checkpoint is untouched", ranks=ranks)
+    rec = None
+    if sidecar:
+        rec = {"format": resilience.SIDECAR_FORMAT, "chunk_bytes": cb,
+               "file_bytes": file_bytes, "payload_start": payload_start,
+               "header_size": header_size, "crc32": chunk_crcs,
+               "slices": slices}
+        if sidecar_extra:
+            rec.update(sidecar_extra)
+    # drop any previous sidecar BEFORE the rename (never a new file
+    # under a stale record), keeping its bytes to put back if the
+    # rename itself fails
+    side = resilience.sidecar_path(filename)
+    old_side = None
+    if os.path.exists(side):
+        with open(side, "rb") as sf:
+            old_side = sf.read()
+        os.unlink(side)
+    try:
+        os.replace(tmp, filename)
+    except OSError:
+        resilience._restore_sidecar(side, old_side)
+        raise
+    resilience._fsync_dir(os.path.dirname(os.path.abspath(filename)))
+    faults.fire("checkpoint.mp", phase="publish", rank=rank, path=filename)
+    if rec is not None:
+        resilience._write_sidecar_record(side, rec)
+
+
+# ---------------------------------------------------------------------
 # load
 # ---------------------------------------------------------------------
 
@@ -554,7 +1040,11 @@ def _scatter_payloads(grid, raw, cells, offsets, fixed_spec, fixed_bytes,
     tensor per field (the reference's single-controller path,
     dccrg_tpu/checkpoint.py:921-1000). Two passes when variable fields
     exist: fixed parts (counts among them) first, then the ragged rows
-    (dccrg.hpp:2108-2123)."""
+    (dccrg.hpp:2108-2123).
+
+    Under a process split only this rank's cells are scattered (the
+    reference dccrg's per-rank collective read, dccrg.hpp:2108-2390):
+    the other ranks' rows of the uploaded tensors stay zero."""
     hosts = {}
     for name, (shape, dtype) in grid.fields.items():
         hosts[name] = np.zeros((grid.n_dev, grid.plan.R) + shape,
@@ -563,9 +1053,21 @@ def _scatter_payloads(grid, raw, cells, offsets, fixed_spec, fixed_bytes,
     # chunk's rows come straight from the plan's row table
     same = (len(cells) == len(grid.plan.cells)
             and np.array_equal(cells, grid.plan.cells))
+    pos_of = None  # sorted positions of the scattered cells
+    if grid._multiproc:
+        owner = (grid.plan.owner if same else
+                 grid.plan.owner[np.searchsorted(grid.plan.cells, cells)])
+        keep = np.flatnonzero(grid._proc_local_dev[owner])
+        cells = cells[keep]
+        offsets = offsets[keep]
+        if same:
+            pos_of = keep
 
     def rows_of(start, ids):
-        if same:
+        if pos_of is not None:
+            p = pos_of[start : start + len(ids)]
+            return grid.plan.owner[p], grid.plan.row_of_pos[p].astype(np.int64)
+        if same and not grid._multiproc:
             return (grid.plan.owner[start : start + len(ids)],
                     grid.plan.row_of_pos[start : start + len(ids)].astype(np.int64))
         return grid._host_rows(ids)
@@ -657,7 +1159,30 @@ def load_grid_data(grid, filename: str, header_size: int = 0,
         grid.load_cells(cells)
     _scatter_payloads(grid, raw, cells, offsets, fixed_spec, fixed_bytes,
                       var_spec)
+    _load_done_barrier()
     return header
+
+
+def _load_done_barrier():
+    """In a process group, hold every rank until all have scattered
+    their slices: a fast rank must not go on to overwrite or replace
+    the file while a peer still reads it. One process returns at once.
+    Tagged without the filename, since salvage loads read per-rank
+    scratch names. Best effort: this rank's load is complete, so a
+    peer that cannot answer (it died, which is when survivors load)
+    must not turn it into a failure; the timeout is logged instead."""
+    from . import coord
+
+    if coord.process_count() > 1:
+        import logging
+
+        try:
+            coord.barrier("load_done")
+        except Exception as e:  # noqa: BLE001 - the load is locally done
+            logging.getLogger("dccrg_tpu_torch.checkpoint").warning(
+                "load_done barrier did not complete (%s); this rank's "
+                "load IS complete — do not overwrite the file until "
+                "the lost peers are accounted for", e)
 
 
 def load_grid(filename: str, cell_data, device=None, header_size: int = 0,
@@ -691,4 +1216,5 @@ def load_grid(filename: str, cell_data, device=None, header_size: int = 0,
         grid.load_cells(cells)
     _scatter_payloads(grid, raw, cells, offsets, fixed_spec, fixed_bytes,
                       var_spec)
+    _load_done_barrier()
     return grid, header

@@ -662,8 +662,17 @@ class GridBatch:
         read to the host once and published on :attr:`last_inv`."""
         # quantum boundaries are the fleet's step boundaries: a plan a
         # background recommit finished for the scratch grid installs
-        # here, never mid-quantum (DCCRG_BG_RECOMMIT, as Grid.run_steps)
+        # here, never mid-quantum (DCCRG_BG_RECOMMIT, as Grid.run_steps).
+        # A distributed-AMR grid never reaches this site with a deferred
+        # build: its install is an epoch-fenced collective (distamr), and
+        # one host swapping while a peer steps the old plan is the
+        # divergence the fenced protocol exists to prevent
         if self.grid.bg_pending():
+            if getattr(self.grid, "_amr_group", None) is not None:
+                raise RuntimeError(
+                    "distributed-AMR grid reached a per-host swap site "
+                    "with a deferred plan build; the fenced collective "
+                    "install (distamr) must commit it instead")
             self.grid.bg_install()
         budget = np.asarray(budget, dtype=np.int32)
         q = int(budget.max()) if len(budget) else 0

@@ -119,6 +119,26 @@ def _host_numpy(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
 
 
+def partition_rows(part, dev, rows) -> torch.Tensor:
+    """Host tensor of rows ``(dev, rows)``, each read from ``part(d)``,
+    partition ``d``'s ``[R, ...]`` rows, with one ``index_select`` per
+    partition asked for."""
+    dev = np.asarray(dev)
+    rows = np.asarray(rows, dtype=np.int64)
+    parts = np.unique(dev)
+    if len(parts) == 1:
+        t = part(int(parts[0]))
+        return t.index_select(0, torch.as_tensor(rows, device=t.device)).cpu()
+    t = part(int(parts[0]) if len(parts) else 0)
+    out = torch.empty((len(dev),) + tuple(t.shape[1:]), dtype=t.dtype)
+    for d in parts:
+        t = part(int(d))
+        m = np.flatnonzero(dev == d)
+        out[torch.as_tensor(m)] = t.index_select(
+            0, torch.as_tensor(rows[m], device=t.device)).cpu()
+    return out
+
+
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: the card unless the caller
     asks for another one. Raises when CUDA is asked for (explicitly or
@@ -1024,9 +1044,17 @@ class Grid:
         self.devices = resolve_partitions(device)
         self.device = self.devices[0]
         self.n_dev = len(self.devices)
-        # every partition is this process's (the multi-process slice
-        # fills this from the process group)
+        # which partitions this process may touch from the host: all of
+        # them here. Every process computes the same plan; a process
+        # split (a test faking it, or a process group that marks the
+        # partitions of the other ranks) makes get/set rank-local and
+        # routes checkpoint I/O through the two-phase per-rank writers
+        # (the reference's rank-local access, dccrg.hpp:7738-7803)
         self._proc_local_dev = np.ones(self.n_dev, dtype=bool)
+        # checkpoint-coordination identity: None = the process group's
+        # rank; a faked split pins a per-pass rank here
+        # (coord.process_rank, checkpoint._save_process_slice)
+        self._ckpt_rank = None
 
         self.mapping = Mapping(self._length)
         if self._max_ref_lvl < 0:
@@ -1091,6 +1119,7 @@ class Grid:
         other.device = self.device
         other.n_dev = self.n_dev
         other._proc_local_dev = self._proc_local_dev.copy()
+        other._ckpt_rank = self._ckpt_rank
         other.mapping = Mapping(
             tuple(int(v) for v in self.mapping.length.get()),
             self.mapping.max_refinement_level,
@@ -1429,6 +1458,26 @@ class Grid:
         through ``_proc_local_dev``)."""
         return not bool(self._proc_local_dev.all())
 
+    def _require_local(self, dev, what):
+        """Host access under a process split is rank-local, as in the
+        reference: a process touches only cells of its own partitions
+        (dccrg.hpp's operator[] is valid for local cells)."""
+        if self._multiproc and not self._proc_local_dev[dev].all():
+            raise KeyError(
+                f"{what}: cell(s) live on partitions owned by another "
+                "process; host access is process-local under a process "
+                "split (like the reference's rank-local operator[])"
+            )
+
+    def _shard_read(self, field, dev, rows) -> torch.Tensor:
+        """Host copy of rows ``(dev, rows)`` of ``field`` in the field's
+        own dtype, read partition by partition from each partition's own
+        rows (the reference reads each device's addressable shard,
+        dccrg_tpu/grid.py:1328): only the asked rows cross to the host,
+        and no other partition is touched."""
+        t = self.data[field]
+        return partition_rows(lambda d: t[d], dev, rows)
+
     def _allocate_fields(self):
         self.data = {}
         for name, (shape, dtype) in self.fields.items():
@@ -1522,8 +1571,13 @@ class Grid:
         has no bfloat16; the widening is exact)."""
         scalar = np.isscalar(ids) or np.asarray(ids).ndim == 0
         dev, rows = self._host_rows(ids)
-        flat = _flat(self.data[field])
-        out = _host_numpy(flat.index_select(0, self._flat_rows(dev, rows)))
+        if self._multiproc:
+            # rank-local access: only this process's partitions
+            self._require_local(dev, "get")
+            out = _host_numpy(self._shard_read(field, dev, rows))
+        else:
+            flat = _flat(self.data[field])
+            out = _host_numpy(flat.index_select(0, self._flat_rows(dev, rows)))
         return out[0] if scalar else out
 
     def set(self, field: str, ids, values) -> None:
@@ -1536,10 +1590,23 @@ class Grid:
         ``preserve_ghosts=False`` and ``ids`` covering every cell, the
         fields start from zero tensors instead of being written in
         place: ghost rows read zero until the next halo exchange. When
-        an id repeats, its last value wins."""
+        an id repeats, its last value wins.
+
+        Under a process split a write is rank-local (the reference's
+        operator[] assignment): ids on another process's partitions
+        raise KeyError, except for a write that covers every cell
+        exactly once, whose values are replicated on every process (the
+        init idiom), which lands as on one process."""
         self._mark_ckpt_dirty(values_by_field)
         ids = np.atleast_1d(np.asarray(ids, dtype=np.uint64))
         dev, rows = self._host_rows(ids)
+        fresh = not preserve_ghosts and len(ids) == len(self.plan.cells)
+        # a TRUE cover (every cell exactly once): a same-length list
+        # with duplicates is a partial write (dccrg_tpu/grid.py:1565)
+        if self._multiproc and not fresh and not (
+                len(ids) == len(self.plan.cells)
+                and np.array_equal(np.sort(ids), self.plan.cells)):
+            self._require_local(dev, "set")
         flat = dev.astype(np.int64) * self.plan.R + rows
         keep = None
         if (len(ids) > 1 and not np.all(ids[1:] > ids[:-1])
@@ -1548,7 +1615,6 @@ class Grid:
             keep = np.sort(len(flat) - 1 - last_rev)
             flat = flat[keep]
         flat_t = torch.as_tensor(flat, device=self.device)
-        fresh = not preserve_ghosts and len(ids) == len(self.plan.cells)
         for name, values in values_by_field.items():
             shape, dtype = self.fields[name]
             vals = (values if isinstance(values, torch.Tensor)
@@ -2040,11 +2106,49 @@ class Grid:
         c = self.get_existing_cell(coordinate)
         return bool(c != ERROR_CELL) and self.dont_unrefine(c)
 
+    def enable_distributed_amr(self, *, kv=None, rank=None,
+                               n_ranks=None, membership=None,
+                               prefix="dccrg/amr", timeout=None):
+        """Route this grid's adapt epochs through the crash-consistent
+        cross-rank commit (:mod:`dccrg_tpu_torch.distamr`):
+        ``stop_refining`` becomes an epoch-fenced collective install
+        coordinated over the KV store, every rank's local requests
+        merged by a deadline-bounded proposal exchange. Returns the
+        installed :class:`~dccrg_tpu_torch.distamr.AmrCommitGroup`. A
+        ``membership`` lease view lets a retry after a rank death
+        re-form the collective over the survivors."""
+        from . import distamr
+
+        self._amr_group = distamr.AmrCommitGroup(
+            self, kv=kv, rank=rank, n_ranks=n_ranks,
+            membership=membership, prefix=prefix, timeout=timeout)
+        return self._amr_group
+
+    def disable_distributed_amr(self) -> None:
+        """Drop the commit group: ``stop_refining`` reverts to the
+        one-process commit."""
+        self._amr_group = None
+
     def stop_refining(self) -> np.ndarray:
         """Commit all refinement requests; returns the created cells
         (dccrg.hpp:3483-3507). Data of refined parents and removed
         cells stays readable through get_old_data() until
         clear_refined_unrefined_data().
+
+        With an :meth:`enable_distributed_amr` group installed the
+        commit runs the fenced cross-rank protocol of
+        :mod:`dccrg_tpu_torch.distamr` instead (the same return value,
+        the same atomicity per rank, plus the distributed rollback and
+        fencing). Without one, this is :meth:`_stop_refining_local`."""
+        group = getattr(self, "_amr_group", None)
+        if group is not None:
+            from . import distamr
+
+            return distamr.distributed_stop_refining(self, group)
+        return self._stop_refining_local()
+
+    def _stop_refining_local(self) -> np.ndarray:
+        """The one-process commit behind :meth:`stop_refining`.
 
         On n partitions a child takes its refined parent's partition, a
         merged parent its first child's (``amr.resolve_adaptation``;
@@ -2132,7 +2236,10 @@ class Grid:
             changed_hint = (old_plan.cells, changed)
         else:
             changed_hint = None
-        if defer_ok and background.bg_recommit_enabled():
+        # a process split never defers: every rank must install the
+        # same epoch at the same point (dccrg_tpu/grid.py:3982-3983)
+        if (defer_ok and background.bg_recommit_enabled()
+                and not self._multiproc):
             self._bg_build = background.PlanBuildWorker(
                 self, new_cells, new_owner, changed_hint).start()
             return
@@ -2293,10 +2400,21 @@ class Grid:
         self._removed_cells = np.empty(0, np.uint64)
         self._new_cells = np.empty(0, np.uint64)
 
+    def _owned_subset(self, ids):
+        """The subset of ``ids`` on this process's partitions: the
+        projection helpers write rank-locally under a process split
+        (under distributed AMR the commit's new cells and parents span
+        every rank, and each rank projects its own share)."""
+        if len(ids) == 0 or not self._multiproc:
+            return ids
+        dev, _rows = self._host_rows(ids)
+        return ids[self._proc_local_dev[dev]]
+
     def assign_children_from_parents(self, fields=None) -> None:
         """Copy each new child's value from its refined parent
-        (tests/advection/adapter.hpp:229-301)."""
-        new = self._new_cells
+        (tests/advection/adapter.hpp:229-301; rank-local under a
+        process split)."""
+        new = self._owned_subset(self._new_cells)
         if len(new) == 0:
             return
         parents = self.mapping.get_parent(new)
@@ -2304,10 +2422,11 @@ class Grid:
             self.set(name, new, self.get_old_data(name, parents))
 
     def average_parents_from_children(self, fields=None) -> None:
-        """Set each unrefined parent to the mean of its removed children."""
+        """Set each unrefined parent to the mean of its removed children
+        (rank-local under a process split)."""
         if len(self._removed_cells) == 0:
             return
-        parents = self._unrefined_parents
+        parents = self._owned_subset(self._unrefined_parents)
         if len(parents) == 0:
             return
         kids = self.mapping.get_all_children(parents)  # [n, 8]
@@ -2427,6 +2546,13 @@ class Grid:
         ids, snap = self._staged_balance[field]
         if snap is None:
             return ids.copy(), None
+        if self._multiproc:
+            # rank-local peek: only this process's moving cells (the
+            # plan is unchanged since the stage)
+            dev, _rows = self._host_rows(ids)
+            lm = np.flatnonzero(self._proc_local_dev[dev])
+            return ids[lm].copy(), _host_numpy(
+                snap.index_select(0, torch.as_tensor(lm, device=snap.device)))
         return ids.copy(), _host_numpy(snap)
 
     def finish_balance_load(self) -> None:
@@ -2613,11 +2739,20 @@ class Grid:
         write_vtk_file(self, filename, fields=fields)
 
     def save_grid_data(self, filename: str, header: bytes = b"",
-                       variable=None) -> None:
-        """Write the ``.dc`` bytes (checkpoint.save_grid_data)."""
+                       variable=None, *, sidecar: bool = False,
+                       sidecar_chunk_bytes: int | None = None) -> None:
+        """Write the ``.dc`` bytes (checkpoint.save_grid_data). Under a
+        process split the write is the two-phase commit (slices into
+        ``<file>.mp-tmp``, the CRC exchange at a timeout-guarded
+        barrier, verify and atomic rename by the committing rank);
+        ``sidecar=True`` has that rank also write the CRC32 sidecar with
+        the per-rank slice table. Without a split the sidecar keywords
+        are ignored (``resilience.save_checkpoint`` writes it)."""
         from .checkpoint import save_grid_data
 
-        save_grid_data(self, filename, header, variable=variable)
+        save_grid_data(self, filename, header, variable=variable,
+                       sidecar=sidecar,
+                       sidecar_chunk_bytes=sidecar_chunk_bytes)
 
     def load_grid_data(self, filename: str, header_size: int = 0,
                        variable=None) -> bytes:

@@ -1,7 +1,6 @@
 """Checkpoint integrity, delta checkpoints, the numerics watchdog, the
 OOM fallback chain, the auto-rollback runner and the device probes of
-the port (counterpart of ``dccrg_tpu/resilience.py``, whole but for the
-multi-process save route).
+the port (counterpart of ``dccrg_tpu/resilience.py``).
 
 **Checkpoint integrity**: :func:`save_checkpoint` writes the ``.dc``
 bytes atomically (temp file in the same directory, fsync, rename, with
@@ -582,6 +581,24 @@ def save_checkpoint(grid, filename: str, header: bytes = b"",
             else "keyframe")
     telemetry.inc("dccrg_saves_total", kind=kind)
     t_save = time.perf_counter()
+    if grid._multiproc:
+        # under a process split the save is the TWO-PHASE COMMIT
+        # (checkpoint._save_process_slice): every rank streams its slice
+        # runs into <file>.mp-tmp, a timeout-guarded commit barrier
+        # collects the per-run CRC32s, and the committing rank verifies
+        # every slice before the atomic rename and writes the sidecar
+        # (extended by the per-rank slice table). No retry loop: replaying
+        # the save on ONE rank would desynchronize the ranks' barrier
+        # sequence, so a retry belongs to the caller, on every rank
+        faults.fire("checkpoint.write", path=filename, attempt=0)
+        checkpoint_mod.save_grid_data(
+            grid, filename, header=header, variable=variable,
+            sidecar=sidecar, sidecar_chunk_bytes=chunk_bytes,
+            fields=fields, sidecar_extra=sidecar_extra)
+        faults.corrupt_file(filename)
+        telemetry.observe("dccrg_ckpt_save_seconds",
+                          time.perf_counter() - t_save, kind=kind)
+        return filename
     phase = checkpoint_mod.phase
     tmp = filename + f".tmp.{os.getpid()}"
     side = sidecar_path(filename)
@@ -1264,11 +1281,18 @@ class ResilientRunner:
         against a :func:`dccrg_tpu_torch.background.freeze_grid`
         snapshot, overlapped with the following steps: the same bytes,
         published atomically; :meth:`_drain_saves` is the barrier every
-        reader of the file (rollback, run end) takes first."""
+        reader of the file (rollback, run end) takes first. Under a
+        process split the snapshot is
+        :func:`dccrg_tpu_torch.background.freeze_grid_mp`'s, whose
+        two-phase save runs on the writer thread too (every rank
+        freezes and submits the same save)."""
         if background.async_save_enabled():
             saver = self._active_saver(create=True)
             saver.drain()  # one in flight; an earlier failure raises here
-            frozen = background.freeze_grid(self.grid)
+            frozen = (background.freeze_grid_mp(self.grid,
+                                                variable=self.variable)
+                      if self.grid._multiproc
+                      else background.freeze_grid(self.grid))
             path = self.checkpoint_path
             saver.submit(
                 lambda: save_checkpoint(frozen, path, header=self.header,

@@ -1,10 +1,10 @@
 """Preemption-aware run supervision of the port: the layer that drives
 the resilience stack across a run's whole lifecycle.
 
-Port of ``dccrg_tpu/supervise.py``, whole but for the multi-process
-save route. On preemptible fleets the dominant failure is preemption:
-the scheduler SIGTERMs the job with a short grace window, and a hung
-collective or a wedged step quietly eats that window. This module wraps
+Port of ``dccrg_tpu/supervise.py``. On preemptible fleets the dominant
+failure is preemption: the scheduler SIGTERMs the job with a short
+grace window, and a hung collective or a wedged step quietly eats that
+window. This module wraps
 :class:`~dccrg_tpu_torch.resilience.ResilientRunner`:
 
 **Preemption handling**: :class:`SupervisedRunner` installs
@@ -749,7 +749,15 @@ class CheckpointStore:
                                "keyframe (%s)", step, e)
                 fields = None
         path = self.path_for(step, delta=fields is not None)
-        frozen = background.freeze_grid(grid, fields=fields)
+        # a grid under a process split freezes through freeze_grid_mp:
+        # the two-phase commit's barriers are store traffic, safe on the
+        # writer thread, and the snapshot removes the save's device
+        # reads (host copies of the local partitions, the key-value CRC
+        # exchange, frozen count pulls)
+        frozen = (background.freeze_grid_mp(grid, fields=fields,
+                                            variable=variable)
+                  if grid._multiproc
+                  else background.freeze_grid(grid, fields=fields))
 
         def _write(path=path, fields=fields, extra=extra):
             resilience.save_checkpoint(frozen, path, header=header,
@@ -1138,9 +1146,10 @@ class SupervisedRunner:
     # -- preemption: the emergency checkpoint -------------------------
 
     def _emergency_checkpoint(self, step: int):
-        """The whole emergency save (the ordinary atomic checkpoint plus
-        its CRC verification) runs under the ``grace`` deadline with
-        shortened barrier timeouts. If it cannot finish (a dead peer, a wedged device
+        """The whole emergency save (the ordinary atomic checkpoint,
+        two-phase under a process split, plus its CRC verification)
+        runs under the ``grace`` deadline with shortened barrier
+        timeouts. If it cannot finish (a dead peer, a wedged device
         pull), the LAST PERIODIC checkpoint is the resume point: the
         grace window belongs to the exit, not to the save."""
         r = self._runner

@@ -38,7 +38,11 @@ coordination layer on ``torch.distributed`` (coord.py), delta
 checkpoints, the OOM fallback chain, ``ResilientRunner`` and the device
 probes (resilience.py), and preemption, step deadlines, the numbered
 checkpoint store with its retention GC and ``resume_latest``
-(supervise.py).
+(supervise.py); and the fleet's serving layer: ``FleetScheduler``
+(scheduler.py: admission, backfill, per-job checkpoint stems, the SDC
+defence, SLO shedding, preemption and the elastic multi-rank fleet over
+job leases) with its autopilot (autopilot.py) and the fleet CLI
+(``python -m dccrg_tpu_torch.fleet``).
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``); kernels are built with ``nvcc`` at their first CUDA
 call, never on import.
@@ -50,7 +54,8 @@ from .grid import (DEFAULT_NEIGHBORHOOD_ID, CellView, Grid, SlotwiseKernel,
 from .partition import PARTITION_METHODS, partition_cells
 from .length import GridLength
 from .dense import DenseGrid, dense_mesh
-from .fleet import FleetJob, GridBatch, run_solo, template_grid
+from .fleet import (FleetJob, GridBatch, job_from_row, max_batch_default,
+                    quantum_default, run_solo, template_grid)
 from .integrity import register_conserved
 from .mapping import Mapping
 from .neighbors import (NeighborLists, StructureError, build_neighbor_lists,
@@ -73,8 +78,14 @@ from .resilience import (CheckpointCorruptionError, DeviceProbeError,
 from .supervise import (RESUMABLE_EXIT, CheckpointStore, PreemptedError,
                         StepTimeoutError, SupervisedRunner,
                         gc_checkpoints, resume_latest)
+from .autopilot import Autopilot
+from .scheduler import (FleetPreemptedError, FleetScheduler, JobLeases,
+                        OwnershipLostError, SLOPolicy)
 
 __all__ = [
+    "Autopilot", "FleetPreemptedError", "FleetScheduler", "JobLeases",
+    "OwnershipLostError", "SLOPolicy", "job_from_row", "max_batch_default",
+    "quantum_default",
     "BarrierTimeoutError", "CheckpointCommitError",
     "CheckpointCorruptionError", "CheckpointStore", "DeviceProbeError",
     "DistributedInitError", "FaultPlan", "Membership", "NumericsError",

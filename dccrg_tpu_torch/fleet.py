@@ -30,15 +30,21 @@ and no operation mixes slots. With ``DCCRG_INTEGRITY`` on
 fingerprints and the conservation sums of its input and output state,
 read to the host once per quantum (:attr:`GridBatch.last_inv`).
 
-The job queue, admission, drain/backfill and per-job checkpoints live
-in the reference's ``scheduler.py``, which waits for ROADMAP queue 1,
-item 7; so do its knobs (slots per bucket, steps per
-quantum) and the job state it keeps (retries, SLOs, save cadence).
+The job queue, admission, drain/backfill, per-job checkpoint stems,
+preemption and retention GC live in
+:class:`dccrg_tpu_torch.scheduler.FleetScheduler`, which keeps its job
+state on :class:`FleetJob` (priority, retries, SLO, save cadence);
+``python -m dccrg_tpu_torch.fleet`` runs a job file through it (see
+:func:`_main`), on the card unless ``--device cpu`` says otherwise. Env
+knobs: ``DCCRG_FLEET_MAX_BATCH`` (slots per bucket, default 128),
+``DCCRG_FLEET_QUANTUM`` (steps per batched quantum between scheduler
+polls, default 8).
 """
 
 from __future__ import annotations
 
 import hashlib
+import os
 
 import numpy as np
 import torch
@@ -56,6 +62,28 @@ _F32 = torch.float32
 #: ``GridBatch.shadow_of[slot]``; it occupies a slot without being a
 #: schedulable job itself
 SHADOW = type("_ShadowSlot", (), {"__repr__": lambda s: "<shadow>"})()
+
+
+def max_batch_default(default: int = 128) -> int:
+    """The ``DCCRG_FLEET_MAX_BATCH`` env knob: maximum batch slots per
+    bucket (one bucket = one batched program)."""
+    try:
+        return max(1, int(os.environ.get("DCCRG_FLEET_MAX_BATCH", "")
+                          or default))
+    except ValueError:
+        return default
+
+
+def quantum_default(default: int = 8) -> int:
+    """The ``DCCRG_FLEET_QUANTUM`` env knob: steps per batched quantum
+    between scheduler polls. Longer quanta spread the per-quantum host
+    work over more steps; shorter ones tighten the watchdog, checkpoint
+    and preempt poll cadence (all run at quantum boundaries)."""
+    try:
+        return max(1, int(os.environ.get("DCCRG_FLEET_QUANTUM", "")
+                          or default))
+    except ValueError:
+        return default
 
 
 # ---------------------------------------------------------------------
@@ -215,20 +243,24 @@ register_bulk_kernel("advect_x", _make_advect_x_slotwise())
 
 class FleetJob:
     """One scenario run: an independent uniform grid with its own
-    schema, kernel, parameters, step count and seed. Jobs
-    whose :meth:`bucket_key` matches share one batched program.
+    schema, kernel, parameters, step count, priority, seed and
+    checkpoint stem. Jobs whose :meth:`bucket_key` matches share one
+    batched program.
 
     ``kernel`` is a registry name (:data:`FLEET_KERNELS`) or a grid
     kernel callable; ``params`` are per-job float scalars passed to it
     as batched extras. ``init`` is a ``fn(grid)`` that fills the fields
     (default: a seeded uniform-random fill, the same bytes a solo run
-    starts from)."""
+    starts from). The ``name`` is also the job's
+    :class:`~dccrg_tpu_torch.supervise.CheckpointStore` stem, so it is
+    unique within a scheduler."""
 
     def __init__(self, name, *, length=(16, 16, 16), kernel="diffuse",
                  n_steps=10, cell_data=None, fields_in=None,
-                 fields_out=None, params=None,
-                 periodic=(True, True, True), hood_len=1, seed=0,
-                 init=None):
+                 fields_out=None, params=None, priority=0,
+                 periodic=(True, True, True), hood_len=1,
+                 checkpoint_every=8, max_retries=3, seed=0, init=None,
+                 redundancy=1, slo_ms=None):
         self.name = str(name)
         self.length = tuple(int(v) for v in length)
         self.kernel = kernel
@@ -254,15 +286,46 @@ class FleetJob:
         self.fields_in = tuple(fields_in)
         self.fields_out = tuple(fields_out)
         self.params = tuple(float(p) for p in params)
+        self.priority = int(priority)
         self.periodic = tuple(bool(p) for p in periodic)
         self.hood_len = int(hood_len)
+        self.checkpoint_every = int(checkpoint_every)
+        self.max_retries = int(max_retries)
         self.seed = int(seed)
         self.init = init
+        # redundancy=2: dual modular redundancy (DMR), the scheduler
+        # steps the job in two slots and compares their digests at
+        # every quantum boundary; a mismatch is a CORRUPT trip
+        self.redundancy = max(1, int(redundancy))
+        # latency SLO: a completion deadline in milliseconds from the
+        # job's first enqueue (None = best-effort); the scheduler's
+        # SLOPolicy admits projected violators first and sheds
+        # best-effort cohabitants of a bucket that blows it
+        self.slo_ms = None if slo_ms is None else float(slo_ms)
+        self.slo_t0 = None  # policy-clock time of the first add()
+        # scheduler-owned runtime state
+        self.steps_done = 0
+        self.retries = 0
+        self.requeues = 0
+        self.rollbacks = 0
+        self.transient_retries = 0
+        self.trips = []  # [(kind, at_step)]
+        self.status = "queued"
+        self.digest = None
+        self.last_save_step = None
+        self._last_trip_step = -1
+        # the slot fingerprint recorded at the end of the last quantum
+        # ({field: (s1, s2)}), reset by every sanctioned slot rewrite
+        # (admission, restore)
+        self._fp = None
 
     def resolved_kernel(self):
         if callable(self.kernel):
             return self.kernel
         fn = FLEET_KERNELS.get(str(self.kernel))
+        if fn is None:
+            _kernel_spec(str(self.kernel))  # zoo registration on a miss
+            fn = FLEET_KERNELS.get(str(self.kernel))
         if fn is None:
             raise UnknownKernelError(self.name, self.kernel, FLEET_KERNELS)
         return fn
@@ -772,12 +835,14 @@ def job_from_row(row: dict, *, validate_kernel: bool = False) -> FleetJob:
     """Parse one job record into a :class:`FleetJob`. Keys: ``name``
     (required, unique), ``n`` (cube edge) or ``length`` [x, y, z],
     ``kernel`` (registry name), ``steps``, ``params`` (list of floats;
-    ``dt`` is shorthand for one), ``seed``, ``periodic`` [bool, bool,
-    bool]; the scheduler's keys (``priority``, ``checkpoint_every``,
-    ``redundancy``, ``slo_ms``) are ignored. Malformed records raise
-    :class:`JobSpecError`; ``validate_kernel=True`` resolves the kernel
-    name at once, so an unknown kernel raises
-    :class:`UnknownKernelError` here."""
+    ``dt`` is shorthand for one), ``priority``, ``seed``,
+    ``checkpoint_every``, ``periodic`` [bool, bool, bool],
+    ``redundancy`` (2 = DMR: two slots step the job and their digests
+    are compared every quantum), ``slo_ms`` (completion deadline in
+    milliseconds for the scheduler's SLO admission; absent =
+    best-effort). Malformed records raise :class:`JobSpecError`;
+    ``validate_kernel=True`` resolves the kernel name at once, so an
+    unknown kernel raises :class:`UnknownKernelError` here."""
     if not isinstance(row, dict):
         raise JobSpecError(f"job row is not a mapping: {row!r}")
     if "name" not in row:
@@ -795,8 +860,12 @@ def job_from_row(row: dict, *, validate_kernel: bool = False) -> FleetJob:
             row["name"], length=length,
             kernel=row.get("kernel", "diffuse"),
             n_steps=int(row.get("steps", 10)), params=params,
+            priority=int(row.get("priority", 0)),
             seed=int(row.get("seed", 0)),
             periodic=tuple(row.get("periodic", (True, True, True))),
+            checkpoint_every=int(row.get("checkpoint_every", 8)),
+            redundancy=int(row.get("redundancy", 1)),
+            slo_ms=row.get("slo_ms"),
         )
     except JobSpecError:
         raise
@@ -812,3 +881,140 @@ def _jobs_from_spec(spec: dict) -> list:
     """Parse a job-file dict (``{"jobs": [{...}]}``) into
     :class:`FleetJob` objects through :func:`job_from_row`."""
     return [job_from_row(row) for row in spec.get("jobs", [])]
+
+
+# ---------------------------------------------------------------------
+# CLI: python -m dccrg_tpu_torch.fleet <jobs.json> | --demo N
+# ---------------------------------------------------------------------
+
+def _main(argv=None) -> int:
+    """``python -m dccrg_tpu_torch.fleet jobs.json [--workdir DIR]``:
+    run a fleet job file through :class:`~dccrg_tpu_torch.scheduler
+    .FleetScheduler` (``--demo N`` makes N diffuse jobs instead). Prints
+    one JSON row per finished job plus a summary; exits 75 (resumable)
+    when preempted mid-fleet, and a rerun with the same workdir resumes
+    every requeued job from its emergency checkpoint. Runs on the card;
+    ``--device cpu`` (or ``DCCRG_FLEET_BACKEND=cpu``) asks for the CPU,
+    and without a card and without that choice the run stops with exit
+    code 2."""
+    import argparse
+    import json
+    import sys
+    import tempfile
+    import time
+
+    ap = argparse.ArgumentParser(prog="python -m dccrg_tpu_torch.fleet",
+                                 description=_main.__doc__)
+    ap.add_argument("jobs_file", nargs="?", default=None,
+                    help="JSON job file ({'jobs': [{...}]})")
+    ap.add_argument("--demo", type=int, default=None, metavar="N",
+                    help="make N diffuse jobs instead of reading a file")
+    ap.add_argument("--n", type=int, default=16,
+                    help="--demo grid edge length (default 16)")
+    ap.add_argument("--steps", type=int, default=20,
+                    help="--demo steps per job (default 20)")
+    ap.add_argument("--workdir", default=None,
+                    help="checkpoint directory (default: a temp dir)")
+    ap.add_argument("--max-batch", type=int, default=None)
+    ap.add_argument("--quantum", type=int, default=None)
+    ap.add_argument("--keep-last", type=int, default=None)
+    ap.add_argument("--no-resume", action="store_true",
+                    help="ignore existing checkpoints in the workdir")
+    ap.add_argument("--autopilot", action="store_true",
+                    help="enable the telemetry-driven self-tuning "
+                         "controller (same as DCCRG_AUTOPILOT=1; "
+                         "decisions journal to DCCRG_DECISION_FILE)")
+    ap.add_argument("--device", default=None,
+                    help="cuda (default) or cpu; DCCRG_FLEET_BACKEND "
+                         "sets the default")
+    args = ap.parse_args(argv)
+    device = args.device or os.environ.get("DCCRG_FLEET_BACKEND") or "cuda"
+    if device.startswith("cuda") and not torch.cuda.is_available():
+        print("python -m dccrg_tpu_torch.fleet: no CUDA device is "
+              "available; pass --device cpu (or DCCRG_FLEET_BACKEND=cpu) "
+              "to run on the CPU", file=sys.stderr)
+        return 2
+    if args.autopilot:
+        os.environ["DCCRG_AUTOPILOT"] = "1"
+
+    from .scheduler import FleetPreemptedError, FleetScheduler
+
+    if args.demo is not None:
+        jobs = [FleetJob(f"demo{i:04d}", length=(args.n,) * 3,
+                         n_steps=args.steps, params=(0.05,), seed=i,
+                         priority=i % 3)
+                for i in range(args.demo)]
+    elif args.jobs_file:
+        with open(args.jobs_file) as f:
+            jobs = _jobs_from_spec(json.load(f))
+    else:
+        ap.error("either a jobs file or --demo N is required")
+
+    workdir = args.workdir or tempfile.mkdtemp(prefix="dccrg_fleet_")
+    sched = FleetScheduler(
+        workdir, jobs, max_batch=args.max_batch, quantum=args.quantum,
+        keep_last=args.keep_last, resume=not args.no_resume,
+        devices=[torch.device(device)], install_signal_handlers=True)
+    t0 = time.perf_counter()
+    try:
+        report = sched.run()
+    except FleetPreemptedError as e:
+        print(json.dumps({"preempted": True,
+                          "requeued": e.requeued,
+                          "workdir": workdir}), flush=True)
+        return e.exit_code
+    wall = time.perf_counter() - t0
+    from . import telemetry
+
+    reg = telemetry.registry()
+    done = failed = steps = 0
+    for name in sorted(report):
+        row = dict(report[name], name=name)
+        # the per-job summary comes from the telemetry registry (the
+        # series dump_prometheus exposes): quantum-latency quantiles,
+        # trip and rollback counters, throughput over the fleet wall
+        h = reg.histogram("dccrg_fleet_quantum_seconds", job=name)
+        row.update({
+            "quantum_p50_ms": (round(h.quantile(0.5) * 1e3, 3)
+                               if h is not None and h.total else None),
+            "quantum_p99_ms": (round(h.quantile(0.99) * 1e3, 3)
+                               if h is not None and h.total else None),
+            "trips_total": int(reg.counter_total(
+                "dccrg_fleet_trips_total", job=name)),
+            "rollbacks_total": int(reg.counter_total(
+                "dccrg_fleet_rollbacks_total", job=name)),
+            "steps_per_s": (round(row["steps"] / wall, 3)
+                            if wall > 0 else None),
+        })
+        print(json.dumps(row), flush=True)
+        done += row["status"] == "done"
+        failed += row["status"] == "failed"
+        steps += row["steps"]
+    summary = {
+        "jobs": len(report), "done": done, "failed": failed,
+        "steps_total": steps, "wall_s": round(wall, 3),
+        "runs_per_s": round(done / wall, 3) if wall > 0 else None,
+        "workdir": workdir, "device": str(device)}
+    if sched.autopilot is not None:
+        ap_state = sched.autopilot
+        summary["autopilot"] = {
+            "decisions": ap_state.seq,
+            "quantum": ap_state.quantum,
+            "audit_every": ap_state.audit_every,
+            "learned_capacities": dict(ap_state.capacity),
+        }
+    print(json.dumps({"summary": summary}), flush=True)
+    return 0 if failed == 0 else 1
+
+
+if __name__ == "__main__":  # pragma: no cover - exercised via the CLI
+    import sys
+
+    # `python -m dccrg_tpu_torch.fleet` loads this file as __main__, a
+    # second module instance with its own registries; the model zoo
+    # registers into the canonical `dccrg_tpu_torch.fleet`, so the CLI
+    # runs through that instance or a zoo kernel a job file names would
+    # be unknown here
+    from dccrg_tpu_torch import fleet as _canonical
+
+    sys.exit(_canonical._main())

@@ -62,6 +62,42 @@ def integrity_enabled(default: bool = True) -> bool:
     return v not in ("0", "off", "false", "no")
 
 
+def audit_every_default(default: int = 0) -> int:
+    """The ``DCCRG_AUDIT_EVERY`` env knob: run a shadow-execution
+    audit every N scheduler ticks (0 = audits off). Each audit
+    re-executes one slot's last quantum from its pre-quantum state and
+    compares digests."""
+    try:
+        return max(0, int(os.environ.get("DCCRG_AUDIT_EVERY", "")
+                          or default))
+    except ValueError:
+        return default
+
+
+def quarantine_after_default(default: int = 3) -> int:
+    """The ``DCCRG_QUARANTINE_AFTER`` env knob: corrupt verdicts
+    attributed to one device lane before the scheduler quarantines it
+    and migrates its jobs (0 = never quarantine)."""
+    try:
+        return max(0, int(os.environ.get("DCCRG_QUARANTINE_AFTER", "")
+                          or default))
+    except ValueError:
+        return default
+
+
+def note_suspect(lane: int, count: int, quarantined: bool = False) -> None:
+    """Export one device lane's suspect accounting as gauges
+    (``dccrg_lane_suspects{lane}`` / ``dccrg_lane_quarantined{lane}``):
+    an input of the autopilot's audit-cadence rule and of the
+    operator's dashboard."""
+    from . import telemetry
+
+    telemetry.set_gauge("dccrg_lane_suspects", int(count),
+                        lane=str(int(lane)))
+    telemetry.set_gauge("dccrg_lane_quarantined",
+                        1 if quarantined else 0, lane=str(int(lane)))
+
+
 def integrity_rtol(default: float = 1e-4) -> float:
     """The ``DCCRG_INTEGRITY_RTOL`` env knob: relative tolerance for
     conservation-sum drift (float reductions are inexact; the

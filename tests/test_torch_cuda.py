@@ -467,3 +467,59 @@ def test_dense_mesh_on_the_card(device, shape):
     x1, i1 = DensePoissonSolver((16,) * 3, periodic=per, device=device).solve(rhs)
     xm, im = DensePoissonSolver((16,) * 3, periodic=per, mesh=mesh).solve(rhs)
     assert i1 == im and torch.equal(x1, xm)
+
+
+def test_scheduler_serves_on_kernel_a_prime(device, tmp_path):
+    """FleetScheduler on the card: the diffuse and advect_x buckets take
+    kernel A' (bulk_active), kernel A' launches once for every step of
+    each quantum (the largest budget), a NaN trip rolls its victim back,
+    and the states agree with a table-program scheduler's within the
+    bulk rule (rtol 1e-5, atol 1e-6)."""
+    from dccrg_tpu_torch import faults
+    from dccrg_tpu_torch.scheduler import FleetScheduler
+
+    def jobs():
+        return ([fleet.FleetJob(f"d{i}", length=(16, 16, 16), n_steps=10,
+                                params=(0.02 + 0.005 * i,), seed=i,
+                                checkpoint_every=4) for i in range(5)]
+                + [fleet.FleetJob(f"x{i}", length=(16, 16, 16),
+                                  kernel="advect_x", n_steps=7,
+                                  params=(0.3,), seed=10 + i,
+                                  checkpoint_every=4) for i in range(3)])
+
+    states = {}
+    for bulk in (True, False):
+        sched = FleetScheduler(tmp_path / str(bulk), jobs(), quantum=4,
+                               devices=[device], bulk=bulk)
+        steps, states[bulk] = [], {}
+        step = fleet.GridBatch.step
+        finish = sched._finish
+
+        def counted(self, budget, step=step, steps=steps):
+            q = step(self, budget)
+            steps.append(q)
+            return q
+
+        def keep(batch, slot, job, status="done", finish=finish, bulk=bulk):
+            states[bulk][job.name] = batch.state["rho"][slot].clone()
+            finish(batch, slot, job, status)
+
+        sched._finish = keep
+        plan = faults.FaultPlan(seed=1)
+        plan.nan_poison("rho", step=5, job="d2")
+        before = roll_executor.fleet_bulk_pass.launches
+        fleet.GridBatch.step = counted
+        try:
+            with plan:
+                report = sched.run()
+        finally:
+            fleet.GridBatch.step = step
+        launches = roll_executor.fleet_bulk_pass.launches - before
+        assert all(r["status"] == "done" for r in report.values())
+        assert report["d2"]["rollbacks"] == 1
+        assert all(b.bulk_active() is bulk
+                   for bs in sched.buckets.values() for b in bs)
+        assert launches == (sum(steps) if bulk else 0)
+    for name, want in states[False].items():
+        got = states[True][name]
+        assert torch.allclose(got, want, rtol=1e-5, atol=1e-6), name

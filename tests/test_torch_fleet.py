@@ -13,6 +13,9 @@ interpret mode, and to the port's own table program by the rule of
 tests/test_bulk_executor.py:273-278.
 """
 
+import json
+import os
+
 import ml_dtypes
 import numpy as np
 import pytest
@@ -430,3 +433,154 @@ def test_entry_points_default_to_the_card(monkeypatch):
         port.GridBatch(job, 2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port.run_solo(job)
+
+
+# ---------------------------------------------------------------------
+# the scheduler's knobs, job state and records; the CLI on the CPU
+# ---------------------------------------------------------------------
+
+ROW_KEYS = ("name", "length", "kernel", "n_steps", "params", "priority",
+            "periodic", "hood_len", "checkpoint_every", "max_retries", "seed",
+            "redundancy", "slo_ms", "fields_in", "fields_out")
+STATE_KEYS = ("slo_t0", "steps_done", "retries", "requeues", "rollbacks",
+              "transient_retries", "trips", "status", "digest",
+              "last_save_step", "_last_trip_step", "_fp")
+
+
+@pytest.mark.parametrize("row", [
+    {"name": "a"},
+    {"name": "b", "n": 6, "kernel": "advect_x", "steps": 7, "dt": 0.25,
+     "priority": 3, "seed": 9, "checkpoint_every": 2, "redundancy": 2,
+     "slo_ms": 250},
+    {"name": "c", "length": [4, 5, 6], "params": [0.1], "periodic": [1, 0, 1],
+     "redundancy": 0, "slo_ms": None},
+    {"name": "d", "kernel": "mhd", "n": 6, "priority": -1},
+])
+def test_job_from_row_reads_every_reference_key(row):
+    """Every key the reference's job_from_row reads lands on the port's
+    FleetJob with the same value, and the scheduler's runtime state
+    starts where the reference's does."""
+    r, p = ref.job_from_row(dict(row)), port.job_from_row(dict(row))
+    for k in ROW_KEYS + STATE_KEYS:
+        assert getattr(p, k) == getattr(r, k), k
+    assert p.bucket_key() == r.bucket_key()
+
+
+@pytest.mark.parametrize("knob,env,fn", [
+    ("max_batch", "DCCRG_FLEET_MAX_BATCH", "max_batch_default"),
+    ("quantum", "DCCRG_FLEET_QUANTUM", "quantum_default"),
+])
+def test_fleet_knobs_match_reference(monkeypatch, knob, env, fn):
+    for value in ("", "0", "5", "-3", "junk", "64"):
+        monkeypatch.setenv(env, value)
+        assert getattr(port, fn)() == getattr(ref, fn)(), (knob, value)
+    monkeypatch.delenv(env)
+    assert getattr(port, fn)() == getattr(ref, fn)()
+
+
+def test_integrity_scheduler_knobs_match_reference(monkeypatch):
+    from dccrg_tpu import integrity as r_int
+    from dccrg_tpu_torch import integrity as p_int
+    from dccrg_tpu_torch import telemetry as p_tel
+
+    for env, fn in (("DCCRG_AUDIT_EVERY", "audit_every_default"),
+                    ("DCCRG_QUARANTINE_AFTER", "quarantine_after_default")):
+        for value in ("", "0", "2", "-1", "x"):
+            monkeypatch.setenv(env, value)
+            assert getattr(p_int, fn)() == getattr(r_int, fn)(), (env, value)
+    p_tel.registry().reset()
+    p_int.note_suspect(1, 3, quarantined=True)
+    g = p_tel.registry().gauges
+    assert g[("dccrg_lane_suspects", (("lane", "1"),))] == 3
+    assert g[("dccrg_lane_quarantined", (("lane", "1"),))] == 1
+    p_tel.registry().reset()
+
+
+def _cli_rows(out):
+    rows = [json.loads(line) for line in out.strip().splitlines()]
+    return {r["name"]: r for r in rows if "name" in r}, rows[-1]
+
+
+def test_cli_runs_a_job_file_on_the_cpu(tmp_path, capsys):
+    """``--device cpu``: every job done, and each printed digest the
+    in-process scheduler's for the same file (the bulk program, as the
+    CLI's scheduler runs it)."""
+    from dccrg_tpu_torch.scheduler import FleetScheduler
+
+    spec = {"jobs": [
+        {"name": "a", "n": 6, "kernel": "diffuse", "steps": 6, "dt": 0.05,
+         "seed": 1},
+        {"name": "b", "n": 6, "kernel": "advect_x", "steps": 8,
+         "params": [0.4], "priority": 2},
+        {"name": "m", "n": 6, "kernel": "mhd", "steps": 3},
+    ]}
+    jf = tmp_path / "jobs.json"
+    jf.write_text(json.dumps(spec))
+    rc = port._main([str(jf), "--workdir", str(tmp_path / "wd"),
+                     "--quantum", "3", "--device", "cpu"])
+    assert rc == 0
+    byname, last = _cli_rows(capsys.readouterr().out)
+    assert {n: r["steps"] for n, r in byname.items()} == {"a": 6, "b": 8, "m": 3}
+    assert all(r["status"] == "done" for r in byname.values())
+    assert last["summary"]["jobs"] == 3 and last["summary"]["done"] == 3
+    assert last["summary"]["device"] == "cpu"
+    report = FleetScheduler(tmp_path / "in", port._jobs_from_spec(spec),
+                            quantum=3, devices=["cpu"]).run()
+    assert {n: r["digest"] for n, r in report.items()} == \
+        {n: r["digest"] for n, r in byname.items()}
+
+
+def test_cli_demo_and_preempt_exit_75(tmp_path, capsys, monkeypatch):
+    monkeypatch.setenv("DCCRG_FLEET_BACKEND", "cpu")
+    assert {"diffuse", "advect_x"} <= set(port.FLEET_KERNELS)
+    rc = port._main(["--demo", "3", "--n", "6", "--steps", "5",
+                     "--workdir", str(tmp_path / "demo")])
+    assert rc == 0
+    assert _cli_rows(capsys.readouterr().out)[1]["summary"]["done"] == 3
+    plan = port.faults.FaultPlan(seed=1)
+    plan.preempt_signal(step=1)
+    wd = str(tmp_path / "pre")
+    with plan:
+        rc = port._main(["--demo", "3", "--n", "6", "--steps", "9",
+                         "--quantum", "2", "--workdir", wd])
+    assert rc == 75
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["preempted"] is True and sorted(out["requeued"]) == \
+        ["demo0000", "demo0001", "demo0002"]
+    # the rerun over the same workdir resumes and finishes every job
+    assert port._main(["--demo", "3", "--n", "6", "--steps", "9",
+                       "--quantum", "2", "--workdir", wd]) == 0
+    byname, _ = _cli_rows(capsys.readouterr().out)
+    assert all(r["status"] == "done" and r["steps"] == 9
+               for r in byname.values())
+
+
+def test_cli_refuses_without_a_card(tmp_path, capsys, monkeypatch):
+    """No card and no ``--device cpu``: exit 2 with a message naming the
+    flag; nothing runs on the CPU behind the caller's back."""
+    monkeypatch.delenv("DCCRG_FLEET_BACKEND", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    wd = tmp_path / "wd"
+    assert port._main(["--demo", "1", "--n", "4", "--workdir", str(wd)]) == 2
+    assert "--device cpu" in capsys.readouterr().err
+    assert not wd.exists()
+
+
+def test_cli_module_entry_runs_on_the_cpu(tmp_path):
+    """``python -m dccrg_tpu_torch.fleet`` runs through the canonical
+    module (a zoo kernel named by the file resolves)."""
+    import subprocess
+    import sys
+
+    jf = tmp_path / "jobs.json"
+    jf.write_text(json.dumps({"jobs": [
+        {"name": "z", "kernel": "vlasov", "n": 4, "steps": 2}]}))
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root, DCCRG_FLEET_BACKEND="cpu")
+    out = subprocess.run(
+        [sys.executable, "-m", "dccrg_tpu_torch.fleet", str(jf),
+         "--workdir", str(tmp_path / "wd")],
+        capture_output=True, text=True, env=env, timeout=300, cwd=root)
+    assert out.returncode == 0, out.stderr
+    byname, last = _cli_rows(out.stdout)
+    assert byname["z"]["status"] == "done" and last["summary"]["done"] == 1

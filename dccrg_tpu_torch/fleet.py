@@ -50,7 +50,7 @@ import numpy as np
 import torch
 
 from . import checkpoint as checkpoint_mod
-from . import faults, integrity
+from . import faults, integrity, warmstart
 from .convert import _to_numpy, _to_tensor
 from .grid import (DEFAULT_NEIGHBORHOOD_ID, Grid, SlotwiseKernel,
                    _GatheredNeighbors, as_torch_dtype, single_device,
@@ -469,7 +469,10 @@ class GridBatch:
         self.capacity = int(capacity)
         # one device, as the reference's GridBatch
         self.device = single_device(device, "GridBatch")
-        self.grid = template_grid(proto, self.device)
+        # a skeleton's template grid stays on the host: its plan tables
+        # are host arrays either way, and the warm pool's prewarm thread
+        # must put nothing on the device
+        self.grid = template_grid(proto, "cpu" if skeleton else self.device)
         plan = self.grid.plan
         self.L = int(plan.L)
         self.R = int(plan.R)
@@ -525,14 +528,26 @@ class GridBatch:
     def _programs(self):
         key = self._program_key()
         hit = _FLEET_PROGRAMS.get(key)
+        if hit is not None:
+            return hit
+        # a prewarmed program from the warm-start pool is the tuple
+        # _build_programs returns, built (and its kernel library loaded)
+        # on the pool's thread; None when no DCCRG_COMPILE_CACHE pool is
+        # active (the negative pin)
+        hit = warmstart.take_prewarmed(key, device=self.device)
         if hit is None:
             hit = self._build_programs(key)
-            if len(_FLEET_PROGRAMS) >= _FLEET_PROGRAMS_MAX:
-                _FLEET_PROGRAMS.pop(next(iter(_FLEET_PROGRAMS)))
-            _FLEET_PROGRAMS[key] = hit
+        if len(_FLEET_PROGRAMS) >= _FLEET_PROGRAMS_MAX:
+            _FLEET_PROGRAMS.pop(next(iter(_FLEET_PROGRAMS)))
+        _FLEET_PROGRAMS[key] = hit
         return hit
 
     def _build_programs(self, key):
+        """The bucket's ``(run_quantum, finite, fp_now, bulk)``. Building
+        them launches nothing on the device, so the warm pool's thread
+        may build them: a bulk bucket on the card loads (or builds)
+        kernel A' here, and a table program uploads its neighbour tables
+        at its first dispatch."""
         int_on, want_bulk = key[2], key[3]
         from .ops import roll_executor
 
@@ -545,16 +560,20 @@ class GridBatch:
         L, fin, fout = self.L, self.fields_in, self.fields_out
         kernel, n_extra, cap = self.kernel, self.n_extra, self.capacity
         dev = self.device
+        if bulk and dev.type == "cuda":
+            roll_executor.fleet_library()
         if not bulk:
             hood = self.grid.plan.hoods[DEFAULT_NEIGHBORHOOD_ID]
             # [L, S] rows / mask and the mask-zeroed [L, S, 3] offsets:
             # invalid slots point at the permanent zero row
-            rows = torch.as_tensor(np.asarray(hood.nbr_rows[0]),
-                                   dtype=torch.int64, device=dev)
-            mask = torch.as_tensor(np.asarray(hood.nbr_mask[0]), device=dev)
-            offs = torch.as_tensor(np.asarray(hood.nbr_offs[0]), device=dev)
+            host = (np.asarray(hood.nbr_rows[0]).astype(np.int64),
+                    np.asarray(hood.nbr_mask[0]), np.asarray(hood.nbr_offs[0]))
+            tables = []  # uploaded at the first dispatch
 
             def vstep(state, extras):
+                if not tables:
+                    tables.extend(torch.as_tensor(a, device=dev) for a in host)
+                rows, mask, offs = tables
                 cell = {n: state[n][:, :L] for n in fin}
                 # a field's neighbour stack is gathered when the kernel
                 # first reads it: a vlasov job never gathers its wide f

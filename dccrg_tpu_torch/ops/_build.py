@@ -5,9 +5,11 @@ it compiles with ``nvcc`` alone, without PyTorch's headers (seconds,
 where an extension that includes them takes minutes). The shared
 library goes into ``dccrg_tpu_torch/_build/`` (git-ignored), named by a
 hash of the source and the flags, so an edited source is never served
-from a stale build. Nothing is compiled or loaded on import: the first
-CUDA call of a kernel builds it, and ``build`` compiles several sources
-at once, one ``nvcc`` process each, all started together.
+from a stale build; a warm-start cache (``DCCRG_COMPILE_CACHE``) moves
+it to the cache's ``build/`` with :func:`set_build_dir`. Nothing is
+compiled or loaded on import: the first CUDA call of a kernel builds
+it, and ``build`` compiles several sources at once, one ``nvcc``
+process each, all started together.
 
 ``--fmad=false`` keeps every float32 multiply and add separately
 rounded, as PyTorch's elementwise kernels and the reference package's
@@ -51,10 +53,25 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def _target(name: str):
+def set_build_dir(path) -> Path:
+    """Point later builds and loads at ``path`` (the warm-start cache's
+    ``build/``, shared by the processes of one host); returns the
+    directory it replaces. A library already loaded stays loaded."""
+    global BUILD_DIR
+    old, BUILD_DIR = BUILD_DIR, Path(path)
+    return old
+
+
+def library_name(name: str) -> str:
+    """File name of source ``name``'s library: ``lib<name>-<hash>.so``,
+    the hash over the source and the flags."""
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return src, BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+    return f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def _target(name: str):
+    return CSRC / f"{name}.cu", BUILD_DIR / library_name(name)
 
 
 def build(names) -> dict:

@@ -502,6 +502,12 @@ def fleet_freeze(new, old, budget, i):
     return torch.where(live, new, old)
 
 
+def fleet_library():
+    """Kernel A''s loaded library, built first where the build directory
+    lacks it."""
+    return _build.load("fleet_bulk_pass", _FLEET_SIG)
+
+
 def fleet_bulk_pass(spec, kernel, state, extras, budget=None, i=0):
     """One fleet step of ``kernel``'s device flux over every slot of
     ``state`` (the bucket's ``[B, R]`` field, row stride ``R``) with
@@ -538,7 +544,7 @@ def fleet_bulk_pass(spec, kernel, state, extras, budget=None, i=0):
         raise ValueError("fleet_bulk_pass needs contiguous float32 [B, E] "
                          "extras on the state's device")
     flux = FLEET_FLUXES[kernel.device_flux][2]
-    lib = _build.load("fleet_bulk_pass", _FLEET_SIG)
+    lib = fleet_library()
     out = torch.empty_like(state)
     nx, ny, nz = spec.dims
     geom = (ctypes.c_int * 8)(nx, ny, nz, *(int(p) for p in spec.periodic),

@@ -70,10 +70,10 @@ multi-tenant serving loop, reusing the per-run lifecycle machinery of
   completion). Off by default: without the flag no membership or lease
   object exists.
 
-The streaming intake and the warm pool (``intake``, ``warm_pool``) are
-hooks here as in the reference; their modules wait for ROADMAP.md
-queue 1, item 7b, and constructing either from the environment
-(``DCCRG_INTAKE``, ``DCCRG_COMPILE_CACHE``) raises NotImplementedError.
+The streaming intake (:mod:`dccrg_tpu_torch.intake`) and the warm
+pool (:mod:`dccrg_tpu_torch.warmstart`) are off by default: they exist
+when injected (``intake``, ``warm_pool``) or under ``DCCRG_INTAKE=1``
+(spool from ``DCCRG_INTAKE_SPOOL``) and ``DCCRG_COMPILE_CACHE=<dir>``.
 """
 
 from __future__ import annotations
@@ -92,16 +92,13 @@ import torch
 from . import autopilot as autopilot_mod
 from . import checkpoint as checkpoint_mod
 from . import (coord, faults, integrity, resilience, supervise,
-               telemetry)
+               telemetry, warmstart)
 from .convert import _to_tensor
 from .fleet import (SHADOW, FleetJob, GridBatch, max_batch_default,
                     quantum_default)
 from .grid import bucket_capacity
 
 logger = logging.getLogger("dccrg_tpu_torch.scheduler")
-
-#: what the streaming intake and the warm pool wait for
-INTAKE_SLICE = "ROADMAP.md queue 1, item 7b"
 
 
 def rank_aware_default(default: bool = False) -> bool:
@@ -567,12 +564,12 @@ class FleetScheduler:
     one is constructed only under ``DCCRG_AUTOPILOT=1`` — otherwise
     ``self.autopilot`` stays None and every autopilot hook is a
     skipped ``if``, leaving scheduling, checkpoint cadence and audit
-    cadence those of a scheduler without one. ``intake`` and
-    ``warm_pool`` are the hooks of the streaming intake and the warm
-    pool, whose modules wait for ``INTAKE_SLICE``: an injected object
-    is attached as in the reference, while ``DCCRG_INTAKE`` or
-    ``DCCRG_COMPILE_CACHE`` in the environment raises
-    NotImplementedError."""
+    cadence those of a scheduler without one. ``intake`` injects a
+    :class:`~dccrg_tpu_torch.intake.StreamIntake` (with None one is
+    constructed only under ``DCCRG_INTAKE=1``) and ``warm_pool`` a
+    :class:`~dccrg_tpu_torch.warmstart.WarmPool` (with None one is
+    constructed only under ``DCCRG_COMPILE_CACHE``); without them
+    ``self.intake`` and ``self.warm`` stay None."""
 
     def __init__(self, checkpoint_dir, jobs=(), *, max_batch=None,
                  quantum=None, keep_last=None, keep_every=0,
@@ -676,30 +673,27 @@ class FleetScheduler:
                 # seconds-long kernel build mid-tick is never read as
                 # a death (fake-clock tests beat by hand)
                 membership.start_auto()
-        # streaming intake front door: OFF by default, None means the
-        # serving loop takes ZERO new branches; its module (and so its
-        # construction from DCCRG_INTAKE) waits for INTAKE_SLICE, an
-        # injected intake is attached
+        # streaming intake front door: OFF by default — None means
+        # the serving loop takes ZERO new branches (the negative pin
+        # in tests/test_torch_intake.py); DCCRG_INTAKE=1 constructs one
+        # over DCCRG_INTAKE_SPOOL, or inject an intake.StreamIntake
         self.intake = None
         if intake is None and os.environ.get(
                 "DCCRG_INTAKE", "") not in ("", "0", "off", "false",
                                             "no"):
-            raise NotImplementedError(
-                "DCCRG_INTAKE: the streaming intake waits for "
-                f"{INTAKE_SLICE}")
+            from . import intake as intake_mod
+
+            intake = intake_mod.StreamIntake.from_env(self)
         if intake is not None:
             self.intake = intake
             intake.attach(self)
-        # warm-start pool: OFF by default, None means the serving loop
-        # takes ZERO new branches; its module (and so its construction
-        # from DCCRG_COMPILE_CACHE) waits for INTAKE_SLICE, an injected
-        # pool is attached
+        # warm-start pool: OFF by default — None means the serving
+        # loop takes ZERO new branches (the negative pin in
+        # tests/test_torch_warmstart.py); DCCRG_COMPILE_CACHE constructs
+        # one over that dir, or inject a warmstart.WarmPool directly
         self.warm = None
-        if warm_pool is None and os.environ.get(
-                "DCCRG_COMPILE_CACHE", "").strip():
-            raise NotImplementedError(
-                "DCCRG_COMPILE_CACHE: the warm pool (a cache of kernel "
-                f"builds) waits for {INTAKE_SLICE}")
+        if warm_pool is None:
+            warm_pool = warmstart.WarmPool.from_env()
         if warm_pool is not None:
             self.warm = warm_pool
             warm_pool.attach(self)

@@ -18,6 +18,7 @@ in-place ``set`` does not reach.
 
 import hashlib
 import os
+import threading
 
 import numpy as np
 import pytest
@@ -29,7 +30,8 @@ from test_recommit import plan_fingerprint
 from dccrg_tpu_torch import Grid, MutationAbortedError, telemetry, verify
 from dccrg_tpu_torch import checkpoint as checkpoint_mod
 from dccrg_tpu_torch import resilience
-from dccrg_tpu_torch.background import AsyncSaver, PrewarmWorker, freeze_grid
+from dccrg_tpu_torch.background import (AsyncSaver, PlanBuildWorker,
+                                        PrewarmWorker, freeze_grid)
 from dccrg_tpu_torch.faults import FaultPlan
 from dccrg_tpu_torch.fleet import FleetJob, GridBatch
 from dccrg_tpu_torch.txn import grid_state_bytes, grid_transaction
@@ -99,18 +101,69 @@ def _adapt_balance_sequence(g, flush_fn):
     return out
 
 
-def _port_sequence(bg, monkeypatch, steps_between=0):
+def _port_sequence(bg, monkeypatch, steps_between=0, build_first=False):
+    """The sequence on the port; with ``steps_between``, that many steps
+    are served at each commit's swap. By default the plan-build worker
+    is held on an event until they have run, so every one of them steps
+    the old plan; with ``build_first`` the build finishes before them,
+    so the first step's own swap point installs the new plan and they
+    all step it."""
     monkeypatch.setenv("DCCRG_BG_RECOMMIT", "1" if bg else "0")
+    gate = threading.Event()
+    if steps_between and not build_first:
+        work = PlanBuildWorker._work
+
+        def held(self):
+            assert gate.wait(60), "the held build was never released"
+            work(self)
+
+        monkeypatch.setattr(PlanBuildWorker, "_work", held)
     g = make_grid()
     _seed(g)
 
     def flush(g):
         if steps_between and g.bg_pending():
-            _step(g, steps_between)  # serve on the live plan first
+            if build_first:
+                assert g._bg_build.wait(60)
+            _step(g, steps_between)
+            if build_first:
+                assert not g.bg_pending()  # the step's swap installed it
+            else:
+                assert g.bg_pending()  # served on the live plan
+                gate.set()
         g.bg_install(wait=True)
+        gate.clear()
 
     fps = _adapt_balance_sequence(g, flush)
     return fps, checkpoint_mod.state_digest(g)
+
+
+def _sync_twin(steps_between, commit_first):
+    """The synchronous run of the sequence, ``steps_between`` steps
+    served at each commit: before it (``commit_first=False``, the old
+    plan) or after it (the new plan)."""
+    g = make_grid()
+    _seed(g)
+
+    def commit():
+        if commit_first:
+            g.stop_refining()
+            _step(g, steps_between)
+        else:
+            _step(g, steps_between)
+            g.stop_refining()
+
+    for c in (1, 2, 3):
+        g.refine_completely(c)
+    commit()
+    for c in g.plan.cells[:6]:
+        g.refine_completely(int(c))
+    commit()
+    g.balance_load()
+    lvl = g.mapping.get_refinement_level(g.plan.cells)
+    g.unrefine_completely(int(g.plan.cells[lvl == lvl.max()][0]))
+    commit()
+    return checkpoint_mod.state_digest(g)
 
 
 @pytest.fixture(scope="module")
@@ -133,30 +186,27 @@ def test_bg_plan_parity_across_refine_unrefine_balance(monkeypatch,
 @pytest.mark.parametrize("steps_between", [1, 2])
 def test_bg_parity_with_serving_between(monkeypatch, ref_fingerprints,
                                         steps_between):
-    """Steps served on the live plan while the worker builds change
-    nothing about the plan the swap installs; the state equals a
-    synchronous run that served the same steps on the old plan first."""
+    """Steps served on the live plan while the worker builds (held on an
+    event until they have run) change nothing about the plan the swap
+    installs; the state equals a synchronous run that served the same
+    steps on the old plan first."""
     bg, bg_digest = _port_sequence(True, monkeypatch, steps_between)
     assert bg == ref_fingerprints
-
     monkeypatch.setenv("DCCRG_BG_RECOMMIT", "0")
-    g = make_grid()
-    _seed(g)
-    # the synchronous twin: the same steps, run before each commit
-    for c in (1, 2, 3):
-        g.refine_completely(c)
-    _step(g, steps_between)
-    g.stop_refining()
-    for c in g.plan.cells[:6]:
-        g.refine_completely(int(c))
-    _step(g, steps_between)
-    g.stop_refining()
-    g.balance_load()
-    lvl = g.mapping.get_refinement_level(g.plan.cells)
-    g.unrefine_completely(int(g.plan.cells[lvl == lvl.max()][0]))
-    _step(g, steps_between)
-    g.stop_refining()
-    assert checkpoint_mod.state_digest(g) == bg_digest
+    assert _sync_twin(steps_between, commit_first=False) == bg_digest
+
+
+@pytest.mark.parametrize("steps_between", [1, 2])
+def test_bg_parity_build_done_before_serving(monkeypatch, ref_fingerprints,
+                                             steps_between):
+    """A build that finished before the served steps installs at the
+    first step's own swap point, so every step runs the new plan; the
+    state equals a synchronous run that committed first."""
+    bg, bg_digest = _port_sequence(True, monkeypatch, steps_between,
+                                   build_first=True)
+    assert bg == ref_fingerprints
+    monkeypatch.setenv("DCCRG_BG_RECOMMIT", "0")
+    assert _sync_twin(steps_between, commit_first=True) == bg_digest
 
 
 def test_prewarm_derives_the_first_steps_host_tables(monkeypatch):

@@ -523,3 +523,68 @@ def test_scheduler_serves_on_kernel_a_prime(device, tmp_path):
     for name, want in states[False].items():
         got = states[True][name]
         assert torch.allclose(got, want, rtol=1e-5, atol=1e-6), name
+
+
+@pytest.mark.parametrize("bulk", [True, False])
+def test_prewarmed_program_matches_a_cold_build(device, tmp_path, bulk):
+    """The warm pool on the card: a prewarm (kernel A''s library loaded,
+    the program tuple built)
+    allocates nothing on the card and launches nothing there, the table
+    program's neighbour tables upload at its first dispatch, and the
+    prewarmed program's quantum equals a cold build's bit for bit."""
+    from dccrg_tpu_torch import autopilot, warmstart
+    from dccrg_tpu_torch.ops import _build
+
+    build_dir = _build.BUILD_DIR
+    try:
+        job = fleet.FleetJob("p", length=(32, 32, 32), n_steps=8, seed=3,
+                             params=(0.05,))
+        c = str(tmp_path / "cache")
+        pool = warmstart.WarmPool(c, device=device, start_pool=False)
+        warmstart.write_entry(c, autopilot.key_id((job.bucket_key(), 4)), {
+            "key": warmstart.bucket_payload(job.bucket_key()),
+            "capacity": 4, "integrity": True, "bulk": bulk, "hits": 1,
+            "last_hit": 1.0, "compile_s": 1.0})
+        pool._load()
+        torch.cuda.synchronize()
+
+        def allocations():
+            # the caching allocator's count of allocations ever made
+            return torch.cuda.memory_stats().get("allocation.all.allocated", 0)
+
+        n0 = allocations()
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            pool.prewarm(block=True)
+            torch.cuda.synchronize()
+        on_card = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert on_card == [] and allocations() == n0
+        assert pool.errors == [] and len(pool._ready) == 1
+        if bulk:
+            # loaded (built into the cache's build/ unless this process
+            # had loaded it already, as an earlier case may have)
+            assert "fleet_bulk_pass" in _build._libs
+        batch = fleet.GridBatch(job, 4, device, bulk=bulk)
+        key = batch._program_key()
+        warm = pool.take(key, device=device)
+        assert warm is not None and warm[3] is bulk
+        cold = batch._build_programs(key)
+        gen = torch.Generator(device=device).manual_seed(5)
+        state = {"rho": torch.rand((4, batch.R), generator=gen,
+                                   device=device)}
+        extras = torch.full((4, 1), 0.05, device=device)
+        budget = torch.tensor([8, 3, 0, 5], dtype=torch.int32, device=device)
+        before = roll_executor.fleet_bulk_pass.launches
+        outs = [fn(dict(state), extras, budget, 8)
+                for fn in (warm[0], cold[0])]
+        launched = roll_executor.fleet_bulk_pass.launches - before
+        assert launched == (16 if bulk else 0)
+        assert torch.equal(outs[0][0]["rho"], outs[1][0]["rho"])
+        for a, b in zip(outs[0][1], outs[1][1]):
+            assert torch.equal(a, b)
+        pool.close()
+    finally:
+        _build.set_build_dir(build_dir)
+        warmstart.deactivate()

@@ -133,6 +133,8 @@ def test_import_leaves_jax_out():
         "import dccrg_tpu_torch.fleet, dccrg_tpu_torch.integrity\n"
         "import dccrg_tpu_torch.checkpoint, dccrg_tpu_torch.faults\n"
         "import dccrg_tpu_torch.resilience\n"
+        "import dccrg_tpu_torch.intake, dccrg_tpu_torch.warmstart\n"
+        "import dccrg_tpu_torch.fuzz\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith('jax.') or m == 'dccrg_tpu'\n"
         "             or m.startswith('dccrg_tpu.') or m == 'ml_dtypes')\n"

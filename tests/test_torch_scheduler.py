@@ -927,10 +927,36 @@ def test_bulk_scheduler_matches_the_table_scheduler(tmp_path):
                                        ("DCCRG_COMPILE_CACHE", "/nowhere")])
 def test_intake_and_warm_pool_wait_for_item_7b(tmp_path, monkeypatch, var,
                                                value):
-    monkeypatch.setenv(var, value)
-    with pytest.raises(NotImplementedError, match="queue 1, item 7b"):
-        PORT.sched(tmp_path, [])
-    monkeypatch.delenv(var)
-    sched = PORT.sched(tmp_path, [])
-    assert sched.intake is None and sched.warm is None
+    """Item 7b is ported: as in the reference, ``DCCRG_INTAKE=1`` needs
+    ``DCCRG_INTAKE_SPOOL`` (a typed IntakeError without it) and builds
+    a StreamIntake over it, and ``DCCRG_COMPILE_CACHE`` (here ``value``
+    under ``tmp_path``) builds a WarmPool; unset, neither exists."""
+    from dccrg_tpu_torch import intake, warmstart
+    from dccrg_tpu_torch.ops import _build
+
+    build_dir = _build.BUILD_DIR
+    try:
+        if var == "DCCRG_INTAKE":
+            monkeypatch.setenv(var, value)
+            with pytest.raises(intake.IntakeError):
+                PORT.sched(tmp_path / "a", [])
+            monkeypatch.setenv("DCCRG_INTAKE_SPOOL", str(tmp_path / "spool"))
+            sched = PORT.sched(tmp_path / "b", [])
+            assert isinstance(sched.intake, intake.StreamIntake)
+            assert sched.intake.sched is sched and sched.warm is None
+            monkeypatch.delenv("DCCRG_INTAKE_SPOOL")
+        else:
+            monkeypatch.setenv(var, str(tmp_path) + value)
+            monkeypatch.setenv("DCCRG_WARM_POOL", "0")
+            sched = PORT.sched(tmp_path / "b", [])
+            assert isinstance(sched.warm, warmstart.WarmPool)
+            assert sched.warm.dir == str(tmp_path) + value
+            assert warmstart.active() is sched.warm and sched.intake is None
+            sched.warm.close()
+        monkeypatch.delenv(var)
+        sched = PORT.sched(tmp_path / "c", [])
+        assert sched.intake is None and sched.warm is None
+    finally:
+        _build.set_build_dir(build_dir)
+        warmstart.deactivate()
 

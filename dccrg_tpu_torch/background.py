@@ -204,8 +204,9 @@ def freeze_grid_mp(grid, fields=None, variable=None):
 
     snap = copy.copy(grid)
     names = sorted(grid.data) if fields is None else sorted(fields)
-    host = {n: {d: _host_copy(grid.data[n][d]) for d in range(grid.n_dev)
-                if grid._proc_local_dev[d]} for n in names}
+    host = {n: {d: _host_copy(grid.data[n][grid._slot[d]])
+                for d in range(grid.n_dev) if grid._proc_local_dev[d]}
+            for n in names}
     snap._shard_read = lambda field, dev, rows: partition_rows(
         host[field].__getitem__, dev, rows)
     snap._frozen_pulls = {}

@@ -128,11 +128,13 @@ def digest_update(h, name: str, shape, dtype, owned: torch.Tensor) -> None:
 
 
 def owned_rows(grid, name) -> torch.Tensor:
-    """The owned rows of field ``name``: each partition's rows
+    """The owned rows of field ``name``: each held partition's rows
     ``[0, n_local[p])`` in partition order (ghost and pad rows left
-    out), on the grid's device."""
+    out), on the grid's device. On a grid whose partitions span ranks,
+    this rank's share."""
     x = grid.data[name]
-    parts = [x[p, :int(grid.plan.n_local[p])] for p in range(grid.n_dev)]
+    parts = [x[i, :int(grid.plan.n_local[p])]
+             for i, p in enumerate(grid._held)]
     return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
@@ -1047,7 +1049,7 @@ def _scatter_payloads(grid, raw, cells, offsets, fixed_spec, fixed_bytes,
     the other ranks' rows of the uploaded tensors stay zero."""
     hosts = {}
     for name, (shape, dtype) in grid.fields.items():
-        hosts[name] = np.zeros((grid.n_dev, grid.plan.R) + shape,
+        hosts[name] = np.zeros((len(grid._held), grid.plan.R) + shape,
                                dtype=storage_dtype(dtype))
     # the file's cells are the plan's (load_cells sorted them), so a
     # chunk's rows come straight from the plan's row table
@@ -1064,13 +1066,17 @@ def _scatter_payloads(grid, raw, cells, offsets, fixed_spec, fixed_bytes,
             pos_of = keep
 
     def rows_of(start, ids):
+        # (held slot, row) of each cell: the host arrays hold this
+        # process's partitions (every one without a rank placement)
         if pos_of is not None:
             p = pos_of[start : start + len(ids)]
-            return grid.plan.owner[p], grid.plan.row_of_pos[p].astype(np.int64)
-        if same and not grid._multiproc:
-            return (grid.plan.owner[start : start + len(ids)],
-                    grid.plan.row_of_pos[start : start + len(ids)].astype(np.int64))
-        return grid._host_rows(ids)
+            dev, rows = grid.plan.owner[p], grid.plan.row_of_pos[p]
+        elif same and not grid._multiproc:
+            dev = grid.plan.owner[start : start + len(ids)]
+            rows = grid.plan.row_of_pos[start : start + len(ids)]
+        else:
+            dev, rows = grid._host_rows(ids)
+        return grid._slot[dev], np.asarray(rows, dtype=np.int64)
 
     with phase("scatter"):
         # pass 1: fixed-size parts at each cell's offset

@@ -1,10 +1,14 @@
-"""Reductions across the partitions of a grid.
+"""Reductions across the partitions of a grid, and the transport
+between the ranks that hold them.
 
 Counterpart of ``dccrg_tpu/comm.py``, the wrappers of the reference's
 MPI support layer (dccrg_mpi_support.hpp). The reference calls XLA
-collectives inside ``shard_map``; here every partition of a grid lives
-in one process, so a per-partition quantity is one ``[n_dev, ...]``
-tensor and each collective is one reduction over its leading axis. The
+collectives inside ``shard_map``; here a per-partition quantity is one
+``[n, ...]`` tensor over the partitions this process holds, and each
+collective is one reduction over its leading axis. On a grid placed on
+the ranks of a ``torch.distributed`` group (``Grid.initialize`` with
+``(rank, device)`` entries) the fold of the held partitions is followed
+by one ``torch.distributed.all_reduce`` (``group=True``). The
 in-program functions return the reduced value broadcast back to every
 partition (what a collective leaves on each device); each ``host_*``
 twin makes one pass and one host read.
@@ -17,12 +21,31 @@ twin makes one pass and one host read.
   partitions (the integrity layer's conservation sums)
 - ``some_reduce`` — Some_Reduce: each partition sums only its peer set
   (dccrg_mpi_support.hpp:285-380)
+
+The cross-rank transport (the reference's ``ppermute`` / on-device
+gather across processes, which XLA carries there):
+
+- ``post_exchange`` / ``wait_exchange`` — one packed byte buffer to
+  each peer rank by ``isend`` / ``irecv`` (the halo exchange);
+- ``move_bytes`` — one ``all_to_all_single`` of byte buffers by
+  destination rank (the row moves of a commit, a balance, a load).
+
+Gloo moves host tensors only, so on the card each buffer crosses
+through a pinned host buffer: the rows are selected on the card, copied
+to the host, sent; received, copied to the card, landed. The group's
+backend decides this (:func:`transport_name`); every exchange adds its
+bytes to ``BYTES[leg]`` and to the ``dccrg_rank_bytes_total`` counter.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from . import telemetry
+
+# cross-rank bytes this process sent, by leg ("halo", "rows", "gather")
+BYTES: dict = {}
 
 
 def _n(x) -> int:
@@ -35,9 +58,38 @@ def all_gather(x: torch.Tensor) -> torch.Tensor:
     return x.unsqueeze(0).expand((_n(x),) + tuple(x.shape))
 
 
-def all_reduce(x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+def group_active() -> bool:
+    """True when a default ``torch.distributed`` group of more than one
+    rank is up."""
+    dist = torch.distributed
+    return (dist.is_available() and dist.is_initialized()
+            and dist.get_world_size() > 1)
+
+
+def transport_name() -> str:
+    """How buffers cross ranks: ``"gloo-host"`` (host tensors; a card's
+    rows staged through pinned host buffers) or the group's backend."""
+    backend = torch.distributed.get_backend()
+    return "gloo-host" if backend == "gloo" else str(backend)
+
+
+def _group_reduce(r: torch.Tensor, op: str) -> torch.Tensor:
+    """``r`` reduced elementwise over the ranks of the default group
+    (gloo reduces host tensors: a card's value crosses the host)."""
+    dist = torch.distributed
+    ops = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
+           "min": dist.ReduceOp.MIN}
+    host = r.detach().to("cpu", copy=True).contiguous()
+    dist.all_reduce(host, op=ops[op])
+    return host.to(r.device)
+
+
+def all_reduce(x: torch.Tensor, op: str = "sum",
+               group: bool = False) -> torch.Tensor:
     """Elementwise reduction over the partition axis, broadcast back to
-    every partition: ``[n_dev, ...]`` in and out."""
+    every partition: ``[n, ...]`` in and out. With ``group`` (a grid
+    whose partitions span ranks) the held partitions' fold is then
+    reduced over the ranks of the default group."""
     if op == "sum":
         r = x.sum(dim=0, keepdim=True)
     elif op == "max":
@@ -46,10 +98,12 @@ def all_reduce(x: torch.Tensor, op: str = "sum") -> torch.Tensor:
         r = x.amin(dim=0, keepdim=True)
     else:
         raise ValueError(f"unknown reduction {op!r}")
+    if group and group_active():
+        r = _group_reduce(r, op)
     return r.expand(tuple(x.shape))
 
 
-def all_finite(xs) -> torch.Tensor:
+def all_finite(xs, group: bool = False) -> torch.Tensor:
     """``[n_dev]`` int32, every entry 1 iff every element of every
     ``[n_dev, ...]`` array in ``xs`` is finite on every partition: each
     partition folds its own ``all(isfinite)`` over the list, then one
@@ -57,59 +111,235 @@ def all_finite(xs) -> torch.Tensor:
     xs = list(xs)
     ok = torch.stack([torch.isfinite(x).reshape(_n(x), -1).all(dim=1)
                       for x in xs]).all(dim=0).to(torch.int32)
-    return all_reduce(ok, "min")
+    return all_reduce(ok, "min", group)
 
 
-def field_sums(xs) -> torch.Tensor:
+def field_sums(xs, group: bool = False) -> torch.Tensor:
     """``[n_dev, len(xs)]`` float32: each partition's sum of each array,
     cast to float32, then summed over the partitions, so every
     partition reads the same value."""
     parts = torch.stack([x.reshape(_n(x), -1).sum(dim=1).to(torch.float32)
                          for x in xs], dim=1)
-    return all_reduce(parts, "sum")
+    return all_reduce(parts, "sum", group)
 
 
-def some_reduce(x: torch.Tensor, peer_mask) -> torch.Tensor:
-    """Sum of ``x`` (``[n_dev, ...]``) over each partition's peer set:
+def gather_partitions(x: torch.Tensor, held, n_dev: int) -> torch.Tensor:
+    """``[n_dev, ...]``: every partition's row, from each rank's rows of
+    the partitions it holds (``x`` ``[len(held), ...]``, ``held`` their
+    global indices), by one ``all_gather_object`` over the group."""
+    held = np.asarray(held, dtype=np.int64)
+    if len(held) == n_dev or not group_active():
+        return x
+    parts = [None] * torch.distributed.get_world_size()
+    torch.distributed.all_gather_object(
+        parts, (held, x.detach().cpu()))
+    out = torch.empty((n_dev,) + tuple(x.shape[1:]), dtype=x.dtype)
+    for h, v in parts:
+        if len(h):
+            out[torch.as_tensor(h)] = v
+    _count("gather", x.numel() * x.element_size())
+    return out.to(x.device)
+
+
+def some_reduce(x: torch.Tensor, peer_mask, held=None) -> torch.Tensor:
+    """Sum of ``x`` (``[n, ...]``) over each partition's peer set:
     ``peer_mask[q, p]`` true when partition q takes partition p's
-    contribution. The result differs per partition."""
-    w = torch.as_tensor(np.asarray(peer_mask, dtype=bool),
-                        device=x.device).to(x.dtype)
+    contribution. The result differs per partition. ``held`` (the
+    global indices of ``x``'s rows, on a grid whose partitions span
+    ranks) gathers the other ranks' rows first."""
+    pm = np.asarray(peer_mask, dtype=bool)
+    if held is not None:
+        held = np.asarray(held, dtype=np.int64)
+        full = gather_partitions(x, held, pm.shape[0])
+        w = torch.as_tensor(pm[held], device=x.device).to(x.dtype)
+        return torch.tensordot(w, full, dims=1)
+    w = torch.as_tensor(pm, device=x.device).to(x.dtype)
     return torch.tensordot(w, x, dims=1)
 
 
 def pull_replicated(t) -> np.ndarray:
-    """Host copy of a replicated result. One process sees every
-    partition, so this is a plain copy."""
+    """Host copy of a replicated result (every partition, and every
+    rank after a group reduction, holds the same value)."""
     if isinstance(t, torch.Tensor):
         return t.detach().cpu().numpy()
     return np.asarray(t)
 
 
-def _on(devices, x) -> torch.Tensor:
-    """``x`` as a tensor on the partitions' device; its leading axis
-    must be the partition count."""
-    devs = list(devices)
+def _on(devices, x):
+    """``(x as a tensor on the partitions' device, held, group)``;
+    ``devices`` is the grid's partition list, or the grid itself (its
+    held partitions, reduced over the ranks it spans). The leading axis
+    must be the partition count (held partitions for a grid)."""
+    held = group = None
+    if hasattr(devices, "_held"):
+        grid = devices
+        held, group = grid._held, grid._rank_held
+        devs = [grid.device] * len(held)
+    else:
+        devs = list(devices)
     t = torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor)
                         else x, device=devs[0])
     if t.shape[0] != len(devs):
         raise ValueError(f"leading axis {t.shape[0]} != {len(devs)} "
                          "partitions")
-    return t
+    return t, held, bool(group)
 
 
 def host_all_gather(devices, x) -> np.ndarray:
     """:func:`all_gather` of ``[n_dev, ...]`` rows on ``devices`` (the
     grid's partition list); returns ``[n_dev, n_dev, ...]``."""
-    return pull_replicated(all_gather(_on(devices, x)))
+    t, held, group = _on(devices, x)
+    if group:
+        t = gather_partitions(t, held, devices.n_dev)
+    return pull_replicated(all_gather(t))
 
 
 def host_all_reduce(devices, x, op: str = "sum") -> np.ndarray:
     """Reduce ``[n_dev, ...]`` rows over the partitions; one row."""
-    t = _on(devices, x)
-    return pull_replicated(all_reduce(t, op)[0])
+    t, _held, group = _on(devices, x)
+    return pull_replicated(all_reduce(t, op, group)[0])
 
 
 def host_some_reduce(devices, x, peer_mask) -> np.ndarray:
-    """Per-partition peer-set sum of ``[n_dev, ...]`` rows."""
-    return pull_replicated(some_reduce(_on(devices, x), peer_mask))
+    """Per-partition peer-set sum of ``[n_dev, ...]`` rows (a grid's
+    held rows under a split over ranks)."""
+    t, held, group = _on(devices, x)
+    return pull_replicated(some_reduce(t, peer_mask,
+                                       held if group else None))
+
+
+# ---------------------------------------------------------------------
+# the cross-rank transport
+# ---------------------------------------------------------------------
+
+def _count(leg: str, n: int) -> None:
+    BYTES[leg] = BYTES.get(leg, 0) + int(n)
+    telemetry.inc("dccrg_rank_bytes_total", int(n), leg=leg,
+                  transport=transport_name())
+
+
+def pack(tensors) -> torch.Tensor:
+    """One flat ``uint8`` buffer of the tensors' bytes, in order, on
+    their device (empty tensors allowed)."""
+    parts = [t.contiguous().reshape(-1).view(torch.uint8) if t.numel()
+             else t.new_empty(0, dtype=torch.uint8) for t in tensors]
+    if not parts:
+        return torch.empty(0, dtype=torch.uint8)
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def unpack(buf: torch.Tensor, specs) -> list:
+    """The tensors :func:`pack` packed: ``specs`` is ``(shape, dtype)``
+    per tensor, in order."""
+    out, at = [], 0
+    for shape, dtype in specs:
+        n = int(np.prod(shape, dtype=np.int64)) * \
+            torch.empty((), dtype=dtype).element_size()
+        out.append(buf[at:at + n].clone().view(dtype).reshape(shape))
+        at += n
+    if at != buf.numel():
+        raise ValueError(f"unpacked {at} of {buf.numel()} bytes")
+    return out
+
+
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    """A send buffer as a host tensor: pinned and filled by one copy
+    from the card, or the tensor itself on the CPU."""
+    if t.device.type == "cpu":
+        return t.contiguous()
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    return host
+
+
+def _host_buffer(n: int, device) -> torch.Tensor:
+    return torch.empty(n, dtype=torch.uint8,
+                       pin_memory=torch.device(device).type == "cuda")
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
+
+
+class Posted:
+    """An exchange in flight: the ``isend`` / ``irecv`` works and the
+    host buffers the receives land in."""
+
+    def __init__(self, works, recvs, keep, device):
+        self.works = works
+        self.recvs = recvs
+        self.keep = keep  # send buffers alive until the works finish
+        self.device = device
+
+
+def post_exchange(sends: dict, recv_sizes: dict, device,
+                  leg: str = "halo") -> Posted:
+    """Start one exchange: ``sends[r]`` (a ``uint8`` buffer on
+    ``device``) goes to rank ``r`` by ``isend``; a buffer of
+    ``recv_sizes[r]`` bytes from each rank ``r`` is posted by ``irecv``.
+    Every rank posts in ascending peer order with the sizes its
+    replicated plan gives, so each send meets its receive."""
+    dist = torch.distributed
+    with telemetry.span("comm.exchange.post",
+                        {"transport": transport_name(), "leg": leg}):
+        hosts = {r: _to_host(b) for r, b in sends.items() if b.numel()}
+        if hosts:
+            _sync(device)
+        works, recvs = [], {}
+        for r in sorted(recv_sizes):
+            if recv_sizes[r]:
+                buf = _host_buffer(int(recv_sizes[r]), device)
+                recvs[r] = buf
+                works.append(dist.irecv(buf, src=int(r)))
+        for r in sorted(hosts):
+            works.append(dist.isend(hosts[r], dst=int(r)))
+            _count(leg, hosts[r].numel())
+    return Posted(works, recvs, hosts, device)
+
+
+def wait_exchange(posted: Posted) -> dict:
+    """Finish an exchange: ``{rank: uint8 buffer on the device}`` of
+    what each peer sent."""
+    with telemetry.span("comm.exchange.wait",
+                        {"transport": transport_name()}):
+        for w in posted.works:
+            w.wait()
+        dev = torch.device(posted.device)
+        out = {r: (b if dev.type == "cpu" else b.to(dev, non_blocking=True))
+               for r, b in posted.recvs.items()}
+    posted.keep = None
+    return out
+
+
+def move_bytes(sends: dict, recv_sizes: dict, device,
+               leg: str = "rows") -> dict:
+    """One ``all_to_all_single`` over the default group: ``sends[r]``
+    (``uint8`` on ``device``) to rank ``r``, ``recv_sizes[r]`` bytes
+    from rank ``r``. Collective: every rank calls it, with the sizes its
+    replicated plans give. Returns ``{rank: uint8 buffer on device}``."""
+    dist = torch.distributed
+    n = dist.get_world_size()
+    me = dist.get_rank()
+    with telemetry.span("comm.move_rows",
+                        {"transport": transport_name(), "leg": leg}):
+        ins = [sends.get(r) if r != me else None for r in range(n)]
+        in_sizes = [0 if b is None else int(b.numel()) for b in ins]
+        out_sizes = [0 if r == me else int(recv_sizes.get(r, 0))
+                     for r in range(n)]
+        flat = pack([b for b in ins if b is not None])
+        src = _to_host(flat)
+        _sync(device)
+        dst = _host_buffer(sum(out_sizes), device)
+        dist.all_to_all_single(dst, src, output_split_sizes=out_sizes,
+                               input_split_sizes=in_sizes)
+        _count(leg, sum(in_sizes))
+        dev = torch.device(device)
+        if dev.type != "cpu":
+            dst = dst.to(dev)
+        out, at = {}, 0
+        for r in range(n):
+            if out_sizes[r]:
+                out[r] = dst[at:at + out_sizes[r]]
+            at += out_sizes[r]
+    return out

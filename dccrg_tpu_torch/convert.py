@@ -26,7 +26,9 @@ def _dtype_name(dtype: torch.dtype) -> str:
 def fields_from_numpy(grid, arrays, L=None) -> None:
     """Load ``{name: ndarray [n_dev, R, ...]}`` into ``grid``'s fields.
     Each array must have the grid's shape and the field's dtype; ``L``,
-    when given (the source grid's ``plan.L``), must equal the grid's."""
+    when given (the source grid's ``plan.L``), must equal the grid's.
+    A grid whose partitions span ranks takes its held partitions' rows
+    (:func:`fields_to_numpy` gives those back)."""
     plan = grid.plan
     if L is not None and int(L) != plan.L:
         raise ValueError(f"source L={L} differs from the grid's L={plan.L}")
@@ -41,7 +43,8 @@ def fields_from_numpy(grid, arrays, L=None) -> None:
         if arr.dtype.name != _dtype_name(dtype):
             raise TypeError(f"{name}: dtype {arr.dtype.name}, the field is "
                             f"{_dtype_name(dtype)}")
-        grid.data[name] = _to_tensor(arr, dtype).to(grid.device)
+        grid.data[name] = _to_tensor(
+            np.ascontiguousarray(arr[grid._held]), dtype).to(grid.device)
     grid._mark_ckpt_dirty()
 
 

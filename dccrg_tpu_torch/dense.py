@@ -10,7 +10,7 @@ the neighbour blocks' face slabs (the periodic wrap, or the ``boundary``
 value on a non-periodic edge), and ``DenseGrid.axis_index`` tells a step
 function which block it is running on. Blocks on distinct cards, with
 the slab copies between them made peer copies, wait for ROADMAP.md
-queue 1, item 5b.1: a mesh naming distinct devices raises
+queue 1, item 5b.1b: a mesh naming distinct devices raises
 ``NotImplementedError``.
 
 Cell ids remain interoperable with ``Grid``/``Mapping``: the cell at
@@ -55,7 +55,7 @@ def dense_mesh(devices=None, shape=None) -> DenseMesh:
     the card when None), laid out along x unless ``shape=(px, py, pz)``
     factors it. Every entry may name the same device, as
     ``Grid.initialize`` takes partitions; distinct devices raise
-    ``NotImplementedError`` (ROADMAP.md queue 1, item 5b.1)."""
+    ``NotImplementedError`` (ROADMAP.md queue 1, item 5b.1b)."""
     devs = resolve_partitions(list(devices) if devices is not None else None)
     n = len(devs)
     if shape is None:

@@ -466,7 +466,7 @@ def _install_decided(grid, group: AmrCommitGroup, att: _Attempt,
 
 def _run_round(grid, group: AmrCommitGroup, att: _Attempt,
                staged: dict) -> None:
-    from .grid import DEFAULT_NEIGHBORHOOD_ID, _flat, _host_numpy
+    from .grid import DEFAULT_NEIGHBORHOOD_ID
 
     offsets = grid.neighborhoods[DEFAULT_NEIGHBORHOOD_ID]
 
@@ -561,17 +561,10 @@ def _run_round(grid, group: AmrCommitGroup, att: _Attempt,
     grid._dont_refines.clear()
     grid._dont_unrefines.clear()
     old_ids = np.concatenate([res.refined_parents, res.removed_cells])
-    grid._removed_data = {}
-    if len(old_ids):
-        # one gather per field over every partition's rows, as the
-        # local commit takes it (the structure is replicated)
-        rows_t = grid._flat_rows(*grid._host_rows(old_ids))
-        for name in grid.fields:
-            grid._removed_data[name] = (old_ids, _host_numpy(
-                _flat(grid.data[name]).index_select(0, rows_t)))
-    else:
-        grid._removed_data = {name: (old_ids, None)
-                              for name in grid.fields}
+    # one gather per field over the held rows, as the local commit
+    # takes it (the structure is replicated; rows held by other ranks
+    # are merged from theirs)
+    grid._removed_data = grid._preserved_rows(old_ids)
     grid._removed_cells = res.removed_cells
     grid._new_cells = res.new_cells
     grid._unrefined_parents = res.unrefined_parents

@@ -152,9 +152,17 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-# What waits for the slice that places partitions on distinct cards:
-# the only refusal left in the port.
-NEXT_SLICE = "ROADMAP.md queue 1, item 5b.1"
+# What waits for the slice that places partitions on distinct cards
+# (peer copies inside one process, NCCL between ranks on cards of their
+# own): the only refusal left in the port.
+NEXT_SLICE = "ROADMAP.md queue 1, item 5b.1b"
+
+
+def _is_rank_entry(d) -> bool:
+    """A device-list entry naming a partition of a rank:
+    ``(rank, device)``."""
+    return (isinstance(d, tuple) and len(d) == 2
+            and isinstance(d[0], (int, np.integer)))
 
 
 def resolve_partitions(device=None) -> list:
@@ -162,10 +170,16 @@ def resolve_partitions(device=None) -> list:
     may be None (one partition on the card), a device, or a list of
     devices (one partition each). Every partition lives on the same
     device; a list naming distinct devices raises NotImplementedError
-    (``NEXT_SLICE``)."""
+    (``NEXT_SLICE``). Placement on ranks (``(rank, device)`` entries)
+    is :func:`resolve_placement`'s."""
     if isinstance(device, (list, tuple)):
         if not device:
             raise ValueError("an empty device list")
+        if any(_is_rank_entry(d) for d in device):
+            raise NotImplementedError(
+                "partitions placed on ranks run on a Grid "
+                "(Grid.initialize); this entry point holds every "
+                "partition in one process")
         devs = [resolve_device(d) for d in device]
     else:
         devs = [resolve_device(device)]
@@ -174,6 +188,44 @@ def resolve_partitions(device=None) -> list:
             f"partitions on distinct devices {sorted(set(map(str, devs)))}: "
             f"every partition shares one device until {NEXT_SLICE}")
     return devs
+
+
+def resolve_placement(device=None):
+    """``(devices, ranks)`` of a grid's partitions: ``ranks`` is None
+    when every partition is this process's (a device or a list of
+    devices, :func:`resolve_partitions`), else the ``[n_dev]`` rank of
+    each partition. A list may name partitions of other ranks of the
+    default ``torch.distributed`` group as ``(rank, device)`` entries,
+    the reference's mesh of devices with their ``process_index``
+    (:func:`dccrg_tpu_torch.coord.rank_devices` builds one in rank
+    order); a plain entry is this process's. This process's partitions
+    share one device (distinct devices raise NotImplementedError,
+    ``NEXT_SLICE``); another rank's device is its label only."""
+    if not (isinstance(device, (list, tuple))
+            and any(_is_rank_entry(d) for d in device)):
+        return resolve_partitions(device), None
+    from . import coord
+
+    me, n_ranks = coord.process_index(), coord.process_count()
+    ranks, devs = [], []
+    for d in device:
+        r, d = (int(d[0]), d[1]) if _is_rank_entry(d) else (me, d)
+        if not 0 <= r < n_ranks:
+            raise ValueError(
+                f"a partition on rank {r}: the process group has "
+                f"{n_ranks} rank(s)")
+        ranks.append(r)
+        devs.append(d)
+    mine = [i for i, r in enumerate(ranks) if r == me]
+    if not mine:
+        raise ValueError(f"no partition of the placement is on rank {me}")
+    local = resolve_partitions([devs[i] for i in mine])
+    devs = [local[0] if r == me else torch.device(d)
+            for r, d in zip(ranks, devs)]
+    ranks = np.asarray(ranks, dtype=np.int64)
+    if bool((ranks == me).all()):
+        return devs, None
+    return devs, ranks
 
 
 def single_device(device, what: str) -> torch.device:
@@ -666,6 +718,53 @@ def _land_halos(state, exch_idx, groups, payloads, stream, R):
         state[j][:, R - 1] = 0
 
 
+class _RankHalo:
+    """The cross-rank half of one exchange of a grid whose partitions
+    span ranks (:meth:`Grid._exchange_cross`): for each peer rank, per
+    exchanged field, the flat rows this rank sends it (``send[r][i]``,
+    in the pair record's order) and the flat ghost rows what it sends
+    lands in (``recv[r][i]``, the same order on the sender's side), and
+    the byte sizes of the packed buffers."""
+
+    def __init__(self, send, recv, recv_specs, send_bytes, recv_bytes):
+        self.send = send
+        self.recv = recv
+        self.recv_specs = recv_specs
+        self.send_bytes = send_bytes
+        self.recv_bytes = recv_bytes
+
+
+def _post_rank_halos(state, exch_idx, cross):
+    """Start the cross-rank sends and receives of one exchange: the
+    sender rows of each field packed into one buffer per peer rank
+    (:func:`dccrg_tpu_torch.comm.post_exchange`). ``None`` without a
+    cross-rank half."""
+    if cross is None:
+        return None
+    from . import comm
+
+    sends = {r: comm.pack([_flat(state[j]).index_select(0, src)
+                           for j, src in zip(exch_idx, rows)])
+             for r, rows in cross.send.items()}
+    return comm.post_exchange(sends, cross.recv_bytes, state[0].device)
+
+
+def _land_rank_halos(state, exch_idx, cross, posted, R):
+    """Finish the cross-rank half: wait for each peer's buffer and land
+    its rows in the ghost rows, the zero row zeroed again."""
+    if cross is None:
+        return
+    from . import comm
+
+    got = comm.wait_exchange(posted)
+    for r, buf in got.items():
+        parts = comm.unpack(buf, cross.recv_specs[r])
+        for j, dst, payload in zip(exch_idx, cross.recv[r], parts):
+            _halo_scatter(_flat(state[j]), dst, payload)
+    for j in exch_idx:
+        state[j][:, R - 1] = 0
+
+
 @dataclass
 class CellView:
     """A set of cells exposed for iteration (the reference's ``cells`` /
@@ -1036,21 +1135,18 @@ class Grid:
         """Build the level-0 grid (dccrg.hpp:480-562) on the partitions
         ``device`` names: None is one partition on the card, a device
         one partition there, a list of n devices n partitions (each the
-        same device; distinct devices raise NotImplementedError).
-        ``partition`` picks the partitioner of the level-0 cells
-        (partition.PARTITION_METHODS), the load balancing method when
-        None."""
+        same device; distinct devices raise NotImplementedError). A list
+        of ``(rank, device)`` entries places the partitions on the ranks
+        of the default ``torch.distributed`` group
+        (:func:`resolve_placement`, ``coord.rank_devices``): every rank
+        computes the same plan and holds, steps and saves only its own
+        partitions. ``partition`` picks the partitioner of the level-0
+        cells (partition.PARTITION_METHODS), the load balancing method
+        when None."""
         self._require_uninitialized()
-        self.devices = resolve_partitions(device)
-        self.device = self.devices[0]
+        self.devices, ranks = resolve_placement(device)
         self.n_dev = len(self.devices)
-        # which partitions this process may touch from the host: all of
-        # them here. Every process computes the same plan; a process
-        # split (a test faking it, or a process group that marks the
-        # partitions of the other ranks) makes get/set rank-local and
-        # routes checkpoint I/O through the two-phase per-rank writers
-        # (the reference's rank-local access, dccrg.hpp:7738-7803)
-        self._proc_local_dev = np.ones(self.n_dev, dtype=bool)
+        self._place(ranks)
         # checkpoint-coordination identity: None = the process group's
         # rank; a faked split pins a per-pass rank here
         # (coord.process_rank, checkpoint._save_process_slice)
@@ -1092,6 +1188,39 @@ class Grid:
             verify_mod.pin_requests_succeeded(self)
         return self
 
+    def _place(self, ranks) -> None:
+        """Record where the partitions live. ``ranks`` None: every
+        partition is this process's, and each field holds all of them.
+        Else ``ranks[p]`` is partition p's rank in the default process
+        group: this process holds the partitions of its own rank
+        (``_held``, global indices in slot order), a field is
+        ``[len(_held), R, ...]`` and ``_slot[p]`` is partition p's slot
+        (-1: another rank's)."""
+        self._part_rank = ranks
+        if ranks is None:
+            self._held = np.arange(self.n_dev, dtype=np.int64)
+        else:
+            from . import coord
+
+            self._held = np.flatnonzero(
+                ranks == coord.process_index()).astype(np.int64)
+        self._slot = np.full(self.n_dev, -1, dtype=np.int64)
+        self._slot[self._held] = np.arange(len(self._held))
+        self.device = self.devices[int(self._held[0])]
+        # which partitions this process may touch from the host: its
+        # held ones. Every process computes the same plan; a process
+        # split (the ranks of a placement, or a test faking it on a
+        # full replica) makes get/set rank-local and routes checkpoint
+        # I/O through the two-phase per-rank writers (the reference's
+        # rank-local access, dccrg.hpp:7738-7803)
+        self._proc_local_dev = self._slot >= 0
+
+    @property
+    def _rank_held(self) -> bool:
+        """True when the partitions are placed on the ranks of a process
+        group, each rank holding only its own (``_held``)."""
+        return self._part_rank is not None
+
     def clone(self, cell_data=None) -> "Grid":
         """A new grid with this one's structure (cells, partitions,
         neighbour tables, neighborhoods, pins, weights, partitioning
@@ -1116,8 +1245,8 @@ class Grid:
         other._partitioning_levels = [dict(lv) for lv in
                                       self._partitioning_levels]
         other.devices = list(self.devices)
-        other.device = self.device
         other.n_dev = self.n_dev
+        other._place(self._part_rank)
         other._proc_local_dev = self._proc_local_dev.copy()
         other._ckpt_rank = self._ckpt_rank
         other.mapping = Mapping(
@@ -1475,14 +1604,15 @@ class Grid:
         rows (the reference reads each device's addressable shard,
         dccrg_tpu/grid.py:1328): only the asked rows cross to the host,
         and no other partition is touched."""
-        t = self.data[field]
-        return partition_rows(lambda d: t[d], dev, rows)
+        t, slot = self.data[field], self._slot
+        return partition_rows(lambda d: t[slot[d]], dev, rows)
 
     def _allocate_fields(self):
         self.data = {}
         for name, (shape, dtype) in self.fields.items():
-            self.data[name] = torch.zeros((self.n_dev, self.plan.R) + shape,
-                                          dtype=dtype, device=self.device)
+            self.data[name] = torch.zeros(
+                (len(self._held), self.plan.R) + shape, dtype=dtype,
+                device=self.device)
         self._mark_ckpt_dirty()
 
     def _mark_ckpt_dirty(self, fields=None) -> None:
@@ -1497,10 +1627,11 @@ class Grid:
             self._ckpt_dirty.update(fields)
 
     def device_row_ids(self) -> torch.Tensor:
-        """``[n_dev, R]`` tensor of ``cell id - 1`` per row (``-1`` on
-        pad rows), ghost rows included. On a complete level-0 grid on
-        one partition it is made on the device from an arange (rows are
-        id order, int32); otherwise it is uploaded from
+        """``[n_held, R]`` tensor of ``cell id - 1`` per row (``-1`` on
+        pad rows) of each held partition, ghost rows included. On a
+        complete level-0 grid on one partition it is made on the device
+        from an arange (rows are id order, int32); otherwise it is
+        uploaded from
         ``plan.local_ids`` and ``plan.ghost_ids`` (int64 once ids
         exceed int32). Cached per structure epoch."""
         plan = self.plan
@@ -1514,30 +1645,31 @@ class Grid:
             arr = torch.where(idx < n0, idx, torch.full_like(idx, -1))[None, :]
         else:
             wide = int(plan.cells[-1]) > np.iinfo(np.int32).max
-            host = np.full((self.n_dev, plan.R), -1,
+            host = np.full((len(self._held), plan.R), -1,
                            dtype=np.int64 if wide else np.int32)
-            for d in range(self.n_dev):
-                host[d, :int(plan.n_local[d])] = \
+            for i, d in enumerate(self._held):
+                host[i, :int(plan.n_local[d])] = \
                     plan.local_ids[d].astype(np.int64) - 1
                 ng = len(plan.ghost_ids[d])
                 if ng:  # ghost rows sit at [L, L + ng)
-                    host[d, plan.L:plan.L + ng] = \
+                    host[i, plan.L:plan.L + ng] = \
                         plan.ghost_ids[d].astype(np.int64) - 1
             arr = torch.as_tensor(host, device=self.device)
         plan._row_ids_dev = arr
         return arr
 
     def local_row_mask(self) -> torch.Tensor:
-        """``[n_dev, R] float32`` mask: 1 on each partition's local rows,
-        0 on ghost and pad rows — the device-side reduction mask.
+        """``[n_held, R] float32`` mask: 1 on each held partition's local
+        rows, 0 on ghost and pad rows — the device-side reduction mask.
         Cached per structure epoch."""
         plan = self.plan
         cached = getattr(plan, "_local_mask_dev", None)
         if cached is not None:
             return cached
         rows = torch.arange(plan.R, dtype=torch.int64, device=self.device)
-        nl = torch.as_tensor(np.asarray(plan.n_local, dtype=np.int64),
-                             device=self.device)
+        nl = torch.as_tensor(
+            np.asarray(plan.n_local, dtype=np.int64)[self._held],
+            device=self.device)
         arr = (rows[None, :] < nl[:, None]).to(torch.float32)
         plan._local_mask_dev = arr
         return arr
@@ -1560,10 +1692,18 @@ class Grid:
         return self.plan.owner[pos], self.plan.row_of_pos[pos].astype(np.int64)
 
     def _flat_rows(self, dev, rows) -> torch.Tensor:
-        """Rows of :func:`_flat` views for ``(partition, row)`` pairs."""
-        return torch.as_tensor(
-            np.asarray(dev, dtype=np.int64) * self.plan.R + rows,
-            device=self.device)
+        """Rows of :func:`_flat` views for ``(partition, row)`` pairs,
+        every partition one this process holds."""
+        return torch.as_tensor(self._flat_index(dev, rows),
+                               device=self.device)
+
+    def _flat_index(self, dev, rows) -> np.ndarray:
+        """Host int64 :func:`_flat` rows of ``(partition, row)`` pairs:
+        the partition's held slot times ``R`` plus the row."""
+        slot = self._slot[np.asarray(dev, dtype=np.int64)]
+        if len(slot) and int(slot.min()) < 0:
+            raise KeyError("row(s) of partitions held by another rank")
+        return slot * self.plan.R + np.asarray(rows, dtype=np.int64)
 
     def get(self, field: str, ids) -> np.ndarray:
         """Host read of per-cell data from the owner's row (reference
@@ -1607,7 +1747,13 @@ class Grid:
                 len(ids) == len(self.plan.cells)
                 and np.array_equal(np.sort(ids), self.plan.cells)):
             self._require_local(dev, "set")
-        flat = dev.astype(np.int64) * self.plan.R + rows
+        held = None
+        if self._rank_held:
+            # a cover lands on the held rows only: the other rows'
+            # values are the other ranks'
+            held = np.flatnonzero(self._proc_local_dev[dev])
+            ids, dev, rows = ids[held], dev[held], rows[held]
+        flat = self._flat_index(dev, rows)
         keep = None
         if (len(ids) > 1 and not np.all(ids[1:] > ids[:-1])
                 and len(np.unique(flat)) != len(flat)):
@@ -1620,6 +1766,8 @@ class Grid:
             vals = (values if isinstance(values, torch.Tensor)
                     else torch.as_tensor(np.asarray(values)))
             vals = vals.to(device=self.device, dtype=dtype)
+            if held is not None and vals.dim() > len(shape):
+                vals = vals[torch.as_tensor(held, device=self.device)]
             if keep is not None:
                 vals = vals.expand((len(ids),) + tuple(shape))[
                     torch.as_tensor(keep, device=self.device)]
@@ -2189,14 +2337,7 @@ class Grid:
             # projection: one device-side gather per field over every
             # partition's rows, pulled to host
             old_ids = np.concatenate([res.refined_parents, res.removed_cells])
-            self._removed_data = {}
-            if len(old_ids):
-                rows_t = self._flat_rows(*self._host_rows(old_ids))
-                for name in self.fields:
-                    vals = _flat(self.data[name]).index_select(0, rows_t)
-                    self._removed_data[name] = (old_ids, _host_numpy(vals))
-            else:
-                self._removed_data = {name: (old_ids, None) for name in self.fields}
+            self._removed_data = self._preserved_rows(old_ids)
             faults.fire("adapt.commit", phase="preserved")
             self._removed_cells = res.removed_cells
             self._new_cells = res.new_cells
@@ -2264,19 +2405,121 @@ class Grid:
         self._ckpt_epoch += 1
         self._mark_ckpt_dirty()
         surviving = plan.cells[np.isin(plan.cells, old_plan.cells)]
-        src = self._flat_rows(*self._host_rows(surviving))
+        old_dev, old_rows = self._host_rows(surviving)
+        mine = (np.flatnonzero(self._proc_local_dev[old_dev])
+                if self._rank_held else slice(None))
+        src = self._flat_rows(old_dev[mine], old_rows[mine])
         self._finish_plan(plan)
         faults.fire("grid.restructure", phase="planned")
-        dst = self._flat_rows(*self._host_rows(surviving))
+        new_dev, new_rows = self._host_rows(surviving)
+        dst = None
         for name, (shape, dtype) in self.fields.items():
-            moved = torch.zeros((self.n_dev, plan.R) + shape, dtype=dtype,
-                                device=self.device)
-            _flat(moved).index_copy_(
-                0, dst, _flat(self.data[name]).index_select(0, src))
+            # the rows that change rank cross in one collective per
+            # field (on one process every row is local)
+            items, got = self._route_rows(
+                old_dev, new_dev,
+                {name: _flat(self.data[name]).index_select(0, src)})
+            if dst is None:
+                dst = self._flat_rows(new_dev[items], new_rows[items])
+            moved = torch.zeros((len(self._held), plan.R) + shape,
+                                dtype=dtype, device=self.device)
+            _flat(moved).index_copy_(0, dst, got[name])
             self.data[name] = moved
         faults.fire("grid.restructure", phase="moved")
         if self._debug and not self._txn_depth:
             verify_mod.verify_user_data(self)
+
+    def _preserved_rows(self, ids) -> dict:
+        """``{field: (ids, host values)}`` of cells about to disappear,
+        for ``get_old_data`` (values None when ``ids`` is empty): one
+        gather per field over the held rows; on a grid whose partitions
+        span ranks every rank's rows are then merged on every rank (one
+        ``all_gather_object``), as one process sees them."""
+        if not len(ids):
+            return {name: (ids, None) for name in self.fields}
+        dev, rows = self._host_rows(ids)
+        mine = np.flatnonzero(self._proc_local_dev[dev]) \
+            if self._rank_held else np.arange(len(ids))
+        rows_t = self._flat_rows(dev[mine], rows[mine])
+        vals = {name: _host_numpy(_flat(self.data[name]).index_select(
+            0, rows_t)) for name in self.fields}
+        if self._rank_held:
+            from . import comm
+
+            parts = [None] * torch.distributed.get_world_size()
+            torch.distributed.all_gather_object(parts, (mine, vals))
+            comm._count("gather", sum(v.nbytes for v in vals.values()))
+            full = {}
+            for name in self.fields:
+                shape = vals[name].shape[1:]
+                out = np.zeros((len(ids),) + shape, dtype=vals[name].dtype)
+                for pos, v in parts:
+                    out[pos] = v[name]
+                full[name] = out
+            vals = full
+        return {name: (ids, vals[name]) for name in self.fields}
+
+    def _route_rows(self, src_dev, dst_dev, values, leg="rows"):
+        """Move per-item rows between partitions: item ``i`` leaves
+        partition ``src_dev[i]`` and arrives at ``dst_dev[i]`` (global
+        indices, the same arrays on every rank, from the replicated
+        plans). ``values`` is ``{name: tensor}`` of the items whose
+        source this process holds, in item order. Returns ``(items,
+        {name: tensor})``: the items whose destination this process
+        holds, in item order, and their rows. On a grid whose
+        partitions span ranks the rows that cross go by one
+        ``comm.move_bytes`` (``all_to_all_single``), a collective every
+        rank enters when any item crosses ranks."""
+        src_dev = np.asarray(src_dev, dtype=np.int64)
+        dst_dev = np.asarray(dst_dev, dtype=np.int64)
+        if not self._rank_held:
+            return np.arange(len(src_dev)), values
+        from . import comm
+
+        me = int(self._part_rank[self._held[0]])
+        rs, rd = self._part_rank[src_dev], self._part_rank[dst_dev]
+        src_items = np.flatnonzero(rs == me)
+        items = np.flatnonzero(rd == me)
+        names = list(values)
+        dev = self.device
+        out = {n: torch.empty((len(items),) + tuple(values[n].shape[1:]),
+                              dtype=values[n].dtype, device=dev)
+               for n in names}
+
+        def put(sel, got):
+            at = torch.as_tensor(np.searchsorted(items, sel), device=dev)
+            for n in names:
+                out[n].index_copy_(0, at, got[n])
+
+        def take(sel):
+            at = torch.as_tensor(np.searchsorted(src_items, sel), device=dev)
+            return {n: values[n].index_select(0, at) for n in names}
+
+        local = np.flatnonzero((rs == me) & (rd == me))
+        if len(local):
+            put(local, take(local))
+        if not bool((rs != rd).any()):
+            return items, out
+        row_bytes = sum(
+            int(np.prod(values[n].shape[1:], dtype=np.int64))
+            * values[n].element_size() for n in names)
+        sends, sizes = {}, {}
+        for r in np.unique(np.concatenate([rs, rd])).tolist():
+            if r == me:
+                continue
+            out_sel = np.flatnonzero((rs == me) & (rd == r))
+            if len(out_sel):
+                got = take(out_sel)
+                sends[r] = comm.pack([got[n] for n in names])
+            sizes[r] = int(np.count_nonzero((rs == r) & (rd == me))) \
+                * row_bytes
+        recvd = comm.move_bytes(sends, sizes, dev, leg=leg)
+        for r, buf in recvd.items():
+            sel = np.flatnonzero((rs == r) & (rd == me))
+            specs = [((len(sel),) + tuple(values[n].shape[1:]),
+                      values[n].dtype) for n in names]
+            put(sel, dict(zip(names, comm.unpack(buf, specs))))
+        return items, out
 
     def _own(self, name) -> torch.Tensor:
         """``data[name]``, safe to write in place: a tensor the open
@@ -2532,8 +2775,14 @@ class Grid:
                               validate=False):
             faults.fire("balance.commit", phase="stage")
             moving = self.plan.cells[self._pending_owner != self.plan.owner]
-            src = (self._flat_rows(*self._host_rows(moving)) if len(moving)
-                   else None)
+            src = None
+            if len(moving):
+                dev, rows = self._host_rows(moving)
+                if self._rank_held:
+                    # this rank captures the moving rows it holds
+                    mine = np.flatnonzero(self._proc_local_dev[dev])
+                    dev, rows = dev[mine], rows[mine]
+                src = self._flat_rows(dev, rows)
             for n in names:
                 self._staged_balance[n] = (
                     moving.copy(),
@@ -2548,9 +2797,12 @@ class Grid:
             return ids.copy(), None
         if self._multiproc:
             # rank-local peek: only this process's moving cells (the
-            # plan is unchanged since the stage)
+            # plan is unchanged since the stage; a rank-held stage
+            # captured just those)
             dev, _rows = self._host_rows(ids)
             lm = np.flatnonzero(self._proc_local_dev[dev])
+            if self._rank_held:
+                return ids[lm].copy(), _host_numpy(snap)
             return ids[lm].copy(), _host_numpy(
                 snap.index_select(0, torch.as_tensor(lm, device=snap.device)))
         return ids.copy(), _host_numpy(snap)
@@ -2578,6 +2830,7 @@ class Grid:
         self._pending_owner = None
         staged = self._staged_balance
         self._staged_balance = {}
+        old_owner = self.plan.owner
         self._restructure(cells.copy(), new_owner)
         faults.fire("balance.commit", phase="land")
         if self._debug:
@@ -2586,7 +2839,15 @@ class Grid:
         for n, (ids, snap) in staged.items():
             if snap is None or n not in self.fields:
                 continue
-            if dst is None:
+            if self._rank_held:
+                # each stage's rows go from their old rank to the new
+                # owner's (the cells are the moving ones of the stage)
+                pos = np.searchsorted(cells, ids)
+                items, got = self._route_rows(
+                    old_owner[pos], new_owner[pos], {n: snap})
+                snap = got[n]
+                dst = self._flat_rows(*self._host_rows(ids[items]))
+            elif dst is None:
                 dst = self._flat_rows(*self._host_rows(ids))
             # the moved rows land in the tensors _restructure made
             _flat(self._own(n)).index_copy_(
@@ -2948,6 +3209,7 @@ class Grid:
         hood = self.plan.hoods[neighborhood_id]
         deltas = self._peer_deltas(neighborhood_id)
         n_dev, R, dev = self.n_dev, self.plan.R, self.device
+        slot = self._slot
         sends, recvs = self._pair_tables_host(neighborhood_id, field_names)
         n_t = 1 if deltas is None else len(deltas)
         out = []
@@ -2961,19 +3223,68 @@ class Grid:
                     sd, rd = sends[i * n_t + t], recvs[i * n_t + t]
                     if deltas is None:  # rd [dst q, src p, M]
                         q, p, m = np.nonzero(rd >= 0)
-                        src = p * R + sd[p, q, m]
-                        dst = q * R + rd[q, p, m]
+                        srow, rrow = sd[p, q, m], rd[q, p, m]
                     else:
                         q, m = np.nonzero(rd >= 0)
                         p = (q - deltas[t]) % n_dev
-                        src = p * R + sd[p, m]
-                        dst = q * R + rd[q, m]
+                        srow, rrow = sd[p, m], rd[q, m]
+                    # the pairs both of whose partitions this process
+                    # holds (every pair on one process); the others
+                    # cross ranks (_exchange_cross)
+                    both = (slot[p] >= 0) & (slot[q] >= 0)
+                    src = slot[p[both]] * R + srow[both]
+                    dst = slot[q[both]] * R + rrow[both]
                     hit = (torch.as_tensor(src.astype(np.int64), device=dev),
                            torch.as_tensor(dst.astype(np.int64), device=dev))
                     hood._dev[key] = hit
                 groups.append(hit)
             out.append(groups)
         return out
+
+    def _exchange_cross(self, neighborhood_id, field_names):
+        """The cross-rank half of an exchange of ``field_names``
+        (:class:`_RankHalo`), or None on a grid whose partitions are all
+        this process's. Built from each field's compact pair record, so
+        a sender and its receiver list the same entries in the same
+        order. Memoized on the hood."""
+        if not self._rank_held or self.n_dev == 1:
+            return None
+        hood = self.plan.hoods[neighborhood_id]
+        key = ("xrank", tuple(field_names))
+        hit = hood._pair_host.get(key)
+        if hit is not None:
+            return hit
+        R, dev, slot = self.plan.R, self.device, self._slot
+        me = int(self._part_rank[self._held[0]])
+        peers = sorted(set(self._part_rank.tolist()) - {me})
+        send, recv, specs, sb, rb = {}, {}, {}, {}, {}
+        for n in field_names:
+            shape, dtype = self.fields[n]
+            row = int(np.prod(shape, dtype=np.int64)) * \
+                torch.empty((), dtype=dtype).element_size()
+            c = self._field_pair_compact(neighborhood_id, n)
+            rp, rq = self._part_rank[c["p"]], self._part_rank[c["q"]]
+            for r in peers:
+                out = (rp == me) & (rq == r)
+                inn = (rp == r) & (rq == me)
+                src = slot[c["p"][out]] * R + c["srow"][out]
+                dst = slot[c["q"][inn]] * R + c["rrow"][inn]
+                send.setdefault(r, []).append(torch.as_tensor(
+                    src.astype(np.int64), device=dev))
+                recv.setdefault(r, []).append(torch.as_tensor(
+                    dst.astype(np.int64), device=dev))
+                specs.setdefault(r, []).append(
+                    ((int(inn.sum()),) + tuple(shape), dtype))
+                sb[r] = sb.get(r, 0) + int(out.sum()) * row
+                rb[r] = rb.get(r, 0) + int(inn.sum()) * row
+        hit = _RankHalo(
+            {r: v for r, v in send.items() if sb[r]},
+            {r: v for r, v in recv.items() if rb[r]},
+            {r: v for r, v in specs.items() if rb[r]},
+            {r: b for r, b in sb.items() if b},
+            {r: b for r, b in rb.items() if b})
+        hood._pair_host[key] = hit
+        return hit
 
     def exchange_bytes(self, neighborhood_id=DEFAULT_NEIGHBORHOOD_ID,
                        fields=None) -> int:
@@ -3011,11 +3322,14 @@ class Grid:
             return
         with telemetry.span("grid.exchange"):
             groups = self._exchange_groups(neighborhood_id, names)
+            cross = self._exchange_cross(neighborhood_id, names)
             fields = [self._own(n) for n in names]
             idx = range(len(names))
+            posted = _post_rank_halos(fields, idx, cross)
             _land_halos(fields, idx, groups,
                         _send_halos(fields, idx, groups, None), None,
                         self.plan.R)
+            _land_rank_halos(fields, idx, cross, posted, self.plan.R)
 
     def _check_not_in_flight(self, neighborhood_id):
         entry = self._pending.get(neighborhood_id)
@@ -3042,10 +3356,14 @@ class Grid:
             return
         with telemetry.span("grid.exchange.start"):
             groups = self._exchange_groups(neighborhood_id, names)
-            payloads = _send_halos([self.data[n] for n in names],
-                                   range(len(names)), groups, None)
+            cross = self._exchange_cross(neighborhood_id, names)
+            fields = [self.data[n] for n in names]
+            # the cross-rank sends and receives are posted here and
+            # land at the wait
+            posted = _post_rank_halos(fields, range(len(names)), cross)
+            payloads = _send_halos(fields, range(len(names)), groups, None)
         self._pending[neighborhood_id] = (self.plan.epoch, names,
-                                          (groups, payloads))
+                                          (groups, payloads, cross, posted))
 
     def wait_remote_neighbor_copy_updates(self, neighborhood_id=DEFAULT_NEIGHBORHOOD_ID) -> None:
         if neighborhood_id not in self._pending:
@@ -3060,9 +3378,12 @@ class Grid:
         if payloads is None:  # one partition: nothing was sent
             return
         with telemetry.span("grid.exchange.wait"):
-            groups, sent = payloads
-            _land_halos([self._own(n) for n in names], range(len(names)),
-                        groups, sent, None, self.plan.R)
+            groups, sent, cross, posted = payloads
+            fields = [self._own(n) for n in names]
+            _land_halos(fields, range(len(names)), groups, sent, None,
+                        self.plan.R)
+            _land_rank_halos(fields, range(len(names)), cross, posted,
+                             self.plan.R)
 
     def wait_remote_neighbor_copy_update_receives(self, neighborhood_id=DEFAULT_NEIGHBORHOOD_ID) -> None:
         self.wait_remote_neighbor_copy_updates(neighborhood_id)
@@ -3241,7 +3562,8 @@ class Grid:
                 kind = "closed_multi" if cf.get("multi") else "closed"
                 tables = [hood.dev("offs_const", hood.offs_const, dev)]
                 if kind == "closed_multi":
-                    tables.append(self.device_row_ids()[p, :self.plan.L])
+                    tables.append(
+                        self.device_row_ids()[self._slot[p], :self.plan.L])
                     tables.extend(self._roll_fixups(hood, p))
             else:
                 kind = "table"
@@ -3277,10 +3599,10 @@ class Grid:
         return spec, tables
 
     def _partition_tables(self, hood, include_to, slotwise):
-        """``(spec, tables, n_tab)``: every partition's pass tables, in
-        partition order, ``n_tab`` each."""
+        """``(spec, tables, n_tab)``: every held partition's pass tables,
+        in slot order, ``n_tab`` each."""
         per = [self._pass_tables(hood, include_to, slotwise, p)
-               for p in range(self.n_dev)]
+               for p in self._held]
         return per[0][0], [t for _spec, tabs in per for t in tabs], len(per[0][1])
 
     def _make_stencil(self, kernel, fields_in, fields_out, neighborhood_id,
@@ -3299,7 +3621,8 @@ class Grid:
         if slotwise and include_to:
             raise ValueError("SlotwiseKernel does not support include_to")
         hood = self.plan.hoods[neighborhood_id]
-        L, R, n_dev = self.plan.L, self.plan.R, self.n_dev
+        # the partitions this process holds (every one on one process)
+        L, R, n_dev = self.plan.L, self.plan.R, len(self._held)
         spec, tables, n_tab = self._partition_tables(hood, include_to, slotwise)
         key = ("stencil", kernel, fields_in, fields_out, n_extra, L, R, spec,
                n_dev)
@@ -3487,11 +3810,11 @@ class Grid:
         if st is None:
             return None
         orow_h, onr_h, _rows = st
-        L, R, n_dev = self.plan.L, self.plan.R, self.n_dev
+        L, R, n_dev = self.plan.L, self.plan.R, len(self._held)
         n_local = np.asarray(self.plan.n_local, dtype=np.int64)
         dev = self.device
         tables = []
-        for d in range(n_dev):
+        for d in self._held:
             rows = orow_h[d][orow_h[d] < n_local[d]].astype(np.int64)
             k = len(rows)
             om = msk[d, rows]
@@ -3508,7 +3831,7 @@ class Grid:
         fields_in = tuple(fields_in)
         fields_out = tuple(fields_out)
         key = ("outer_repass", kernel, fields_in, fields_out,
-               neighborhood_id, exch, L, R, n_dev)
+               neighborhood_id, exch, L, R, tuple(self._held))
         fn = self._program_cache.get(key)
         if fn is not None:
             return fn, tables
@@ -3594,7 +3917,10 @@ class Grid:
                 return built
         hood = self.plan.hoods[neighborhood_id]
         slotwise = isinstance(kernel, SlotwiseKernel)
+        # n_dev: the partitions of the grid; n_held: this process's
         L, R, n_dev = self.plan.L, self.plan.R, self.n_dev
+        held = self._held
+        n_held = len(held)
         static_in = tuple(n for n in fields_in if n not in fields_out)
         spec, tables, n_tab = self._partition_tables(hood, False, slotwise)
         exch_idx = tuple(fields_out.index(n) for n in exchange_fields)
@@ -3605,7 +3931,11 @@ class Grid:
         for g in groups:
             for src, dst in g:
                 tables += [src, dst]
-        n_x = len(tables) - n_dev * n_tab
+        # the cross-rank half rides with the tables (None on one
+        # process): its rows and sizes change with the epoch
+        tables.append(self._exchange_cross(neighborhood_id, xnames)
+                      if n_dev > 1 and exch_idx else None)
+        n_x = len(tables) - n_held * n_tab
 
         # the overlap and its ghost split (dccrg_tpu/grid.py:3032-3107)
         use_roll = spec[0] == "closed_multi"
@@ -3648,7 +3978,7 @@ class Grid:
         o_tabs = o_mode in ("full", "split")
         if o_tabs:
             orow, onr = ot
-            for p in range(n_dev):
+            for p in held:
                 k = int(np.count_nonzero(orow[p] < L))
                 tables.append(hood.dev(okey + ("rows", p),
                                        orow[p, :k].astype(np.int64),
@@ -3665,14 +3995,15 @@ class Grid:
         }
 
         key = ("steploop", kernel, fields_in, fields_out, exch_idx, n_extra,
-               L, R, spec, n_dev, n_groups, overlap, o_mode, repass)
+               L, R, spec, n_dev, tuple(held), n_groups, overlap, o_mode,
+               repass)
         fn = self._program_cache.get(key)
         if fn is not None:
             return fn, tables, static_in
 
         n_static, n_out = len(static_in), len(fields_out)
         split = spec[4]
-        n_part = n_dev * n_tab
+        n_part = n_held * n_tab
         n_all = len(tables)
         side = (self._side_stream()
                 if overlap and self.device.type == "cuda" else None)
@@ -3685,6 +4016,7 @@ class Grid:
                 xg.append([(xt[i + 2 * t], xt[i + 2 * t + 1])
                            for t in range(cnt)])
                 i += 2 * cnt
+            cross = xt[-1]
             otab = tabs[n_part + n_x:]
             statics = dict(zip(static_in, args[:n_static]))
             # fresh state tensors: the caller's tensors stay untouched,
@@ -3692,7 +4024,7 @@ class Grid:
             state = [a.clone() for a in args[n_static:n_static + n_out]]
             extra = args[n_static + n_out:]
             runs = [_make_pass(spec, tabs[p * n_tab:(p + 1) * n_tab], L,
-                               fields_out) for p in range(n_dev)]
+                               fields_out) for p in range(n_held)]
 
             def bulk_pass(full, p, hard=True):
                 flat = {n: full[n][p] for n in fields_in}
@@ -3708,10 +4040,12 @@ class Grid:
                 full.update(zip(fields_out, state))
                 if not overlap:
                     if xg:
+                        posted = _post_rank_halos(state, exch_idx, cross)
                         _land_halos(state, exch_idx, xg,
                                     _send_halos(state, exch_idx, xg, None),
                                     None, R)
-                    for p in range(n_dev):
+                        _land_rank_halos(state, exch_idx, cross, posted, R)
+                    for p in range(n_held):
                         write(p, bulk_pass(full, p))
                     continue
                 # sends read local rows only, so they start before the
@@ -3721,11 +4055,15 @@ class Grid:
                 # land (the state is updated in place, so ``full`` then
                 # reads the fresh ghosts); the hard rows of a split plan
                 # run last, on the fresh ghosts, over the re-pass
+                # the cross-rank sends and receives are posted first and
+                # land after the bulk pass, with the local receives
+                posted = _post_rank_halos(state, exch_idx, cross)
                 payloads = _send_halos(state, exch_idx, xg, side)
                 results = [bulk_pass(full, p, hard=not split)
-                           for p in range(n_dev)]
+                           for p in range(n_held)]
                 _land_halos(state, exch_idx, xg, payloads, side, R)
-                for p in range(n_dev):
+                _land_rank_halos(state, exch_idx, cross, posted, R)
+                for p in range(n_held):
                     rows, nbr = (otab[2 * p], otab[2 * p + 1]) if o_tabs \
                         else (None, None)
                     flat = {n: full[n][p] for n in fields_in}

@@ -232,7 +232,9 @@ def grid_fingerprint(grid, fields=None) -> dict:
     partition does not change it. Computed on the grid's device
     (:func:`device_fingerprint`, one host read per field) where a row is
     one word per element: 32-bit types and scalar 16-bit fields; other
-    types on the host."""
+    types on the host. On a grid whose partitions span ranks each rank
+    fingerprints its held rows and the pairs are summed over the ranks
+    (the sums wrap, so the result is the one-process fingerprint)."""
     out = {}
     for name in sorted(fields if fields is not None else grid.fields):
         shape, dtype = grid.fields[name]
@@ -246,6 +248,13 @@ def grid_fingerprint(grid, fields=None) -> dict:
                                  dtype=checkpoint_mod.storage_dtype(dtype))
             out[name] = fingerprint_rows(
                 rows.reshape((x.shape[0],) + tuple(shape)))
+    if grid._rank_held and out:
+        names = sorted(out)
+        t = comm.all_reduce(torch.tensor(
+            [[out[n][k] for n in names for k in (0, 1)]],
+            dtype=torch.int64), "sum", True)[0] & _U32
+        out = {n: (int(t[2 * i]), int(t[2 * i + 1]))
+               for i, n in enumerate(names)}
     return out
 
 
@@ -276,8 +285,8 @@ def conservation_sums(grid, fields) -> np.ndarray:
     if not names:
         return np.zeros(0, dtype=np.float64)
     parts = torch.stack([
-        torch.stack([grid.data[n][p, :int(grid.plan.n_local[p])].sum()
+        torch.stack([grid.data[n][i, :int(grid.plan.n_local[p])].sum()
                      .to(torch.float32) for n in names])
-        for p in range(grid.n_dev)])
-    return comm.pull_replicated(comm.all_reduce(parts, "sum")[0]).astype(
-        np.float64)
+        for i, p in enumerate(grid._held)])
+    return comm.pull_replicated(comm.all_reduce(
+        parts, "sum", grid._rank_held)[0]).astype(np.float64)

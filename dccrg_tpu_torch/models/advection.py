@@ -21,6 +21,7 @@ import math
 import numpy as np
 import torch
 
+from .. import comm
 from ..dense import AXES, BLOCKS, WHOLE, DenseGrid
 from ..grid import Grid, SlotwiseKernel, resolve_device
 from ..ops.advection_kernel import make_rotation_step
@@ -196,12 +197,20 @@ class GridAdvection:
     def density(self) -> np.ndarray:
         return self.grid.get("density", self.grid.plan.cells)
 
+    def _sum(self, x) -> float:
+        """``x`` summed over the held rows, then over the ranks a grid
+        whose partitions span ranks is placed on."""
+        t = torch.sum(x)
+        if self.grid._rank_held:
+            t = comm.all_reduce(t[None], "sum", True)[0]
+        return float(t)
+
     def checksum(self) -> float:
         """Sum of the density over local rows (pad rows masked out): the
         total density, a mass probe at unit cell volume. Reading the
         scalar waits for the device."""
-        return float(torch.sum(self.grid.data["density"]
-                               * self.grid.local_row_mask()))
+        return self._sum(self.grid.data["density"]
+                         * self.grid.local_row_mask())
 
     def l2_error(self) -> float:
         """L2 error vs the rotated analytic hump, computed on the device
@@ -214,9 +223,9 @@ class GridAdvection:
         x = ((r % self.n).to(torch.float32) + 0.5) * dx
         y = (((r // self.n) % self.n).to(torch.float32) + 0.5) * dx
         exact = analytic_density(x, y, np.float32(self.time))
-        sq = torch.sum((g.data["density"] - exact) ** 2 * g.local_row_mask())
+        sq = self._sum((g.data["density"] - exact) ** 2 * g.local_row_mask())
         vol = self.dx * self.dx * (1.0 / self.nz)
-        return float(np.sqrt(float(sq) * vol))
+        return float(np.sqrt(sq * vol))
 
 
 class AdvectionSolver:

@@ -52,11 +52,14 @@ class GameOfLife:
         self.grid.clear_refined_unrefined_data()
 
     def set_alive(self, ids) -> None:
-        self.grid.set("live", np.asarray(ids, dtype=np.uint64),
-                      np.ones(len(ids), dtype=np.int32))
+        """Set the given cells alive (under a process split, those of
+        them on this process's partitions)."""
+        ids = self.grid._owned_subset(np.asarray(ids, dtype=np.uint64))
+        self.grid.set("live", ids, np.ones(len(ids), dtype=np.int32))
 
     def alive_cells(self) -> np.ndarray:
-        cells = self.grid.get_cells()
+        """The live cells (under a process split, this process's)."""
+        cells = self.grid._owned_subset(self.grid.get_cells())
         live = self.grid.get("live", cells)
         return cells[live > 0]
 

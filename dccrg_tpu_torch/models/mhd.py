@@ -187,9 +187,11 @@ def mhd_default_init(grid, seed: int) -> None:
 
 
 def _local_rows(g, name) -> torch.Tensor:
-    """The owned rows of every partition of ``g``'s field, flattened."""
+    """The owned rows of every held partition of ``g``'s field,
+    flattened."""
     nl = np.asarray(g.plan.n_local)
-    return torch.cat([g.data[name][p, :int(nl[p])] for p in range(g.n_dev)])
+    return torch.cat([g.data[name][i, :int(nl[p])]
+                      for i, p in enumerate(g._held)])
 
 
 class GridMHD:

@@ -26,7 +26,7 @@ each partition sums its local rows and the partition sums are added
 solve is one XLA program with a device while-loop; PyTorch has none, so
 the port's fused solve keeps every scalar of the iteration on the
 device and reads one flag per iteration for the loop condition.
-Partitions on distinct cards wait for ROADMAP.md queue 1, item 5b.1.
+Partitions on distinct cards wait for ROADMAP.md queue 1, item 5b.1b.
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import comm
 from ..dense import AXES, DenseGrid
 from ..grid import Grid, as_torch_dtype, resolve_device
 from ..neighbors import face_masks, make_neighborhood
@@ -241,11 +242,15 @@ class PoissonSolver:
     # -- reductions ----------------------------------------------------
 
     def _psum(self, x: torch.Tensor) -> torch.Tensor:
-        """Sum of an ``[n_dev, R]`` tensor: on n partitions each
-        partition's sum, then the sum over the partitions."""
+        """Sum of an ``[n, R]`` tensor: on n partitions each
+        partition's sum, then the sum over the partitions (and over the
+        ranks of a grid whose partitions span ranks)."""
         if self.grid.n_dev == 1:
             return torch.sum(x)
-        return x.reshape(x.shape[0], -1).sum(dim=1).sum()
+        t = x.reshape(x.shape[0], -1).sum(dim=1).sum()
+        if self.grid._rank_held:
+            t = comm.all_reduce(t[None], "sum", True)[0]
+        return t
 
     def _dot(self, a: str, b: str) -> float:
         return float(self._psum(self.grid.data[a] * self.grid.data[b]
@@ -285,7 +290,8 @@ class PoissonSolver:
         and re-runs only the rows whose gather reads a refreshed ghost
         (``Grid._make_outer_repass``), for ``Ap0`` and for ``A^T p1``.
         Returns (solution, iterations, squared residual) as tensors."""
-        from ..grid import _land_halos, _send_halos, ghost_split_enabled
+        from ..grid import (_land_halos, _land_rank_halos, _post_rank_halos,
+                            _send_halos, ghost_split_enabled)
 
         g = self.grid
         hid = POISSON_NEIGHBORHOOD_ID
@@ -313,16 +319,22 @@ class PoissonSolver:
         if not single:
             g1 = g._exchange_groups(hid, ("p0",))
             g2 = g._exchange_groups(hid, ("p0", "p1"))
+            c1 = g._exchange_cross(hid, ("p0",))
+            c2 = g._exchange_cross(hid, ("p0", "p1"))
             side = (g._side_stream()
                     if overlap and g.device.type == "cuda" else None)
 
         def exchange1(p0):
+            posted = _post_rank_halos([p0], (0,), c1)
             _land_halos([p0], (0,), g1, _send_halos([p0], (0,), g1, None),
                         None, R)
+            _land_rank_halos([p0], (0,), c1, posted, R)
 
         def exchange2(p0, p1):
+            posted = _post_rank_halos([p0, p1], (0, 1), c2)
             _land_halos([p0, p1], (0, 1), g2,
                         _send_halos([p0, p1], (0, 1), g2, None), None, R)
+            _land_rank_halos([p0, p1], (0, 1), c2, posted, R)
 
         def fwd(p0, scratch):
             return fwd_fn(*fwd_tables, p0, *statics, scratch)[0]
@@ -363,10 +375,12 @@ class PoissonSolver:
             if overlap:
                 # the sends read local rows only: they fly under both
                 # matvecs, then only the refreshed rows are redone
+                posted = _post_rank_halos([p0, p1], (0, 1), c2)
                 sent = _send_halos([p0, p1], (0, 1), g2, side)
                 Ap0 = fwd(p0, s["Ap0"])
                 Atp1 = tr(p1, s["r1"])
                 _land_halos([p0, p1], (0, 1), g2, sent, side, R)
+                _land_rank_halos([p0, p1], (0, 1), c2, posted, R)
                 Ap0 = rp_fwd[0](*rp_fwd[1], p0, *statics, Ap0)[0]
                 Atp1 = rp_tr[0](*rp_tr[1], p1, *statics, Atp1)[0]
             else:

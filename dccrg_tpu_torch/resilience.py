@@ -1022,7 +1022,8 @@ def check_finite(grid, fields=None) -> bool:
     # dccrg_tpu/resilience.py:1105-1136)
     from . import comm
 
-    return bool(int(comm.all_finite([grid.data[n] for n in names])[0]))
+    return bool(int(comm.all_finite([grid.data[n] for n in names],
+                                    grid._rank_held)[0]))
 
 
 def assert_finite(grid, fields=None, step=None) -> None:

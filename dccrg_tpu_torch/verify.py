@@ -256,14 +256,15 @@ def verify_remote_neighbor_info(grid) -> None:
 
 
 def verify_user_data(grid) -> None:
-    """Field tensors have the planned ``[n_dev, R, ...]`` layout and the
-    permanent zero pad row really is zero (stencil gathers rely on it)."""
+    """Field tensors have the planned ``[n_held, R, ...]`` layout (every
+    partition this process holds) and the permanent zero pad row really
+    is zero (stencil gathers rely on it)."""
     plan = grid.plan
     for name, (shape, dtype) in grid.fields.items():
         arr = grid.data.get(name)
         if arr is None:
             _fail(f"field {name!r} missing from grid.data")
-        want = (plan.n_dev, plan.R) + shape
+        want = (len(grid._held), plan.R) + shape
         if tuple(arr.shape) != want:
             _fail(f"field {name!r}: shape {tuple(arr.shape)} != planned {want}")
         if arr.dtype != dtype:
@@ -418,14 +419,19 @@ def find_nonfinite_cells(grid, fields=None) -> dict:
         if not (dtype.is_floating_point or dtype.is_complex):
             continue
         hits = []
-        for p in range(grid.n_dev):
+        for i, p in enumerate(grid._held):
             bad = ~torch.isfinite(
-                grid.data[name][p, :int(grid.plan.n_local[p])])
+                grid.data[name][i, :int(grid.plan.n_local[p])])
             if bad.dim() > 1:
                 bad = bad.reshape(bad.shape[0], -1).any(dim=1)
             rows = torch.nonzero(bad).flatten().cpu().numpy()
             if len(rows):
                 hits.append(np.asarray(grid.plan.local_ids[p])[rows])
+        if grid._rank_held:
+            # every rank names the offenders of every rank
+            parts = [None] * torch.distributed.get_world_size()
+            torch.distributed.all_gather_object(parts, hits)
+            hits = [h for part in parts for h in part]
         if hits:
             out[name] = np.sort(np.concatenate(hits))
     return out

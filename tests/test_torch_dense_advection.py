@@ -92,11 +92,11 @@ def test_non_periodic_z_faces_masked(vz):
 
 
 def test_mesh_raises():
-    """A mesh naming distinct devices waits for item 5b.1; a mesh of
+    """A mesh naming distinct devices waits for item 5b.1b; a mesh of
     blocks on one device runs, bit for bit with one block."""
     from dccrg_tpu_torch.dense import dense_mesh as port_mesh
 
-    with pytest.raises(NotImplementedError, match="5b.1"):
+    with pytest.raises(NotImplementedError, match="5b.1b"):
         AdvectionSolver(n=8, mesh=port_mesh(["cpu", "meta"], (2, 1, 1)))
     one = AdvectionSolver(n=8, nz=4, device="cpu")
     blocks = AdvectionSolver(n=8, nz=4, mesh=port_mesh(["cpu"] * 4, (2, 1, 2)))

@@ -166,3 +166,19 @@ def test_port_sources_import_no_jax():
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "dccrg_tpu"), \
                 f"{path.relative_to(REPO)} imports {mod}"
+
+
+def test_distinct_cards_still_wait_for_5b1b():
+    """Partitions on the ranks of a group are ported (item 5b.1a,
+    tests/test_torch_ranks.py); partitions on distinct devices of one
+    process, plain or as one rank's entries, still raise, naming item
+    5b.1b."""
+    import torch
+
+    from dccrg_tpu_torch import Grid
+    from dccrg_tpu_torch.grid import NEXT_SLICE
+
+    assert NEXT_SLICE.endswith("item 5b.1b")
+    for devs in (["cpu", "meta"], [(0, "cpu"), (0, "meta")]):
+        with pytest.raises(NotImplementedError, match="item 5b.1b"):
+            Grid(cell_data={"v": torch.float32}).initialize(devs)

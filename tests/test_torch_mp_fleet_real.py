@@ -18,13 +18,15 @@ test sends it a real SIGKILL mid-write; and the rejoin, whose pool must
 load only complete records, prewarm every bucket before serving and
 serve each bucket's first dispatch warm, with the cold run's digests.
 
-``host_death`` and ``zombie_fence``: two ranks serve one rank-aware
-fleet over a shared checkpoint store. The test kills rank 1 with a real
-SIGKILL once it serves (rank 0 must reclaim its jobs after the lease
-and drain every job with ``run_solo``'s digest), or stops it with
-SIGSTOP until rank 0 has reclaimed, then resumes it with SIGCONT (its
-renew must be fenced with a typed ``OwnershipLostError``, and both
-ranks report every job with the solo digest).
+``host_death``, ``zombie_fence`` and ``host_rejoin``: two ranks serve
+one rank-aware fleet over a shared checkpoint store. The test kills
+rank 1 with a real SIGKILL once it serves (rank 0 must reclaim its
+jobs after the lease and drain every job with ``run_solo``'s digest),
+or stops it with SIGSTOP until rank 0 has reclaimed, then resumes it
+with SIGCONT (its renew must be fenced with a typed
+``OwnershipLostError``, and both ranks report every job with the solo
+digest). ``host_rejoin`` then adds a second wave once rank 1 is live
+again, which the rejoined rank must serve.
 
 Marked ``slow``: each case waits out a lease or a kill.
 """
@@ -83,16 +85,24 @@ def fleet_specs(steps):
 
 
 try:
-    if scenario in ("host_death", "zombie_fence"):
+    if scenario in ("host_death", "zombie_fence", "host_rejoin"):
         from dccrg_tpu_torch.scheduler import OwnershipLostError
 
         coord.distributed_init(f"127.0.0.1:{port}", 2, r, retries=20,
                                backoff=0.1)
         os.environ["DCCRG_BARRIER_TIMEOUT"] = "5"
         specs = fleet_specs(48)
+        wave2 = []
+        if scenario == "host_rejoin":
+            # three jobs, then a second wave of one job per rank once
+            # rank 1 is seen dead, then live again, and wave 1 drained
+            specs, wave2 = specs[:3], [dict(specs[3]), dict(specs[3])]
+            wave2[0]["name"], wave2[1]["name"] = "fj3", "fj4"
+            wave2[1]["seed"] = 105
         names = [s["name"] for s in specs]
+        wave1 = list(names)
         refs = {s["name"]: fleet.run_solo(fleet.FleetJob(**s), "cpu")
-                for s in specs}
+                for s in specs + wave2}
         store = os.path.join(tmp, "fleet")
         os.makedirs(store, exist_ok=True)
         m = coord.Membership(r, 2, heartbeat_s=HEARTBEAT_S, lease_s=LEASE_S)
@@ -108,8 +118,20 @@ try:
 
         sched._drop_lost = spy
         prog = os.path.join(tmp, f"fleet_progress.rank{r}")
-        t0, drained = time.monotonic(), False
+        t0, drained, saw_dead, added = time.monotonic(), False, False, False
         while time.monotonic() - t0 < 120 and not drained:
+            if wave2 and not added:
+                if r == 0:
+                    st = m.state(1)
+                    saw_dead = saw_dead or st == "dead"
+                    if saw_dead and st == "live" and all(
+                            n in sched.report for n in wave1):
+                        m.kv.set("dccrg/test/wave2_go", "1")
+                if m.kv.get("dccrg/test/wave2_go") is not None:
+                    for s in wave2:
+                        sched.add(fleet.FleetJob(**s))
+                    names += [s["name"] for s in wave2]
+                    added = True
             sched.run(max_ticks=sched.ticks + 1)
             done = sum(1 for n in names if n in sched.report)
             reclaims = int(telemetry.registry().counter_total(
@@ -117,9 +139,12 @@ try:
             with open(prog + ".tmp", "w") as f:
                 f.write(f"{sched.ticks}:{done}:{len(names)}:{reclaims}")
             os.replace(prog + ".tmp", prog)
-            drained = done == len(names)
+            drained = done == len(names) and (added or not wave2)
             time.sleep(0.02)
         rows = sched.report
+        out["wave2_local"] = sorted(
+            s["name"] for s in wave2 if s["name"] in rows
+            and not rows[s["name"]].get("remote"))
         out["drained"] = drained
         out["digests_solo"] = all(
             rows.get(n, {}).get("status") == "done"
@@ -128,7 +153,7 @@ try:
                                   and not rows[n].get("remote")
                                   and rows[n]["requeues"] > 0)
         out["fenced"] = sorted(set(fenced))
-        if scenario == "zombie_fence":
+        if scenario in ("zombie_fence", "host_rejoin"):
             # rank 0 hosts the group's store: it stays until rank 1 has
             # read the done markers it needs
             m.kv.set(f"dccrg/test/finished/{r}", "1")
@@ -319,6 +344,36 @@ def test_real_zombie_owner_is_fenced(tmp_path):
         assert res[r]["drained"] and res[r]["digests_solo"], res
     assert res[1]["fenced"], res
     assert res[0]["reclaimed"], res
+
+
+def test_real_host_rejoin_serves_the_second_wave(tmp_path):
+    """The zombie round trip, then elastic regrow (the harness's
+    ``host_rejoin``, tests/mp_harness.py:1107): once rank 0 has seen
+    rank 1 dead and live again and wave 1 has drained, a second wave
+    enters both queues, the deterministic partition hands the rejoined
+    rank work, and it serves it to completion with the solo digest."""
+    port = _free_port()
+    procs = [_start(tmp_path, "host_rejoin", r, port, tmp_path)
+             for r in range(2)]
+    try:
+        serving = _wait(lambda: (_progress(tmp_path, 1) or [0])[0] >= 3,
+                        procs)
+        procs[1].send_signal(signal.SIGSTOP)
+        reclaimed = _wait(lambda: (_progress(tmp_path, 0) or [0] * 4)[3] >= 1,
+                          procs[:1], limit=30.0)
+        procs[1].send_signal(signal.SIGCONT)
+        res = {r: _result(p) for r, p in enumerate(procs)}
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.send_signal(signal.SIGCONT)
+                p.kill()
+    assert serving and reclaimed, res
+    assert [p.returncode for p in procs] == [0, 0], res
+    for r in (0, 1):
+        assert res[r]["drained"] and res[r]["digests_solo"], res
+    assert res[1]["fenced"], res
+    assert res[1]["wave2_local"], res
 
 
 def test_real_intake_kill_is_reclaimed_exactly_once(tmp_path):

@@ -158,6 +158,245 @@ os._exit(0)
 """.replace("DEATH_RC", str(DEATH_RC))
 
 
+# ---------------------------------------------------------------------
+# rank-held grids: each rank holds only its own partitions
+# (Grid.initialize(coord.rank_devices(2, "cpu"))), the harness's
+# sdc_rank and three-phase preempt scenarios
+# ---------------------------------------------------------------------
+
+PREEMPT_STEPS = 8
+RESUMABLE_RC = 75
+
+_HELD_WORKER = r"""
+import json, os, sys, time, zlib
+import numpy as np
+import torch
+from dccrg_tpu_torch import Grid, checkpoint, coord, faults, resilience
+from dccrg_tpu_torch import supervise
+
+r, port, out_dir, scenario = (int(sys.argv[1]), sys.argv[2], sys.argv[3],
+                              sys.argv[4])
+coord.distributed_init(f"127.0.0.1:{port}", 2, r, retries=20, backoff=0.1)
+os.environ["DCCRG_BARRIER_TIMEOUT"] = "20"
+PLACE = coord.rank_devices(2, "cpu")
+SEED = 5
+
+
+def mk():
+    # the harness's _mk_grid (tests/mp_harness.py:272): block, so a
+    # rollback's load_cells keeps every cell on its rank
+    g = (Grid(cell_data={"v": torch.float32})
+         .set_initial_length((8, 8, 4)).set_periodic(True, True, False)
+         .set_maximum_refinement_level(0).set_neighborhood_length(1)
+         .set_load_balancing_method("block").initialize(PLACE))
+    cells = g.plan.cells
+    g.set("v", cells, (cells.astype(np.float64) * (SEED + 3) % 97)
+          .astype(np.float32))
+    g.update_copies_of_remote_neighbors()
+    return g
+
+
+def digest(g):
+    cells = g.plan.cells
+    return zlib.crc32(checkpoint._replicated_pull(g, "v", cells).tobytes())
+
+
+def sup_kernel(c, nbr, offs, mask):
+    return {"v": 0.5 * c["v"] + 0.125 * torch.sum(
+        torch.where(mask, nbr["v"], 0.0), dim=1)}
+
+
+def supervised(store, sleep_s=0.0, grid=None, start_step=0):
+    g = grid if grid is not None else mk()
+    prog = os.path.join(store, f"progress.rank{r}")
+
+    def step_fn(grid_, i):
+        grid_.run_steps(sup_kernel, ["v"], ["v"], 1)
+        if sleep_s:
+            time.sleep(sleep_s)
+        with open(prog, "w") as f:
+            f.write(str(i))
+
+    sup = supervise.SupervisedRunner(
+        g, step_fn, store, check_every=100, checkpoint_every=3,
+        backoff=0.0, keep_last=16, grace=20.0, start_step=start_step,
+        diagnostics_dir=store)
+    return g, sup
+
+
+out = {"held": None}
+rc = 0
+if scenario == "sdc_rank":
+    def kern(c, n, o, m):
+        # a conservative relaxation: sum(v) is exact in real arithmetic
+        s = torch.sum(torch.where(m, n["v"], 0.0), dim=1)
+        deg = torch.sum(m, dim=1).to(c["v"].dtype)
+        return {"v": c["v"] + 0.02 * (s - deg * c["v"])}
+
+    def runner(name):
+        g = mk()
+        return resilience.ResilientRunner(
+            g, lambda grid, i: grid.run_steps(kern, ["v"], ["v"], 1),
+            os.path.join(out_dir, f"{name}.dc"), check_every=2,
+            checkpoint_every=2, backoff=0.0, conserved_fields=("v",),
+            diagnostics_dir=out_dir), g
+
+    ref, ref_g = runner("sdc_ref")
+    ref.run(6)
+    out["ref_trips"] = len(ref.trips)
+    want = digest(ref_g)
+    run, g = runner("sdc")
+    out["held"] = [int(x) for x in g._held]
+    out["shape"] = list(g.data["v"].shape)
+    plan = None
+    if r == 1:
+        cells = g.plan.cells
+        mine = cells[g._proc_local_dev[g.plan.owner]]
+        victim = mine[int(np.argmax(g.get("v", mine)))]
+        plan = faults.FaultPlan(seed=SEED)
+        plan.silent_flip("v", step=3, cells=[int(victim)], bit=23)
+        plan.__enter__()
+    try:
+        run.run(6)
+    finally:
+        if plan is not None:
+            plan.__exit__(None, None, None)
+    out["fired"] = plan.fired("step.flip") if plan is not None else 0
+    out["step"] = run.step
+    out["rollbacks"] = run.rollbacks
+    out["trip_fields"] = list(run.trips[0]["fields"]) if run.trips else []
+    out["digest"] = digest(g)
+    out["same_as_ref"] = out["digest"] == want
+else:
+    store = os.path.join(out_dir, "store")
+    os.makedirs(store, exist_ok=True)
+    if scenario == "preempt_ref":
+        g, sup = supervised(store)
+        sup.run(PREEMPT_STEPS)
+        out["held"] = [int(x) for x in g._held]
+        out["digest"] = digest(g)
+    elif scenario == "preempt_kill":
+        g, sup = supervised(store, sleep_s=0.4)
+        try:
+            sup.run(PREEMPT_STEPS)
+            out["preempted"] = False
+        except supervise.PreemptedError as e:
+            out["preempted"] = True
+            out["checkpoint"] = e.checkpoint
+            out["verify"] = resilience.verify_checkpoint(e.checkpoint)
+            rc = RESUMABLE_RC
+    else:
+        info = supervise.resume_latest(store, {"v": torch.float32},
+                                       device=PLACE)
+        g = info.grid
+        out["held"] = [int(x) for x in g._held]
+        out["step"] = info.step
+        out["clean"] = bool(not info.salvaged and info.report.clean)
+        g.update_copies_of_remote_neighbors()
+        g, sup = supervised(store, grid=g, start_step=info.step)
+        sup.run(PREEMPT_STEPS)
+        out["final"] = sup.step
+        out["digest"] = digest(g)
+print("RESULT " + json.dumps(out), flush=True)
+try:
+    coord.barrier("end", timeout=30)
+except Exception:
+    pass
+os._exit(rc)
+""".replace("PREEMPT_STEPS", str(PREEMPT_STEPS)).replace(
+    "RESUMABLE_RC", str(RESUMABLE_RC))
+
+
+def _held_start(tmp_path, scenario, port):
+    script = tmp_path / "held_worker.py"
+    script.write_text(_HELD_WORKER)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    return [subprocess.Popen(
+        [sys.executable, str(script), str(r), str(port), str(tmp_path),
+         scenario], env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for r in range(2)]
+
+
+def _held_results(procs, timeout=180):
+    res = {}
+    try:
+        for r, p in enumerate(procs):
+            out, err = p.communicate(timeout=timeout)
+            lines = [ln for ln in out.splitlines()
+                     if ln.startswith("RESULT ")]
+            res[r] = (json.loads(lines[-1][len("RESULT "):]) if lines
+                      else {"stderr": err[-3000:]})
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    return res
+
+
+def test_real_sdc_on_one_rank_is_convicted_on_both(tmp_path):
+    """The harness's ``sdc_rank`` (tests/mp_harness.py:533) on
+    rank-held grids: a finite bit flip in rank 1's held rows is seen by
+    the conservation invariant (its sums reduced over the group), both
+    ranks trip and roll back together, and the recovered run is bit
+    for bit the undisturbed one."""
+    procs = _held_start(tmp_path, "sdc_rank", _free_port())
+    res = _held_results(procs)
+    assert [p.returncode for p in procs] == [0, 0], res
+    assert res[1]["fired"] == 1, res
+    for r in (0, 1):
+        out = res[r]
+        assert out["shape"][0] == 2 and out["held"] == [2 * r, 2 * r + 1]
+        assert out["ref_trips"] == 0 and out["step"] == 6, out
+        assert out["rollbacks"] == 1, out
+        assert "v" in out["trip_fields"] \
+            or "remote_rank_corrupt" in out["trip_fields"], out
+        assert out["same_as_ref"], out
+    assert res[0]["digest"] == res[1]["digest"]
+
+
+def test_real_sigterm_preempts_both_ranks_and_resumes_bitwise(tmp_path):
+    """The harness's three-phase ``preempt`` (tests/mp_harness.py:
+    804-845) on rank-held grids: an uninterrupted supervised run; a
+    real SIGTERM to rank 1 mid-run, which the trip consensus spreads so
+    both ranks take the collective emergency save and exit 75; the
+    resume from that checkpoint onto rank-held partitions, whose final
+    state is bit for bit the uninterrupted run's."""
+    import signal
+    import time
+
+    store = tmp_path / "store"
+    ref = _held_results(_held_start(tmp_path, "preempt_ref", _free_port()))
+    assert ref[0]["digest"] == ref[1]["digest"], ref
+    for f in store.iterdir():  # the kill phase starts from an empty store
+        f.unlink()
+    procs = _held_start(tmp_path, "preempt_kill", _free_port())
+    prog = store / "progress.rank1"
+    sent, deadline = False, time.monotonic() + 120
+    while not sent and time.monotonic() < deadline:
+        if any(p.poll() is not None for p in procs):
+            break
+        try:
+            if int(prog.read_text().strip() or "-1") >= 1:
+                procs[1].send_signal(signal.SIGTERM)
+                sent = True
+        except (OSError, ValueError):
+            pass
+        time.sleep(0.05)
+    kill = _held_results(procs)
+    assert sent, kill
+    assert [p.returncode for p in procs] == [RESUMABLE_RC] * 2, kill
+    for r in (0, 1):
+        assert kill[r]["preempted"] and kill[r]["verify"] == [], kill
+    res = _held_results(_held_start(tmp_path, "preempt_resume",
+                                    _free_port()))
+    for r in (0, 1):
+        out = res[r]
+        assert out["held"] == [2 * r, 2 * r + 1] and out["clean"], out
+        assert 0 < out["step"] < PREEMPT_STEPS, out
+        assert out["final"] == PREEMPT_STEPS, out
+        assert out["digest"] == ref[0]["digest"], (out, ref)
+
+
 def _free_port():
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))

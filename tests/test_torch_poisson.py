@@ -442,9 +442,9 @@ def test_dense_grid_surface():
                           halo=1, boundary=-1.0)
     np.testing.assert_array_equal(step_p(pd.arrays)["u"].numpy(),
                                   np.asarray(step_r(rd.arrays)["u"]))
-    # distinct devices wait for item 5b.1; one device's list is a mesh
+    # distinct devices wait for item 5b.1b; one device's list is a mesh
     # of blocks along x
-    with pytest.raises(NotImplementedError, match="5b.1"):
+    with pytest.raises(NotImplementedError, match="5b.1b"):
         DenseGrid((4, 4, 4), {"u": torch.float32}, device=["cpu", "meta"])
     two = DenseGrid((4, 4, 4), {"u": torch.float32}, device=["cpu", "cpu"])
     assert two.mesh_shape == (2, 1, 1) and two.block == (2, 4, 4)

@@ -34,7 +34,8 @@ Gloo moves host tensors only, so on the card each buffer crosses
 through a pinned host buffer: the rows are selected on the card, copied
 to the host, sent; received, copied to the card, landed. The group's
 backend decides this (:func:`transport_name`); every exchange adds its
-bytes to ``BYTES[leg]`` and to the ``dccrg_rank_bytes_total`` counter.
+bytes to the ``dccrg_rank_bytes_total`` counter (labels ``leg`` and
+``transport``).
 """
 
 from __future__ import annotations
@@ -43,9 +44,6 @@ import numpy as np
 import torch
 
 from . import telemetry
-
-# cross-rank bytes this process sent, by leg ("halo", "rows", "gather")
-BYTES: dict = {}
 
 
 def _n(x) -> int:
@@ -123,21 +121,45 @@ def field_sums(xs, group: bool = False) -> torch.Tensor:
     return all_reduce(parts, "sum", group)
 
 
+def gather_objects(obj, nbytes: int = 0) -> list:
+    """Every rank's ``obj``, in rank order, by one
+    ``all_gather_object`` over the default group (``[obj]`` without
+    one); ``nbytes``, the payload this rank sends, counts to the
+    ``gather`` leg."""
+    if not group_active():
+        return [obj]
+    parts = [None] * torch.distributed.get_world_size()
+    torch.distributed.all_gather_object(parts, obj)
+    _count("gather", nbytes)
+    return parts
+
+
+def gather_rows(pos, vals: dict, n: int) -> dict:
+    """``{name: [n, ...] host array}`` merged from every rank's rows:
+    this rank holds ``vals[name]``, the rows at positions ``pos`` of
+    ``n``; the other positions come from the other ranks."""
+    parts = gather_objects((pos, vals), sum(v.nbytes for v in vals.values()))
+    out = {}
+    for name, v in vals.items():
+        out[name] = np.zeros((n,) + v.shape[1:], dtype=v.dtype)
+        for p, got in parts:
+            out[name][p] = got[name]
+    return out
+
+
 def gather_partitions(x: torch.Tensor, held, n_dev: int) -> torch.Tensor:
     """``[n_dev, ...]``: every partition's row, from each rank's rows of
     the partitions it holds (``x`` ``[len(held), ...]``, ``held`` their
-    global indices), by one ``all_gather_object`` over the group."""
+    global indices)."""
     held = np.asarray(held, dtype=np.int64)
     if len(held) == n_dev or not group_active():
         return x
-    parts = [None] * torch.distributed.get_world_size()
-    torch.distributed.all_gather_object(
-        parts, (held, x.detach().cpu()))
+    host = x.detach().cpu()
     out = torch.empty((n_dev,) + tuple(x.shape[1:]), dtype=x.dtype)
-    for h, v in parts:
+    for h, v in gather_objects((held, host),
+                               host.numel() * host.element_size()):
         if len(h):
             out[torch.as_tensor(h)] = v
-    _count("gather", x.numel() * x.element_size())
     return out.to(x.device)
 
 
@@ -213,7 +235,6 @@ def host_some_reduce(devices, x, peer_mask) -> np.ndarray:
 # ---------------------------------------------------------------------
 
 def _count(leg: str, n: int) -> None:
-    BYTES[leg] = BYTES.get(leg, 0) + int(n)
     telemetry.inc("dccrg_rank_bytes_total", int(n), leg=leg,
                   transport=transport_name())
 

@@ -223,15 +223,14 @@ def process_index() -> int:
     return 0
 
 
-def rank_devices(per_rank: int, device="cuda", ranks=None) -> list:
+def rank_devices(per_rank: int, device="cuda") -> list:
     """A placement of ``per_rank`` partitions on each rank of the
     default process group, in rank order (as ``jax.devices()`` orders a
     multi-process mesh): ``[(rank, device), ...]`` for
-    ``Grid.initialize``. ``ranks`` overrides the group's rank count.
-    Every rank must pass the same arguments, so every rank computes the
-    same plan."""
-    n = process_count() if ranks is None else int(ranks)
-    return [(r, device) for r in range(n) for _ in range(int(per_rank))]
+    ``Grid.initialize``. Every rank must pass the same arguments, so
+    every rank computes the same plan."""
+    return [(r, device) for r in range(process_count())
+            for _ in range(int(per_rank))]
 
 
 def _default_store():

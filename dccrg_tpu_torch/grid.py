@@ -685,37 +685,18 @@ def _halo_scatter(flat, dst, payload):
     flat.index_copy_(0, dst, payload)
 
 
-def _send_halos(state, exch_idx, groups, stream):
-    """The sends of one exchange, every peer offset of every exchanged
-    field (``state[j]`` for ``j`` in ``exch_idx``, ``groups`` their
-    :meth:`Grid._exchange_groups`); on ``stream`` (the overlapped step's
-    side CUDA stream) when given, ordered after the main stream's work
-    and handed back to it."""
-    if stream is None:
-        return [[_halo_send(_flat(state[j]), src) for src, _dst in g]
-                for j, g in zip(exch_idx, groups)]
-    main = torch.cuda.current_stream(stream.device)
-    stream.wait_stream(main)
-    with torch.cuda.stream(stream):
-        out = [[_halo_send(_flat(state[j]), src) for src, _dst in g]
-               for j, g in zip(exch_idx, groups)]
-    for per in out:
-        for t in per:
-            t.record_stream(main)
-    return out
+class _Exchange:
+    """The tables of one exchange (:meth:`Grid._exchange_groups`):
+    ``local``, per exchanged field, one ``(src, dst)`` pair of flat rows
+    per peer offset for the pairs both of whose partitions this process
+    holds; ``cross``, the half that crosses ranks (:class:`_RankHalo`),
+    None when every partition is this process's."""
 
+    __slots__ = ("local", "cross")
 
-def _land_halos(state, exch_idx, groups, payloads, stream, R):
-    """The receives of one exchange into the ghost rows, in place, the
-    zero row zeroed again (dccrg_tpu/grid.py:2264), after the side
-    stream's sends when there is one."""
-    if stream is not None:
-        torch.cuda.current_stream(stream.device).wait_stream(stream)
-    for j, g, per in zip(exch_idx, groups, payloads):
-        fl = _flat(state[j])
-        for (_src, dst), payload in zip(g, per):
-            _halo_scatter(fl, dst, payload)
-        state[j][:, R - 1] = 0
+    def __init__(self, local, cross):
+        self.local = local
+        self.cross = cross
 
 
 class _RankHalo:
@@ -734,33 +715,57 @@ class _RankHalo:
         self.recv_bytes = recv_bytes
 
 
-def _post_rank_halos(state, exch_idx, cross):
-    """Start the cross-rank sends and receives of one exchange: the
+def _send_halos(state, exch_idx, ex, stream):
+    """The sends of one exchange, every peer offset of every exchanged
+    field (``state[j]`` for ``j`` in ``exch_idx``, ``ex`` their
+    :class:`_Exchange`): the cross-rank half is posted first, the
     sender rows of each field packed into one buffer per peer rank
-    (:func:`dccrg_tpu_torch.comm.post_exchange`). ``None`` without a
-    cross-rank half."""
-    if cross is None:
-        return None
-    from . import comm
+    (:func:`dccrg_tpu_torch.comm.post_exchange`); then the local sends,
+    on ``stream`` (the overlapped step's side CUDA stream) when given,
+    ordered after the main stream's work and handed back to it.
+    Returns what :func:`_land_halos` lands."""
+    posted = None
+    if ex.cross is not None:
+        from . import comm
 
-    sends = {r: comm.pack([_flat(state[j]).index_select(0, src)
+        posted = comm.post_exchange(
+            {r: comm.pack([_flat(state[j]).index_select(0, src)
                            for j, src in zip(exch_idx, rows)])
-             for r, rows in cross.send.items()}
-    return comm.post_exchange(sends, cross.recv_bytes, state[0].device)
+             for r, rows in ex.cross.send.items()},
+            ex.cross.recv_bytes, state[0].device)
+    if stream is None:
+        return [[_halo_send(_flat(state[j]), src) for src, _dst in g]
+                for j, g in zip(exch_idx, ex.local)], posted
+    main = torch.cuda.current_stream(stream.device)
+    stream.wait_stream(main)
+    with torch.cuda.stream(stream):
+        out = [[_halo_send(_flat(state[j]), src) for src, _dst in g]
+               for j, g in zip(exch_idx, ex.local)]
+    for per in out:
+        for t in per:
+            t.record_stream(main)
+    return out, posted
 
 
-def _land_rank_halos(state, exch_idx, cross, posted, R):
-    """Finish the cross-rank half: wait for each peer's buffer and land
-    its rows in the ghost rows, the zero row zeroed again."""
-    if cross is None:
-        return
-    from . import comm
+def _land_halos(state, exch_idx, ex, sent, stream, R):
+    """The receives of one exchange into the ghost rows, in place: the
+    local payloads (after the side stream's sends when there is one),
+    then each peer rank's buffer once it has arrived; the zero row is
+    zeroed again (dccrg_tpu/grid.py:2264)."""
+    payloads, posted = sent
+    if stream is not None:
+        torch.cuda.current_stream(stream.device).wait_stream(stream)
+    for j, g, per in zip(exch_idx, ex.local, payloads):
+        fl = _flat(state[j])
+        for (_src, dst), payload in zip(g, per):
+            _halo_scatter(fl, dst, payload)
+    if ex.cross is not None:
+        from . import comm
 
-    got = comm.wait_exchange(posted)
-    for r, buf in got.items():
-        parts = comm.unpack(buf, cross.recv_specs[r])
-        for j, dst, payload in zip(exch_idx, cross.recv[r], parts):
-            _halo_scatter(_flat(state[j]), dst, payload)
+        for r, buf in comm.wait_exchange(posted).items():
+            parts = comm.unpack(buf, ex.cross.recv_specs[r])
+            for j, dst, payload in zip(exch_idx, ex.cross.recv[r], parts):
+                _halo_scatter(_flat(state[j]), dst, payload)
     for j in exch_idx:
         state[j][:, R - 1] = 0
 
@@ -2433,8 +2438,9 @@ class Grid:
         """``{field: (ids, host values)}`` of cells about to disappear,
         for ``get_old_data`` (values None when ``ids`` is empty): one
         gather per field over the held rows; on a grid whose partitions
-        span ranks every rank's rows are then merged on every rank (one
-        ``all_gather_object``), as one process sees them."""
+        span ranks every rank's rows are then merged on every rank
+        (:func:`dccrg_tpu_torch.comm.gather_rows`), as one process sees
+        them."""
         if not len(ids):
             return {name: (ids, None) for name in self.fields}
         dev, rows = self._host_rows(ids)
@@ -2446,17 +2452,7 @@ class Grid:
         if self._rank_held:
             from . import comm
 
-            parts = [None] * torch.distributed.get_world_size()
-            torch.distributed.all_gather_object(parts, (mine, vals))
-            comm._count("gather", sum(v.nbytes for v in vals.values()))
-            full = {}
-            for name in self.fields:
-                shape = vals[name].shape[1:]
-                out = np.zeros((len(ids),) + shape, dtype=vals[name].dtype)
-                for pos, v in parts:
-                    out[pos] = v[name]
-                full[name] = out
-            vals = full
+            vals = comm.gather_rows(mine, vals, len(ids))
         return {name: (ids, vals[name]) for name in self.fields}
 
     def _route_rows(self, src_dev, dst_dev, values, leg="rows"):
@@ -3200,12 +3196,14 @@ class Grid:
         return tuple(sends), tuple(recvs)
 
     def _exchange_groups(self, neighborhood_id, field_names):
-        """Per field, one ``(src, dst)`` pair of int64 device tensors
-        per peer offset (one for the dense fallback): the senders' flat
-        rows (``p * R + row``) in receiver order and the receivers' ghost
-        rows they land in, the -1 slots of the tables left out. A send
-        is one ``index_select``, a receive one ``index_copy_``.
-        Memoized on the hood."""
+        """The :class:`_Exchange` of ``field_names``: per field, one
+        ``(src, dst)`` pair of int64 device tensors per peer offset (one
+        for the dense fallback), the senders' flat rows (``p * R + row``)
+        in receiver order and the receivers' ghost rows they land in,
+        the -1 slots of the tables left out (a send is one
+        ``index_select``, a receive one ``index_copy_``); and the
+        cross-rank half (:meth:`_exchange_cross`). Memoized on the
+        hood."""
         hood = self.plan.hoods[neighborhood_id]
         deltas = self._peer_deltas(neighborhood_id)
         n_dev, R, dev = self.n_dev, self.plan.R, self.device
@@ -3239,7 +3237,8 @@ class Grid:
                     hood._dev[key] = hit
                 groups.append(hit)
             out.append(groups)
-        return out
+        return _Exchange(out, self._exchange_cross(neighborhood_id,
+                                                   field_names))
 
     def _exchange_cross(self, neighborhood_id, field_names):
         """The cross-rank half of an exchange of ``field_names``
@@ -3321,15 +3320,11 @@ class Grid:
         if self.n_dev == 1:
             return
         with telemetry.span("grid.exchange"):
-            groups = self._exchange_groups(neighborhood_id, names)
-            cross = self._exchange_cross(neighborhood_id, names)
+            ex = self._exchange_groups(neighborhood_id, names)
             fields = [self._own(n) for n in names]
             idx = range(len(names))
-            posted = _post_rank_halos(fields, idx, cross)
-            _land_halos(fields, idx, groups,
-                        _send_halos(fields, idx, groups, None), None,
-                        self.plan.R)
-            _land_rank_halos(fields, idx, cross, posted, self.plan.R)
+            _land_halos(fields, idx, ex, _send_halos(fields, idx, ex, None),
+                        None, self.plan.R)
 
     def _check_not_in_flight(self, neighborhood_id):
         entry = self._pending.get(neighborhood_id)
@@ -3355,15 +3350,13 @@ class Grid:
             self._pending[neighborhood_id] = (self.plan.epoch, names, None)
             return
         with telemetry.span("grid.exchange.start"):
-            groups = self._exchange_groups(neighborhood_id, names)
-            cross = self._exchange_cross(neighborhood_id, names)
-            fields = [self.data[n] for n in names]
+            ex = self._exchange_groups(neighborhood_id, names)
             # the cross-rank sends and receives are posted here and
             # land at the wait
-            posted = _post_rank_halos(fields, range(len(names)), cross)
-            payloads = _send_halos(fields, range(len(names)), groups, None)
+            payloads = _send_halos([self.data[n] for n in names],
+                                   range(len(names)), ex, None)
         self._pending[neighborhood_id] = (self.plan.epoch, names,
-                                          (groups, payloads, cross, posted))
+                                          (ex, payloads))
 
     def wait_remote_neighbor_copy_updates(self, neighborhood_id=DEFAULT_NEIGHBORHOOD_ID) -> None:
         if neighborhood_id not in self._pending:
@@ -3378,12 +3371,9 @@ class Grid:
         if payloads is None:  # one partition: nothing was sent
             return
         with telemetry.span("grid.exchange.wait"):
-            groups, sent, cross, posted = payloads
-            fields = [self._own(n) for n in names]
-            _land_halos(fields, range(len(names)), groups, sent, None,
-                        self.plan.R)
-            _land_rank_halos(fields, range(len(names)), cross, posted,
-                             self.plan.R)
+            ex, sent = payloads
+            _land_halos([self._own(n) for n in names], range(len(names)),
+                        ex, sent, None, self.plan.R)
 
     def wait_remote_neighbor_copy_update_receives(self, neighborhood_id=DEFAULT_NEIGHBORHOOD_ID) -> None:
         self.wait_remote_neighbor_copy_updates(neighborhood_id)
@@ -3925,17 +3915,10 @@ class Grid:
         spec, tables, n_tab = self._partition_tables(hood, False, slotwise)
         exch_idx = tuple(fields_out.index(n) for n in exchange_fields)
         xnames = tuple(fields_out[j] for j in exch_idx)
-        groups = (self._exchange_groups(neighborhood_id, xnames)
-                  if n_dev > 1 and exch_idx else [])
-        n_groups = tuple(len(g) for g in groups)
-        for g in groups:
-            for src, dst in g:
-                tables += [src, dst]
-        # the cross-rank half rides with the tables (None on one
-        # process): its rows and sizes change with the epoch
-        tables.append(self._exchange_cross(neighborhood_id, xnames)
+        # the exchange's tables ride with the partitions' (None without
+        # an exchange): its rows and sizes change with the epoch
+        tables.append(self._exchange_groups(neighborhood_id, xnames)
                       if n_dev > 1 and exch_idx else None)
-        n_x = len(tables) - n_held * n_tab
 
         # the overlap and its ghost split (dccrg_tpu/grid.py:3032-3107)
         use_roll = spec[0] == "closed_multi"
@@ -3995,8 +3978,7 @@ class Grid:
         }
 
         key = ("steploop", kernel, fields_in, fields_out, exch_idx, n_extra,
-               L, R, spec, n_dev, tuple(held), n_groups, overlap, o_mode,
-               repass)
+               L, R, spec, n_dev, tuple(held), overlap, o_mode, repass)
         fn = self._program_cache.get(key)
         if fn is not None:
             return fn, tables, static_in
@@ -4010,14 +3992,8 @@ class Grid:
 
         def fn(n_steps, *args):
             tabs, args = args[:n_all], args[n_all:]
-            xt = tabs[n_part:n_part + n_x]
-            xg, i = [], 0
-            for cnt in n_groups:
-                xg.append([(xt[i + 2 * t], xt[i + 2 * t + 1])
-                           for t in range(cnt)])
-                i += 2 * cnt
-            cross = xt[-1]
-            otab = tabs[n_part + n_x:]
+            xg = tabs[n_part]
+            otab = tabs[n_part + 1:]
             statics = dict(zip(static_in, args[:n_static]))
             # fresh state tensors: the caller's tensors stay untouched,
             # and the steps then update the copies in place
@@ -4039,12 +4015,10 @@ class Grid:
                 full = dict(statics)
                 full.update(zip(fields_out, state))
                 if not overlap:
-                    if xg:
-                        posted = _post_rank_halos(state, exch_idx, cross)
+                    if xg is not None:
                         _land_halos(state, exch_idx, xg,
                                     _send_halos(state, exch_idx, xg, None),
                                     None, R)
-                        _land_rank_halos(state, exch_idx, cross, posted, R)
                     for p in range(n_held):
                         write(p, bulk_pass(full, p))
                     continue
@@ -4055,14 +4029,10 @@ class Grid:
                 # land (the state is updated in place, so ``full`` then
                 # reads the fresh ghosts); the hard rows of a split plan
                 # run last, on the fresh ghosts, over the re-pass
-                # the cross-rank sends and receives are posted first and
-                # land after the bulk pass, with the local receives
-                posted = _post_rank_halos(state, exch_idx, cross)
                 payloads = _send_halos(state, exch_idx, xg, side)
                 results = [bulk_pass(full, p, hard=not split)
                            for p in range(n_held)]
                 _land_halos(state, exch_idx, xg, payloads, side, R)
-                _land_rank_halos(state, exch_idx, cross, posted, R)
                 for p in range(n_held):
                     rows, nbr = (otab[2 * p], otab[2 * p + 1]) if o_tabs \
                         else (None, None)

@@ -290,8 +290,7 @@ class PoissonSolver:
         and re-runs only the rows whose gather reads a refreshed ghost
         (``Grid._make_outer_repass``), for ``Ap0`` and for ``A^T p1``.
         Returns (solution, iterations, squared residual) as tensors."""
-        from ..grid import (_land_halos, _land_rank_halos, _post_rank_halos,
-                            _send_halos, ghost_split_enabled)
+        from ..grid import _land_halos, _send_halos, ghost_split_enabled
 
         g = self.grid
         hid = POISSON_NEIGHBORHOOD_ID
@@ -319,22 +318,16 @@ class PoissonSolver:
         if not single:
             g1 = g._exchange_groups(hid, ("p0",))
             g2 = g._exchange_groups(hid, ("p0", "p1"))
-            c1 = g._exchange_cross(hid, ("p0",))
-            c2 = g._exchange_cross(hid, ("p0", "p1"))
             side = (g._side_stream()
                     if overlap and g.device.type == "cuda" else None)
 
         def exchange1(p0):
-            posted = _post_rank_halos([p0], (0,), c1)
             _land_halos([p0], (0,), g1, _send_halos([p0], (0,), g1, None),
                         None, R)
-            _land_rank_halos([p0], (0,), c1, posted, R)
 
         def exchange2(p0, p1):
-            posted = _post_rank_halos([p0, p1], (0, 1), c2)
             _land_halos([p0, p1], (0, 1), g2,
                         _send_halos([p0, p1], (0, 1), g2, None), None, R)
-            _land_rank_halos([p0, p1], (0, 1), c2, posted, R)
 
         def fwd(p0, scratch):
             return fwd_fn(*fwd_tables, p0, *statics, scratch)[0]
@@ -375,12 +368,10 @@ class PoissonSolver:
             if overlap:
                 # the sends read local rows only: they fly under both
                 # matvecs, then only the refreshed rows are redone
-                posted = _post_rank_halos([p0, p1], (0, 1), c2)
                 sent = _send_halos([p0, p1], (0, 1), g2, side)
                 Ap0 = fwd(p0, s["Ap0"])
                 Atp1 = tr(p1, s["r1"])
                 _land_halos([p0, p1], (0, 1), g2, sent, side, R)
-                _land_rank_halos([p0, p1], (0, 1), c2, posted, R)
                 Ap0 = rp_fwd[0](*rp_fwd[1], p0, *statics, Ap0)[0]
                 Atp1 = rp_tr[0](*rp_tr[1], p1, *statics, Atp1)[0]
             else:

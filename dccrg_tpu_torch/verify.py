@@ -428,10 +428,11 @@ def find_nonfinite_cells(grid, fields=None) -> dict:
             if len(rows):
                 hits.append(np.asarray(grid.plan.local_ids[p])[rows])
         if grid._rank_held:
+            from . import comm
+
             # every rank names the offenders of every rank
-            parts = [None] * torch.distributed.get_world_size()
-            torch.distributed.all_gather_object(parts, hits)
-            hits = [h for part in parts for h in part]
+            hits = [h for part in comm.gather_objects(
+                hits, sum(h.nbytes for h in hits)) for h in part]
         if hits:
             out[name] = np.sort(np.concatenate(hits))
     return out

@@ -4,7 +4,8 @@ CPU partitions (``Grid.initialize(coord.rank_devices(2, "cpu"))``).
 
 The reference side runs here, in the test process: ``dccrg_tpu``'s
 ``Grid`` on a mesh of 4 of the 8 virtual host devices the conftest
-forces. The port runs twice more: in this process on four partitions
+forces, for the steps, the game of life, the exchange and split phase,
+the save, the AMR commit and the balance. The port runs twice more: in this process on four partitions
 of one process (the bit-for-bit yardstick of the partitioned port), and
 in the two ranks, which start once for every scenario of the file and
 write each case's held rows to ``<case>_<rank>.npz``. Each rank's held
@@ -248,8 +249,9 @@ g.run_steps(kern, ["density", "vx", "vy"], ["density"], STEPS,
 dump("balance", g, fp0=fp0, fp1=fp1, owner=g.plan.owner.tolist(),
      path=g.last_step_path)
 
-from dccrg_tpu_torch import comm
-res["bytes"] = dict(comm.BYTES)
+from dccrg_tpu_torch import telemetry
+res["bytes"] = {leg: telemetry.registry().counter_total(
+    "dccrg_rank_bytes_total", leg=leg) for leg in ("halo", "rows", "gather")}
 for mode, (its, ids, sol) in poisson_solves(PLACE).items():
     np.savez(os.path.join(out_dir, f"poisson{mode}_{r}.npz"), ids=ids,
              sol=sol, its=its)
@@ -280,6 +282,27 @@ def _free_port():
         return s.getsockname()[1]
 
 
+def _ref_exch_grid():
+    """``exch_grid`` on the reference's 4-device mesh."""
+    return (RefGrid(cell_data={"v": jnp.float32, "n": jnp.int32,
+                               "p": ((3,), jnp.float32)})
+            .set_initial_length((6, 5, 8)).set_periodic(True, False, True)
+            .set_neighborhood_length(1)
+            .initialize(mesh_of(4), partition="morton"))
+
+
+def _ref_amr_grid():
+    """``amr_grid`` on the reference's 4-device mesh."""
+    g = (RefGrid(cell_data={"v": jnp.float32, "w": jnp.int32})
+         .set_initial_length((8, 8, 4)).set_maximum_refinement_level(1)
+         .set_neighborhood_length(1).initialize(mesh_of(4), partition="block"))
+    cells = g.plan.cells
+    g.set_many(cells, {"v": (cells % np.uint64(11)).astype(np.float32),
+                       "w": (cells % np.uint64(7)).astype(np.int32)})
+    g.update_copies_of_remote_neighbors()
+    return g
+
+
 def _ref_adv(partition):
     """The reference's 4-device run: its state before and after."""
     if partition == "block":
@@ -304,6 +327,10 @@ def _ref_adv(partition):
     return g, kern, start
 
 
+def _host(g, fields):
+    return {f: np.asarray(g.data[f]).copy() for f in fields}
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """Every side's results: the reference's and the one-process
@@ -316,6 +343,12 @@ def runs(tmp_path_factory):
             g, kern, start = _ref_adv(part)
             for f, a in start.items():
                 seed[f"{part}_{f}"] = a
+            if part == "block":
+                # the saved state and the balance's start, by cell id
+                g.save_grid_data(str(out / "ref.dc"))
+                ref["block_cells"] = g.plan.cells
+                ref["block_start"] = {f: g.get(f, g.plan.cells)
+                                      for f in ("density", "vx", "vy")}
             g.run_steps(kern, ["density", "vx", "vy"], ["density"], STEPS,
                         extra_args=(jnp.float32(dt),))
             ref[part] = np.asarray(g.data["density"])
@@ -420,6 +453,42 @@ def runs(tmp_path_factory):
 
         one["poisson"] = poisson_solves(["cpu"] * 4)
 
+        # the reference's exchange and split phase, AMR commit and balance
+        rg = _ref_exch_grid()
+        cells = rg.plan.cells
+        rg.set_many(cells, exch_values(cells, 0))
+        rg.update_copies_of_remote_neighbors()
+        ref["exch_update"] = _host(rg, ("v", "n", "p"))
+        rg.set_many(cells, exch_values(cells, 5))
+        rg.start_remote_neighbor_copy_updates(fields=["v", "p"])
+        for r in HELD:
+            rg.set("n", cells[np.isin(rg.plan.owner, HELD[r])][:3],
+                   np.full(3, 77, np.int32))
+        rg.wait_remote_neighbor_copy_updates()
+        ref["exch_split"] = _host(rg, ("v", "n", "p"))
+
+        rg = _ref_amr_grid()
+        for c in amr_picks(rg):
+            rg.refine_completely(c)
+        new = rg.stop_refining()
+        rg.assign_children_from_parents()
+        rg.update_copies_of_remote_neighbors()
+        ref["amr"] = {"new": len(new), "cells": rg.plan.cells,
+                      "owner": rg.plan.owner, "data": _host(rg, ("v", "w"))}
+
+        ra = RefAdvection(n=N, mesh=mesh_of(4))
+        rg = ra.grid
+        np.testing.assert_array_equal(rg.plan.cells, ref["block_cells"])
+        rg.set_many(rg.plan.cells, ref["block_start"])
+        rg.update_copies_of_remote_neighbors()
+        rg.set_load_balancing_method("rcb")
+        rg.balance_load()
+        rg.update_copies_of_remote_neighbors()
+        rg.run_steps(ra._kernel, ["density", "vx", "vy"], ["density"], STEPS,
+                     extra_args=(jnp.float32(dt),))
+        ref["balance"] = {"owner": rg.plan.owner,
+                          "data": _host(rg, ("density", "vx", "vy"))}
+
     res = {}
     try:
         for r, p in enumerate(procs):
@@ -510,7 +579,9 @@ def test_game_of_life_bitwise_across_ranks(runs, case):
 def test_exchange_lands_every_ghost_row(runs, case):
     """``update_copies_of_remote_neighbors`` and the split-phase start
     and wait (a local write in between kept) land every ghost row of a
-    float, an int and a vector field bit for bit."""
+    float, an int and a vector field bit for bit: the reference's
+    4-device mesh and the one-process run."""
+    _assert_held_rows(runs, case, runs["ref"][case], ["v", "n", "p"])
     _assert_held_rows(runs, case, runs["one"][case], ["v", "n", "p"])
 
 
@@ -570,10 +641,9 @@ def test_placement_rules():
     from dccrg_tpu_torch import coord
     from dccrg_tpu_torch.grid import resolve_placement
 
-    assert coord.rank_devices(2, "cpu", ranks=2) == [
-        (0, "cpu"), (0, "cpu"), (1, "cpu"), (1, "cpu")]
+    assert coord.rank_devices(2, "cpu") == [(0, "cpu"), (0, "cpu")]
     with pytest.raises(ValueError, match="process group has 1 rank"):
-        resolve_placement(coord.rank_devices(2, "cpu", ranks=2))
+        resolve_placement([(0, "cpu"), (0, "cpu"), (1, "cpu"), (1, "cpu")])
     devs, ranks = resolve_placement([(0, "cpu"), "cpu"])
     assert ranks is None and [str(d) for d in devs] == ["cpu", "cpu"]
     with pytest.raises(NotImplementedError, match="item 5b.1b"):
@@ -583,10 +653,12 @@ def test_placement_rules():
 def test_two_phase_save_and_load_from_held_storage(runs):
     """The ranks' two-phase save, synchronous and from a
     ``freeze_grid_mp`` snapshot on a writer thread, is byte for byte the
-    one-process file, and each rank's load gives back its own rows bit
-    for bit (the owned rows a file holds)."""
+    one-process file and the reference's save of the same state, and
+    each rank's load gives back its own rows bit for bit (the owned rows
+    a file holds)."""
     out = runs["out"]
     one = (out / "one.dc").read_bytes()
+    assert one == (out / "ref.dc").read_bytes()
     assert (out / "ranks.dc").read_bytes() == one
     assert (out / "ranks_async.dc").read_bytes() == one
     for r in HELD:
@@ -606,29 +678,38 @@ def test_two_phase_save_and_load_from_held_storage(runs):
 
 def test_distributed_amr_commit_across_ranks(runs):
     """A distributed AMR commit, each rank requesting its own cells:
-    the one-process commit's cell set, owners and plan bit for bit, and
-    its payload (children from their parents, ghosts exchanged)."""
-    want = runs["one"]["amr"]
+    the reference's one-process commit on its 4-device mesh and the
+    port's: the cell set, owners and plan bit for bit, and the payload
+    (children from their parents, ghosts exchanged)."""
+    want, rwant = runs["one"]["amr"], runs["ref"]["amr"]
+    assert rwant["new"] == want["new"]
     for r in HELD:
         res = runs["res"][r]["amr"]
         assert res["new"] == want["new"]
         assert res["pdig"] == want["pdig"]
-        np.testing.assert_array_equal(
-            np.asarray(res["cells"], np.uint64), want["cells"])
-        np.testing.assert_array_equal(np.asarray(res["owner"]), want["owner"])
+        for w in (want, rwant):
+            np.testing.assert_array_equal(
+                np.asarray(res["cells"], np.uint64), w["cells"])
+            np.testing.assert_array_equal(np.asarray(res["owner"]),
+                                          w["owner"])
+    _assert_held_rows(runs, "amr", rwant["data"], ["v", "w"])
     _assert_held_rows(runs, "amr", want["data"], ["v", "w"])
 
 
 def test_balance_moves_rows_across_ranks(runs):
     """``balance_load`` from block to rcb moves rows between the ranks
-    with the fingerprint unchanged, and 8 later steps are bit for bit
-    the one-process run's."""
-    want = runs["one"]["balance"]
+    with the fingerprint unchanged, and the owners and 8 later steps are
+    bit for bit the reference's 4-device run and the one-process run."""
+    want, rwant = runs["one"]["balance"], runs["ref"]["balance"]
     for r in HELD:
         res = runs["res"][r]["balance"]
         fp = {k: tuple(v) for k, v in res["fp0"].items()}
         assert fp == want["fp0"]
         assert {k: tuple(v) for k, v in res["fp1"].items()} == want["fp0"]
-        np.testing.assert_array_equal(np.asarray(res["owner"]), want["owner"])
+        for w in (want, rwant):
+            np.testing.assert_array_equal(np.asarray(res["owner"]),
+                                          w["owner"])
         assert res["path"] == "table"
-    _assert_held_rows(runs, "balance", want["data"], ["density", "vx", "vy"])
+    fields = ["density", "vx", "vy"]
+    _assert_held_rows(runs, "balance", rwant["data"], fields)
+    _assert_held_rows(runs, "balance", want["data"], fields)

@@ -26,7 +26,10 @@ partitioned plans (uniform.py), and in ``Grid`` the halo exchange, the
 overlapped step and load balancing (``Grid.initialize([dev] * n)``),
 and adaptive refinement across those partitions; the dense grid on a
 mesh of blocks (``dense_mesh``) with ``AdvectionSolver`` and
-``DensePoissonSolver`` on it, and ``PoissonSolver`` on partitions; and
+``DensePoissonSolver`` on it, and ``PoissonSolver`` on partitions; a
+grid's partitions, the models on it and a mesh's blocks placed on the
+ranks of a ``torch.distributed`` group (``coord.rank_devices``), each
+rank holding and stepping its own; and
 atomic, verified grid mutations: the ``DCCRG_DEBUG=1`` verifiers
 (verify.py) and ``grid_transaction`` around the commit, the balance and
 ``load_cells`` (txn.py); and the model zoo (models/mhd.py and

@@ -22,6 +22,16 @@ twin makes one pass and one host read.
 - ``some_reduce`` — Some_Reduce: each partition sums only its peer set
   (dccrg_mpi_support.hpp:285-380)
 
+The host diagnostics every rank reads (the models' CFL steps, masses
+and conserved sums, the dense mesh's dots) fold the held rows first and
+then reduce over the group, so each rank reads the one process's value:
+
+- ``grid_total`` / ``grid_field_totals`` — per-partition sums added in
+  partition order, the other ranks' rows filled by one exact group sum;
+- ``group_extreme`` — a min or max over the held values and the group;
+- ``exact_sum`` — a float64 sum that is the same bits on any split into
+  tensors, blocks or ranks (the dense mesh's reductions).
+
 The cross-rank transport (the reference's ``ppermute`` / on-device
 gather across processes, which XLA carries there):
 
@@ -177,6 +187,83 @@ def some_reduce(x: torch.Tensor, peer_mask, held=None) -> torch.Tensor:
         return torch.tensordot(w, full, dims=1)
     w = torch.as_tensor(pm, device=x.device).to(x.dtype)
     return torch.tensordot(w, x, dims=1)
+
+
+def grid_total(grid, parts: torch.Tensor) -> torch.Tensor:
+    """The sum over every partition of ``grid`` of ``parts``, one row
+    per held partition (``[n_held, ...]``), added in partition order:
+    each rank places its rows at their partitions' positions of an
+    ``[n_dev, ...]`` zero tensor, one group ``all_reduce`` fills the
+    rest exactly (a value plus zeros), and the partitions are summed
+    as one process sums them. So every rank reads the one process's
+    value bit for bit."""
+    held = grid._held
+    if len(held) == grid.n_dev:
+        return parts.sum(dim=0)
+    full = parts.new_zeros((grid.n_dev,) + tuple(parts.shape[1:]))
+    full[torch.as_tensor(held, device=parts.device)] = parts
+    if grid._rank_held and group_active():
+        full = _group_reduce(full, "sum")
+    return full.sum(dim=0)
+
+
+def grid_field_totals(grid, names) -> dict:
+    """``{name: float64 sum of the field over every cell of grid}``:
+    each held partition's sum of its owned rows, then
+    :func:`grid_total`, so every rank of a grid placed on a process
+    group reads the one process's value bit for bit."""
+    nl = np.asarray(grid.plan.n_local)
+    parts = torch.stack([
+        torch.stack([grid.data[n][i, :int(nl[p])].to(torch.float64).sum()
+                     for n in names])
+        for i, p in enumerate(grid._held)])
+    return dict(zip(names, grid_total(grid, parts).cpu().tolist()))
+
+
+def group_extreme(x: torch.Tensor, op: str, group: bool) -> torch.Tensor:
+    """The ``op`` (``"min"`` or ``"max"``) of every element of ``x``,
+    then over the ranks of the default group when ``group``: exact, so
+    every rank reads the same value whatever the split."""
+    r = x.amin() if op == "min" else x.amax()
+    return all_reduce(r[None], op, group)[0]
+
+
+def exact_sum(tensors, count: int, group: bool = False) -> float:
+    """The float64 sum of every element of ``tensors`` (and of the other
+    ranks' when ``group``), independent of how the elements are split
+    into tensors, blocks or ranks and of the order of addition.
+
+    Each element is cut into two parts on fixed binary grids chosen
+    from the largest magnitude (a group max) and ``count``, an upper
+    bound on the number of elements over every rank; on such a grid
+    every partial sum is exact, so the two fold sums, and their group
+    sum, are the same bits in any order (the pre-rounding of
+    reproducible summation, Demmel and Nguyen). What the second fold
+    drops is below ``max|x| * count**3 * 2**-101``: far below a float32
+    sum's rounding. Non-finite values give the plain sum."""
+    import math
+
+    xs = [t.reshape(-1).to(torch.float64) for t in tensors if t.numel()]
+    dev = xs[0].device if xs else torch.device("cpu")
+    # every rank makes the same two reductions, whatever it holds
+    peak = torch.zeros(1, dtype=torch.float64, device=dev)
+    for x in xs:
+        peak = torch.maximum(peak, x.abs().amax()[None])
+    m = float(all_reduce(peak, "max", group)[0])
+    k = max(int(count), 1).bit_length() + 2
+    e1 = (math.frexp(m)[1] + k) if m > 0 else 0
+    folds = torch.zeros(2, dtype=torch.float64, device=dev)
+    if not math.isfinite(m) or not -960 < e1 < 1000:
+        for x in xs:
+            folds[0] += x.sum()
+    elif m > 0:
+        s1, s2 = math.ldexp(1.0, e1), math.ldexp(1.0, e1 - 52 + k)
+        for x in xs:
+            q1 = (x + s1) - s1
+            q2 = ((x - q1) + s2) - s2
+            folds += torch.stack([q1.sum(), q2.sum()])
+    folds = all_reduce(folds[None], "sum", group)[0].cpu()
+    return float(folds[0]) + float(folds[1])
 
 
 def pull_replicated(t) -> np.ndarray:

@@ -177,8 +177,9 @@ def resolve_partitions(device=None) -> list:
             raise ValueError("an empty device list")
         if any(_is_rank_entry(d) for d in device):
             raise NotImplementedError(
-                "partitions placed on ranks run on a Grid "
-                "(Grid.initialize); this entry point holds every "
+                "(rank, device) entries place partitions on ranks "
+                "through resolve_placement (Grid.initialize, the models "
+                "on a Grid, dense_mesh); this entry point holds every "
                 "partition in one process")
         devs = [resolve_device(d) for d in device]
     else:
@@ -3245,11 +3246,14 @@ class Grid:
         (:class:`_RankHalo`), or None on a grid whose partitions are all
         this process's. Built from each field's compact pair record, so
         a sender and its receiver list the same entries in the same
-        order. Memoized on the hood."""
+        order. Memoized on the hood, by the fields' names and schemas (a
+        field that grows its row, as the particles' buffer does, gets
+        new buffer sizes)."""
         if not self._rank_held or self.n_dev == 1:
             return None
         hood = self.plan.hoods[neighborhood_id]
-        key = ("xrank", tuple(field_names))
+        key = ("xrank", tuple(field_names),
+               tuple(self.fields[n] for n in field_names))
         hit = hood._pair_host.get(key)
         if hit is not None:
             return hit

@@ -239,7 +239,9 @@ class AdvectionSolver:
     BASELINE.json). Plain PyTorch on ``DenseGrid``: the reference
     computes this step in XLA, outside any Pallas kernel. Runs on the
     card unless ``device`` says otherwise; ``mesh`` (a ``dense_mesh``)
-    splits the grid into blocks, each stepped on its halo-padded block.
+    splits the grid into blocks, each stepped on its halo-padded block
+    (on a mesh placed on ranks, each rank its own blocks; the CFL step,
+    the mass and the L2 error cover every rank).
     """
 
     def __init__(self, n=64, nz=None, mesh=None, dtype=torch.float32, cfl=0.5,
@@ -275,13 +277,14 @@ class AdvectionSolver:
     # -- CFL (solve.hpp:289-333) --------------------------------------
 
     def max_time_step(self) -> float:
-        """Largest stable dt: min over cells of length/|v| per dim."""
+        """Largest stable dt: min over cells of length/|v| per dim (over
+        every block, and every rank of a mesh placed on ranks)."""
         steps = []
         for d, name in enumerate(("vx", "vy", "vz")):
             v = self.grid.arrays[name].abs()
             dlen = float(self.grid.cell_length[d])
             steps.append(torch.where(v > 0, dlen / v, math.inf).min())
-        return float(torch.stack(steps).min())
+        return float(self.grid.minimum(torch.stack(steps)))
 
     # -- the fused step (solve.hpp:44-279) ----------------------------
 
@@ -337,17 +340,21 @@ class AdvectionSolver:
     # -- diagnostics ---------------------------------------------------
 
     def total_mass(self) -> float:
-        """Total mass, accumulated in float64 on the host."""
+        """Total mass: the density summed in float64 over every block
+        (``DenseGrid.total``, the same bits on any mesh or split over
+        ranks), times the cell volume."""
         vol = float(np.prod(self.grid.cell_length))
-        return float(np.sum(self.grid.to_host("rho"), dtype=np.float64)) * vol
+        return self.grid.total(self.grid.arrays["rho"]) * vol
 
     def l2_error(self) -> float:
         """L2 error against the rotated analytic hump (the parity
-        metric of BASELINE.json), in float64 on the host."""
+        metric of BASELINE.json), in float64: the exact field of the
+        whole grid's x-y plane, each held block against its part,
+        summed by ``DenseGrid.total``."""
         g = self.grid
-        x = g.cell_centers(0).cpu()[:, None, None]
-        y = g.cell_centers(1).cpu()[None, :, None]
-        exact = analytic_density(x, y, self.time).numpy()
-        diff = g.to_host("rho").astype(np.float64) - exact
+        x = g.cell_centers(0)[:, None, None]
+        y = g.cell_centers(1)[None, :, None]
+        exact = g.hold(analytic_density(x, y, self.time).expand(g.length))
+        diff = g.arrays["rho"].to(torch.float64) - exact
         vol = float(np.prod(g.cell_length))
-        return float(np.sqrt(np.sum(diff ** 2) * vol))
+        return float(np.sqrt(g.total(diff * diff) * vol))

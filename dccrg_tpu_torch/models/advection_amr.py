@@ -1,5 +1,6 @@
 """Adaptive advection on PyTorch: the reference advection test's full
-loop on the AMR grid, on one partition or n partitions of a device.
+loop on the AMR grid, on one partition or n partitions of a device, or
+on partitions placed on the ranks of a process group.
 
 Port of ``dccrg_tpu/models/advection_amr.py`` (tests/advection/2d.cpp:
 321-442, solve.hpp:44-333, adapter.hpp:47-311): upwind finite-volume
@@ -21,7 +22,15 @@ index length) are fields refreshed once per structure epoch and
 exchanged once, so the per-step exchange moves only the density (the
 reference's transfer-count trick, tests/advection/cell.hpp:31-55). The
 CFL limit and the total mass are per-partition reductions combined
-over the partitions (``comm.all_reduce``).
+over the partitions (``comm.all_reduce``, ``comm.grid_total``).
+
+On a grid whose partitions span the ranks of a process group (``device``
+a placement of ``(rank, device)`` entries, ``coord.rank_devices``) each
+rank steps its own partitions, the reductions cover every rank (each
+rank reads the one process's CFL step and mass), an adapt commits
+through the distributed AMR protocol (``Grid.enable_distributed_amr``,
+each rank requesting its own cells) and a balance moves rows between
+the ranks.
 """
 
 from __future__ import annotations
@@ -126,7 +135,8 @@ class AmrAdvection:
     solve / adapt every ``adapt_n`` / balance every ``balance_n``, on
     ``device`` (the card when None; ``[dev] * n`` for n partitions of
     it, cut by ``partition``, the grid's load balancing method when
-    None)."""
+    None; a placement of ``(rank, device)`` entries for partitions on
+    the ranks of a process group)."""
 
     def __init__(self, length=(32, 32, 1), max_refinement_level=1,
                  device=None, cfl=0.5, diff_increase=0.02,
@@ -155,6 +165,7 @@ class AmrAdvection:
         self._flux_kernel = make_flux_kernel()
         self._fused_kernel = make_fused_step_kernel()
         self._diff_kernel = make_diff_kernel(diff_threshold)
+        self._join_ranks()
         self._refresh_static()
         cells = self.grid.get_cells()
         self.grid.set("density", cells,
@@ -179,9 +190,19 @@ class AmrAdvection:
         app._flux_kernel = make_flux_kernel()
         app._fused_kernel = make_fused_step_kernel()
         app._diff_kernel = make_diff_kernel(diff_threshold)
+        app._join_ranks()
         app._refresh_static()
         app.time = time
         return app
+
+    def _join_ranks(self) -> None:
+        """On partitions placed on ranks, commit adapts through the
+        distributed AMR protocol over the group's store: each rank's
+        requests are its own cells, and every rank installs the merged
+        commit."""
+        g = self.grid
+        if g._rank_held and getattr(g, "_amr_group", None) is None:
+            g.enable_distributed_amr()
 
     # -- static per-epoch fields ---------------------------------------
 
@@ -210,7 +231,8 @@ class AmrAdvection:
         """Global CFL limit (solve.hpp:289-333), once per structure
         epoch: it depends only on the static velocity/length fields.
         Each partition's minimum over its rows (ghost rows hold copies,
-        pad rows no velocity), then the minimum over the partitions."""
+        pad rows no velocity), then the minimum over the partitions and
+        the ranks they are placed on."""
         g = self.grid
         cached = getattr(self, "_cfl_cache", None)
         if cached is not None and cached[0] == g.plan.epoch:
@@ -220,7 +242,8 @@ class AmrAdvection:
             l = g.data[lname]
             v = torch.abs(g.data[vname])
             s = torch.where(v > 0, l / torch.clamp(v, min=1e-30), torch.inf)
-            steps.append(comm.all_reduce(s.amin(dim=1), "min")[0])
+            steps.append(comm.all_reduce(s.amin(dim=1), "min",
+                                         g._rank_held)[0])
         dt = float(torch.stack(steps).min())
         self._cfl_cache = (g.plan.epoch, dt)
         return dt
@@ -262,7 +285,7 @@ class AmrAdvection:
         code from max_diff and the level (recovered from ilen =
         2^(max_lvl - lvl)), and only the int8 codes cross to the host.
         Returns (ids, codes) with code 1=refine, 2=dont_unrefine,
-        3=unrefine."""
+        3=unrefine, of this process's cells (rows are held slots)."""
         g = self.grid
         max_lvl = g.mapping.max_refinement_level
         diff, ilen = g.data["max_diff"], g.data["ilen"]
@@ -283,8 +306,8 @@ class AmrAdvection:
         if len(row) == 0:
             return np.empty(0, np.uint64), np.empty(0, np.int8)
         ids = np.empty(len(d), dtype=np.uint64)
-        for dev in range(g.n_dev):
-            m = d == dev
+        for i, dev in enumerate(g._held):
+            m = d == i
             if m.any():
                 ids[m] = g.plan.local_ids[dev][row[m]]
         return ids, code[d, row]
@@ -325,23 +348,25 @@ class AmrAdvection:
     # -- diagnostics ---------------------------------------------------
 
     def total_mass(self) -> float:
-        """Sum of density times cell volume in float64: each
-        partition's sum over its local rows, then the sum over the
-        partitions (one host read). The volumes come from the geometry
-        in float64, uploaded once per structure epoch."""
+        """Sum of density times cell volume in float64: each held
+        partition's sum over its local rows, then the sum over every
+        partition in partition order (``comm.grid_total``: the one
+        process's value on every rank; one host read). The volumes come
+        from the geometry in float64, uploaded once per structure
+        epoch."""
         g = self.grid
         plan = g.plan
         vol = getattr(plan, "_volume_rows", None)
         if vol is None:
-            host = np.zeros((g.n_dev, plan.R), dtype=np.float64)
-            for d in range(g.n_dev):
+            host = np.zeros((len(g._held), plan.R), dtype=np.float64)
+            for i, d in enumerate(g._held):
                 ids = plan.local_ids[d]
                 if len(ids):
-                    host[d, :len(ids)] = np.prod(
+                    host[i, :len(ids)] = np.prod(
                         g.geometry.get_length(ids), axis=1)
             vol = plan._volume_rows = torch.as_tensor(host, device=g.device)
         part = (g.data["density"].to(torch.float64) * vol).sum(dim=1)
-        return float(comm.all_reduce(part, "sum")[0])
+        return float(comm.grid_total(g, part))
 
     def run(self, steps: int, adapt_n: int = 0, balance_n: int = 0,
             fused: bool = True) -> None:

@@ -33,6 +33,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import comm
 from ..grid import Grid, slot_sum
 
 GAMMA = 5.0 / 3.0
@@ -200,7 +201,10 @@ class GridMHD:
     cleaning^n per :meth:`run` call) through ``Grid.run_steps``, each
     pass exchanging only its own subsystem's ghosts. On the card unless
     ``device`` says otherwise; a list of devices runs it on that many
-    partitions."""
+    partitions, a placement of ``(rank, device)`` entries on the ranks
+    of a process group (each rank steps its own partitions, both
+    exchanges cross the ranks, and the CFL step and the sums cover
+    every rank)."""
 
     def __init__(self, n=16, nz=None, device=None, dtype=torch.float32,
                  partition="block", profile="blast", seed=0):
@@ -249,20 +253,23 @@ class GridMHD:
     def max_time_step(self) -> float:
         """CFL bound from the current state: the reference's float64
         reduction (the same elementwise operations, each correctly
-        rounded, and exact maxima), run where the grid lies."""
+        rounded, and exact maxima), run where the grid lies; the maxima
+        of the held rows, then over the ranks of a placement."""
         g = self.grid
         f64 = torch.float64
         rho = torch.clamp_min(_local_rows(g, "rho").to(f64), RHO_FLOOR)
-        vmax = 0.0
+        vmax = []
         ke = torch.zeros_like(rho)
         for nme in ("mx", "my", "mz"):
             m = _local_rows(g, nme).to(f64)
-            vmax = max(vmax, float((m / rho).abs().max()))
+            vmax.append((m / rho).abs().max())
             ke += 0.5 * m * m / rho
         en = _local_rows(g, "en").to(f64)
         p = torch.clamp_min((GAMMA - 1.0) * (en - ke), P_FLOOR)
-        c = float(torch.sqrt(GAMMA * p / rho).max())
-        return self.dx / max(vmax + c, ETA * 6.0, 1e-12)
+        c = torch.sqrt(GAMMA * p / rho).max()
+        peaks = comm.all_reduce(torch.stack([torch.stack(vmax).max(), c])[None],
+                                "max", g._rank_held)[0].cpu().tolist()
+        return self.dx / max(peaks[0] + peaks[1], ETA * 6.0, 1e-12)
 
     def run(self, n_steps: int, dt: float | None = None,
             cfl: float = 0.4) -> float:
@@ -279,11 +286,9 @@ class GridMHD:
         return dt
 
     def conserved_sums(self) -> dict:
-        """Host float64 global sums of every conserved field."""
-        g = self.grid
-        return {n: float(np.sum(np.asarray(g.get(n, g.plan.cells),
-                                           np.float64)))
-                for n in MHD_ALL}
+        """Float64 global sums of every conserved field
+        (``comm.grid_field_totals``: the same value on every rank)."""
+        return comm.grid_field_totals(self.grid, MHD_ALL)
 
 
 def register() -> None:

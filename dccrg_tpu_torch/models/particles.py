@@ -18,7 +18,10 @@ collects, from itself and all its neighbours, the particles whose
 positions fall inside its bounds (the vectorized form of
 tests/particles/simple.cpp:62-97). On n partitions the positions and
 counts are bit for bit those of one partition: every cell runs the same
-operations on the same gathered rows.
+operations on the same gathered rows. On partitions placed on the ranks
+of a process group (``(rank, device)`` entries) each rank seeds, moves
+and reads its own cells, and the overflow maximum covers every rank, so
+the ranks grow to the same capacity and collect again together.
 """
 
 from __future__ import annotations
@@ -26,13 +29,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import comm
 from ..grid import Grid, _flat
 
 
 class ParticleModel:
     """``velocity_fn(pos [N, 3] tensor) -> [N, 3]`` is fixed at
     construction. On the card unless ``device`` says otherwise; a list
-    of devices runs the model on that many partitions."""
+    of devices runs the model on that many partitions, a placement of
+    ``(rank, device)`` entries on the ranks of a process group."""
 
     def __init__(self, velocity_fn, length=(4, 4, 4), capacity=16,
                  device=None, periodic=(False, False, False)):
@@ -76,7 +81,10 @@ class ParticleModel:
     def add_particles(self, coordinates) -> int:
         """Host-side seeding: assign each coordinate to its cell, in the
         order given. Returns the number of particles placed (drops those
-        outside the grid or beyond a cell's capacity)."""
+        outside the grid or beyond a cell's capacity). On ranks every
+        rank passes the same coordinates and places those whose cells
+        it holds (the cover idiom of ``Grid.set_many``): the ranks'
+        returns add up to the one process's."""
         coords = np.atleast_2d(np.asarray(coordinates, dtype=np.float32))
         g = self.grid
         # the smallest existing cell containing each coordinate (the
@@ -95,6 +103,9 @@ class ParticleModel:
             cid[idx[hit]] = c[hit]
             todo[idx[hit]] = False
         keep = cid != 0
+        if g._multiproc:
+            pos = np.searchsorted(cells, cid[keep])
+            keep[np.flatnonzero(keep)] = g._proc_local_dev[g.plan.owner[pos]]
         if not keep.any():
             return 0
         kc, kxyz = cid[keep], coords[keep]
@@ -115,17 +126,24 @@ class ParticleModel:
         g.set_many(ids, {"pos": pos, "count": cnt})
         return int(fits.sum())
 
+    def _cells(self) -> np.ndarray:
+        """This process's cells, in id order (every cell in one
+        process)."""
+        return self.grid._owned_subset(self.grid.get_cells())
+
     def particles(self) -> np.ndarray:
-        """All particle coordinates, gathered to the host, in cell
-        order."""
-        cells = self.grid.get_cells()
+        """The particle coordinates of this process's cells, gathered to
+        the host, in cell order (on ranks, the union over the ranks
+        sorted by cell is the one process's)."""
+        cells = self._cells()
         pos = np.array(self.grid.get("pos", cells))
         cnt = np.array(self.grid.get("count", cells))
         k = np.arange(pos.shape[1])[None, :] < cnt[:, None]
         return pos[k].reshape(-1, 3)
 
     def counts(self) -> np.ndarray:
-        return np.array(self.grid.get("count", self.grid.get_cells()))
+        """Particles per cell of this process's cells, in cell order."""
+        return np.array(self.grid.get("count", self._cells()))
 
     # -- the step -------------------------------------------------------
 
@@ -174,7 +192,8 @@ class ParticleModel:
         snap_pos = g.data["pos"].clone()
         snap_cnt = g.data["count"].clone()
         self._collect()
-        max_over = int(g.data["overflow"].max())
+        max_over = int(comm.group_extreme(g.data["overflow"], "max",
+                                          g._rank_held))
         if max_over > 0:
             g.data["pos"], g.data["count"] = snap_pos, snap_cnt
             g._mark_ckpt_dirty(("pos", "count"))
@@ -220,7 +239,7 @@ class ParticleModel:
     def ensure_capacity(self, new_capacity: int) -> None:
         """Grow the per-cell particle buffers (the resize() phase of the
         reference's two-phase transfer, as a structure epoch): the
-        ``[n_dev, R, capacity, 3]`` field is reallocated on the grid's
+        ``[n_held, R, capacity, 3]`` field is reallocated on the grid's
         device and every cell's particles copied over."""
         if new_capacity <= self.capacity:
             return
@@ -228,7 +247,7 @@ class ParticleModel:
         old = g.data["pos"]
         self.capacity = int(new_capacity)
         g.fields["pos"] = ((self.capacity, 3), torch.float32)
-        grown = torch.zeros((g.n_dev, g.plan.R, self.capacity, 3),
+        grown = torch.zeros((len(g._held), g.plan.R, self.capacity, 3),
                             dtype=torch.float32, device=g.device)
         # every row of every partition keeps its particles (ghost rows
         # too; the next exchange refreshes them)

@@ -22,7 +22,11 @@ reference's tests/poisson solver family (tests/poisson/poisson_solve.hpp):
 Global dot products are ``torch.sum`` reductions read back to the host
 with ``float()``, as the reference reads its jnp sums; on n partitions
 each partition sums its local rows and the partition sums are added
-(comm.py's reduction over the partition axis). The reference's fused
+(comm.py's reduction over the partition axis, then over the ranks of a
+placement). ``DensePoissonSolver``'s dots are its ``DenseGrid.dot``
+(``comm.exact_sum``): the same bits on one block, a mesh of blocks or
+blocks held by the ranks of a process group, so every rank runs the
+same iterations. The reference's fused
 solve is one XLA program with a device while-loop; PyTorch has none, so
 the port's fused solve keeps every scalar of the iteration on the
 device and reads one flag per iteration for the loop condition.
@@ -536,46 +540,69 @@ class DensePoissonSolver:
         self._matvec = self.grid.make_step(lap_kernel, ("p",), ("Ap",), halo=1)
 
     def matvec(self, p):
-        """``A p`` of a ``[nx, ny, nz]`` tensor through the dense step."""
+        """``A p`` of a ``[nx, ny, nz]`` tensor (the held blocks on a mesh
+        placed on ranks) through the dense step."""
         return self._matvec({"p": p, "Ap": p})["Ap"]
 
     def solve(self, rhs, rtol=1e-5, max_iterations=1000):
+        """CG from a whole-grid ``rhs``; the solution comes back in the
+        grid's layout (the held blocks on a mesh placed on ranks, where
+        the dots reduce over the group and every rank runs the same
+        iterations)."""
         return cg_solve(self.matvec, rhs, singular=all(self.periodic),
                         dtype=self.dtype, rtol=rtol,
-                        max_iterations=max_iterations, device=self.grid.device)
+                        max_iterations=max_iterations, device=self.grid.device,
+                        grid=self.grid)
 
 
 def cg_solve(matvec, rhs, singular, dtype, rtol=1e-5, max_iterations=1000,
-             device=None):
+             device=None, grid=None):
     """Plain conjugate gradients over an SPD ``matvec`` callable on
     tensors — shared by DensePoissonSolver (plain PyTorch dense step)
     and CudaPoissonSolver (kernel C). ``singular`` removes the constant
     null space (all-periodic Laplacian): the RHS and the solution are
     projected to zero mean. ``rhs`` (array or tensor) is moved to
     ``device`` when given. Per iteration the host reads ``p·Ap`` and
-    ``r·r``, as the reference does."""
+    ``r·r``, as the reference does. With ``grid`` (a ``DenseGrid``) the
+    whole-grid ``rhs`` lands on its blocks and the dots and means are
+    its ``dot`` and ``total``: the same bits on any mesh, and on every
+    rank of a mesh placed on ranks."""
     rhs = torch.as_tensor(rhs, dtype=as_torch_dtype(dtype),
                           device=None if device is None else resolve_device(device))
+    if grid is not None:
+        rhs = grid.hold(rhs)
+
+        def dot(a, b):
+            return grid.dot(a, b)
+
+        def mean(a):
+            return grid.total(a) / grid.n_cells
+    else:
+        def dot(a, b):
+            return float(torch.sum(a * b))
+
+        def mean(a):
+            return torch.mean(a)
     if singular:
-        rhs = rhs - torch.mean(rhs)
+        rhs = rhs - mean(rhs)
     x = torch.zeros_like(rhs)
     r = rhs
     p = r
-    rs = float(torch.sum(r * r))
-    target = max(rtol * rtol * float(torch.sum(rhs * rhs)), 1e-30)
+    rs = dot(r, r)
+    target = max(rtol * rtol * dot(rhs, rhs), 1e-30)
     it = 0
     while rs > target and it < max_iterations:
         Ap = matvec(p)
-        pAp = float(torch.sum(p * Ap))
+        pAp = dot(p, Ap)
         if pAp == 0.0:
             break
         alpha = rs / pAp
         x = x + alpha * p
         r = r - alpha * Ap
-        rs_new = float(torch.sum(r * r))
+        rs_new = dot(r, r)
         p = r + (rs_new / rs) * p
         rs = rs_new
         it += 1
     if singular:
-        x = x - torch.mean(x)
+        x = x - mean(x)
     return x, {"iterations": it, "residual": float(np.sqrt(max(rs, 0.0)))}

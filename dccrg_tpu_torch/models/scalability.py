@@ -6,7 +6,8 @@ configurable cost model (bytes moved per cell, artificial compute per
 cell) measuring solve time against halo-exchange time per step, and a
 sweep over parallelism (tests/scalability/run_tests.py:28-39 sweeps MPI
 process counts; here the sweep varies the number of partitions of the
-device).
+device, and a placement of ``(rank, device)`` entries puts the
+partitions on the ranks of a process group).
 
 The per-cell payload is ``floats_per_cell`` float32 lanes; the solve
 does ``work_iters`` dependent multiply-adds per lane (the reference's
@@ -30,7 +31,9 @@ from ..utils.profiling import device_sync, halo_bytes_per_update
 
 class ScalabilityModel:
     """The cost model on ``device`` (the card when None; ``[dev] * n``
-    for n partitions of it)."""
+    for n partitions of it; ``coord.rank_devices(k, dev)`` for k
+    partitions on each rank of a process group, each rank stepping its
+    own)."""
 
     def __init__(self, length=(16, 16, 16), floats_per_cell: int = 8,
                  work_iters: int = 64, device=None, partition=None,
@@ -82,7 +85,11 @@ class ScalabilityModel:
 
     def run(self, steps: int = 10, warmup: int = 2) -> dict:
         """Per-step timings and transfer volume, the reference's printed
-        metrics (scalability.cpp:124-160)."""
+        metrics (scalability.cpp:124-160): ``n_devices`` and ``n_cells``
+        of the whole placement, ``halo_bytes_per_step`` of every
+        partition's sends and ``rank_halo_bytes_per_step`` of this
+        process's (the same in one process); the times are this
+        process's clock."""
         for _ in range(warmup):
             self.step()
         self.timer.reset()
@@ -101,6 +108,8 @@ class ScalabilityModel:
             "total_s_per_step": total / steps,
             "cell_updates_per_sec": n_cells * steps / total,
             "halo_bytes_per_step": halo_bytes_per_update(self.grid),
+            "rank_halo_bytes_per_step": halo_bytes_per_update(self.grid,
+                                                              rank=True),
         }
 
 

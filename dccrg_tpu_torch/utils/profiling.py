@@ -75,11 +75,14 @@ class PhaseTimer:
         return "PhaseTimer(" + "; ".join(rows) + ")"
 
 
-def halo_bytes_per_update(grid, neighborhood_id=None, fields=None) -> int:
+def halo_bytes_per_update(grid, neighborhood_id=None, fields=None,
+                          rank: bool = False) -> int:
     """Bytes moved by one ``update_copies_of_remote_neighbors`` call:
     the reference's get_number_of_update_send_cells times the payload
     size (tests/advection/2d.cpp:345-350), per field, after the field's
-    transfer predicate."""
+    transfer predicate. Every partition's sends (the group's, on a grid
+    whose partitions span ranks), or with ``rank`` only those of this
+    process's partitions (the reference's per-rank counter)."""
     from ..grid import DEFAULT_NEIGHBORHOOD_ID
 
     hood_id = (neighborhood_id if neighborhood_id is not None
@@ -90,6 +93,10 @@ def halo_bytes_per_update(grid, neighborhood_id=None, fields=None) -> int:
         shape, dtype = grid.fields[name]
         per_cell = (int(np.prod(shape, dtype=np.int64)) if shape else 1) \
             * torch.empty((), dtype=dtype).element_size()
-        total += grid.get_number_of_update_send_cells(hood_id, field=name) \
-            * per_cell
+        if rank:
+            senders = grid._field_pair_compact(hood_id, name)["p"]
+            cells = int(np.count_nonzero(grid._proc_local_dev[senders]))
+        else:
+            cells = grid.get_number_of_update_send_cells(hood_id, field=name)
+        total += cells * per_cell
     return total

@@ -14,11 +14,7 @@ run and of the reference, every row of the held partitions (ghost rows
 included), so a halo row that crossed ranks wrongly shows.
 """
 
-import json
 import os
-import socket
-import subprocess
-import sys
 
 import jax
 import jax.numpy as jnp
@@ -37,10 +33,10 @@ from dccrg_tpu_torch import comm, distamr, integrity
 from dccrg_tpu_torch.convert import fields_from_numpy
 from dccrg_tpu_torch.models.game_of_life import GameOfLife
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+from torch_ranks_fixture import HELD, collect_ranks, start_ranks
+
 N = 12  # GridAdvection(n=12): 12^3 cells, four block slabs of 3 planes
 STEPS = 8
-HELD = {0: (0, 1), 1: (2, 3)}
 ADV_CASES = [(part, ov) for part in ("block", "morton") for ov in ("0", "1")]
 LIFE_LEN = (12, 10, 1)
 GLIDER = [1 + x + 12 * y for x, y in ((1, 0), (2, 1), (0, 2), (1, 2), (2, 2))]
@@ -276,12 +272,6 @@ def mesh_of(n):
     return Mesh(np.array(jax.devices()[:n]), ("dev",))
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def _ref_exch_grid():
     """``exch_grid`` on the reference's 4-device mesh."""
     return (RefGrid(cell_data={"v": jnp.float32, "n": jnp.int32,
@@ -367,14 +357,7 @@ def runs(tmp_path_factory):
     seed["life_alive"] = np.asarray(GLIDER + BLINKER, dtype=np.uint64)
     np.savez(out / "seed.npz", **seed)
 
-    script = out / "worker.py"
-    script.write_text(_WORKER)
-    port = _free_port()
-    env = dict(os.environ, PYTHONPATH=ROOT, JAX_PLATFORMS="cpu")
-    procs = [subprocess.Popen(
-        [sys.executable, str(script), str(r), str(port), str(out)],
-        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for r in range(2)]
+    procs = start_ranks(_WORKER, out)
 
     # meanwhile: the reference's and the one-process port's other cases
     with pytest.MonkeyPatch.context() as mp:
@@ -489,18 +472,7 @@ def runs(tmp_path_factory):
         ref["balance"] = {"owner": rg.plan.owner,
                           "data": _host(rg, ("density", "vx", "vy"))}
 
-    res = {}
-    try:
-        for r, p in enumerate(procs):
-            stdout, err = p.communicate(timeout=240)
-            assert p.returncode == 0, err[-4000:]
-            line = [ln for ln in stdout.splitlines()
-                    if ln.startswith("RESULT ")][-1]
-            res[r] = json.loads(line[len("RESULT "):])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
+    res = collect_ranks(procs)
 
     def held(case, r):
         return dict(np.load(out / f"{case}_{r}.npz"))

@@ -162,9 +162,10 @@ def freeze_grid(grid, fields=None):
     array a save reads is pinned with a private copy."""
     snap = copy.copy(grid)
     names = sorted(grid.data) if fields is None else sorted(fields)
-    snap.data = {n: _host_copy(grid.data[n]) for n in names}
-    snap.device = torch.device("cpu")
-    snap.devices = [snap.device] * grid.n_dev
+    # (a grid whose partitions span devices: each group's rows copied
+    # into one host tensor, slots in order)
+    snap.data = {n: grid._to_held(grid.data[n]) for n in names}
+    snap._set_devices([torch.device("cpu")] * grid.n_dev)
     snap.plan = copy.copy(grid.plan)
     snap.plan.row_of_pos = np.array(grid.plan.row_of_pos, copy=True)
     # the dirty set travels with the snapshot (a private copy), so a

@@ -58,7 +58,7 @@ import os
 import struct
 import time
 import zlib
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 
 import numpy as np
 import torch
@@ -135,6 +135,9 @@ def owned_rows(grid, name) -> torch.Tensor:
     x = grid.data[name]
     parts = [x[i, :int(grid.plan.n_local[p])]
              for i, p in enumerate(grid._held)]
+    if grid._grouped:
+        # the partitions span devices: they meet on the host
+        parts = [t.cpu() for t in parts]
     return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
@@ -336,20 +339,30 @@ def payload_columns(raw, meta, fields, variable=None) -> dict:
 # save
 # ---------------------------------------------------------------------
 
-def _gather_bytes(grid, names, rows_t) -> np.ndarray:
-    """``uint8[n, bytes]`` of the flat rows ``rows_t`` (``partition *
-    R + row``) of fields ``names``, interleaved per row in the given
-    order: one ``index_select`` per field on the grid's device, the
-    byte views concatenated there, one blocking copy to the host."""
-    from .grid import _flat
+def _gather_bytes(grid, names, sel) -> np.ndarray:
+    """``uint8[n, bytes]`` of the rows ``sel`` (``Grid._row_sel``) of
+    fields ``names``, interleaved per row in the given order: in each
+    storage group one ``index_select`` per field on the group's device,
+    the byte views concatenated there, one blocking copy to the host."""
+    from .grid import _flat, groups_of
 
-    n = int(rows_t.shape[0])
-    if not names:
-        return np.empty((n, 0), dtype=np.uint8)
-    cols = [_flat(grid.data[name]).index_select(0, rows_t).contiguous()
-            .view(torch.uint8).reshape(n, -1) for name in names]
-    out = cols[0] if len(cols) == 1 else torch.cat(cols, dim=1)
-    return out.cpu().numpy()
+    n = sum(len(idx) for _items, idx in sel)
+    width = sum(int(np.prod(grid.fields[name][0], dtype=np.int64))
+                * torch.empty((), dtype=grid.fields[name][1]).element_size()
+                for name in names)
+    out = np.empty((n, width), dtype=np.uint8)
+    for g, (items, idx) in enumerate(sel):
+        if not len(idx) or not names:
+            continue
+        cols = [_flat(groups_of(grid.data[name])[g]).index_select(0, idx)
+                .contiguous().view(torch.uint8).reshape(len(idx), -1)
+                for name in names]
+        got = (cols[0] if len(cols) == 1 else torch.cat(cols, dim=1)) \
+            .cpu().numpy()
+        if items is None:
+            return got
+        out[items] = got
+    return out
 
 
 def _chunk_bytes(grid, counts, start, fixed_spec, fixed_bytes, var_spec):
@@ -359,24 +372,24 @@ def _chunk_bytes(grid, counts, start, fixed_spec, fixed_bytes, var_spec):
     overlaps the file write of the current one."""
     idx = np.arange(start, min(start + CHUNK, len(grid.plan.cells)))
     # the single-controller pull: every partition's rows are this
-    # process's, so a chunk is one gather over the flat rows
-    rows_t = torch.as_tensor(
-        grid.plan.owner[idx].astype(np.int64) * grid.plan.R
-        + grid.plan.row_of_pos[idx], device=grid.device)
-    if grid.device.type == "cuda":
-        with torch.cuda.device(grid.device):
-            return _chunk_payload(grid, counts, idx, rows_t, fixed_spec,
-                                  fixed_bytes, var_spec)
-    return _chunk_payload(grid, counts, idx, rows_t, fixed_spec,
-                          fixed_bytes, var_spec)
+    # process's, so a chunk is one gather over the rows of each
+    # storage group
+    sel = grid._row_sel(grid.plan.owner[idx],
+                        grid.plan.row_of_pos[idx].astype(np.int64))
+    card = next((g.device for g in grid._groups if g.device.type == "cuda"),
+                None)
+    with (torch.cuda.device(card) if card is not None
+          else nullcontext()):
+        return _chunk_payload(grid, counts, idx, sel, fixed_spec,
+                              fixed_bytes, var_spec)
 
 
-def _chunk_payload(grid, counts, idx, rows_t, fixed_spec, fixed_bytes,
+def _chunk_payload(grid, counts, idx, sel, fixed_spec, fixed_bytes,
                    var_spec):
-    fixed = _gather_bytes(grid, [s[0] for s in fixed_spec], rows_t)
+    fixed = _gather_bytes(grid, [s[0] for s in fixed_spec], sel)
     if not var_spec:
         return fixed
-    var_host = {name: _gather_bytes(grid, [name], rows_t)
+    var_host = {name: _gather_bytes(grid, [name], sel)
                 for name, *_ in var_spec}
     var_nbytes = {
         name: counts[name][idx].astype(np.int64) * row_bytes
@@ -531,7 +544,7 @@ def _replicated_pull(grid, field, cells) -> np.ndarray:
     caller's thread at freeze time): the writer thread launches
     nothing and takes part in no collective."""
     from . import coord
-    from .grid import _flat, _host_numpy
+    from .grid import _host_numpy
 
     frozen = getattr(grid, "_frozen_pulls", None)
     if frozen is not None and field in frozen \
@@ -541,8 +554,8 @@ def _replicated_pull(grid, field, cells) -> np.ndarray:
         return np.asarray(grid.get(field, cells))
     dev, rows = grid._host_rows(cells)
     if coord.process_count() <= 1:
-        return _host_numpy(_flat(grid.data[field]).index_select(
-            0, grid._flat_rows(dev, rows)))
+        return _host_numpy(grid._take(grid.data[field],
+                                      grid._row_sel(dev, rows)).host())
     mine = np.flatnonzero(grid._proc_local_dev[dev])
     vals = _host_numpy(grid._shard_read(field, dev[mine], rows[mine]))
     parts = [None] * coord.process_count()
@@ -1140,7 +1153,7 @@ def _scatter_payloads(grid, raw, cells, offsets, fixed_spec, fixed_bytes,
             t = torch.from_numpy(hosts[name])
             if dtype == torch.bfloat16:
                 t = t.view(torch.bfloat16)
-            grid.data[name] = t.to(grid.device)
+            grid.data[name] = grid._from_held(t)
             del hosts[name]
     # a wholesale load resets the delta-checkpoint baseline: every
     # field's saved bytes may now differ from the previous chain's

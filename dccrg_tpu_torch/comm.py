@@ -32,6 +32,17 @@ then reduce over the group, so each rank reads the one process's value:
 - ``exact_sum`` — a float64 sum that is the same bits on any split into
   tensors, blocks or ranks (the dense mesh's reductions).
 
+On a grid whose partitions span devices of this process (a field is a
+``grid.Grouped``, one tensor per device) a per-partition quantity is
+folded group by group in partition order (:func:`partition_sums`,
+:func:`grid_total`), so a sum reads the bits the one-device grid reads.
+
+The cross-device transport (the reference's ``ppermute`` between the
+devices of one process): :func:`device_copy` copies a packed buffer
+into a buffer allocated on the destination device, ordered after the
+source card's stream, and counts its bytes under a ``device_*`` leg of
+``dccrg_rank_bytes_total`` (transport ``device-copy``).
+
 The cross-rank transport (the reference's ``ppermute`` / on-device
 gather across processes, which XLA carries there):
 
@@ -111,14 +122,59 @@ def all_reduce(x: torch.Tensor, op: str = "sum",
     return r.expand(tuple(x.shape))
 
 
+def _grouped(x) -> bool:
+    from .grid import Grouped
+
+    return isinstance(x, Grouped)
+
+
+def fold_device(devices) -> torch.device:
+    """Where the per-partition values of storage groups on ``devices``
+    meet: the host when a group lives there (one copy from each card's
+    group, and a host scalar reaches a card without waiting for its
+    stream), else the first group's device."""
+    return next((d for d in devices if torch.device(d).type == "cpu"),
+                devices[0])
+
+
+def grid_fold_device(grid) -> torch.device:
+    """:func:`fold_device` of a grid's storage groups."""
+    return fold_device([grp.device for grp in grid._groups])
+
+
+def per_partition(x, fn) -> torch.Tensor:
+    """``[n, ...]``: ``fn`` of each held partition's rows of ``x`` (an
+    ``[n, ...]`` tensor, or a ``Grouped`` whose partitions span
+    devices), applied to each storage group's ``[n_g, ...]`` tensor at
+    once and gathered, in partition order, on :func:`fold_device`."""
+    if not _grouped(x):
+        return fn(x)
+    dev = fold_device(x.devices)
+    parts = [fn(t).to(dev) for t in x.groups]
+    out = torch.empty((len(x),) + tuple(parts[0].shape[1:]),
+                      dtype=parts[0].dtype, device=dev)
+    for slot, (g, i) in enumerate(x.where):
+        out[slot] = parts[g][i]
+    return out
+
+
+def partition_sums(x) -> torch.Tensor:
+    """``[n]`` sums of each partition's rows of ``x``, each one row's
+    reduction (``reshape(n, -1).sum(dim=1)``), the same bits whether
+    the partitions share one tensor or lie in groups on distinct
+    devices of the host."""
+    return per_partition(x, lambda t: t.reshape(_n(t), -1).sum(dim=1))
+
+
 def all_finite(xs, group: bool = False) -> torch.Tensor:
     """``[n_dev]`` int32, every entry 1 iff every element of every
     ``[n_dev, ...]`` array in ``xs`` is finite on every partition: each
     partition folds its own ``all(isfinite)`` over the list, then one
     min over the partitions."""
     xs = list(xs)
-    ok = torch.stack([torch.isfinite(x).reshape(_n(x), -1).all(dim=1)
-                      for x in xs]).all(dim=0).to(torch.int32)
+    ok = torch.stack([per_partition(
+        x, lambda t: torch.isfinite(t).reshape(_n(t), -1).all(dim=1))
+        for x in xs]).all(dim=0).to(torch.int32)
     return all_reduce(ok, "min", group)
 
 
@@ -126,7 +182,7 @@ def field_sums(xs, group: bool = False) -> torch.Tensor:
     """``[n_dev, len(xs)]`` float32: each partition's sum of each array,
     cast to float32, then summed over the partitions, so every
     partition reads the same value."""
-    parts = torch.stack([x.reshape(_n(x), -1).sum(dim=1).to(torch.float32)
+    parts = torch.stack([partition_sums(x).to(torch.float32)
                          for x in xs], dim=1)
     return all_reduce(parts, "sum", group)
 
@@ -213,9 +269,10 @@ def grid_field_totals(grid, names) -> dict:
     :func:`grid_total`, so every rank of a grid placed on a process
     group reads the one process's value bit for bit."""
     nl = np.asarray(grid.plan.n_local)
+    dev = grid_fold_device(grid)
     parts = torch.stack([
         torch.stack([grid.data[n][i, :int(nl[p])].to(torch.float64).sum()
-                     for n in names])
+                     .to(dev) for n in names])
         for i, p in enumerate(grid._held)])
     return dict(zip(names, grid_total(grid, parts).cpu().tolist()))
 
@@ -247,21 +304,21 @@ def exact_sum(tensors, count: int, group: bool = False) -> float:
     dev = xs[0].device if xs else torch.device("cpu")
     # every rank makes the same two reductions, whatever it holds
     peak = torch.zeros(1, dtype=torch.float64, device=dev)
-    for x in xs:
-        peak = torch.maximum(peak, x.abs().amax()[None])
+    for x in xs:  # (the tensors may lie on distinct devices)
+        peak = torch.maximum(peak, x.abs().amax()[None].to(dev))
     m = float(all_reduce(peak, "max", group)[0])
     k = max(int(count), 1).bit_length() + 2
     e1 = (math.frexp(m)[1] + k) if m > 0 else 0
     folds = torch.zeros(2, dtype=torch.float64, device=dev)
     if not math.isfinite(m) or not -960 < e1 < 1000:
         for x in xs:
-            folds[0] += x.sum()
+            folds[0] += x.sum().to(dev)
     elif m > 0:
         s1, s2 = math.ldexp(1.0, e1), math.ldexp(1.0, e1 - 52 + k)
         for x in xs:
             q1 = (x + s1) - s1
             q2 = ((x - q1) + s2) - s2
-            folds += torch.stack([q1.sum(), q2.sum()])
+            folds += torch.stack([q1.sum(), q2.sum()]).to(dev)
     folds = all_reduce(folds[None], "sum", group)[0].cpu()
     return float(folds[0]) + float(folds[1])
 
@@ -283,7 +340,7 @@ def _on(devices, x):
     if hasattr(devices, "_held"):
         grid = devices
         held, group = grid._held, grid._rank_held
-        devs = [grid.device] * len(held)
+        devs = [grid_fold_device(grid)] * len(held)
     else:
         devs = list(devices)
     t = torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor)
@@ -347,6 +404,46 @@ def unpack(buf: torch.Tensor, specs) -> list:
         at += n
     if at != buf.numel():
         raise ValueError(f"unpacked {at} of {buf.numel()} bytes")
+    return out
+
+
+def device_copy(src: torch.Tensor, device, leg: str = "device_halo"
+                ) -> torch.Tensor:
+    """``src`` copied with ``copy_`` into a buffer allocated on
+    ``device``: the transport between the devices of one process (never
+    ``.to()``, which may hand back ``src`` itself when the labels
+    compare equal). A card's source is read after the work its stream
+    has queued (an event the destination waits on); a copy into host
+    memory lands in a pinned buffer and is synchronised before it is
+    returned, so the host may read it. Counts the bytes under ``leg``
+    (``dccrg_rank_bytes_total``, transport ``device-copy``). A failed
+    copy raises."""
+    dst = torch.device(device)
+    with telemetry.span("comm.device_copy", {"leg": leg}):
+        if src.device.type == "cuda":
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(src.device))
+            if dst.type == "cuda":
+                out = torch.empty(tuple(src.shape), dtype=src.dtype,
+                                  device=dst)
+                stream = torch.cuda.current_stream(dst)
+                stream.wait_event(ev)
+                with torch.cuda.stream(stream):
+                    out.copy_(src, non_blocking=True)
+                src.record_stream(stream)
+            else:
+                out = torch.empty(tuple(src.shape), dtype=src.dtype,
+                                  pin_memory=True)
+                out.copy_(src, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(src.device))
+                done.synchronize()
+        else:
+            out = torch.empty(tuple(src.shape), dtype=src.dtype, device=dst)
+            out.copy_(src)
+    telemetry.inc("dccrg_rank_bytes_total",
+                  int(src.numel()) * src.element_size(), leg=leg,
+                  transport="device-copy")
     return out
 
 

@@ -43,15 +43,16 @@ def fields_from_numpy(grid, arrays, L=None) -> None:
         if arr.dtype.name != _dtype_name(dtype):
             raise TypeError(f"{name}: dtype {arr.dtype.name}, the field is "
                             f"{_dtype_name(dtype)}")
-        grid.data[name] = _to_tensor(
-            np.ascontiguousarray(arr[grid._held]), dtype).to(grid.device)
+        grid.data[name] = grid._from_held(_to_tensor(
+            np.ascontiguousarray(arr[grid._held]), dtype))
     grid._mark_ckpt_dirty()
 
 
 def fields_to_numpy(grid) -> dict:
     """``{name: ndarray [n_dev, R, ...]}`` of every field, in the
     field's dtype (bfloat16 as ``ml_dtypes.bfloat16``)."""
-    return {name: _to_numpy(t) for name, t in grid.data.items()}
+    return {name: _to_numpy(grid._to_held(t))
+            for name, t in grid.data.items()}
 
 
 def fields_to_cells(row_of_pos, arrays) -> dict:

@@ -21,9 +21,15 @@ one packed buffer per peer rank per axis, counted under the ``slab``
 leg of ``dccrg_rank_bytes_total``. The sums every rank reads
 (:meth:`DenseGrid.total`, :meth:`DenseGrid.dot`) are
 ``comm.exact_sum``: the same bits on any split into blocks or ranks.
-Blocks on distinct cards of one process, with the slab copies between
-them made peer copies, wait for ROADMAP.md queue 1, item 5b.1b: a mesh
-naming distinct devices of one rank raises ``NotImplementedError``.
+A mesh naming distinct devices of one process (``dense_mesh(["cuda:0",
+"cpu"])``, or ``cpu:k`` labels on the host) puts each block on its own
+device: a field is a ``grid.Grouped`` of one ``[n_g, bx, by, bz, ...]``
+tensor per device, the held blocks in mesh order, and a slab between
+blocks on distinct devices is copied into a buffer on the receiver's
+device (``comm.device_copy``, leg ``device_slab``). Whole-grid tensors
+(the centres, an ``rhs``, ``to_host``) are staged on the host there.
+Distinct devices inside one rank's entries of a rank placement wait for
+ROADMAP.md queue 1, item 5b.1d.
 
 Cell ids remain interoperable with ``Grid``/``Mapping``: the cell at
 dense index (i, j, k) is level-0 cell ``1 + i + j*nx + k*nx*ny``
@@ -38,7 +44,8 @@ import numpy as np
 import torch
 
 from . import comm, telemetry
-from .grid import as_torch_dtype, resolve_placement
+from .grid import (Grouped, _to_device, as_torch_dtype, device_key,
+                   group_devices, resolve_placement, spans_devices)
 
 AXES = ("x", "y", "z")
 
@@ -52,7 +59,11 @@ class DenseMesh:
     """A 3-D mesh of blocks, axes ``("x", "y", "z")`` (the counterpart
     of the reference's ``Mesh``). ``ranks`` is None when every block is
     this process's, else block b's rank in the default process group;
-    ``held`` lists this process's blocks in mesh order."""
+    ``held`` lists this process's blocks in mesh order. When the held
+    blocks name distinct devices (``spans_devices``) ``groups`` lists
+    ``(device, held slots)`` per device in order of first appearance,
+    ``where`` each held slot's ``(group, index)``, and ``device`` is the
+    host, where whole-grid tensors are staged."""
 
     def __init__(self, devices, shape, ranks=None):
         self.devices = list(devices)
@@ -66,7 +77,11 @@ class DenseMesh:
 
             self.held = np.flatnonzero(
                 ranks == coord.process_index()).astype(np.int64)
-        self.device = self.devices[int(self.held[0])]
+        self.spans_devices = ranks is None and spans_devices(self.devices)
+        self.groups, self.where = group_devices(
+            [self.devices[int(b)] for b in self.held])
+        self.device = (torch.device("cpu") if self.spans_devices
+                       else self.devices[int(self.held[0])])
 
     def __repr__(self):
         return f"DenseMesh(shape={self.shape}, device={self.device})"
@@ -80,8 +95,9 @@ def dense_mesh(devices=None, shape=None) -> DenseMesh:
     device, as ``Grid.initialize`` takes partitions, or a block of a
     rank as ``(rank, device)`` (``coord.rank_devices``; every rank
     passes the same list and holds its own blocks). Distinct devices of
-    one rank raise ``NotImplementedError`` (ROADMAP.md queue 1, item
-    5b.1b)."""
+    one process put each block on its own device; distinct devices
+    inside one rank's entries raise ``NotImplementedError`` (ROADMAP.md
+    queue 1, item 5b.1d)."""
     devs, ranks = resolve_placement(list(devices) if devices is not None
                                     else None)
     n = len(devs)
@@ -134,6 +150,7 @@ class DenseGrid:
         self.device = mesh.device
         self.held = mesh.held
         self._ranks = mesh.ranks
+        self._spans = mesh.spans_devices
         self.length = tuple(int(v) for v in length)
         self.periodic = tuple(bool(p) for p in periodic)
         self.mesh_shape = tuple(mesh.shape)
@@ -164,14 +181,36 @@ class DenseGrid:
                 shape, dtype = (), spec
             dtype = as_torch_dtype(dtype)
             self.fields[name] = (tuple(shape), dtype)
-            self.arrays[name] = torch.zeros(lead + tuple(shape),
-                                            dtype=dtype, device=self.device)
+            if self._spans:
+                self.arrays[name] = self._grouped(
+                    [torch.zeros((len(sl),) + self.block + tuple(shape),
+                                 dtype=dtype, device=d)
+                     for d, sl in mesh.groups])
+            else:
+                self.arrays[name] = torch.zeros(lead + tuple(shape),
+                                                dtype=dtype,
+                                                device=self.device)
 
     @property
     def _rank_held(self) -> bool:
         """True when the blocks are placed on the ranks of a process
         group, each rank holding only its own."""
         return self._ranks is not None
+
+    def _grouped(self, tensors) -> Grouped:
+        return Grouped(tensors, [d for d, _sl in self.mesh.groups],
+                       self.mesh.where)
+
+    def _block_device(self, b: int):
+        """The device block ``b`` (a held one) lives on."""
+        return self.mesh.devices[int(b)]
+
+    @property
+    def _blocked(self) -> bool:
+        """True when a field is held block by block
+        (``[n_held, bx, by, bz, ...]``, or a Grouped of such stacks):
+        on ranks, or on distinct devices."""
+        return self._rank_held or self._spans
 
     @property
     def n_cells(self) -> int:
@@ -227,6 +266,8 @@ class DenseGrid:
         the grid's device: itself in one process, the stack of this
         rank's blocks on a mesh placed on ranks."""
         t = torch.as_tensor(t, device=self.device)
+        if self._spans:
+            return self._assemble(self._whole_blocks(t))
         if not self._rank_held:
             return t
         return torch.stack(self._whole_blocks(t))
@@ -234,8 +275,8 @@ class DenseGrid:
     def _split(self, t: torch.Tensor, ext=None):
         """The held blocks of ``t`` (this process's layout) in mesh
         order; ``ext`` is the block extent per axis of a whole tensor."""
-        if self._rank_held:
-            return list(t.unbind(0))
+        if self._blocked:
+            return [t[i] for i in range(len(self.held))]
         return self._whole_blocks(t, ext)
 
     def _assemble(self, blocks):
@@ -243,6 +284,14 @@ class DenseGrid:
         inverse of _split)."""
         if self._rank_held:
             return torch.stack(blocks)
+        if self._spans:
+            # each device's blocks stacked there (a block made on the
+            # host is copied to its device)
+            return self._grouped([
+                _to_device(torch.stack([blocks[i] for i in sl]), d)
+                if device_key(blocks[sl[0]].device) != device_key(d)
+                else torch.stack([blocks[i] for i in sl])
+                for d, sl in self.mesh.groups])
         if len(blocks) == 1:
             return blocks[0]
         ext = tuple(blocks[0].shape[:3])
@@ -332,7 +381,22 @@ class DenseGrid:
                                     ps[slot[b]][halo_of(ext, side)] = boundary
                             continue
                         rb, rn = self._rank_of(b), self._rank_of(nb)
-                        if rb == rn == me:
+                        if rb == rn == me and self._spans and device_key(
+                                self._block_device(b)) != device_key(
+                                self._block_device(nb)):
+                            # blocks on distinct devices: the slabs of
+                            # every tensor in one buffer, copied to the
+                            # receiver's device
+                            got = comm.unpack(comm.device_copy(
+                                comm.pack([ps[slot[nb]][slab_of(ext, side)]
+                                           for ps, ext in zip(padded, exts)]),
+                                self._block_device(b), leg="device_slab"),
+                                [(tuple(ps[slot[nb]][slab_of(ext, side)]
+                                        .shape), ps[0].dtype)
+                                 for ps, ext in zip(padded, exts)])
+                            for ps, ext, v in zip(padded, exts, got):
+                                ps[slot[b]][halo_of(ext, side)] = v
+                        elif rb == rn == me:
                             for ps, ext in zip(padded, exts):
                                 ps[slot[b]][halo_of(ext, side)] = \
                                     ps[slot[nb]][slab_of(ext, side)]
@@ -416,8 +480,10 @@ class DenseGrid:
         """The float64 sum of every element of ``t`` (this process's
         layout) over every block, reduced over the ranks on a placement:
         ``comm.exact_sum``, the same bits on any mesh or split."""
-        count = t.numel() * len(self.positions) // len(self.held)
-        return comm.exact_sum([t], count, self._rank_held)
+        xs = list(t.groups) if isinstance(t, Grouped) else [t]
+        count = (sum(x.numel() for x in xs) * len(self.positions)
+                 // len(self.held))
+        return comm.exact_sum(xs, count, self._rank_held)
 
     def dot(self, a: torch.Tensor, b: torch.Tensor) -> float:
         """``sum(a * b)`` over every block (:meth:`total` of the float64
@@ -425,7 +491,11 @@ class DenseGrid:
         return self.total(a.to(torch.float64) * b.to(torch.float64))
 
     def minimum(self, t: torch.Tensor) -> torch.Tensor:
-        """The least element of ``t`` over every block and rank."""
+        """The least element of ``t`` over every block and rank (and
+        over every device's blocks, on the first device)."""
+        if isinstance(t, Grouped):
+            return torch.stack([comm.group_extreme(x, "min", False)
+                                .to(t.devices[0]) for x in t.groups]).amin()
         return comm.group_extreme(t, "min", self._rank_held)
 
     # -- stencil driver ------------------------------------------------
@@ -496,7 +566,16 @@ class DenseGrid:
                 f"to_host({name!r}): the field's blocks span ranks; each "
                 "rank holds only its own (read grid.arrays, "
                 "[n_held, bx, by, bz, ...])")
-        t = self.arrays[name].detach().cpu()
+        t = self.arrays[name]
+        if self._spans:
+            # every block onto the host, into its place in the grid
+            shape = self.fields[name][0]
+            whole = torch.empty(self.length + shape, dtype=t.dtype)
+            for view, i in zip(self._whole_blocks(whole, self.block),
+                               range(len(self.held))):
+                view.copy_(t[i].cpu())
+            t = whole
+        t = t.detach().cpu()
         if t.dtype == torch.bfloat16:
             t = t.to(torch.float32)
         return t.numpy()

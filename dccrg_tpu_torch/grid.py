@@ -14,8 +14,14 @@ PyTorch counterpart of ``dccrg_tpu/grid.py``:
   are ``[inner | outer | pad | ghost copies | pad | zero row]``
   (``R = L + G + 1``; one partition has no ghosts, ``R = L + 1``).
 - **Partitions**: ``initialize([dev] * n)`` runs the grid on n
-  partitions, every one on the same device (a later slice of the port
-  puts each on its own card). The partitioner (partition.py) assigns
+  partitions of one device; a list naming distinct devices of this
+  process (``["cuda:0", "cuda:0", "cpu"]``, or ``cpu:k`` labels on the
+  host) places each partition on its own, and each field is then a
+  :class:`Grouped`, one ``[n_g, R, ...]`` tensor per device: the
+  exchange's pairs inside one device gather and scatter there, those
+  between devices cross in one packed buffer per pair of devices
+  (``comm.device_copy``), the row moves cross the same way, and sums
+  fold the groups in partition order. The partitioner (partition.py) assigns
   owners; the halo exchange (``update_copies_of_remote_neighbors``, the
   split-phase calls and the step loop) moves each partition's send
   rows into the ghost rows of its peers with one ``index_select`` and
@@ -44,7 +50,9 @@ hard rows last, on the received ghosts.
 
 from __future__ import annotations
 
+import contextlib
 import logging
+import operator as _op
 import os
 import time
 from dataclasses import dataclass, field as dataclass_field
@@ -119,6 +127,14 @@ def _host_numpy(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
 
 
+def _to_device(t: torch.Tensor, device) -> torch.Tensor:
+    """A copy of ``t`` in a buffer allocated on ``device`` (never an
+    alias of ``t``, whatever the two devices' labels say)."""
+    out = torch.empty(tuple(t.shape), dtype=t.dtype, device=device)
+    out.copy_(t)
+    return out
+
+
 def partition_rows(part, dev, rows) -> torch.Tensor:
     """Host tensor of rows ``(dev, rows)``, each read from ``part(d)``,
     partition ``d``'s ``[R, ...]`` rows, with one ``index_select`` per
@@ -152,10 +168,11 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-# What waits for the slice that places partitions on distinct cards
-# (peer copies inside one process, NCCL between ranks on cards of their
-# own): the only refusal left in the port.
-NEXT_SLICE = "ROADMAP.md queue 1, item 5b.1b"
+# What waits for a later slice (peer copies between distinct cards,
+# NCCL between ranks on cards of their own, distinct devices inside one
+# rank's entries, and the models that refuse a grid spanning devices):
+# the refusals left in the port.
+NEXT_SLICE = "ROADMAP.md queue 1, item 5b.1d"
 
 
 def _is_rank_entry(d) -> bool:
@@ -165,13 +182,29 @@ def _is_rank_entry(d) -> bool:
             and isinstance(d[0], (int, np.integer)))
 
 
+def device_key(dev) -> tuple:
+    """``(type, index)`` naming one device, so that ``cuda`` and
+    ``cuda:0`` (the current card) are one card and ``cpu`` and
+    ``cpu:0`` one host device; ``cpu:1``, ``cpu:2``, ... are distinct
+    devices of the host, as XLA's forced host devices are. A
+    ``torch.device`` compares unequal across those spellings, and a
+    tensor made on ``cpu:1`` reports ``cpu``, so a grid keeps each
+    partition's key in its own record."""
+    dev = torch.device(dev)
+    idx = dev.index
+    if idx is None:
+        idx = torch.cuda.current_device() if dev.type == "cuda" else 0
+    return (dev.type, int(idx))
+
+
 def resolve_partitions(device=None) -> list:
     """The partitions an entry point runs on, one device each: ``device``
     may be None (one partition on the card), a device, or a list of
-    devices (one partition each). Every partition lives on the same
-    device; a list naming distinct devices raises NotImplementedError
-    (``NEXT_SLICE``). Placement on ranks (``(rank, device)`` entries)
-    is :func:`resolve_placement`'s."""
+    devices (one partition each). The devices may be distinct: a grid
+    then holds one storage group per device (``Grid._groups``), and its
+    halo, row moves and sums cross between them. A ``meta`` device is
+    refused (it holds no bytes). Placement on ranks (``(rank, device)``
+    entries) is :func:`resolve_placement`'s."""
     if isinstance(device, (list, tuple)):
         if not device:
             raise ValueError("an empty device list")
@@ -184,11 +217,35 @@ def resolve_partitions(device=None) -> list:
         devs = [resolve_device(d) for d in device]
     else:
         devs = [resolve_device(device)]
-    if any(d != devs[0] for d in devs[1:]):
-        raise NotImplementedError(
-            f"partitions on distinct devices {sorted(set(map(str, devs)))}: "
-            f"every partition shares one device until {NEXT_SLICE}")
+    for d in devs:
+        if d.type == "meta":
+            raise ValueError(
+                "a partition on the meta device: it holds no data; name "
+                "a CPU device ('cpu', 'cpu:1', ...) or a card")
     return devs
+
+
+def group_devices(devs):
+    """``(groups, where)`` of held items on devices ``devs`` (in slot
+    order): ``groups[g]`` is ``(device, slots)`` per distinct device
+    (:func:`device_key`) in order of first appearance, ``where[i]`` slot
+    i's ``(group, index in group)``."""
+    keys, groups, where = {}, [], []
+    for i, d in enumerate(devs):
+        k = device_key(d)
+        if k not in keys:
+            keys[k] = len(groups)
+            groups.append((d, []))
+        g = keys[k]
+        where.append((g, len(groups[g][1])))
+        groups[g][1].append(i)
+    return groups, where
+
+
+def spans_devices(devs) -> bool:
+    """True when the devices name more than one device
+    (:func:`device_key`)."""
+    return len({device_key(d) for d in devs}) > 1
 
 
 def resolve_placement(device=None):
@@ -200,8 +257,9 @@ def resolve_placement(device=None):
     the reference's mesh of devices with their ``process_index``
     (:func:`dccrg_tpu_torch.coord.rank_devices` builds one in rank
     order); a plain entry is this process's. This process's partitions
-    share one device (distinct devices raise NotImplementedError,
-    ``NEXT_SLICE``); another rank's device is its label only."""
+    on a rank placement share one device (distinct devices inside one
+    rank raise NotImplementedError, ``NEXT_SLICE``); another rank's
+    device is its label only."""
     if not (isinstance(device, (list, tuple))
             and any(_is_rank_entry(d) for d in device)):
         return resolve_partitions(device), None
@@ -221,12 +279,27 @@ def resolve_placement(device=None):
     if not mine:
         raise ValueError(f"no partition of the placement is on rank {me}")
     local = resolve_partitions([devs[i] for i in mine])
+    if spans_devices(local):
+        raise NotImplementedError(
+            f"distinct devices {sorted({str(d) for d in local})} inside "
+            f"rank {me}'s entries of a rank placement wait for "
+            f"{NEXT_SLICE}")
     devs = [local[0] if r == me else torch.device(d)
             for r, d in zip(ranks, devs)]
     ranks = np.asarray(ranks, dtype=np.int64)
     if bool((ranks == me).all()):
         return devs, None
     return devs, ranks
+
+
+def require_one_device(grid, what: str) -> None:
+    """Refuse a grid whose partitions span devices of this process for
+    an entry point that reads one storage group (``NEXT_SLICE``)."""
+    if len(grid._groups) > 1:
+        raise NotImplementedError(
+            f"{what} on a grid whose partitions span devices "
+            f"{[str(g.device) for g in grid._groups]} waits for "
+            f"{NEXT_SLICE}")
 
 
 def single_device(device, what: str) -> torch.device:
@@ -686,17 +759,211 @@ def _halo_scatter(flat, dst, payload):
     flat.index_copy_(0, dst, payload)
 
 
+class _DevGroup:
+    """One storage group of a grid whose partitions span devices of this
+    process: the device and the held slots it holds, in partition
+    order."""
+
+    __slots__ = ("device", "slots")
+
+    def __init__(self, device, slots):
+        self.device = device
+        self.slots = slots
+
+
+def _scalar_on(x, device):
+    """An operand of a :class:`Grouped` operation for one group: a
+    0-dim tensor copied to the group's device (a 0-dim card tensor may
+    not meet host tensors; a host value reaches a card without waiting
+    for its stream), a number as it is."""
+    if isinstance(x, torch.Tensor):
+        if x.dim() != 0:
+            raise TypeError(
+                "a Grouped array meets a tensor of shape "
+                f"{tuple(x.shape)}: only 0-dim tensors broadcast over "
+                "the groups")
+        return x.to(device, non_blocking=x.device.type == "cpu")
+    return x
+
+
+class Grouped:
+    """A per-partition array of a grid whose partitions lie on distinct
+    devices of one process: one ``[n_g, R, ...]`` tensor per storage
+    group (``groups[g]`` on device ``devices[g]``, its partitions in
+    partition order), where a grid on one device holds one
+    ``[n_held, R, ...]`` tensor.
+
+    It is indexed as that tensor is along its leading axis: ``a[i]`` and
+    ``a[i, ...]`` read held slot ``i``'s rows (a view into its group),
+    ``a[:, ...]`` every group's. Arithmetic, comparisons and the
+    elementwise torch functions of :data:`_ELEMENTWISE` run group by
+    group on each group's device (a 0-dim tensor operand is copied to
+    each); anything else raises, so no reduction or device move sees
+    only one group. Sums fold the groups in partition order
+    (:func:`dccrg_tpu_torch.comm.partition_sums`)."""
+
+    __slots__ = ("groups", "devices", "where")
+    __hash__ = object.__hash__
+
+    def __init__(self, groups, devices, where):
+        self.groups = list(groups)
+        self.devices = list(devices)
+        self.where = where  # [(group, index in group)] per held slot
+
+    def _like(self, groups):
+        return Grouped(groups, self.devices, self.where)
+
+    def __len__(self):
+        return len(self.where)
+
+    @property
+    def dtype(self):
+        return self.groups[0].dtype
+
+    @property
+    def device(self):
+        raise AttributeError(
+            "a Grouped array spans devices "
+            f"{[str(d) for d in self.devices]}: ask for a group's device")
+
+    def _split_key(self, key):
+        head, rest = (key[0], key[1:]) if isinstance(key, tuple) \
+            else (key, ())
+        if isinstance(head, (int, np.integer)):
+            g, i = self.where[int(head)]
+            return g, (i,) + rest
+        if isinstance(head, slice) and head == slice(None):
+            return None, (slice(None),) + rest
+        raise IndexError(
+            "a Grouped array is indexed by one held partition or by "
+            "all of them (':') along its leading axis")
+
+    def __getitem__(self, key):
+        g, k = self._split_key(key)
+        if g is not None:
+            return self.groups[g][k]
+        return self._like([t[k] for t in self.groups])
+
+    def __setitem__(self, key, value):
+        g, k = self._split_key(key)
+        if g is not None:
+            self.groups[g][k] = value
+            return
+        for h, t in enumerate(self.groups):
+            t[k] = (value.groups[h] if isinstance(value, Grouped)
+                    else _scalar_on(value, self.devices[h]))
+
+    def clone(self):
+        return self._like([t.clone() for t in self.groups])
+
+    def to(self, dtype):
+        """Each group cast to ``dtype`` (a device move is refused: the
+        groups stay where they live)."""
+        if not isinstance(dtype, torch.dtype):
+            raise TypeError("Grouped.to takes a dtype only")
+        return self._like([t.to(dtype) for t in self.groups])
+
+    def map(self, fn, *others):
+        """``fn(group tensor, *others' group tensors)`` per group; an
+        operand that is not Grouped is passed to every group (a 0-dim
+        tensor copied to the group's device)."""
+        out = []
+        for g, t in enumerate(self.groups):
+            args = [o.groups[g] if isinstance(o, Grouped)
+                    else _scalar_on(o, self.devices[g]) for o in others]
+            out.append(fn(t, *args))
+        return self._like(out)
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func not in _ELEMENTWISE:
+            raise TypeError(
+                f"{getattr(func, '__name__', func)} on a Grouped array: "
+                "only elementwise functions run group by group; fold a "
+                "reduction per partition")
+        lead = next(a for a in list(args) + list(kwargs.values())
+                    if isinstance(a, Grouped))
+        out = []
+        for g in range(len(lead.groups)):
+            def pick(a):
+                if isinstance(a, Grouped):
+                    return a.groups[g]
+                return _scalar_on(a, lead.devices[g])
+            out.append(func(*[pick(a) for a in args],
+                            **{k: pick(v) for k, v in kwargs.items()}))
+        return lead._like(out)
+
+
+def _binary(op, reflected=False):
+    def f(self, other):
+        if reflected:
+            return self.map(lambda t, o: op(o, t), other)
+        return self.map(op, other)
+    return f
+
+
+for _name, _fn in (("add", _op.add), ("sub", _op.sub), ("mul", _op.mul),
+                   ("truediv", _op.truediv), ("floordiv", _op.floordiv),
+                   ("mod", _op.mod), ("pow", _op.pow), ("and", _op.and_),
+                   ("or", _op.or_)):
+    setattr(Grouped, f"__{_name}__", _binary(_fn))
+    setattr(Grouped, f"__r{_name}__", _binary(_fn, reflected=True))
+for _name, _fn in (("eq", _op.eq), ("ne", _op.ne), ("lt", _op.lt),
+                   ("le", _op.le), ("gt", _op.gt), ("ge", _op.ge)):
+    setattr(Grouped, f"__{_name}__", _binary(_fn))
+Grouped.__neg__ = lambda self: self.map(_op.neg)
+Grouped.__invert__ = lambda self: self.map(_op.invert)
+Grouped.abs = lambda self: self.map(torch.abs)
+Grouped.contiguous = lambda self: self.map(torch.Tensor.contiguous)
+
+# the torch functions a Grouped array takes group by group
+_ELEMENTWISE = frozenset((torch.where, torch.abs, torch.zeros_like))
+
+
+def groups_of(t) -> list:
+    """The storage groups of a field: one tensor per device of the grid
+    (``[t]`` on a grid of one device)."""
+    return t.groups if isinstance(t, Grouped) else [t]
+
+
+class _GroupRows:
+    """Rows of an item list read from a field, one piece per storage
+    group (:meth:`Grid._take`): ``pieces[g]`` is ``(items, rows)``, the
+    positions in the item list that group g holds (ascending; None on a
+    grid of one group: all of them, in order) and their rows, on g's
+    device."""
+
+    __slots__ = ("pieces", "n")
+
+    def __init__(self, pieces, n):
+        self.pieces = pieces
+        self.n = n
+
+    def host(self) -> torch.Tensor:
+        """The rows on the host, in item order."""
+        if len(self.pieces) == 1 and self.pieces[0][0] is None:
+            return self.pieces[0][1].cpu()
+        first = self.pieces[0][1]
+        out = torch.empty((self.n,) + tuple(first.shape[1:]),
+                          dtype=first.dtype)
+        for items, rows in self.pieces:
+            if len(items):
+                out[torch.as_tensor(items)] = rows.cpu()
+        return out
+
+
 class _Exchange:
     """The tables of one exchange (:meth:`Grid._exchange_groups`):
-    ``local``, per exchanged field, one ``(src, dst)`` pair of flat rows
-    per peer offset for the pairs both of whose partitions this process
-    holds; ``cross``, the half that crosses ranks (:class:`_RankHalo`),
-    None when every partition is this process's."""
+    ``legs``, the pairs both of whose partitions this process holds, one
+    :class:`_Leg` per (sender's storage group, receiver's); ``cross``,
+    the half that crosses ranks (:class:`_RankHalo`), None when every
+    partition is this process's."""
 
-    __slots__ = ("local", "cross")
+    __slots__ = ("legs", "cross")
 
-    def __init__(self, local, cross):
-        self.local = local
+    def __init__(self, legs, cross):
+        self.legs = legs
         self.cross = cross
 
 
@@ -716,53 +983,81 @@ class _RankHalo:
         self.recv_bytes = recv_bytes
 
 
-def _send_halos(state, exch_idx, ex, stream):
-    """The sends of one exchange, every peer offset of every exchanged
-    field (``state[j]`` for ``j`` in ``exch_idx``, ``ex`` their
+class _Leg:
+    """The pairs of one exchange from storage group ``a`` to group ``b``:
+    per exchanged field, the senders' group-flat rows in group ``a``
+    (``src[i]``, on a's device) and the ghost rows they land in, in
+    group ``b`` (``dst[i]``, on ``to``, b's device). A leg with ``a ==
+    b`` is a gather and a scatter inside one group; one with ``a != b``
+    copies one packed buffer between the devices
+    (:func:`dccrg_tpu_torch.comm.device_copy`)."""
+
+    __slots__ = ("a", "b", "to", "src", "dst")
+
+    def __init__(self, a, b, to):
+        self.a, self.b, self.to = a, b, to
+        self.src, self.dst = [], []
+
+
+def _send_halos(state, exch_idx, ex, streams):
+    """The sends of one exchange, every pair of every exchanged field
+    (``state[j]`` for ``j`` in ``exch_idx``, ``ex`` their
     :class:`_Exchange`): the cross-rank half is posted first, the
     sender rows of each field packed into one buffer per peer rank
-    (:func:`dccrg_tpu_torch.comm.post_exchange`); then the local sends,
-    on ``stream`` (the overlapped step's side CUDA stream) when given,
-    ordered after the main stream's work and handed back to it.
-    Returns what :func:`_land_halos` lands."""
+    (:func:`dccrg_tpu_torch.comm.post_exchange`); then each leg's rows
+    gathered in its sending group, on that card's side stream when
+    ``streams`` (``{group: stream}``, the overlapped step's) has one,
+    ordered after the card's main stream and handed back to it; a leg
+    between two devices packed and copied into a buffer on the
+    receiver's device. Returns what :func:`_land_halos` lands."""
+    from . import comm
+
     posted = None
     if ex.cross is not None:
-        from . import comm
-
         posted = comm.post_exchange(
             {r: comm.pack([_flat(state[j]).index_select(0, src)
                            for j, src in zip(exch_idx, rows)])
              for r, rows in ex.cross.send.items()},
             ex.cross.recv_bytes, state[0].device)
-    if stream is None:
-        return [[_halo_send(_flat(state[j]), src) for src, _dst in g]
-                for j, g in zip(exch_idx, ex.local)], posted
-    main = torch.cuda.current_stream(stream.device)
-    stream.wait_stream(main)
-    with torch.cuda.stream(stream):
-        out = [[_halo_send(_flat(state[j]), src) for src, _dst in g]
-               for j, g in zip(exch_idx, ex.local)]
-    for per in out:
-        for t in per:
-            t.record_stream(main)
+    streams = streams or {}
+    for stream in streams.values():
+        stream.wait_stream(torch.cuda.current_stream(stream.device))
+    out = []
+    for leg in ex.legs:
+        stream = streams.get(leg.a)
+        with (torch.cuda.stream(stream) if stream is not None
+              else contextlib.nullcontext()):
+            rows = [_halo_send(_flat(groups_of(state[j])[leg.a]), src)
+                    for j, src in zip(exch_idx, leg.src)]
+            if leg.a != leg.b:
+                rows = comm.device_copy(comm.pack(rows), leg.to,
+                                        leg="device_halo")
+        if stream is not None and leg.a == leg.b:
+            for t in rows:
+                t.record_stream(torch.cuda.current_stream(stream.device))
+        out.append(rows)
     return out, posted
 
 
-def _land_halos(state, exch_idx, ex, sent, stream, R):
-    """The receives of one exchange into the ghost rows, in place: the
-    local payloads (after the side stream's sends when there is one),
-    then each peer rank's buffer once it has arrived; the zero row is
-    zeroed again (dccrg_tpu/grid.py:2264)."""
-    payloads, posted = sent
-    if stream is not None:
-        torch.cuda.current_stream(stream.device).wait_stream(stream)
-    for j, g, per in zip(exch_idx, ex.local, payloads):
-        fl = _flat(state[j])
-        for (_src, dst), payload in zip(g, per):
-            _halo_scatter(fl, dst, payload)
-    if ex.cross is not None:
-        from . import comm
+def _land_halos(state, exch_idx, ex, sent, streams, R):
+    """The receives of one exchange into the ghost rows, in place: each
+    leg's payloads (each card's main stream first waits for its side
+    stream), then each peer rank's buffer once it has arrived; the zero
+    row is zeroed again (dccrg_tpu/grid.py:2264)."""
+    from . import comm
 
+    payloads, posted = sent
+    for stream in (streams or {}).values():
+        torch.cuda.current_stream(stream.device).wait_stream(stream)
+    for leg, got in zip(ex.legs, payloads):
+        into = [groups_of(state[j])[leg.b] for j in exch_idx]
+        if leg.a != leg.b:
+            got = comm.unpack(got, [((dst.numel(),) + tuple(x.shape[2:]),
+                                     x.dtype)
+                                    for x, dst in zip(into, leg.dst)])
+        for x, dst, payload in zip(into, leg.dst, got):
+            _halo_scatter(_flat(x), dst, payload)
+    if ex.cross is not None:
         for r, buf in comm.wait_exchange(posted).items():
             parts = comm.unpack(buf, ex.cross.recv_specs[r])
             for j, dst, payload in zip(exch_idx, ex.cross.recv[r], parts):
@@ -1140,8 +1435,9 @@ class Grid:
     def initialize(self, device=None, partition: str | None = None):
         """Build the level-0 grid (dccrg.hpp:480-562) on the partitions
         ``device`` names: None is one partition on the card, a device
-        one partition there, a list of n devices n partitions (each the
-        same device; distinct devices raise NotImplementedError). A list
+        one partition there, a list of n devices n partitions (distinct
+        devices of this process hold their partitions each, in storage
+        groups, :meth:`_set_devices`). A list
         of ``(rank, device)`` entries places the partitions on the ranks
         of the default ``torch.distributed`` group
         (:func:`resolve_placement`, ``coord.rank_devices``): every rank
@@ -1201,7 +1497,8 @@ class Grid:
         group: this process holds the partitions of its own rank
         (``_held``, global indices in slot order), a field is
         ``[len(_held), R, ...]`` and ``_slot[p]`` is partition p's slot
-        (-1: another rank's)."""
+        (-1: another rank's). The held partitions are grouped by device
+        (:meth:`_set_devices`)."""
         self._part_rank = ranks
         if ranks is None:
             self._held = np.arange(self.n_dev, dtype=np.int64)
@@ -1212,7 +1509,7 @@ class Grid:
                 ranks == coord.process_index()).astype(np.int64)
         self._slot = np.full(self.n_dev, -1, dtype=np.int64)
         self._slot[self._held] = np.arange(len(self._held))
-        self.device = self.devices[int(self._held[0])]
+        self._set_devices(self.devices)
         # which partitions this process may touch from the host: its
         # held ones. Every process computes the same plan; a process
         # split (the ranks of a placement, or a test faking it on a
@@ -1220,6 +1517,74 @@ class Grid:
         # I/O through the two-phase per-rank writers (the reference's
         # rank-local access, dccrg.hpp:7738-7803)
         self._proc_local_dev = self._slot >= 0
+
+    def _set_devices(self, devices) -> None:
+        """Group the held partitions by device (:func:`device_key`, in
+        order of first appearance): ``_groups[g]`` holds its device and
+        its held slots in partition order, ``_gof[i]`` / ``_gpos[i]``
+        are held slot i's group and index in that group. One group keeps
+        the one-tensor storage; several make every field a
+        :class:`Grouped`, one tensor per group on its own device (the
+        reference's per-device shards of one mesh,
+        dccrg_tpu/grid.py:404, :1309)."""
+        self.devices = list(devices)
+        groups, self._where = group_devices(
+            [self.devices[int(p)] for p in self._held])
+        self._groups = [_DevGroup(d, np.asarray(sl, dtype=np.int64))
+                        for d, sl in groups]
+        self._gof = np.array([g for g, _i in self._where], dtype=np.int64)
+        self._gpos = np.array([i for _g, i in self._where], dtype=np.int64)
+
+    @property
+    def _grouped(self) -> bool:
+        """True when the held partitions span devices of this process
+        (fields are :class:`Grouped`)."""
+        return len(self._groups) > 1
+
+    @property
+    def device(self) -> torch.device:
+        """The device of the grid's held partitions. A grid whose
+        partitions span devices has none: ask for a partition's
+        (:meth:`part_device`) or a group's (an AttributeError, so a
+        probe such as ``getattr(grid, "device", None)`` reads None)."""
+        if len(self._groups) > 1:
+            raise AttributeError(
+                "the grid's partitions span devices "
+                f"{[str(g.device) for g in self._groups]}: ask for the "
+                "device of a partition (part_device) or of a group")
+        return self._groups[0].device
+
+    def part_device(self, p) -> torch.device:
+        """The device partition ``p`` (a held one) lives on."""
+        return self._groups[self._gof[self._slot[int(p)]]].device
+
+    def _on_card(self) -> bool:
+        """True when any storage group is on a CUDA device."""
+        return any(g.device.type == "cuda" for g in self._groups)
+
+    def _from_held(self, host) -> torch.Tensor:
+        """Field storage from an ``[n_held, ...]`` tensor or array (on
+        the host or any device): one tensor on the grid's device, or a
+        :class:`Grouped` whose groups are copies of their slots' rows on
+        their own devices."""
+        t = torch.as_tensor(host)
+        if not self._grouped:
+            return t.to(self.device)
+        return self._wrap([_to_device(t[torch.as_tensor(g.slots)], g.device)
+                           for g in self._groups])
+
+    def _to_held(self, t) -> torch.Tensor:
+        """The ``[n_held, ...]`` host copy of a field's storage (a
+        tensor or a :class:`Grouped`), slots in order; never an alias
+        of the live storage."""
+        if not isinstance(t, Grouped):
+            return t.detach().to("cpu", copy=True)
+        first = t.groups[0]
+        out = torch.empty((len(t),) + tuple(first.shape[1:]),
+                          dtype=first.dtype)
+        for g, grp in zip(t.groups, self._groups):
+            out[torch.as_tensor(grp.slots)] = g.detach().cpu()
+        return out
 
     @property
     def _rank_held(self) -> bool:
@@ -1613,12 +1978,27 @@ class Grid:
         t, slot = self.data[field], self._slot
         return partition_rows(lambda d: t[slot[d]], dev, rows)
 
+    def _zeros(self, shape, dtype):
+        """A zero field of per-row ``shape``: ``[n_held, R, ...]`` on the
+        grid's device, or one ``[n_g, R, ...]`` tensor per storage
+        group."""
+        R = self.plan.R
+        return self._wrap([torch.zeros((len(g.slots), R) + tuple(shape),
+                                       dtype=dtype, device=g.device)
+                           for g in self._groups])
+
+    def _wrap(self, tensors):
+        """Field storage from one tensor per storage group: the tensor
+        itself on a grid of one group, else a :class:`Grouped`."""
+        if len(tensors) == 1:
+            return tensors[0]
+        return Grouped(tensors, [g.device for g in self._groups],
+                       self._where)
+
     def _allocate_fields(self):
         self.data = {}
         for name, (shape, dtype) in self.fields.items():
-            self.data[name] = torch.zeros(
-                (len(self._held), self.plan.R) + shape, dtype=dtype,
-                device=self.device)
+            self.data[name] = self._zeros(shape, dtype)
         self._mark_ckpt_dirty()
 
     def _mark_ckpt_dirty(self, fields=None) -> None:
@@ -1634,7 +2014,8 @@ class Grid:
 
     def device_row_ids(self) -> torch.Tensor:
         """``[n_held, R]`` tensor of ``cell id - 1`` per row (``-1`` on
-        pad rows) of each held partition, ghost rows included. On a
+        pad rows) of each held partition, ghost rows included (a
+        :class:`Grouped` when the partitions span devices). On a
         complete level-0 grid on one partition it is made on the device
         from an arange (rows are id order, int32); otherwise it is
         uploaded from
@@ -1660,23 +2041,25 @@ class Grid:
                 if ng:  # ghost rows sit at [L, L + ng)
                     host[i, plan.L:plan.L + ng] = \
                         plan.ghost_ids[d].astype(np.int64) - 1
-            arr = torch.as_tensor(host, device=self.device)
+            arr = self._from_held(host)
         plan._row_ids_dev = arr
         return arr
 
     def local_row_mask(self) -> torch.Tensor:
         """``[n_held, R] float32`` mask: 1 on each held partition's local
-        rows, 0 on ghost and pad rows — the device-side reduction mask.
-        Cached per structure epoch."""
+        rows, 0 on ghost and pad rows — the device-side reduction mask
+        (a :class:`Grouped` when the partitions span devices). Cached
+        per structure epoch."""
         plan = self.plan
         cached = getattr(plan, "_local_mask_dev", None)
         if cached is not None:
             return cached
-        rows = torch.arange(plan.R, dtype=torch.int64, device=self.device)
-        nl = torch.as_tensor(
-            np.asarray(plan.n_local, dtype=np.int64)[self._held],
-            device=self.device)
-        arr = (rows[None, :] < nl[:, None]).to(torch.float32)
+        nl = np.asarray(plan.n_local, dtype=np.int64)
+        arr = self._wrap([
+            (torch.arange(plan.R, dtype=torch.int64, device=g.device)[None, :]
+             < torch.as_tensor(nl[self._held[g.slots]],
+                               device=g.device)[:, None]).to(torch.float32)
+            for g in self._groups])
         plan._local_mask_dev = arr
         return arr
 
@@ -1697,12 +2080,6 @@ class Grid:
             raise KeyError("unknown cell id(s)")
         return self.plan.owner[pos], self.plan.row_of_pos[pos].astype(np.int64)
 
-    def _flat_rows(self, dev, rows) -> torch.Tensor:
-        """Rows of :func:`_flat` views for ``(partition, row)`` pairs,
-        every partition one this process holds."""
-        return torch.as_tensor(self._flat_index(dev, rows),
-                               device=self.device)
-
     def _flat_index(self, dev, rows) -> np.ndarray:
         """Host int64 :func:`_flat` rows of ``(partition, row)`` pairs:
         the partition's held slot times ``R`` plus the row."""
@@ -1710,6 +2087,67 @@ class Grid:
         if len(slot) and int(slot.min()) < 0:
             raise KeyError("row(s) of partitions held by another rank")
         return slot * self.plan.R + np.asarray(rows, dtype=np.int64)
+
+    def _row_sel(self, dev, rows) -> list:
+        """``(partition, row)`` pairs of an item list, every partition
+        one this process holds, split by storage group: per group,
+        ``(items, rows)``, the positions in the item list it holds
+        (ascending; None on a grid of one group: all of them) and their
+        group-flat rows (index in the group times ``R`` plus the row,
+        :func:`_flat` rows of the group's tensor), an int64 tensor on
+        the group's device."""
+        flat = self._flat_index(dev, rows)
+        if len(self._groups) == 1:
+            return [(None, torch.as_tensor(flat,
+                                           device=self._groups[0].device))]
+        R = self.plan.R
+        slot = flat // R
+        gof, local = self._gof[slot], self._gpos[slot] * R + flat % R
+        out = []
+        for g, grp in enumerate(self._groups):
+            items = np.flatnonzero(gof == g)
+            out.append((items, torch.as_tensor(local[items],
+                                               device=grp.device)))
+        return out
+
+    def _take(self, t, sel) -> _GroupRows:
+        """The rows ``sel`` (:meth:`_row_sel`) of field storage ``t``,
+        each group's gathered on its own device."""
+        return _GroupRows([(items, _flat(x).index_select(0, idx))
+                           for (items, idx), x in zip(sel, groups_of(t))],
+                          sum(len(idx) for _items, idx in sel))
+
+    def _put(self, t, sel, got: _GroupRows, leg="device_rows") -> None:
+        """Land ``got`` (rows of the item list of ``sel``, taken in any
+        group) at the rows ``sel`` (:meth:`_row_sel`) of field storage
+        ``t``, in place, cast to its dtype: rows taken on one device and
+        landing on another cross by
+        :func:`dccrg_tpu_torch.comm.device_copy` (one copy per source
+        and destination group), counted under ``leg``."""
+        from . import comm
+
+        for a, (got_items, vals) in enumerate(got.pieces):
+            for b, ((items, idx), x) in enumerate(zip(sel, groups_of(t))):
+                if got_items is None and items is None:
+                    v, at = vals, idx
+                else:
+                    if got_items is None:
+                        pos_v, pos_i = items, np.arange(len(items))
+                    elif items is None:
+                        pos_v, pos_i = np.arange(len(got_items)), got_items
+                    else:
+                        _c, pos_v, pos_i = np.intersect1d(
+                            got_items, items, assume_unique=True,
+                            return_indices=True)
+                    if not len(pos_v):
+                        continue
+                    v = vals.index_select(0, torch.as_tensor(
+                        pos_v, device=vals.device))
+                    at = idx.index_select(0, torch.as_tensor(
+                        pos_i, device=idx.device))
+                if a != b:
+                    v = comm.device_copy(v, x.device, leg=leg)
+                _flat(x).index_copy_(0, at, v.to(x.dtype))
 
     def get(self, field: str, ids) -> np.ndarray:
         """Host read of per-cell data from the owner's row (reference
@@ -1722,8 +2160,8 @@ class Grid:
             self._require_local(dev, "get")
             out = _host_numpy(self._shard_read(field, dev, rows))
         else:
-            flat = _flat(self.data[field])
-            out = _host_numpy(flat.index_select(0, self._flat_rows(dev, rows)))
+            out = _host_numpy(self._take(self.data[field],
+                                         self._row_sel(dev, rows)).host())
         return out[0] if scalar else out
 
     def set(self, field: str, ids, values) -> None:
@@ -1765,21 +2203,29 @@ class Grid:
                 and len(np.unique(flat)) != len(flat)):
             _, last_rev = np.unique(flat[::-1], return_index=True)
             keep = np.sort(len(flat) - 1 - last_rev)
-            flat = flat[keep]
-        flat_t = torch.as_tensor(flat, device=self.device)
+            dev, rows = dev[keep], rows[keep]
+        sel = self._row_sel(dev, rows)
+        # one group: the values go to its device before they are picked
+        home = sel[0][1].device if len(sel) == 1 else None
         for name, values in values_by_field.items():
             shape, dtype = self.fields[name]
             vals = (values if isinstance(values, torch.Tensor)
                     else torch.as_tensor(np.asarray(values)))
-            vals = vals.to(device=self.device, dtype=dtype)
+            vals = vals.to(device=home or vals.device, dtype=dtype)
             if held is not None and vals.dim() > len(shape):
-                vals = vals[torch.as_tensor(held, device=self.device)]
+                vals = vals[torch.as_tensor(held, device=vals.device)]
             if keep is not None:
                 vals = vals.expand((len(ids),) + tuple(shape))[
-                    torch.as_tensor(keep, device=self.device)]
+                    torch.as_tensor(keep, device=vals.device)]
             if fresh:
-                self.data[name] = torch.zeros_like(self.data[name])
-            _flat(self._own(name))[flat_t] = vals
+                self.data[name] = self._zeros(shape, dtype)
+            per_item = vals.dim() > len(shape)
+            for (items, idx), x in zip(sel, groups_of(self._own(name))):
+                v = vals
+                if items is not None and per_item:
+                    v = vals.expand((len(dev),) + tuple(shape))[
+                        torch.as_tensor(items, device=vals.device)]
+                _flat(x)[idx] = v.to(x.device)
 
     # neighbor-type bits (reference dccrg.hpp:2968-3075)
     HAS_NO_NEIGHBOR = 0
@@ -2414,22 +2860,21 @@ class Grid:
         old_dev, old_rows = self._host_rows(surviving)
         mine = (np.flatnonzero(self._proc_local_dev[old_dev])
                 if self._rank_held else slice(None))
-        src = self._flat_rows(old_dev[mine], old_rows[mine])
+        src = self._row_sel(old_dev[mine], old_rows[mine])
         self._finish_plan(plan)
         faults.fire("grid.restructure", phase="planned")
         new_dev, new_rows = self._host_rows(surviving)
         dst = None
         for name, (shape, dtype) in self.fields.items():
             # the rows that change rank cross in one collective per
-            # field (on one process every row is local)
+            # field (on one process every row is local); a row whose
+            # partition moves to another device crosses there
             items, got = self._route_rows(
-                old_dev, new_dev,
-                {name: _flat(self.data[name]).index_select(0, src)})
+                old_dev, new_dev, {name: self._take(self.data[name], src)})
             if dst is None:
-                dst = self._flat_rows(new_dev[items], new_rows[items])
-            moved = torch.zeros((len(self._held), plan.R) + shape,
-                                dtype=dtype, device=self.device)
-            _flat(moved).index_copy_(0, dst, got[name])
+                dst = self._row_sel(new_dev[items], new_rows[items])
+            moved = self._zeros(shape, dtype)
+            self._put(moved, dst, got[name])
             self.data[name] = moved
         faults.fire("grid.restructure", phase="moved")
         if self._debug and not self._txn_depth:
@@ -2438,8 +2883,9 @@ class Grid:
     def _preserved_rows(self, ids) -> dict:
         """``{field: (ids, host values)}`` of cells about to disappear,
         for ``get_old_data`` (values None when ``ids`` is empty): one
-        gather per field over the held rows; on a grid whose partitions
-        span ranks every rank's rows are then merged on every rank
+        gather per field and storage group over the held rows; on a
+        grid whose partitions span ranks every rank's rows are then
+        merged on every rank
         (:func:`dccrg_tpu_torch.comm.gather_rows`), as one process sees
         them."""
         if not len(ids):
@@ -2447,9 +2893,9 @@ class Grid:
         dev, rows = self._host_rows(ids)
         mine = np.flatnonzero(self._proc_local_dev[dev]) \
             if self._rank_held else np.arange(len(ids))
-        rows_t = self._flat_rows(dev[mine], rows[mine])
-        vals = {name: _host_numpy(_flat(self.data[name]).index_select(
-            0, rows_t)) for name in self.fields}
+        sel = self._row_sel(dev[mine], rows[mine])
+        vals = {name: _host_numpy(self._take(self.data[name], sel).host())
+                for name in self.fields}
         if self._rank_held:
             from . import comm
 
@@ -2460,19 +2906,20 @@ class Grid:
         """Move per-item rows between partitions: item ``i`` leaves
         partition ``src_dev[i]`` and arrives at ``dst_dev[i]`` (global
         indices, the same arrays on every rank, from the replicated
-        plans). ``values`` is ``{name: tensor}`` of the items whose
+        plans). ``values`` is ``{name: _GroupRows}`` of the items whose
         source this process holds, in item order. Returns ``(items,
-        {name: tensor})``: the items whose destination this process
+        {name: _GroupRows})``: the items whose destination this process
         holds, in item order, and their rows. On a grid whose
-        partitions span ranks the rows that cross go by one
-        ``comm.move_bytes`` (``all_to_all_single``), a collective every
-        rank enters when any item crosses ranks."""
+        partitions span ranks (one storage group on each) the rows that
+        cross go by one ``comm.move_bytes`` (``all_to_all_single``), a
+        collective every rank enters when any item crosses ranks."""
         src_dev = np.asarray(src_dev, dtype=np.int64)
         dst_dev = np.asarray(dst_dev, dtype=np.int64)
         if not self._rank_held:
             return np.arange(len(src_dev)), values
         from . import comm
 
+        values = {n: v.pieces[0][1] for n, v in values.items()}
         me = int(self._part_rank[self._held[0]])
         rs, rd = self._part_rank[src_dev], self._part_rank[dst_dev]
         src_items = np.flatnonzero(rs == me)
@@ -2482,6 +2929,10 @@ class Grid:
         out = {n: torch.empty((len(items),) + tuple(values[n].shape[1:]),
                               dtype=values[n].dtype, device=dev)
                for n in names}
+
+        def wrapped():
+            return items, {n: _GroupRows([(None, t)], len(items))
+                           for n, t in out.items()}
 
         def put(sel, got):
             at = torch.as_tensor(np.searchsorted(items, sel), device=dev)
@@ -2496,7 +2947,7 @@ class Grid:
         if len(local):
             put(local, take(local))
         if not bool((rs != rd).any()):
-            return items, out
+            return wrapped()
         row_bytes = sum(
             int(np.prod(values[n].shape[1:], dtype=np.int64))
             * values[n].element_size() for n in names)
@@ -2516,7 +2967,7 @@ class Grid:
             specs = [((len(sel),) + tuple(values[n].shape[1:]),
                       values[n].dtype) for n in names]
             put(sel, dict(zip(names, comm.unpack(buf, specs))))
-        return items, out
+        return wrapped()
 
     def _own(self, name) -> torch.Tensor:
         """``data[name]``, safe to write in place: a tensor the open
@@ -2779,12 +3230,11 @@ class Grid:
                     # this rank captures the moving rows it holds
                     mine = np.flatnonzero(self._proc_local_dev[dev])
                     dev, rows = dev[mine], rows[mine]
-                src = self._flat_rows(dev, rows)
+                src = self._row_sel(dev, rows)
             for n in names:
                 self._staged_balance[n] = (
                     moving.copy(),
-                    _flat(self.data[n]).index_select(0, src) if len(moving)
-                    else None)
+                    self._take(self.data[n], src) if len(moving) else None)
 
     def staged_balance_data(self, field: str):
         """(moving cell ids, values) a stage captured for a field — the
@@ -2792,17 +3242,15 @@ class Grid:
         ids, snap = self._staged_balance[field]
         if snap is None:
             return ids.copy(), None
+        vals = _host_numpy(snap.host())
         if self._multiproc:
             # rank-local peek: only this process's moving cells (the
             # plan is unchanged since the stage; a rank-held stage
             # captured just those)
             dev, _rows = self._host_rows(ids)
             lm = np.flatnonzero(self._proc_local_dev[dev])
-            if self._rank_held:
-                return ids[lm].copy(), _host_numpy(snap)
-            return ids[lm].copy(), _host_numpy(
-                snap.index_select(0, torch.as_tensor(lm, device=snap.device)))
-        return ids.copy(), _host_numpy(snap)
+            return ids[lm].copy(), vals if self._rank_held else vals[lm]
+        return ids.copy(), vals
 
     def finish_balance_load(self) -> None:
         """Stage 3: install the new partition, rebuild the structure
@@ -2843,12 +3291,12 @@ class Grid:
                 items, got = self._route_rows(
                     old_owner[pos], new_owner[pos], {n: snap})
                 snap = got[n]
-                dst = self._flat_rows(*self._host_rows(ids[items]))
+                dst = self._row_sel(*self._host_rows(ids[items]))
             elif dst is None:
-                dst = self._flat_rows(*self._host_rows(ids))
-            # the moved rows land in the tensors _restructure made
-            _flat(self._own(n)).index_copy_(
-                0, dst, snap.to(self.data[n].dtype))
+                dst = self._row_sel(*self._host_rows(ids))
+            # the moved rows land in the tensors _restructure made,
+            # crossing devices where the owner's device changed
+            self._put(self._own(n), dst, snap)
 
     def get_cells_added_by_balance_load(self, device: int | None = None):
         """Cells the last balance moved ONTO a partition (every moved
@@ -3197,49 +3645,59 @@ class Grid:
         return tuple(sends), tuple(recvs)
 
     def _exchange_groups(self, neighborhood_id, field_names):
-        """The :class:`_Exchange` of ``field_names``: per field, one
-        ``(src, dst)`` pair of int64 device tensors per peer offset (one
-        for the dense fallback), the senders' flat rows (``p * R + row``)
-        in receiver order and the receivers' ghost rows they land in,
-        the -1 slots of the tables left out (a send is one
-        ``index_select``, a receive one ``index_copy_``); and the
-        cross-rank half (:meth:`_exchange_cross`). Memoized on the
-        hood."""
+        """The :class:`_Exchange` of ``field_names``: its legs, per
+        (sender's storage group, receiver's) and field one ``(src, dst)``
+        pair of int64 device tensors, the senders' group-flat rows
+        (``index in group * R + row``) in receiver order and the ghost
+        rows they land in, every peer offset of the pair tables in one
+        leg (a ghost row receives one cell, so the order of the pairs
+        does not change what lands) and their -1 slots left out (a send
+        is one ``index_select``, a receive one ``index_copy_``); and the
+        cross-rank half (:meth:`_exchange_cross`). Memoized on the hood,
+        by the fields' names and schemas."""
         hood = self.plan.hoods[neighborhood_id]
+        key = (("xg", tuple(field_names)),
+               tuple(self.fields[n] for n in field_names))
+        hit = hood._dev.get(key)
+        if hit is not None:
+            return hit
         deltas = self._peer_deltas(neighborhood_id)
-        n_dev, R, dev = self.n_dev, self.plan.R, self.device
-        slot = self._slot
+        n_dev, R, slot = self.n_dev, self.plan.R, self._slot
+        groups = self._groups
         sends, recvs = self._pair_tables_host(neighborhood_id, field_names)
         n_t = 1 if deltas is None else len(deltas)
-        out = []
-        for i, n in enumerate(field_names):
-            groups = []
+        legs = {(a, b): _Leg(a, b, groups[b].device)
+                for a in range(len(groups)) for b in range(len(groups))}
+        for i in range(len(field_names)):
+            pairs = [(np.empty(0, np.int64),) * 4]
             for t in range(n_t):
-                key = (("xg", n, None if deltas is None else deltas[t]),
-                       str(dev))
-                hit = hood._dev.get(key)
-                if hit is None:
-                    sd, rd = sends[i * n_t + t], recvs[i * n_t + t]
-                    if deltas is None:  # rd [dst q, src p, M]
-                        q, p, m = np.nonzero(rd >= 0)
-                        srow, rrow = sd[p, q, m], rd[q, p, m]
-                    else:
-                        q, m = np.nonzero(rd >= 0)
-                        p = (q - deltas[t]) % n_dev
-                        srow, rrow = sd[p, m], rd[q, m]
-                    # the pairs both of whose partitions this process
-                    # holds (every pair on one process); the others
-                    # cross ranks (_exchange_cross)
-                    both = (slot[p] >= 0) & (slot[q] >= 0)
-                    src = slot[p[both]] * R + srow[both]
-                    dst = slot[q[both]] * R + rrow[both]
-                    hit = (torch.as_tensor(src.astype(np.int64), device=dev),
-                           torch.as_tensor(dst.astype(np.int64), device=dev))
-                    hood._dev[key] = hit
-                groups.append(hit)
-            out.append(groups)
-        return _Exchange(out, self._exchange_cross(neighborhood_id,
-                                                   field_names))
+                sd, rd = sends[i * n_t + t], recvs[i * n_t + t]
+                if deltas is None:  # rd [dst q, src p, M]
+                    q, p, m = np.nonzero(rd >= 0)
+                    pairs.append((p, q, sd[p, q, m], rd[q, p, m]))
+                else:
+                    q, m = np.nonzero(rd >= 0)
+                    p = (q - deltas[t]) % n_dev
+                    pairs.append((p, q, sd[p, m], rd[q, m]))
+            p, q, srow, rrow = (np.concatenate(x).astype(np.int64)
+                                for x in zip(*pairs))
+            # the pairs both of whose partitions this process holds
+            # (every pair on one process); the others cross ranks
+            # (_exchange_cross)
+            both = (slot[p] >= 0) & (slot[q] >= 0)
+            sp, sq = slot[p[both]], slot[q[both]]
+            ga, gb = self._gof[sp], self._gof[sq]
+            src = self._gpos[sp] * R + srow[both]
+            dst = self._gpos[sq] * R + rrow[both]
+            for (a, b), leg in legs.items():
+                m = (ga == a) & (gb == b)
+                leg.src.append(torch.as_tensor(src[m], device=groups[a].device))
+                leg.dst.append(torch.as_tensor(dst[m], device=groups[b].device))
+        hit = _Exchange([leg for leg in legs.values()
+                         if any(t.numel() for t in leg.src)],
+                        self._exchange_cross(neighborhood_id, field_names))
+        hood._dev[key] = hit
+        return hit
 
     def _exchange_cross(self, neighborhood_id, field_names):
         """The cross-rank half of an exchange of ``field_names``
@@ -3480,17 +3938,27 @@ class Grid:
         reference's solve-inner-while-messages-fly, dccrg.hpp:5046-5413).
         It costs a surface-sized second pass, so it is on by default on
         the card and off on the CPU, as the reference's default is on
-        accelerators only."""
+        accelerators only. A grid with a storage group on the host takes
+        it off by default too: the host group's pass runs on the host
+        thread whatever the streams do, and its copies to a card queue
+        behind that card's pass, so nothing overlaps."""
         env = os.environ.get("DCCRG_OVERLAP")
         if env in ("0", "1"):
             return env == "1"
-        return self.device.type == "cuda"
+        return all(g.device.type == "cuda" for g in self._groups)
 
-    def _side_stream(self):
-        """The CUDA stream the overlapped step's sends run on."""
-        s = getattr(self, "_side", None)
+    def _overlap_side(self):
+        """What the overlapped exchange's sends run on: one side CUDA
+        stream per storage group on a card (``{group: stream}``; a host
+        group has none), None without a card."""
+        if not self._on_card():
+            return None
+        s = getattr(self, "_sides", None)
         if s is None:
-            s = self._side = torch.cuda.Stream(device=self.device)
+            s = self._sides = {
+                g: torch.cuda.Stream(device=grp.device)
+                for g, grp in enumerate(self._groups)
+                if grp.device.type == "cuda"}
         return s
 
     def _roll_fixups(self, hood, p):
@@ -3504,10 +3972,10 @@ class Grid:
             real = wr[p, j] < L
             out.append(hood.dev(("roll_wr", p, j),
                                 lambda: wr[p, j][real].astype(np.int64),
-                                self.device))
+                                self.part_device(p)))
             out.append(hood.dev(("roll_ws", p, j),
                                 lambda: ws[p, j][real].astype(np.int64),
-                                self.device))
+                                self.part_device(p)))
         return out
 
     def _pass_tables(self, hood, include_to, slotwise, part=0):
@@ -3532,7 +4000,8 @@ class Grid:
 
         Then ``scale_rows`` (hybrid plans), the hard-row tables cut to
         their real rows (``split``) and the to-tables (include_to)."""
-        dev, p = self.device, int(part)
+        p = int(part)
+        dev = self.part_device(p)
         split = hood.hard_nbr_rows is not None and not include_to
         merged = include_to and hood.hard_nbr_rows is not None
         cf = hood.closed_form if not include_to else None
@@ -3806,9 +4275,9 @@ class Grid:
         orow_h, onr_h, _rows = st
         L, R, n_dev = self.plan.L, self.plan.R, len(self._held)
         n_local = np.asarray(self.plan.n_local, dtype=np.int64)
-        dev = self.device
         tables = []
         for d in self._held:
+            dev = self.part_device(d)
             rows = orow_h[d][orow_h[d] < n_local[d]].astype(np.int64)
             k = len(rows)
             om = msk[d, rows]
@@ -3969,10 +4438,10 @@ class Grid:
                 k = int(np.count_nonzero(orow[p] < L))
                 tables.append(hood.dev(okey + ("rows", p),
                                        orow[p, :k].astype(np.int64),
-                                       self.device))
+                                       self.part_device(p)))
                 tables.append(hood.dev(okey + ("nbr", p),
                                        onr[p, :k].astype(np.int64),
-                                       self.device))
+                                       self.part_device(p)))
         self.last_overlap = {
             "mode": o_mode or "off",
             "rows_full": rows_full * len(fields_out) if overlap else 0,
@@ -3991,8 +4460,7 @@ class Grid:
         split = spec[4]
         n_part = n_held * n_tab
         n_all = len(tables)
-        side = (self._side_stream()
-                if overlap and self.device.type == "cuda" else None)
+        side = self._overlap_side() if overlap else None
 
         def fn(n_steps, *args):
             tabs, args = args[:n_all], args[n_all:]

@@ -284,9 +284,10 @@ def conservation_sums(grid, fields) -> np.ndarray:
     names = tuple(fields)
     if not names:
         return np.zeros(0, dtype=np.float64)
+    dev = comm.grid_fold_device(grid)
     parts = torch.stack([
         torch.stack([grid.data[n][i, :int(grid.plan.n_local[p])].sum()
-                     .to(torch.float32) for n in names])
+                     .to(torch.float32).to(dev) for n in names])
         for i, p in enumerate(grid._held)])
     return comm.pull_replicated(comm.all_reduce(
         parts, "sum", grid._rank_held)[0]).astype(np.float64)

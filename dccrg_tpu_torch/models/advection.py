@@ -23,7 +23,7 @@ import torch
 
 from .. import comm
 from ..dense import AXES, BLOCKS, WHOLE, DenseGrid
-from ..grid import Grid, SlotwiseKernel, resolve_device
+from ..grid import Grid, Grouped, SlotwiseKernel, resolve_device
 from ..ops.advection_kernel import make_rotation_step
 
 HUMP_X0, HUMP_Y0, HUMP_RADIUS = 0.25, 0.5, 0.15
@@ -165,13 +165,16 @@ class GridAdvection:
         # init on the device: the cell center is affine in the row id on
         # this uniform grid, so no host center arrays are made (ghost
         # rows take their cells' values, pad rows zero)
+        # (on a grid whose partitions span devices the row ids are a
+        # Grouped array, and each group computes its own rows)
         ridx = self.grid.device_row_ids()
         valid = ridx >= 0
         r = torch.where(valid, ridx, 0)
         x = ((r % n).to(torch.float32) + 0.5) * np.float32(dx)
         y = (((r // n) % n).to(torch.float32) + 0.5) * np.float32(dx)
         self.grid.data["density"] = torch.where(
-            valid, hump_density(x, y), 0.0).to(dtype)
+            valid, x.map(hump_density, y) if isinstance(x, Grouped)
+            else hump_density(x, y), 0.0).to(dtype)
         self.grid.data["vx"] = torch.where(valid, 0.5 - y, 0.0).to(dtype)
         self.grid.data["vy"] = torch.where(valid, x - 0.5, 0.0).to(dtype)
         self._kernel = make_uniform_flux_kernel((dx, dx, 1.0 / nz))
@@ -199,11 +202,14 @@ class GridAdvection:
 
     def _sum(self, x) -> float:
         """``x`` summed over the held rows, then over the ranks a grid
-        whose partitions span ranks is placed on."""
-        t = torch.sum(x)
-        if self.grid._rank_held:
-            t = comm.all_reduce(t[None], "sum", True)[0]
-        return float(t)
+        whose partitions span ranks is placed on. On several partitions
+        each partition's rows are summed, then the partitions in
+        partition order (``comm.partition_sums``, ``comm.grid_total``),
+        so a grid whose partitions span devices reads the one-device
+        grid's bits."""
+        if self.grid.n_dev == 1:
+            return float(torch.sum(x))
+        return float(comm.grid_total(self.grid, comm.partition_sums(x)))
 
     def checksum(self) -> float:
         """Sum of the density over local rows (pad rows masked out): the
@@ -222,7 +228,9 @@ class GridAdvection:
         dx = np.float32(self.dx)
         x = ((r % self.n).to(torch.float32) + 0.5) * dx
         y = (((r // self.n) % self.n).to(torch.float32) + 0.5) * dx
-        exact = analytic_density(x, y, np.float32(self.time))
+        exact = (x.map(analytic_density, y, np.float32(self.time))
+                 if isinstance(x, Grouped)
+                 else analytic_density(x, y, np.float32(self.time)))
         sq = self._sum((g.data["density"] - exact) ** 2 * g.local_row_mask())
         vol = self.dx * self.dx * (1.0 / self.nz)
         return float(np.sqrt(sq * vol))
@@ -283,8 +291,9 @@ class AdvectionSolver:
         for d, name in enumerate(("vx", "vy", "vz")):
             v = self.grid.arrays[name].abs()
             dlen = float(self.grid.cell_length[d])
-            steps.append(torch.where(v > 0, dlen / v, math.inf).min())
-        return float(self.grid.minimum(torch.stack(steps)))
+            steps.append(float(self.grid.minimum(
+                torch.where(v > 0, dlen / v, math.inf))))
+        return min(steps)
 
     # -- the fused step (solve.hpp:44-279) ----------------------------
 

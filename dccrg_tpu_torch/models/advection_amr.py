@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 from .. import comm
-from ..grid import Grid, slot_sum
+from ..grid import Grid, require_one_device, slot_sum
 from ..neighbors import face_masks
 
 STATIC_FIELDS = ("vx", "vy", "vz", "lx", "ly", "lz", "ilen")
@@ -162,6 +162,7 @@ class AmrAdvection:
                           level_0_cell_length=cell_len)
             .initialize(device, partition=partition)
         )
+        require_one_device(self.grid, "AmrAdvection")
         self._flux_kernel = make_flux_kernel()
         self._fused_kernel = make_fused_step_kernel()
         self._diff_kernel = make_diff_kernel(diff_threshold)

@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from .. import comm
-from ..grid import Grid, slot_sum
+from ..grid import Grid, require_one_device, slot_sum
 
 GAMMA = 5.0 / 3.0
 ETA = 0.08          # B cleaning diffusivity (stability: lam*ETA*6 < 1)
@@ -222,6 +222,7 @@ class GridMHD:
                           level_0_cell_length=(dx, dx, 1.0 / nz))
             .initialize(device, partition=partition)
         )
+        require_one_device(self.grid, "GridMHD")
         if profile == "blast":
             self._init_blast(self.grid.plan.cells)
         else:

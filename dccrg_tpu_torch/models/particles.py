@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from .. import comm
-from ..grid import Grid, _flat
+from ..grid import Grid, _flat, require_one_device
 
 
 class ParticleModel:
@@ -60,6 +60,7 @@ class ParticleModel:
             .set_neighborhood_length(1)
             .initialize(device)
         )
+        require_one_device(self.grid, "ParticleModel")
         self._refresh_bounds()
         # constant per grid: the wrap's bounds and periodic axes
         g = self.grid

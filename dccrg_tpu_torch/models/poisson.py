@@ -30,7 +30,9 @@ same iterations. The reference's fused
 solve is one XLA program with a device while-loop; PyTorch has none, so
 the port's fused solve keeps every scalar of the iteration on the
 device and reads one flag per iteration for the loop condition.
-Partitions on distinct cards wait for ROADMAP.md queue 1, item 5b.1b.
+The partitioned solve also runs on partitions placed on distinct
+devices of one process: its halos cross devices, and its dots fold the
+storage groups in partition order (``comm.partition_sums``).
 """
 
 from __future__ import annotations
@@ -251,7 +253,7 @@ class PoissonSolver:
         ranks of a grid whose partitions span ranks)."""
         if self.grid.n_dev == 1:
             return torch.sum(x)
-        t = x.reshape(x.shape[0], -1).sum(dim=1).sum()
+        t = comm.partition_sums(x).sum()
         if self.grid._rank_held:
             t = comm.all_reduce(t[None], "sum", True)[0]
         return t
@@ -307,7 +309,11 @@ class PoissonSolver:
             self._tr, fields_in_tr, ("r1",), hid, False)
         statics = tuple(g.data[n] for n in fields_in_fwd[1:])
         mask = self._solve_mask
-        dtype, dev = self.dtype, mask.device
+        # the iteration's scalars live where the dots fold (the grid's
+        # one device; the host when its partitions span the card and the
+        # host, comm.fold_device); a Grouped field takes them group by
+        # group
+        dtype, dev = self.dtype, comm.grid_fold_device(g)
         single = g.n_dev == 1
         R = g.plan.R
 
@@ -322,8 +328,7 @@ class PoissonSolver:
         if not single:
             g1 = g._exchange_groups(hid, ("p0",))
             g2 = g._exchange_groups(hid, ("p0", "p1"))
-            side = (g._side_stream()
-                    if overlap and g.device.type == "cuda" else None)
+            side = g._overlap_side() if overlap else None
 
         def exchange1(p0):
             _land_halos([p0], (0,), g1, _send_halos([p0], (0,), g1, None),

@@ -24,7 +24,7 @@ import time
 import numpy as np
 import torch
 
-from ..grid import Grid
+from ..grid import Grid, require_one_device
 from ..utils import PhaseTimer
 from ..utils.profiling import device_sync, halo_bytes_per_update
 
@@ -48,6 +48,7 @@ class ScalabilityModel:
             .set_neighborhood_length(neighborhood_length)
             .initialize(device, partition=partition)
         )
+        require_one_device(self.grid, "ScalabilityModel")
         cells = self.grid.get_cells()
         rng = np.random.default_rng(0)
         self.grid.set(

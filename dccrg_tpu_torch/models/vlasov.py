@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from .. import comm
-from ..grid import Grid, slot_sum
+from ..grid import Grid, require_one_device, slot_sum
 
 NV_DEFAULT = 16
 VMAX = 1.0      # velocity-grid half-extent
@@ -174,6 +174,7 @@ class GridVlasov:
             .set_neighborhood_length(0)
             .initialize(device, partition=partition)
         )
+        require_one_device(self.grid, "GridVlasov")
         cells = self.grid.plan.cells
         idx = self.grid.mapping.get_indices(np.asarray(cells, np.uint64))
         x = (idx[:, 0].astype(np.float64) + 0.5) / n

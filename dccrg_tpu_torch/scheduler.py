@@ -44,7 +44,7 @@ multi-tenant serving loop, reusing the per-run lifecycle machinery of
   ``DCCRG_QUARANTINE_AFTER`` verdicts is **quarantined**: its buckets
   rebuild on surviving lanes with every admitted job migrated bit for
   bit. A lane is one entry of ``devices``; two lanes may name the same
-  card (distinct cards wait for ROADMAP.md queue 1, item 5b.1b);
+  card (lanes on distinct cards wait for ROADMAP.md queue 1, item 5b.1d);
 - **preemption**: the loop polls the supervision layer's preempt flag
   (SIGTERM/SIGINT handlers, :func:`~dccrg_tpu_torch.supervise
   .request_preempt`, or :meth:`~dccrg_tpu_torch.faults.FaultPlan
@@ -550,7 +550,7 @@ class FleetScheduler:
     instead of reinitializing. ``devices`` spreads bucket instances
     round-robin over a device list (default: the card); each entry is
     one lane of the SDC layer, and two lanes may name the same card
-    (distinct cards wait for ROADMAP.md queue 1, item 5b.1b). ``bulk``
+    (lanes on distinct cards wait for ROADMAP.md queue 1, item 5b.1d). ``bulk``
     is forwarded to every ``GridBatch`` the scheduler builds: True (the
     default) lets a bucket on the card whose job names a kernel with a
     slot-wise twin step through kernel A', False keeps the table

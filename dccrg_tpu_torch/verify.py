@@ -264,13 +264,20 @@ def verify_user_data(grid) -> None:
         arr = grid.data.get(name)
         if arr is None:
             _fail(f"field {name!r} missing from grid.data")
-        want = (len(grid._held), plan.R) + shape
-        if tuple(arr.shape) != want:
-            _fail(f"field {name!r}: shape {tuple(arr.shape)} != planned {want}")
-        if arr.dtype != dtype:
-            _fail(f"field {name!r}: dtype {arr.dtype} != declared {dtype}")
-        if bool((arr[:, plan.R - 1] != 0).any()):
-            _fail(f"field {name!r}: zero pad row has been written to")
+        # a grid whose partitions span devices holds one tensor per
+        # storage group, each [n_g, R, ...] on its own device
+        groups = getattr(arr, "groups", [arr])
+        have = [len(g.slots) for g in grid._groups] if len(groups) > 1 \
+            else [len(grid._held)]
+        for t, n_g in zip(groups, have):
+            want = (n_g, plan.R) + shape
+            if tuple(t.shape) != want:
+                _fail(f"field {name!r}: shape {tuple(t.shape)} != "
+                      f"planned {want}")
+            if t.dtype != dtype:
+                _fail(f"field {name!r}: dtype {t.dtype} != declared {dtype}")
+            if bool((t[:, plan.R - 1] != 0).any()):
+                _fail(f"field {name!r}: zero pad row has been written to")
 
 
 def pin_requests_succeeded(grid) -> None:

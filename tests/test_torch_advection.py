@@ -116,10 +116,13 @@ def test_device_selection():
 
 
 def test_single_device_only():
-    """Partitions share one device: a list naming distinct devices
-    waits for the slice that places them on their own cards."""
+    """A list naming ``meta`` is refused; one naming distinct devices of
+    this process places each partition on its own (item 5b.1b, the
+    storage one group per device)."""
     from dccrg_tpu_torch import Grid
 
     g = Grid(cell_data={"rho": torch.float32}).set_initial_length((4, 4, 4))
-    with pytest.raises(NotImplementedError, match="item 5b"):
+    with pytest.raises(ValueError, match="meta"):
         g.initialize(["cpu", "meta"])
+    g.initialize(["cpu:0", "cpu:1"])
+    assert len(g._groups) == 2 and len(g.data["rho"].groups) == 2

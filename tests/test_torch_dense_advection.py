@@ -92,18 +92,22 @@ def test_non_periodic_z_faces_masked(vz):
 
 
 def test_mesh_raises():
-    """A mesh naming distinct devices waits for item 5b.1b; a mesh of
-    blocks on one device runs, bit for bit with one block."""
+    """A mesh naming ``meta`` is refused; a mesh of blocks on one
+    device, and one on distinct host devices (item 5b.1b), run, bit for
+    bit with one block."""
     from dccrg_tpu_torch.dense import dense_mesh as port_mesh
 
-    with pytest.raises(NotImplementedError, match="5b.1b"):
+    with pytest.raises(ValueError, match="meta"):
         AdvectionSolver(n=8, mesh=port_mesh(["cpu", "meta"], (2, 1, 1)))
     one = AdvectionSolver(n=8, nz=4, device="cpu")
     blocks = AdvectionSolver(n=8, nz=4, mesh=port_mesh(["cpu"] * 4, (2, 1, 2)))
-    for s in (one, blocks):
+    spread = AdvectionSolver(n=8, nz=4, mesh=port_mesh(
+        ["cpu:0", "cpu:1", "cpu:2", "cpu:3"], (2, 1, 2)))
+    for s in (one, blocks, spread):
         s.step()
-    np.testing.assert_array_equal(blocks.grid.to_host("rho"),
-                                  one.grid.to_host("rho"))
+    for s in (blocks, spread):
+        np.testing.assert_array_equal(s.grid.to_host("rho"),
+                                      one.grid.to_host("rho"))
 
 
 def test_mass_conservation():

@@ -148,8 +148,9 @@ def test_mesh_surface():
         DenseGrid((4, 6, 7), {"u": torch.float32}, mesh=pm)
     with pytest.raises(ValueError):
         DenseGrid((4, 6, 8), {"u": torch.float32}, device="cpu", mesh=pm)
-    with pytest.raises(NotImplementedError, match="5b.1b"):
+    with pytest.raises(ValueError, match="meta"):
         dense_mesh(["cpu", "meta"])
+    assert dense_mesh(["cpu:0", "cpu:1"]).spans_devices
     with pytest.raises(RuntimeError):
         pd.axis_index("x")
 

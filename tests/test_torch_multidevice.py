@@ -635,22 +635,30 @@ def test_next_slice_raises():
                                       kids]))
     g.load_cells(refined)
     np.testing.assert_array_equal(g.plan.cells, refined)
-    with pytest.raises(NotImplementedError, match="item 5b.1b"):
+    with pytest.raises(ValueError, match="meta"):
         DenseGrid((4, 4, 4), {"u": torch.float32}, device=["cpu", "meta"])
     assert DenseGrid((4, 4, 4), {"u": torch.float32},
                      device=["cpu", "cpu"]).mesh_shape == (2, 1, 1)
+    # distinct devices of one process run (item 5b.1b): a mesh of blocks
+    # on two host devices, a grid and a Poisson solver on two partitions
+    two = DenseGrid((4, 4, 4), {"u": torch.float32},
+                    device=["cpu:0", "cpu:1"])
+    assert two.mesh.spans_devices and two.to_host("u").shape == (4, 4, 4)
     from dccrg_tpu_torch.fleet import FleetJob, GridBatch
 
     with pytest.raises(NotImplementedError, match="item 5b"):
         GridBatch(FleetJob("a", length=(4, 4, 4), n_steps=1), 2,
                   device=["cpu", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 5b"):
+    with pytest.raises(ValueError, match="meta"):
         Grid(cell_data={"v": torch.float32}).initialize(["cpu", "meta"])
+    assert Grid(cell_data={"v": torch.float32}).initialize(
+        ["cpu:0", "cpu:1"])._grouped
     from dccrg_tpu_torch.models.poisson import PoissonSolver
 
-    with pytest.raises(NotImplementedError, match="item 5b.1b"):
+    with pytest.raises(ValueError, match="meta"):
         PoissonSolver((4, 4, 4), device=["cpu", "meta"])
     assert PoissonSolver((4, 4, 4), device=["cpu"] * 2).grid.n_dev == 2
+    assert PoissonSolver((4, 4, 4), device=["cpu:0", "cpu:1"]).grid._grouped
 
 
 # ---------------------------------------------------------------------

@@ -442,9 +442,11 @@ def test_dense_grid_surface():
                           halo=1, boundary=-1.0)
     np.testing.assert_array_equal(step_p(pd.arrays)["u"].numpy(),
                                   np.asarray(step_r(rd.arrays)["u"]))
-    # distinct devices wait for item 5b.1b; one device's list is a mesh
-    # of blocks along x
-    with pytest.raises(NotImplementedError, match="5b.1b"):
+    # a meta device is refused; one device's list is a mesh of blocks
+    # along x, distinct devices' a mesh of blocks on each (item 5b.1b)
+    with pytest.raises(ValueError, match="meta"):
         DenseGrid((4, 4, 4), {"u": torch.float32}, device=["cpu", "meta"])
+    assert DenseGrid((4, 4, 4), {"u": torch.float32},
+                     device=["cpu:0", "cpu:1"]).mesh.spans_devices
     two = DenseGrid((4, 4, 4), {"u": torch.float32}, device=["cpu", "cpu"])
     assert two.mesh_shape == (2, 1, 1) and two.block == (2, 4, 4)

@@ -609,7 +609,7 @@ def test_placement_rules():
     """A placement names ranks of the group: without one, a second rank
     is refused; a plain entry is this process's; every entry on this
     rank is a one-process grid; distinct devices of one rank wait for
-    item 5b.1b."""
+    item 5b.1d, and a ``meta`` device is refused."""
     from dccrg_tpu_torch import coord
     from dccrg_tpu_torch.grid import resolve_placement
 
@@ -618,7 +618,9 @@ def test_placement_rules():
         resolve_placement([(0, "cpu"), (0, "cpu"), (1, "cpu"), (1, "cpu")])
     devs, ranks = resolve_placement([(0, "cpu"), "cpu"])
     assert ranks is None and [str(d) for d in devs] == ["cpu", "cpu"]
-    with pytest.raises(NotImplementedError, match="item 5b.1b"):
+    with pytest.raises(NotImplementedError, match="item 5b.1d"):
+        resolve_placement([(0, "cpu:0"), (0, "cpu:1")])
+    with pytest.raises(ValueError, match="meta"):
         resolve_placement([(0, "cpu"), (0, "meta")])
 
 

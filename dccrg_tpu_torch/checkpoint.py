@@ -376,8 +376,7 @@ def _chunk_bytes(grid, counts, start, fixed_spec, fixed_bytes, var_spec):
     # storage group
     sel = grid._row_sel(grid.plan.owner[idx],
                         grid.plan.row_of_pos[idx].astype(np.int64))
-    card = next((g.device for g in grid._groups if g.device.type == "cuda"),
-                None)
+    card = grid._card
     with (torch.cuda.device(card) if card is not None
           else nullcontext()):
         return _chunk_payload(grid, counts, idx, sel, fixed_spec,
@@ -764,12 +763,11 @@ def _mp_piece_bytes(grid, counts, idx, fixed_spec, fixed_bytes, var_spec):
 
 
 def _mp_piece(grid, counts, idx, fixed_spec, fixed_bytes, var_spec):
-    if grid.device.type == "cuda":
-        with torch.cuda.device(grid.device):
-            return _mp_piece_bytes(grid, counts, idx, fixed_spec,
-                                   fixed_bytes, var_spec)
-    return _mp_piece_bytes(grid, counts, idx, fixed_spec, fixed_bytes,
-                           var_spec)
+    card = grid._card
+    with (torch.cuda.device(card) if card is not None
+          else nullcontext()):
+        return _mp_piece_bytes(grid, counts, idx, fixed_spec, fixed_bytes,
+                               var_spec)
 
 
 def _save_process_slice(grid, filename, meta, cells, offsets, sizes, counts,

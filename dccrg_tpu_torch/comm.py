@@ -277,11 +277,20 @@ def grid_field_totals(grid, names) -> dict:
     return dict(zip(names, grid_total(grid, parts).cpu().tolist()))
 
 
-def group_extreme(x: torch.Tensor, op: str, group: bool) -> torch.Tensor:
-    """The ``op`` (``"min"`` or ``"max"``) of every element of ``x``,
-    then over the ranks of the default group when ``group``: exact, so
-    every rank reads the same value whatever the split."""
-    r = x.amin() if op == "min" else x.amax()
+def group_extreme(x, op: str, group: bool) -> torch.Tensor:
+    """The ``op`` (``"min"`` or ``"max"``) of every element of ``x`` (a
+    tensor, or a ``Grouped`` whose groups' extremes meet on
+    :func:`fold_device`), then over the ranks of the default group when
+    ``group``: exact, so every rank reads the same value whatever the
+    split."""
+    def ext(t):
+        return t.amin() if op == "min" else t.amax()
+
+    if _grouped(x):
+        dev = fold_device(x.devices)
+        r = ext(torch.stack([ext(t).to(dev) for t in x.groups]))
+    else:
+        r = ext(x)
     return all_reduce(r[None], op, group)[0]
 
 
@@ -420,6 +429,8 @@ def device_copy(src: torch.Tensor, device, leg: str = "device_halo"
     copy raises."""
     dst = torch.device(device)
     with telemetry.span("comm.device_copy", {"leg": leg}):
+        # (a copy between two cards is written and untried: it waits for
+        # a machine with a second card, ROADMAP.md item 5b.1d, blocked)
         if src.device.type == "cuda":
             ev = torch.cuda.Event()
             ev.record(torch.cuda.current_stream(src.device))

@@ -227,10 +227,19 @@ def rank_devices(per_rank: int, device="cuda") -> list:
     """A placement of ``per_rank`` partitions on each rank of the
     default process group, in rank order (as ``jax.devices()`` orders a
     multi-process mesh): ``[(rank, device), ...]`` for
-    ``Grid.initialize``. Every rank must pass the same arguments, so
+    ``Grid.initialize``. ``device`` is one device for every partition,
+    or a list of ``per_rank`` devices, each rank's local devices in
+    order (as ``jax.local_devices()`` orders them: ``["cuda:0",
+    "cpu"]`` puts each rank's first partition on its card and its
+    second on its host). Every rank must pass the same arguments, so
     every rank computes the same plan."""
-    return [(r, device) for r in range(process_count())
-            for _ in range(int(per_rank))]
+    n = int(per_rank)
+    if isinstance(device, (list, tuple)):
+        if len(device) != n:
+            raise ValueError(f"{len(device)} devices for {n} partitions "
+                             "per rank")
+        return [(r, d) for r in range(process_count()) for d in device]
+    return [(r, device) for r in range(process_count()) for _ in range(n)]
 
 
 def _default_store():

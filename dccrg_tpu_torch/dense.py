@@ -28,8 +28,9 @@ tensor per device, the held blocks in mesh order, and a slab between
 blocks on distinct devices is copied into a buffer on the receiver's
 device (``comm.device_copy``, leg ``device_slab``). Whole-grid tensors
 (the centres, an ``rhs``, ``to_host``) are staged on the host there.
-Distinct devices inside one rank's entries of a rank placement wait for
-ROADMAP.md queue 1, item 5b.1d.
+The same holds for one rank's blocks of a rank placement
+(``[(0, "cuda:0"), (0, "cpu"), (1, "cuda:0"), (1, "cpu")]``): its
+slabs to and from other ranks are staged on the host.
 
 Cell ids remain interoperable with ``Grid``/``Mapping``: the cell at
 dense index (i, j, k) is level-0 cell ``1 + i + j*nx + k*nx*ny``
@@ -77,7 +78,8 @@ class DenseMesh:
 
             self.held = np.flatnonzero(
                 ranks == coord.process_index()).astype(np.int64)
-        self.spans_devices = ranks is None and spans_devices(self.devices)
+        self.spans_devices = spans_devices(
+            [self.devices[int(b)] for b in self.held])
         self.groups, self.where = group_devices(
             [self.devices[int(b)] for b in self.held])
         self.device = (torch.device("cpu") if self.spans_devices
@@ -95,9 +97,8 @@ def dense_mesh(devices=None, shape=None) -> DenseMesh:
     device, as ``Grid.initialize`` takes partitions, or a block of a
     rank as ``(rank, device)`` (``coord.rank_devices``; every rank
     passes the same list and holds its own blocks). Distinct devices of
-    one process put each block on its own device; distinct devices
-    inside one rank's entries raise ``NotImplementedError`` (ROADMAP.md
-    queue 1, item 5b.1d)."""
+    one process, or of one rank's entries, put each block on its own
+    device."""
     devs, ranks = resolve_placement(list(devices) if devices is not None
                                     else None)
     n = len(devs)
@@ -282,8 +283,6 @@ class DenseGrid:
     def _assemble(self, blocks):
         """One tensor in this process's layout from the held blocks (the
         inverse of _split)."""
-        if self._rank_held:
-            return torch.stack(blocks)
         if self._spans:
             # each device's blocks stacked there (a block made on the
             # host is copied to its device)
@@ -292,6 +291,8 @@ class DenseGrid:
                 if device_key(blocks[sl[0]].device) != device_key(d)
                 else torch.stack([blocks[i] for i in sl])
                 for d, sl in self.mesh.groups])
+        if self._rank_held:
+            return torch.stack(blocks)
         if len(blocks) == 1:
             return blocks[0]
         ext = tuple(blocks[0].shape[:3])
@@ -414,7 +415,8 @@ class DenseGrid:
     def _cross_slabs(self, d, padded, exts, sends, recvs, slot, halo_of):
         """One axis's slabs between ranks: one packed buffer to and from
         each peer rank, in the order every rank enumerates the mesh's
-        (block, side) pairs."""
+        (block, side) pairs, packed and received on the grid's device
+        (the host when this rank's blocks span devices)."""
         specs = {}
         for r, pairs in recvs.items():
             specs[r] = [(tuple(ps[slot[b]][halo_of(ext, side)].shape),
@@ -423,6 +425,9 @@ class DenseGrid:
         sizes = {r: sum(int(np.prod(s, dtype=np.int64))
                         * torch.empty((), dtype=dt).element_size()
                         for s, dt in sp) for r, sp in specs.items()}
+        if self._spans:
+            sends = {r: [_to_device(x, self.device) for x in v]
+                     for r, v in sends.items()}
         posted = comm.post_exchange(
             {r: comm.pack(v) for r, v in sends.items()}, sizes, self.device,
             leg="slab")
@@ -491,11 +496,8 @@ class DenseGrid:
         return self.total(a.to(torch.float64) * b.to(torch.float64))
 
     def minimum(self, t: torch.Tensor) -> torch.Tensor:
-        """The least element of ``t`` over every block and rank (and
-        over every device's blocks, on the first device)."""
-        if isinstance(t, Grouped):
-            return torch.stack([comm.group_extreme(x, "min", False)
-                                .to(t.devices[0]) for x in t.groups]).amin()
+        """The least element of ``t`` over every block, device and rank
+        (``comm.group_extreme``)."""
         return comm.group_extreme(t, "min", self._rank_held)
 
     # -- stencil driver ------------------------------------------------

@@ -409,9 +409,8 @@ def distributed_stop_refining(grid, group: AmrCommitGroup = None):
     t0 = time.perf_counter()
     staged: dict = {}
     # a rank may run on a thread of its own: its grid's card first
-    dev = getattr(grid, "device", None)
-    on_card = (torch.cuda.device(dev)
-               if dev is not None and dev.type == "cuda" else nullcontext())
+    card = grid._card
+    on_card = torch.cuda.device(card) if card is not None else nullcontext()
     with on_card:
         try:
             with telemetry.span("grid.adapt.dist"), \

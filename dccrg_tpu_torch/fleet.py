@@ -726,13 +726,15 @@ class GridBatch:
         return {n: _to_numpy(self.state[n][slot]) for n in self.schema}
 
     def insert(self, slot: int, host_state: dict) -> None:
-        """Write :meth:`extract`-shaped host arrays (numpy, or tensors)
-        into ``slot`` exactly; only that slot's rows change."""
+        """Write :meth:`extract`-shaped host arrays (numpy, or tensors on
+        any device) into ``slot`` exactly, copied into the batch's own
+        storage on its device (a quarantine's migration between lanes);
+        only that slot's rows change."""
         for n, arr in host_state.items():
             dtype = self.schema[n][1]
             t = (arr if isinstance(arr, torch.Tensor)
                  else _to_tensor(np.array(arr, order="C"), dtype))
-            self.state[n][slot] = t.to(self.device)
+            self.state[n][slot].copy_(t)
 
     # -- the batched quantum ------------------------------------------
 

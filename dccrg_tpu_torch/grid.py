@@ -168,13 +168,6 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-# What waits for a later slice (peer copies between distinct cards,
-# NCCL between ranks on cards of their own, distinct devices inside one
-# rank's entries, and the models that refuse a grid spanning devices):
-# the refusals left in the port.
-NEXT_SLICE = "ROADMAP.md queue 1, item 5b.1d"
-
-
 def _is_rank_entry(d) -> bool:
     """A device-list entry naming a partition of a rank:
     ``(rank, device)``."""
@@ -257,9 +250,9 @@ def resolve_placement(device=None):
     the reference's mesh of devices with their ``process_index``
     (:func:`dccrg_tpu_torch.coord.rank_devices` builds one in rank
     order); a plain entry is this process's. This process's partitions
-    on a rank placement share one device (distinct devices inside one
-    rank raise NotImplementedError, ``NEXT_SLICE``); another rank's
-    device is its label only."""
+    keep each its own device (distinct devices inside one rank's entries
+    make storage groups, as on one process); another rank's device is
+    its label only."""
     if not (isinstance(device, (list, tuple))
             and any(_is_rank_entry(d) for d in device)):
         return resolve_partitions(device), None
@@ -278,13 +271,8 @@ def resolve_placement(device=None):
     mine = [i for i, r in enumerate(ranks) if r == me]
     if not mine:
         raise ValueError(f"no partition of the placement is on rank {me}")
-    local = resolve_partitions([devs[i] for i in mine])
-    if spans_devices(local):
-        raise NotImplementedError(
-            f"distinct devices {sorted({str(d) for d in local})} inside "
-            f"rank {me}'s entries of a rank placement wait for "
-            f"{NEXT_SLICE}")
-    devs = [local[0] if r == me else torch.device(d)
+    local = iter(resolve_partitions([devs[i] for i in mine]))
+    devs = [next(local) if r == me else torch.device(d)
             for r, d in zip(ranks, devs)]
     ranks = np.asarray(ranks, dtype=np.int64)
     if bool((ranks == me).all()):
@@ -292,25 +280,16 @@ def resolve_placement(device=None):
     return devs, ranks
 
 
-def require_one_device(grid, what: str) -> None:
-    """Refuse a grid whose partitions span devices of this process for
-    an entry point that reads one storage group (``NEXT_SLICE``)."""
-    if len(grid._groups) > 1:
-        raise NotImplementedError(
-            f"{what} on a grid whose partitions span devices "
-            f"{[str(g.device) for g in grid._groups]} waits for "
-            f"{NEXT_SLICE}")
-
-
 def single_device(device, what: str) -> torch.device:
     """``device`` resolved for an entry point that runs on one
-    partition; a list of more than one device raises
-    NotImplementedError naming ``NEXT_SLICE``."""
+    partition, as the reference's ``GridBatch`` and its template grid
+    do (dccrg_tpu/fleet.py:388-398, :442-447); a list of more than one
+    device raises NotImplementedError."""
     if isinstance(device, (list, tuple)):
         if len(device) != 1:
             raise NotImplementedError(
-                f"{what} runs on one device; {len(device)} devices wait "
-                f"for {NEXT_SLICE}")
+                f"{what} runs on one device, as the reference's "
+                f"GridBatch does; got {len(device)} devices")
         device = device[0]
     return resolve_device(device)
 
@@ -921,6 +900,14 @@ Grouped.contiguous = lambda self: self.map(torch.Tensor.contiguous)
 _ELEMENTWISE = frozenset((torch.where, torch.abs, torch.zeros_like))
 
 
+def group_map(fn, *xs):
+    """``fn`` of the fields' storage group by group (``Grouped.map``),
+    or of the tensors themselves on a grid of one group."""
+    if isinstance(xs[0], Grouped):
+        return xs[0].map(fn, *xs[1:])
+    return fn(*xs)
+
+
 def groups_of(t) -> list:
     """The storage groups of a field: one tensor per device of the grid
     (``[t]`` on a grid of one device)."""
@@ -931,14 +918,39 @@ class _GroupRows:
     """Rows of an item list read from a field, one piece per storage
     group (:meth:`Grid._take`): ``pieces[g]`` is ``(items, rows)``, the
     positions in the item list that group g holds (ascending; None on a
-    grid of one group: all of them, in order) and their rows, on g's
-    device."""
+    grid of one group: all of them, in order) and their rows, on
+    ``devices[g]``, the device the grid records for them (a tensor made
+    on ``cpu:1`` reports ``cpu``)."""
 
-    __slots__ = ("pieces", "n")
+    __slots__ = ("pieces", "n", "devices")
 
-    def __init__(self, pieces, n):
+    def __init__(self, pieces, n, devices):
         self.pieces = pieces
         self.n = n
+        self.devices = list(devices)
+
+    def on(self, device, leg="device_rows") -> torch.Tensor:
+        """The rows in item order in one tensor on ``device``: a piece
+        recorded on another device crosses by
+        :func:`dccrg_tpu_torch.comm.device_copy`, counted under
+        ``leg``."""
+        from . import comm
+
+        if len(self.pieces) == 1 and self.pieces[0][0] is None:
+            rows = self.pieces[0][1]
+            if device_key(self.devices[0]) != device_key(device):
+                rows = comm.device_copy(rows, device, leg=leg)
+            return rows
+        first = self.pieces[0][1]
+        out = torch.empty((self.n,) + tuple(first.shape[1:]),
+                          dtype=first.dtype, device=device)
+        for (items, rows), d in zip(self.pieces, self.devices):
+            if not len(items):
+                continue
+            if device_key(d) != device_key(device):
+                rows = comm.device_copy(rows, device, leg=leg)
+            out[torch.as_tensor(items, device=out.device)] = rows
+        return out
 
     def host(self) -> torch.Tensor:
         """The rows on the host, in item order."""
@@ -970,17 +982,52 @@ class _Exchange:
 class _RankHalo:
     """The cross-rank half of one exchange of a grid whose partitions
     span ranks (:meth:`Grid._exchange_cross`): for each peer rank, per
-    exchanged field, the flat rows this rank sends it (``send[r][i]``,
-    in the pair record's order) and the flat ghost rows what it sends
-    lands in (``recv[r][i]``, the same order on the sender's side), and
-    the byte sizes of the packed buffers."""
+    exchanged field, the rows this rank sends it (``send[r][i]``, in
+    the pair record's order) and the ghost rows what it sends lands in
+    (``recv[r][i]``, the same order on the sender's side), each a
+    :meth:`Grid._row_sel` split by storage group; the byte sizes of the
+    packed buffers; ``home``, the device the buffers are packed and
+    received on (:attr:`Grid._home`), and ``devices``, the storage
+    groups' devices."""
 
-    def __init__(self, send, recv, recv_specs, send_bytes, recv_bytes):
+    def __init__(self, send, recv, recv_specs, send_bytes, recv_bytes,
+                 home, devices):
         self.send = send
         self.recv = recv
         self.recv_specs = recv_specs
         self.send_bytes = send_bytes
         self.recv_bytes = recv_bytes
+        self.home = home
+        self.devices = devices
+
+    def take(self, field, sel) -> torch.Tensor:
+        """The rows ``sel`` of a field's storage in item order on
+        ``home``: each group's gathered there and copied to ``home``
+        (leg ``device_halo``; one ``index_select`` on a grid of one
+        storage group)."""
+        return _GroupRows(
+            [(items, _flat(x).index_select(0, idx))
+             for (items, idx), x in zip(sel, groups_of(field))],
+            sum(len(idx) for _items, idx in sel),
+            self.devices).on(self.home, leg="device_halo")
+
+    def land(self, field, sel, payload) -> None:
+        """A received payload (item order, on ``home``) into the ghost
+        rows ``sel`` of a field's storage, each group's rows copied to
+        its device first (leg ``device_halo``)."""
+        from . import comm
+
+        if len(sel) == 1 and sel[0][0] is None:
+            _halo_scatter(_flat(field), sel[0][1], payload)
+            return
+        for (items, idx), x, d in zip(sel, groups_of(field), self.devices):
+            if not len(items):
+                continue
+            v = payload.index_select(0, torch.as_tensor(
+                items, device=payload.device))
+            if device_key(d) != device_key(self.home):
+                v = comm.device_copy(v, d, leg="device_halo")
+            _flat(x).index_copy_(0, idx, v)
 
 
 class _Leg:
@@ -1015,10 +1062,10 @@ def _send_halos(state, exch_idx, ex, streams):
     posted = None
     if ex.cross is not None:
         posted = comm.post_exchange(
-            {r: comm.pack([_flat(state[j]).index_select(0, src)
-                           for j, src in zip(exch_idx, rows)])
+            {r: comm.pack([ex.cross.take(state[j], sel)
+                           for j, sel in zip(exch_idx, rows)])
              for r, rows in ex.cross.send.items()},
-            ex.cross.recv_bytes, state[0].device)
+            ex.cross.recv_bytes, ex.cross.home)
     streams = streams or {}
     for stream in streams.values():
         stream.wait_stream(torch.cuda.current_stream(stream.device))
@@ -1060,8 +1107,8 @@ def _land_halos(state, exch_idx, ex, sent, streams, R):
     if ex.cross is not None:
         for r, buf in comm.wait_exchange(posted).items():
             parts = comm.unpack(buf, ex.cross.recv_specs[r])
-            for j, dst, payload in zip(exch_idx, ex.cross.recv[r], parts):
-                _halo_scatter(_flat(state[j]), dst, payload)
+            for j, sel, payload in zip(exch_idx, ex.cross.recv[r], parts):
+                ex.cross.land(state[j], sel, payload)
     for j in exch_idx:
         state[j][:, R - 1] = 0
 
@@ -1560,7 +1607,15 @@ class Grid:
 
     def _on_card(self) -> bool:
         """True when any storage group is on a CUDA device."""
-        return any(g.device.type == "cuda" for g in self._groups)
+        return self._card is not None
+
+    @property
+    def _card(self):
+        """The device of the first storage group on a card (the one a
+        thread of its own makes current before it touches the grid), or
+        None when every group is on the host."""
+        return next((g.device for g in self._groups
+                     if g.device.type == "cuda"), None)
 
     def _from_held(self, host) -> torch.Tensor:
         """Field storage from an ``[n_held, ...]`` tensor or array (on
@@ -1585,6 +1640,15 @@ class Grid:
         for g, grp in zip(t.groups, self._groups):
             out[torch.as_tensor(grp.slots)] = g.detach().cpu()
         return out
+
+    @property
+    def _home(self) -> torch.device:
+        """Where this process's rows meet before they cross ranks: the
+        device of its one storage group, else the host when a group lives
+        there (:func:`dccrg_tpu_torch.comm.fold_device`)."""
+        from . import comm
+
+        return comm.grid_fold_device(self)
 
     @property
     def _rank_held(self) -> bool:
@@ -2115,7 +2179,8 @@ class Grid:
         each group's gathered on its own device."""
         return _GroupRows([(items, _flat(x).index_select(0, idx))
                            for (items, idx), x in zip(sel, groups_of(t))],
-                          sum(len(idx) for _items, idx in sel))
+                          sum(len(idx) for _items, idx in sel),
+                          [g.device for g in self._groups])
 
     def _put(self, t, sel, got: _GroupRows, leg="device_rows") -> None:
         """Land ``got`` (rows of the item list of ``sel``, taken in any
@@ -2126,8 +2191,8 @@ class Grid:
         and destination group), counted under ``leg``."""
         from . import comm
 
-        for a, (got_items, vals) in enumerate(got.pieces):
-            for b, ((items, idx), x) in enumerate(zip(sel, groups_of(t))):
+        for (got_items, vals), src in zip(got.pieces, got.devices):
+            for (items, idx), x, grp in zip(sel, groups_of(t), self._groups):
                 if got_items is None and items is None:
                     v, at = vals, idx
                 else:
@@ -2145,8 +2210,8 @@ class Grid:
                         pos_v, device=vals.device))
                     at = idx.index_select(0, torch.as_tensor(
                         pos_i, device=idx.device))
-                if a != b:
-                    v = comm.device_copy(v, x.device, leg=leg)
+                if device_key(src) != device_key(grp.device):
+                    v = comm.device_copy(v, grp.device, leg=leg)
                 _flat(x).index_copy_(0, at, v.to(x.dtype))
 
     def get(self, field: str, ids) -> np.ndarray:
@@ -2910,28 +2975,29 @@ class Grid:
         source this process holds, in item order. Returns ``(items,
         {name: _GroupRows})``: the items whose destination this process
         holds, in item order, and their rows. On a grid whose
-        partitions span ranks (one storage group on each) the rows that
-        cross go by one ``comm.move_bytes`` (``all_to_all_single``), a
-        collective every rank enters when any item crosses ranks."""
+        partitions span ranks the rows meet on this rank's
+        :attr:`_home` device, and those that cross go by one
+        ``comm.move_bytes`` (``all_to_all_single``), a collective every
+        rank enters when any item crosses ranks."""
         src_dev = np.asarray(src_dev, dtype=np.int64)
         dst_dev = np.asarray(dst_dev, dtype=np.int64)
         if not self._rank_held:
             return np.arange(len(src_dev)), values
         from . import comm
 
-        values = {n: v.pieces[0][1] for n, v in values.items()}
+        dev = self._home
+        values = {n: v.on(dev) for n, v in values.items()}
         me = int(self._part_rank[self._held[0]])
         rs, rd = self._part_rank[src_dev], self._part_rank[dst_dev]
         src_items = np.flatnonzero(rs == me)
         items = np.flatnonzero(rd == me)
         names = list(values)
-        dev = self.device
         out = {n: torch.empty((len(items),) + tuple(values[n].shape[1:]),
                               dtype=values[n].dtype, device=dev)
                for n in names}
 
         def wrapped():
-            return items, {n: _GroupRows([(None, t)], len(items))
+            return items, {n: _GroupRows([(None, t)], len(items), [dev])
                            for n, t in out.items()}
 
         def put(sel, got):
@@ -3715,7 +3781,6 @@ class Grid:
         hit = hood._pair_host.get(key)
         if hit is not None:
             return hit
-        R, dev, slot = self.plan.R, self.device, self._slot
         me = int(self._part_rank[self._held[0]])
         peers = sorted(set(self._part_rank.tolist()) - {me})
         send, recv, specs, sb, rb = {}, {}, {}, {}, {}
@@ -3728,12 +3793,10 @@ class Grid:
             for r in peers:
                 out = (rp == me) & (rq == r)
                 inn = (rp == r) & (rq == me)
-                src = slot[c["p"][out]] * R + c["srow"][out]
-                dst = slot[c["q"][inn]] * R + c["rrow"][inn]
-                send.setdefault(r, []).append(torch.as_tensor(
-                    src.astype(np.int64), device=dev))
-                recv.setdefault(r, []).append(torch.as_tensor(
-                    dst.astype(np.int64), device=dev))
+                send.setdefault(r, []).append(
+                    self._row_sel(c["p"][out], c["srow"][out]))
+                recv.setdefault(r, []).append(
+                    self._row_sel(c["q"][inn], c["rrow"][inn]))
                 specs.setdefault(r, []).append(
                     ((int(inn.sum()),) + tuple(shape), dtype))
                 sb[r] = sb.get(r, 0) + int(out.sum()) * row
@@ -3743,7 +3806,8 @@ class Grid:
             {r: v for r, v in recv.items() if rb[r]},
             {r: v for r, v in specs.items() if rb[r]},
             {r: b for r, b in sb.items() if b},
-            {r: b for r, b in rb.items() if b})
+            {r: b for r, b in rb.items() if b},
+            self._home, [g.device for g in self._groups])
         hood._pair_host[key] = hit
         return hit
 

@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 from .. import comm
-from ..grid import Grid, require_one_device, slot_sum
+from ..grid import Grid, group_map, slot_sum
 from ..neighbors import face_masks
 
 STATIC_FIELDS = ("vx", "vy", "vz", "lx", "ly", "lz", "ilen")
@@ -135,8 +135,9 @@ class AmrAdvection:
     solve / adapt every ``adapt_n`` / balance every ``balance_n``, on
     ``device`` (the card when None; ``[dev] * n`` for n partitions of
     it, cut by ``partition``, the grid's load balancing method when
-    None; a placement of ``(rank, device)`` entries for partitions on
-    the ranks of a process group)."""
+    None; a list of distinct devices for partitions on each; a
+    placement of ``(rank, device)`` entries for partitions on the ranks
+    of a process group)."""
 
     def __init__(self, length=(32, 32, 1), max_refinement_level=1,
                  device=None, cfl=0.5, diff_increase=0.02,
@@ -162,7 +163,6 @@ class AmrAdvection:
                           level_0_cell_length=cell_len)
             .initialize(device, partition=partition)
         )
-        require_one_device(self.grid, "AmrAdvection")
         self._flux_kernel = make_flux_kernel()
         self._fused_kernel = make_fused_step_kernel()
         self._diff_kernel = make_diff_kernel(diff_threshold)
@@ -232,20 +232,21 @@ class AmrAdvection:
         """Global CFL limit (solve.hpp:289-333), once per structure
         epoch: it depends only on the static velocity/length fields.
         Each partition's minimum over its rows (ghost rows hold copies,
-        pad rows no velocity), then the minimum over the partitions and
-        the ranks they are placed on."""
+        pad rows no velocity), then the minimum over the partitions (on
+        every device) and the ranks they are placed on."""
         g = self.grid
         cached = getattr(self, "_cfl_cache", None)
         if cached is not None and cached[0] == g.plan.epoch:
             return cached[1]
         steps = []
         for lname, vname in (("lx", "vx"), ("ly", "vy"), ("lz", "vz")):
-            l = g.data[lname]
-            v = torch.abs(g.data[vname])
-            s = torch.where(v > 0, l / torch.clamp(v, min=1e-30), torch.inf)
-            steps.append(comm.all_reduce(s.amin(dim=1), "min",
-                                         g._rank_held)[0])
-        dt = float(torch.stack(steps).min())
+            s = group_map(
+                lambda l, v: torch.where(
+                    v.abs() > 0, l / torch.clamp(v.abs(), min=1e-30),
+                    torch.inf),
+                g.data[lname], g.data[vname])
+            steps.append(comm.group_extreme(s, "min", g._rank_held))
+        dt = float(torch.stack([t.cpu() for t in steps]).min())
         self._cfl_cache = (g.plan.epoch, dt)
         return dt
 
@@ -289,20 +290,24 @@ class AmrAdvection:
         3=unrefine, of this process's cells (rows are held slots)."""
         g = self.grid
         max_lvl = g.mapping.max_refinement_level
-        diff, ilen = g.data["max_diff"], g.data["ilen"]
-        local = g.local_row_mask() > 0
-        lvl = max_lvl - torch.round(
-            torch.log2(torch.clamp(ilen, min=1).to(torch.float32))
-        ).to(torch.int32)
-        refine_t = (lvl + 1).to(torch.float32) * self.diff_increase
-        unref_t = self.unrefine_sensitivity * refine_t
-        code = torch.where(
-            (diff > refine_t) & (lvl < max_lvl), REFINE,
-            torch.where(
-                (diff < unref_t) & (lvl > 0), UNREFINE,
-                torch.where((diff <= refine_t) & (diff >= unref_t) & (lvl > 0),
-                            KEEP, 0)))
-        code = torch.where(local, code, 0).to(torch.int8).cpu().numpy()
+
+        def codes(diff, ilen, local):
+            lvl = max_lvl - torch.round(
+                torch.log2(torch.clamp(ilen, min=1).to(torch.float32))
+            ).to(torch.int32)
+            refine_t = (lvl + 1).to(torch.float32) * self.diff_increase
+            unref_t = self.unrefine_sensitivity * refine_t
+            code = torch.where(
+                (diff > refine_t) & (lvl < max_lvl), REFINE,
+                torch.where(
+                    (diff < unref_t) & (lvl > 0), UNREFINE,
+                    torch.where((diff <= refine_t) & (diff >= unref_t)
+                                & (lvl > 0), KEEP, 0)))
+            return torch.where(local > 0, code, 0).to(torch.int8)
+
+        code = g._to_held(group_map(codes, g.data["max_diff"],
+                                    g.data["ilen"],
+                                    g.local_row_mask())).numpy()
         d, row = np.nonzero(code)
         if len(row) == 0:
             return np.empty(0, np.uint64), np.empty(0, np.int8)
@@ -365,8 +370,9 @@ class AmrAdvection:
                 if len(ids):
                     host[i, :len(ids)] = np.prod(
                         g.geometry.get_length(ids), axis=1)
-            vol = plan._volume_rows = torch.as_tensor(host, device=g.device)
-        part = (g.data["density"].to(torch.float64) * vol).sum(dim=1)
+            vol = plan._volume_rows = g._from_held(host)
+        part = comm.per_partition(g.data["density"].to(torch.float64) * vol,
+                                  lambda t: t.sum(dim=1))
         return float(comm.grid_total(g, part))
 
     def run(self, steps: int, adapt_n: int = 0, balance_n: int = 0,

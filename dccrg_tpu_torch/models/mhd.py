@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from .. import comm
-from ..grid import Grid, require_one_device, slot_sum
+from ..grid import Grid, groups_of, slot_sum
 
 GAMMA = 5.0 / 3.0
 ETA = 0.08          # B cleaning diffusivity (stability: lam*ETA*6 < 1)
@@ -187,12 +187,14 @@ def mhd_default_init(grid, seed: int) -> None:
     grid.set_many(cells, vals)
 
 
-def _local_rows(g, name) -> torch.Tensor:
-    """The owned rows of every held partition of ``g``'s field,
-    flattened."""
+def _local_rows(g, name) -> list:
+    """Per storage group, the owned rows of its held partitions of
+    ``g``'s field, flattened on the group's device (one tensor on a grid
+    of one device)."""
     nl = np.asarray(g.plan.n_local)
-    return torch.cat([g.data[name][i, :int(nl[p])]
-                      for i, p in enumerate(g._held)])
+    return [torch.cat([t[i, :int(nl[g._held[s]])]
+                       for i, s in enumerate(grp.slots)])
+            for t, grp in zip(groups_of(g.data[name]), g._groups)]
 
 
 class GridMHD:
@@ -201,10 +203,10 @@ class GridMHD:
     cleaning^n per :meth:`run` call) through ``Grid.run_steps``, each
     pass exchanging only its own subsystem's ghosts. On the card unless
     ``device`` says otherwise; a list of devices runs it on that many
-    partitions, a placement of ``(rank, device)`` entries on the ranks
-    of a process group (each rank steps its own partitions, both
-    exchanges cross the ranks, and the CFL step and the sums cover
-    every rank)."""
+    partitions (distinct devices each holding their own), a placement of
+    ``(rank, device)`` entries on the ranks of a process group (each
+    rank steps its own partitions, both exchanges cross the ranks, and
+    the CFL step and the sums cover every rank and device)."""
 
     def __init__(self, n=16, nz=None, device=None, dtype=torch.float32,
                  partition="block", profile="blast", seed=0):
@@ -222,7 +224,6 @@ class GridMHD:
                           level_0_cell_length=(dx, dx, 1.0 / nz))
             .initialize(device, partition=partition)
         )
-        require_one_device(self.grid, "GridMHD")
         if profile == "blast":
             self._init_blast(self.grid.plan.cells)
         else:
@@ -254,21 +255,27 @@ class GridMHD:
     def max_time_step(self) -> float:
         """CFL bound from the current state: the reference's float64
         reduction (the same elementwise operations, each correctly
-        rounded, and exact maxima), run where the grid lies; the maxima
-        of the held rows, then over the ranks of a placement."""
+        rounded, and exact maxima), run where the grid lies: the maxima
+        of each storage group's held rows on its device, then over the
+        groups and the ranks of a placement."""
         g = self.grid
         f64 = torch.float64
-        rho = torch.clamp_min(_local_rows(g, "rho").to(f64), RHO_FLOOR)
-        vmax = []
-        ke = torch.zeros_like(rho)
-        for nme in ("mx", "my", "mz"):
-            m = _local_rows(g, nme).to(f64)
-            vmax.append((m / rho).abs().max())
-            ke += 0.5 * m * m / rho
-        en = _local_rows(g, "en").to(f64)
-        p = torch.clamp_min((GAMMA - 1.0) * (en - ke), P_FLOOR)
-        c = torch.sqrt(GAMMA * p / rho).max()
-        peaks = comm.all_reduce(torch.stack([torch.stack(vmax).max(), c])[None],
+        fold = comm.grid_fold_device(g)
+        peaks = []
+        for grp in zip(*(_local_rows(g, n) for n in ("rho", "mx", "my", "mz",
+                                                    "en"))):
+            rho = torch.clamp_min(grp[0].to(f64), RHO_FLOOR)
+            vmax = []
+            ke = torch.zeros_like(rho)
+            for m in grp[1:4]:
+                m = m.to(f64)
+                vmax.append((m / rho).abs().max())
+                ke += 0.5 * m * m / rho
+            p = torch.clamp_min((GAMMA - 1.0) * (grp[4].to(f64) - ke),
+                                P_FLOOR)
+            c = torch.sqrt(GAMMA * p / rho).max()
+            peaks.append(torch.stack([torch.stack(vmax).max(), c]).to(fold))
+        peaks = comm.all_reduce(torch.stack(peaks).amax(dim=0)[None],
                                 "max", g._rank_held)[0].cpu().tolist()
         return self.dx / max(peaks[0] + peaks[1], ETA * 6.0, 1e-12)
 
@@ -278,7 +285,8 @@ class GridMHD:
         pass one ``run_steps`` call exchanging only its own subsystem."""
         if dt is None:
             dt = cfl * self.max_time_step()
-        lam = torch.tensor(dt / self.dx, dtype=_F32, device=self.grid.device)
+        lam = torch.tensor(dt / self.dx, dtype=_F32,
+                           device=comm.grid_fold_device(self.grid))
         self.grid.run_steps(self._hydro, MHD_ALL, MHD_ALL, n_steps,
                             exchange_fields=MHD_HYDRO, extra_args=(lam,))
         self.grid.run_steps(self._bpass, MHD_ALL, MHD_ALL, n_steps,

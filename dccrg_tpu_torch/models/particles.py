@@ -30,14 +30,15 @@ import numpy as np
 import torch
 
 from .. import comm
-from ..grid import Grid, _flat, require_one_device
+from ..grid import Grid, _flat, groups_of
 
 
 class ParticleModel:
     """``velocity_fn(pos [N, 3] tensor) -> [N, 3]`` is fixed at
     construction. On the card unless ``device`` says otherwise; a list
-    of devices runs the model on that many partitions, a placement of
-    ``(rank, device)`` entries on the ranks of a process group."""
+    of devices runs the model on that many partitions (distinct devices
+    each holding their own), a placement of ``(rank, device)`` entries
+    on the ranks of a process group."""
 
     def __init__(self, velocity_fn, length=(4, 4, 4), capacity=16,
                  device=None, periodic=(False, False, False)):
@@ -60,15 +61,19 @@ class ParticleModel:
             .set_neighborhood_length(1)
             .initialize(device)
         )
-        require_one_device(self.grid, "ParticleModel")
         self._refresh_bounds()
-        # constant per grid: the wrap's bounds and periodic axes
+        # constant per grid: the wrap's bounds and periodic axes, one
+        # copy on each storage group's device
         g = self.grid
-        self._start = torch.as_tensor(g.geometry.get_start(), dtype=torch.float32,
-                                      device=g.device)
-        self._extent = torch.as_tensor(g.geometry.get_end(), dtype=torch.float32,
-                                       device=g.device) - self._start
-        self._periodic = torch.as_tensor(g.topology.periodic, device=g.device)
+        self._wrap = {}
+        for grp in g._groups:
+            start = torch.as_tensor(g.geometry.get_start(),
+                                    dtype=torch.float32, device=grp.device)
+            end = torch.as_tensor(g.geometry.get_end(), dtype=torch.float32,
+                                  device=grp.device)
+            self._wrap[str(start.device)] = (
+                start, end - start,
+                torch.as_tensor(g.topology.periodic, device=grp.device))
 
     def _refresh_bounds(self) -> None:
         g = self.grid
@@ -156,10 +161,11 @@ class ParticleModel:
         vel = self.velocity_fn(pos.reshape(-1, 3)).reshape(pos.shape)
         newpos = pos + dt * vel
         # wrap positions through periodic boundaries so the collection
-        # phase finds them in the wrapped cell
-        wrapped = self._start + torch.remainder(newpos - self._start,
-                                                self._extent)
-        newpos = torch.where(self._periodic[None, None, :], wrapped, newpos)
+        # phase finds them in the wrapped cell (the bounds of the
+        # partition's device: every host group shares the host's copy)
+        start, extent, periodic = self._wrap[str(pos.device)]
+        wrapped = start + torch.remainder(newpos - start, extent)
+        newpos = torch.where(periodic[None, None, :], wrapped, newpos)
         return {"pos": torch.where(alive[..., None], newpos, pos)}
 
     def _collect(self) -> None:
@@ -185,7 +191,7 @@ class ParticleModel:
         g.apply_stencil(
             self._move_kernel, ["pos", "count"], ["pos"],
             extra_args=(torch.tensor(dt, dtype=torch.float32,
-                                     device=g.device),),
+                                     device=comm.grid_fold_device(g)),),
         )
         # phase 2: exchange buffers, then each cell collects what is
         # inside it. The radius-1 neighbors_of list holds every touching
@@ -240,19 +246,19 @@ class ParticleModel:
     def ensure_capacity(self, new_capacity: int) -> None:
         """Grow the per-cell particle buffers (the resize() phase of the
         reference's two-phase transfer, as a structure epoch): the
-        ``[n_held, R, capacity, 3]`` field is reallocated on the grid's
-        device and every cell's particles copied over."""
+        ``[n_held, R, capacity, 3]`` field is reallocated on each storage
+        group's device and every cell's particles copied over."""
         if new_capacity <= self.capacity:
             return
         g = self.grid
         old = g.data["pos"]
         self.capacity = int(new_capacity)
         g.fields["pos"] = ((self.capacity, 3), torch.float32)
-        grown = torch.zeros((len(g._held), g.plan.R, self.capacity, 3),
-                            dtype=torch.float32, device=g.device)
+        grown = g._zeros((self.capacity, 3), torch.float32)
         # every row of every partition keeps its particles (ghost rows
         # too; the next exchange refreshes them)
-        _flat(grown)[:, :old.shape[2]] = _flat(old)
+        for new, cur in zip(groups_of(grown), groups_of(old)):
+            _flat(new)[:, :cur.shape[2]] = _flat(cur)
         g.data["pos"] = grown
         # a new capacity changes the field's schema: every save until
         # the next baseline is a keyframe

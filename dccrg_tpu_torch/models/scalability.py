@@ -24,16 +24,16 @@ import time
 import numpy as np
 import torch
 
-from ..grid import Grid, require_one_device
+from ..grid import Grid
 from ..utils import PhaseTimer
 from ..utils.profiling import device_sync, halo_bytes_per_update
 
 
 class ScalabilityModel:
     """The cost model on ``device`` (the card when None; ``[dev] * n``
-    for n partitions of it; ``coord.rank_devices(k, dev)`` for k
-    partitions on each rank of a process group, each rank stepping its
-    own)."""
+    for n partitions of it; a list of distinct devices for one partition
+    on each; ``coord.rank_devices(k, dev)`` for k partitions on each
+    rank of a process group, each rank stepping its own)."""
 
     def __init__(self, length=(16, 16, 16), floats_per_cell: int = 8,
                  work_iters: int = 64, device=None, partition=None,
@@ -48,7 +48,6 @@ class ScalabilityModel:
             .set_neighborhood_length(neighborhood_length)
             .initialize(device, partition=partition)
         )
-        require_one_device(self.grid, "ScalabilityModel")
         cells = self.grid.get_cells()
         rng = np.random.default_rng(0)
         self.grid.set(
@@ -56,7 +55,8 @@ class ScalabilityModel:
             rng.standard_normal((len(cells), self.floats_per_cell))
             .astype(np.float32),
         )
-        self.timer = PhaseTimer(device_sync(self.grid.device))
+        self.timer = PhaseTimer(device_sync(
+            [grp.device for grp in self.grid._groups]))
         iters = self.work_iters
 
         def kernel(cell, nbr, offs, mask):
@@ -88,9 +88,11 @@ class ScalabilityModel:
         """Per-step timings and transfer volume, the reference's printed
         metrics (scalability.cpp:124-160): ``n_devices`` and ``n_cells``
         of the whole placement, ``halo_bytes_per_step`` of every
-        partition's sends and ``rank_halo_bytes_per_step`` of this
-        process's (the same in one process); the times are this
-        process's clock."""
+        partition's sends, ``rank_halo_bytes_per_step`` of this
+        process's (the same in one process) and
+        ``device_halo_bytes_per_step`` of those that cross between
+        distinct devices of this process; the times are this process's
+        clock."""
         for _ in range(warmup):
             self.step()
         self.timer.reset()
@@ -111,6 +113,8 @@ class ScalabilityModel:
             "halo_bytes_per_step": halo_bytes_per_update(self.grid),
             "rank_halo_bytes_per_step": halo_bytes_per_update(self.grid,
                                                               rank=True),
+            "device_halo_bytes_per_step": halo_bytes_per_update(
+                self.grid, device=True),
         }
 
 
@@ -118,17 +122,32 @@ def run_sweep(device_counts=None, length=(16, 16, 16),
               floats_per_cell: int = 8, work_iters: int = 64,
               steps: int = 10, weak: bool = False, device=None) -> list:
     """Strong (fixed size) or weak (size grows with the partition count
-    in x) scaling sweep over partition counts of ``device`` (the card
-    when None): the run_tests.py driver."""
-    if device_counts is None:
-        device_counts = (1, 2, 4, 8)
-    dev = torch.device("cuda" if device is None else device)
+    in x) scaling sweep over partition counts: the run_tests.py driver.
+    ``device`` is a device (the card when None), each count n running n
+    partitions of it, or a list of devices, each count n running on its
+    first n (``devices[:n]``, the reference's sweep; counts past the
+    list's length are skipped with a note on standard error)."""
+    if isinstance(device, (list, tuple)):
+        devices = list(device)
+        if device_counts is None:
+            device_counts = [n for n in (1, 2, 4, 8) if n <= len(devices)]
+        dropped = [n for n in device_counts if n > len(devices)]
+        if dropped:
+            import sys
+            print(f"skipping device counts {dropped}: only {len(devices)} "
+                  f"device(s) given", file=sys.stderr)
+            device_counts = [n for n in device_counts if n <= len(devices)]
+    else:
+        dev = torch.device("cuda" if device is None else device)
+        devices = None
+        if device_counts is None:
+            device_counts = (1, 2, 4, 8)
     results = []
     for n in device_counts:
         dims = (length[0] * n, length[1], length[2]) if weak else length
         model = ScalabilityModel(
             dims, floats_per_cell=floats_per_cell, work_iters=work_iters,
-            device=[dev] * n)
+            device=devices[:n] if devices is not None else [dev] * n)
         results.append(model.run(steps=steps))
     return results
 
@@ -146,7 +165,11 @@ if __name__ == "__main__":
     p.add_argument("--partitions", type=int, nargs="*", default=None)
     p.add_argument("--device", default=None,
                    help="the card when omitted; 'cpu' for the CPU")
+    p.add_argument("--devices", nargs="+", default=None,
+                   help="distinct devices to sweep over (count n runs on "
+                        "the first n), instead of --device")
     a = p.parse_args()
     for row in run_sweep(a.partitions, tuple(a.length), a.floats_per_cell,
-                         a.work_iters, a.steps, a.weak, a.device):
+                         a.work_iters, a.steps, a.weak,
+                         a.devices if a.devices else a.device):
         print(json.dumps(row))

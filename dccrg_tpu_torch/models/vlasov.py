@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from .. import comm
-from ..grid import Grid, require_one_device, slot_sum
+from ..grid import Grid, slot_sum
 
 NV_DEFAULT = 16
 VMAX = 1.0      # velocity-grid half-extent
@@ -99,7 +99,10 @@ def make_vlasov_kernel():
         f = cell["f"].to(_F32)                   # [..., L, Nv]
         nv = f.shape[-1]
         v, dv = _v_grid(nv, f.device)
-        dt = dt.to(_F32) if isinstance(dt, torch.Tensor) else np.float32(dt)
+        # (a step's dt may live on another device of the grid: the host's
+        # when the partitions span the card and the host)
+        dt = (dt.to(f.device, _F32) if isinstance(dt, torch.Tensor)
+              else np.float32(dt))
         dtv = dt[..., None] if isinstance(dt, torch.Tensor) else dt
         zero = torch.zeros((), dtype=_F32, device=f.device)
         face = mask & (offs.abs().sum(dim=-1) == 1)
@@ -159,8 +162,9 @@ class GridVlasov:
     """The Vlasov model: a drifting density bump whose wide velocity
     payload stays on its partition; every ``run_steps`` call exchanges
     only the two moments. On the card unless ``device`` says
-    otherwise; on a placement of ``(rank, device)`` entries the wide
-    ``f`` never crosses ranks either, only the moments' halo does."""
+    otherwise; on distinct devices or a placement of ``(rank, device)``
+    entries the wide ``f`` never crosses devices or ranks either, only
+    the moments' halo does."""
 
     def __init__(self, n=8, nz=None, nv=NV_DEFAULT, device=None,
                  partition="block", seed=0):
@@ -174,7 +178,6 @@ class GridVlasov:
             .set_neighborhood_length(0)
             .initialize(device, partition=partition)
         )
-        require_one_device(self.grid, "GridVlasov")
         cells = self.grid.plan.cells
         idx = self.grid.mapping.get_indices(np.asarray(cells, np.uint64))
         x = (idx[:, 0].astype(np.float64) + 0.5) / n
@@ -195,7 +198,8 @@ class GridVlasov:
             self._kernel, VLASOV_FIELDS, VLASOV_FIELDS, n_steps,
             exchange_fields=VLASOV_EXCHANGE,
             extra_args=(torch.tensor(dt, dtype=_F32,
-                                     device=self.grid.device),))
+                                     device=comm.grid_fold_device(
+                                         self.grid)),))
         self.time += n_steps * dt
         return dt
 

@@ -43,8 +43,10 @@ multi-tenant serving loop, reusing the per-run lifecycle machinery of
   batch's device lane suspect; a lane past
   ``DCCRG_QUARANTINE_AFTER`` verdicts is **quarantined**: its buckets
   rebuild on surviving lanes with every admitted job migrated bit for
-  bit. A lane is one entry of ``devices``; two lanes may name the same
-  card (lanes on distinct cards wait for ROADMAP.md queue 1, item 5b.1d);
+  bit. A lane is one entry of ``devices``: lanes may name distinct
+  devices (each bucket lives on its lane's device, and a migration
+  copies each job's rows into the surviving lane's storage) or the same
+  card;
 - **preemption**: the loop polls the supervision layer's preempt flag
   (SIGTERM/SIGINT handlers, :func:`~dccrg_tpu_torch.supervise
   .request_preempt`, or :meth:`~dccrg_tpu_torch.faults.FaultPlan
@@ -549,12 +551,13 @@ class FleetScheduler:
     a job with existing checkpoints from its newest verifying one
     instead of reinitializing. ``devices`` spreads bucket instances
     round-robin over a device list (default: the card); each entry is
-    one lane of the SDC layer, and two lanes may name the same card
-    (lanes on distinct cards wait for ROADMAP.md queue 1, item 5b.1d). ``bulk``
-    is forwarded to every ``GridBatch`` the scheduler builds: True (the
-    default) lets a bucket on the card whose job names a kernel with a
-    slot-wise twin step through kernel A', False keeps the table
-    program.
+    one lane of the SDC layer, on a device of its own (the reference's
+    ``self.devices[lane]``) or sharing one card with another lane; a
+    quarantine rebuilds a lane's buckets on a surviving lane's device.
+    ``bulk`` is forwarded to every ``GridBatch`` the scheduler builds:
+    True (the default) lets a bucket whose job names a kernel with a
+    slot-wise twin step through kernel A' (on a card lane; its plain
+    twin on a host lane), False keeps the table program.
     ``slo_policy`` injects a custom :class:`SLOPolicy` (fake clock /
     tuned EWMA for the deterministic tests); the default one is fed
     by the telemetry-measured quantum latencies and drives both the

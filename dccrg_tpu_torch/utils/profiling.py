@@ -25,12 +25,19 @@ import torch
 
 def device_sync(device):
     """A ``sync`` callable for :class:`PhaseTimer` that waits for the
-    work queued on ``device``: ``torch.cuda.synchronize`` on a CUDA
-    device, None (host work is synchronous) elsewhere."""
-    device = torch.device(device)
-    if device.type != "cuda":
+    work queued on ``device`` (or on each of a list of devices):
+    ``torch.cuda.synchronize`` of every CUDA device, None when there is
+    none (host work is synchronous)."""
+    devices = device if isinstance(device, (list, tuple)) else [device]
+    cards = list({str(d): d for d in (torch.device(d) for d in devices)
+                  if d.type == "cuda"}.values())
+    if not cards:
         return None
-    return lambda: torch.cuda.synchronize(device)
+
+    def sync():
+        for d in cards:
+            torch.cuda.synchronize(d)
+    return sync
 
 
 class PhaseTimer:
@@ -76,13 +83,15 @@ class PhaseTimer:
 
 
 def halo_bytes_per_update(grid, neighborhood_id=None, fields=None,
-                          rank: bool = False) -> int:
+                          rank: bool = False, device: bool = False) -> int:
     """Bytes moved by one ``update_copies_of_remote_neighbors`` call:
     the reference's get_number_of_update_send_cells times the payload
     size (tests/advection/2d.cpp:345-350), per field, after the field's
     transfer predicate. Every partition's sends (the group's, on a grid
     whose partitions span ranks), or with ``rank`` only those of this
-    process's partitions (the reference's per-rank counter)."""
+    process's partitions (the reference's per-rank counter), or with
+    ``device`` only the sends between this process's partitions on
+    distinct devices (the ``device_halo`` leg)."""
     from ..grid import DEFAULT_NEIGHBORHOOD_ID
 
     hood_id = (neighborhood_id if neighborhood_id is not None
@@ -93,7 +102,13 @@ def halo_bytes_per_update(grid, neighborhood_id=None, fields=None,
         shape, dtype = grid.fields[name]
         per_cell = (int(np.prod(shape, dtype=np.int64)) if shape else 1) \
             * torch.empty((), dtype=dtype).element_size()
-        if rank:
+        if device:
+            c = grid._field_pair_compact(hood_id, name)
+            slot, gof = grid._slot, grid._gof
+            both = (slot[c["p"]] >= 0) & (slot[c["q"]] >= 0)
+            cells = int(np.count_nonzero(
+                gof[slot[c["p"][both]]] != gof[slot[c["q"][both]]]))
+        elif rank:
             senders = grid._field_pair_compact(hood_id, name)["p"]
             cells = int(np.count_nonzero(grid._proc_local_dev[senders]))
         else:

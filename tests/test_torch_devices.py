@@ -37,7 +37,7 @@ from dccrg_tpu_torch.convert import fields_from_numpy, fields_to_numpy
 from dccrg_tpu_torch.dense import dense_mesh
 from dccrg_tpu_torch.faults import FaultPlan
 from dccrg_tpu_torch.grid import DEFAULT_NEIGHBORHOOD_ID as HID
-from dccrg_tpu_torch.grid import NEXT_SLICE, Grid, Grouped
+from dccrg_tpu_torch.grid import Grid, Grouped
 from dccrg_tpu_torch.models.advection import AdvectionSolver, GridAdvection
 from dccrg_tpu_torch.models.game_of_life import GameOfLife
 from dccrg_tpu_torch.models.poisson import DensePoissonSolver, PoissonSolver
@@ -133,11 +133,10 @@ def test_placement_groups_and_refusals():
     """Partitions group by device in order of first appearance (``cpu``
     and ``cpu:0`` are one device); a one-device list keeps one tensor
     per field; ``meta`` is refused; distinct devices inside one rank's
-    entries and the models that read one storage group wait for item
-    5b.1d."""
+    entries keep each its own device, and a grid on them groups its
+    partitions as one process's list does."""
     from dccrg_tpu_torch.grid import resolve_placement
 
-    assert NEXT_SLICE.endswith("item 5b.1d")
     g = make(["cpu:1", "cpu", "cpu:0", "cpu:1"])
     assert [str(x.device) for x in g._groups] == ["cpu:1", "cpu"]
     assert g._gof.tolist() == [0, 1, 1, 0] and g._gpos.tolist() == [0, 0, 1, 1]
@@ -148,8 +147,15 @@ def test_placement_groups_and_refusals():
     assert not one._grouped and isinstance(one.data["v"], torch.Tensor)
     with pytest.raises(ValueError, match="meta"):
         make(["cpu", "meta"])
-    with pytest.raises(NotImplementedError, match="item 5b.1d"):
-        resolve_placement([(0, "cpu:0"), (0, "cpu:1")])
+    devs, ranks = resolve_placement([(0, "cpu:0"), (0, "cpu:1")])
+    assert [str(d) for d in devs] == ["cpu:0", "cpu:1"] and ranks is None
+    r = make([(0, "cpu:1"), (0, "cpu"), (0, "cpu:0"), (0, "cpu:1")])
+    assert [str(x.device) for x in r._groups] == ["cpu:1", "cpu"]
+    assert r._gof.tolist() == g._gof.tolist()
+    assert_apart(r)
+    seed(g)
+    seed(r)
+    assert_same(g, r)
 
 
 @places
@@ -521,9 +527,10 @@ def test_dense_mesh_blocks_and_solvers():
 
 
 def test_refused_models_name_5b1d():
-    """The models that read one storage group refuse a grid spanning
-    devices at construction, naming item 5b.1d; ``GridBatch`` keeps one
-    device."""
+    """The models run on a grid spanning devices, one storage group per
+    device (their runs are held to one device's in
+    tests/test_torch_devices_models.py); ``GridBatch`` keeps one device,
+    as the reference's does."""
     from dccrg_tpu_torch.fleet import FleetJob, GridBatch
     from dccrg_tpu_torch.models import AmrAdvection, GridMHD, GridVlasov
     from dccrg_tpu_torch.models.particles import ParticleModel
@@ -536,9 +543,11 @@ def test_refused_models_name_5b1d():
         lambda: GridVlasov(4, nv=4, device=devs),
         lambda: ParticleModel(lambda x: torch.zeros_like(x), device=devs),
         lambda: ScalabilityModel((4, 4, 4), device=devs),
-        lambda: GridBatch(FleetJob("a", length=(4, 4, 4), n_steps=1), 2,
-                          device=devs),
     ]
     for make_model in makers:
-        with pytest.raises(NotImplementedError, match="item 5b.1d"):
-            make_model()
+        g = make_model().grid
+        assert [str(x.device) for x in g._groups] == devs
+        assert_apart(g)
+    with pytest.raises(NotImplementedError, match="reference's GridBatch"):
+        GridBatch(FleetJob("a", length=(4, 4, 4), n_steps=1), 2,
+                  device=devs)

@@ -169,21 +169,21 @@ def test_port_sources_import_no_jax():
 
 
 def test_distinct_cards_still_wait_for_5b1b():
-    """Partitions on the ranks of a group (item 5b.1a) and on distinct
+    """Partitions on the ranks of a group (item 5b.1a), on distinct
     devices of one process (item 5b.1b, tests/test_torch_devices.py)
-    are ported; distinct devices inside one rank's entries still raise,
-    naming item 5b.1d, and a ``meta`` device is refused."""
+    and on distinct devices inside one rank's entries (item 5b.1d,
+    tests/test_torch_devices_models.py) are ported: each device holds
+    its own storage group; a ``meta`` device is refused."""
     import torch
 
     from dccrg_tpu_torch import Grid
-    from dccrg_tpu_torch.grid import NEXT_SLICE
 
-    assert NEXT_SLICE.endswith("item 5b.1d")
     g = Grid(cell_data={"v": torch.float32}).initialize(["cpu:0", "cpu:1"])
     assert [str(x.device) for x in g._groups] == ["cpu:0", "cpu:1"]
-    with pytest.raises(NotImplementedError, match="item 5b.1d"):
-        Grid(cell_data={"v": torch.float32}).initialize(
-            [(0, "cpu:0"), (0, "cpu:1")])
+    r = Grid(cell_data={"v": torch.float32}).initialize(
+        [(0, "cpu:0"), (0, "cpu:1")])
+    assert [str(x.device) for x in r._groups] == ["cpu:0", "cpu:1"]
+    assert r._part_rank is None and r._grouped
     for devs in (["cpu", "meta"], [(0, "cpu"), (0, "meta")]):
         with pytest.raises(ValueError, match="meta"):
             Grid(cell_data={"v": torch.float32}).initialize(devs)

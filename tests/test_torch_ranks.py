@@ -608,18 +608,24 @@ def test_rows_crossed_ranks(runs):
 def test_placement_rules():
     """A placement names ranks of the group: without one, a second rank
     is refused; a plain entry is this process's; every entry on this
-    rank is a one-process grid; distinct devices of one rank wait for
-    item 5b.1d, and a ``meta`` device is refused."""
+    rank is a one-process grid; distinct devices of one rank keep each
+    its own device (``coord.rank_devices`` with a list of a rank's
+    devices), and a ``meta`` device is refused."""
     from dccrg_tpu_torch import coord
     from dccrg_tpu_torch.grid import resolve_placement
 
     assert coord.rank_devices(2, "cpu") == [(0, "cpu"), (0, "cpu")]
+    assert coord.rank_devices(2, ["cpu:0", "cpu:1"]) == \
+        [(0, "cpu:0"), (0, "cpu:1")]
+    with pytest.raises(ValueError, match="3 devices for 2 partitions"):
+        coord.rank_devices(2, ["cpu:0", "cpu:1", "cpu:2"])
     with pytest.raises(ValueError, match="process group has 1 rank"):
         resolve_placement([(0, "cpu"), (0, "cpu"), (1, "cpu"), (1, "cpu")])
     devs, ranks = resolve_placement([(0, "cpu"), "cpu"])
     assert ranks is None and [str(d) for d in devs] == ["cpu", "cpu"]
-    with pytest.raises(NotImplementedError, match="item 5b.1d"):
-        resolve_placement([(0, "cpu:0"), (0, "cpu:1")])
+    devs, ranks = resolve_placement([(0, "cpu:1"), "cpu:0", (0, "cpu:1")])
+    assert ranks is None
+    assert [str(d) for d in devs] == ["cpu:1", "cpu:0", "cpu:1"]
     with pytest.raises(ValueError, match="meta"):
         resolve_placement([(0, "cpu"), (0, "meta")])
 

@@ -682,14 +682,17 @@ def test_rows_and_slabs_crossed_ranks(runs):
 def test_dense_mesh_placement_rules():
     """``dense_mesh`` takes ``(rank, device)`` entries: all of one rank
     is a one-process mesh; a second rank needs a group of two; distinct
-    devices of one rank wait for item 5b.1d, and ``meta`` is refused."""
+    devices of one rank put each block on its own device, and ``meta``
+    is refused."""
     from dccrg_tpu_torch.dense import dense_mesh
 
     m = dense_mesh([(0, "cpu")] * 4, (2, 1, 2))
     assert m.ranks is None and m.held.tolist() == [0, 1, 2, 3]
     with pytest.raises(ValueError, match="process group has 1 rank"):
         dense_mesh([(0, "cpu"), (1, "cpu")])
-    with pytest.raises(NotImplementedError, match="5b.1d"):
-        dense_mesh([(0, "cpu:0"), (0, "cpu:1")])
+    m = dense_mesh([(0, "cpu:0"), (0, "cpu:1")])
+    assert m.ranks is None and m.spans_devices
+    assert [(str(d), sl) for d, sl in m.groups] == [("cpu:0", [0]),
+                                                    ("cpu:1", [1])]
     with pytest.raises(ValueError, match="meta"):
         dense_mesh([(0, "cpu"), (0, "meta")])

@@ -13,9 +13,9 @@
 // in the storage type, as the reference rounds its state between steps.
 //
 // Bound on the H100: bytes. At 512^3, float32, the pass reads 3 fields
-// and writes 1: 4 * 2^27 * 4 B = 2.15 GB, 0.64 ms at 3.35 TB/s; about 49
-// float ops per cell as counted for the generic slot loop (0.10 ms at
-// 67 TFLOP/s). Two routes:
+// and writes 1: 4 * 2^27 * 4 B = 2.15 GB, 0.64 ms at 3.35 TB/s; 25
+// float ops a cell, one face term of 6 for each of the four face slots
+// and the final add (0.05 ms at 67 TFLOP/s). Two routes:
 //
 // Plane tiles (bulk_planes), for the face neighbourhood's four x / y
 // slots in the order the neighbourhood lists them (-y, -x, +x, +y): the

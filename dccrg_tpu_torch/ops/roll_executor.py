@@ -1,10 +1,20 @@
-"""Bulk executor for the grid step loop, on a hand-written CUDA kernel.
+"""Bulk executor for the grid step loop, on hand-written CUDA kernels.
 
 Port of ``dccrg_tpu/ops/roll_executor.py``. An eligible
 ``Grid.run_steps`` runs as one launch of **kernel A** (``bulk_pass``,
 csrc/bulk_pass.cu) per step: one step of the kernel's device flux over
 all rows, the carried field rounded to its storage dtype between steps
 as the reference's step loop rounds its state.
+
+With ``DCCRG_BULK_SPP=k`` (:func:`bulk_steps_per_pass`, 1..8, the
+reference's knob) the loop runs as the reference's does: ``n // k``
+launches of **kernel A's k-deep pass** (``bulk_pass_k``,
+csrc/bulk_pass_k.cu: k sub-steps on chip, the carried field rounded to
+storage after each), then ``n % k`` one-step launches. A block of the
+k-deep pass holds a window with a halo of k reaches on chip; a slot set
+whose window does not fit (:meth:`PassSpec.deep` declines it before any
+launch) runs one-step launches only, as the reference's executor
+declines a spec whose halo does not fit.
 
 The TPU kernel walked flat ``[G, 8, 128]`` windows and left the rows
 whose flat roll crosses a periodic wrap wrong, for a fixup epilogue to
@@ -35,6 +45,7 @@ same launch, so a fleet step on the card is one launch.
 from __future__ import annotations
 
 import ctypes
+import os
 
 import numpy as np
 import torch
@@ -44,6 +55,18 @@ from ..grid import (SlotwiseKernel, _make_offs_col, _make_roll3d_gather,
 from . import _build
 
 _F32 = torch.float32
+
+
+def bulk_steps_per_pass() -> int:
+    """DCCRG_BULK_SPP: temporal blocking depth of the bulk pass
+    (sub-steps per pass over device memory), clamped to 1..8 and 1
+    where it does not parse, as the reference reads it
+    (dccrg_tpu/ops/roll_executor.py:75-83)."""
+    try:
+        k = int(os.environ.get("DCCRG_BULK_SPP", "1"))
+    except ValueError:
+        k = 1
+    return max(1, min(k, 8))
 
 
 # ---------------------------------------------------------------------
@@ -83,6 +106,13 @@ _FACE4 = ((0, -1, 0, 0, -1), (-1, 0, 0, -1, 0), (1, 0, 0, 1, 0),
 _TILE = (128, 16)  # plane-tile route: cells of x and rows of y per block
 _TARGET_BLOCKS = 2048  # z is cut into chunks until about this many blocks
 
+# the k-deep pass's bricks (csrc/bulk_pass_k.cu): a block stages its
+# window as four floats a cell (density twice, vx, vy) and may opt into
+# this much shared memory on sm_90
+_MAX_SMEM = 232448
+_DEEP_CELL_BYTES = 16
+_DEEP_ROUTES = ("planes", "bricks")
+
 
 class PassSpec:
     """Static geometry of one bulk step over a single-device
@@ -95,7 +125,8 @@ class PassSpec:
     z-planes, each staged with its halo in a shared-memory ring of three
     planes while the next ones load. Any other set takes
     the direct kernel (one cell per thread, neighbours read through the
-    cache; ``tile`` is its 32 x 8 block)."""
+    cache; ``tile`` is its 32 x 8 block). :meth:`deep` states the k-deep
+    pass's route and blocking, and the rule that declines it."""
 
     def __init__(self, shifts, dims, periodic, offs_cells, offs_const, n0,
                  L):
@@ -118,16 +149,74 @@ class PassSpec:
         else:
             self.tile = (32, 8, 1)
 
+    def reach(self):
+        """Cells one step reads away from its cell, per axis, over the
+        flux slots."""
+        return tuple(max((abs(s[1 + d]) for s in self.slots), default=0)
+                     for d in range(3))
+
+    def deep(self, k):
+        """The k-deep pass's ``(route, interior)``: a block's window is
+        ``interior`` cells (x, y, z) plus a halo of ``k`` times
+        :meth:`reach` on each side. None for ``k`` < 2, and where the
+        rule declines the slot set (the step loop then runs one-step
+        launches).
+
+        The rule: the face set takes ``"planes"`` at every k: a block
+        owns one 128 x ``ty`` (x, y) tile, ``ty`` = 16 + 2k rounded up
+        to a multiple of 8, less 2k, so that the window's rows fill
+        whole strips of 8, and marches the interior's z extent (its
+        z-planes, cut into chunks as the one-step plane tiles cut them);
+        its two density buffers, 44,064 B at k = 8, always fit. Any
+        other set takes ``"bricks"``, staged at 16 B a window cell: a
+        window row of 64 cells in x (or the next multiple of 32 that
+        leaves 16 interior cells), 16 cells of y and 4 of z, clipped to
+        the grid and halved (y, then z, then x down to 8) until the
+        window fits ``_MAX_SMEM``; a set whose smallest brick does not
+        fit is declined. The C launcher checks the same bound."""
+        k = int(k)
+        if not 2 <= k <= 8:
+            return None
+        if self.face4:
+            nx, ny, nz = self.dims
+            ty = -(-(16 + 2 * k) // 8) * 8 - 2 * k
+            tiles = -(-nx // _TILE[0]) * -(-ny // ty)
+            chunks = max(1, min(nz, -(-_TARGET_BLOCKS // tiles)))
+            return "planes", (_TILE[0], ty, -(-nz // chunks))
+        halo = tuple(k * r for r in self.reach())
+
+        def smem(b):
+            cells = 1
+            for d in range(3):
+                cells *= b[d] + 2 * halo[d]
+            return _DEEP_CELL_BYTES * cells
+
+        row = 64
+        while row - 2 * halo[0] < 16:
+            row += 32
+        b = [min(row - 2 * halo[0], self.dims[0]), min(16, self.dims[1]),
+             min(4, self.dims[2])]
+        for axis, floor in ((1, 1), (2, 1), (0, 8)):
+            while smem(b) > _MAX_SMEM and b[axis] > floor:
+                b[axis] = max(floor, b[axis] // 2)
+        if smem(b) > _MAX_SMEM:
+            return None
+        return "bricks", tuple(b)
+
     def bytes_moved(self, itemsize, n_in=3, n_out=1):
-        """HBM bytes of one step at the bound: each input read once,
-        each output written once."""
+        """HBM bytes of one step, or of one k-deep pass, at the bound:
+        each input read once, each output written once."""
         return (n_in + n_out) * self.n0 * itemsize
 
-    def flops(self):
-        """Float operations of one step: per cell and slot, two face
-        terms of 6 (add, 3 multiplies, subtract, add), plus the final
-        add."""
-        return self.n0 * (12 * len(self.slots) + 1)
+    def flops(self, k=1):
+        """Float operations of ``k`` steps (one k-deep pass), per cell:
+        each active face term (a slot's nonzero face sign in x or y)
+        costs its face velocity and coefficient (add, 2 multiplies,
+        compare), static over a pass, then in every step its upwind
+        product and its accumulate; each step ends in one add. The face
+        set: 4 terms, 16 + 9k a cell."""
+        terms = sum((fx != 0) + (fy != 0) for *_, fx, fy in self.slots)
+        return self.n0 * (4 * terms + k * (2 * terms + 1))
 
 
 # ---------------------------------------------------------------------
@@ -152,6 +241,41 @@ def _flux_coeffs(kernel, dt):
     return float(dt32 * np.float32(inv[0])), float(dt32 * np.float32(inv[1]))
 
 
+def _plain_into(res, name, out):
+    """A plain version's result, copied into ``out`` where one is
+    given."""
+    if out is None:
+        return res
+    out.copy_(res[name])
+    return {name: out}
+
+
+def _cuda_operands(fn, spec, rho, vx, vy, out):
+    """Check kernel A's operands for a launch of ``fn``: contiguous
+    ``[L]`` CUDA tensors of one storage dtype, and ``out`` like them
+    and apart from them (a new one where None). Returns ``(storage
+    code, out)``."""
+    if rho.device.type != "cuda":
+        raise ValueError(f"{fn} runs on CUDA or CPU, got {rho.device}")
+    for t in (rho, vx, vy):
+        if (t.device != rho.device or t.dtype != rho.dtype
+                or t.shape != (spec.L,) or not t.is_contiguous()):
+            raise ValueError(f"{fn} needs contiguous [L] tensors of one "
+                             f"dtype on one device")
+    code = _STORAGE_CODES.get(rho.dtype)
+    if code is None:
+        raise ValueError(f"{fn} storage must be float32 or bfloat16, got "
+                         f"{rho.dtype}")
+    if out is None:
+        return code, torch.empty_like(rho)
+    if (out.device != rho.device or out.dtype != rho.dtype
+            or out.shape != (spec.L,) or not out.is_contiguous()
+            or any(out.data_ptr() == t.data_ptr() for t in (rho, vx, vy))):
+        raise ValueError(f"{fn} out must be a contiguous [L] tensor like "
+                         f"the fields and apart from them")
+    return code, out
+
+
 def bulk_pass(spec, kernel, fields, extras, out=None):
     """One step of ``kernel``'s device flux over all ``[L]`` rows of
     ``fields`` (name -> tensor, the flux's input fields). Returns
@@ -159,34 +283,16 @@ def bulk_pass(spec, kernel, fields, extras, out=None):
     their values. On CUDA tensors it is one launch of kernel A
     (csrc/bulk_pass.cu), counted in ``bulk_pass.launches``; on CPU
     tensors it runs :func:`bulk_pass_plain`. ``out``, an ``[L]``
-    tensor, takes the result in place of a new one. ``extras[0]`` (dt)
-    is read on the host: the step loop hands it over as a CPU tensor,
-    so the launch waits on nothing on the device."""
+    tensor apart from the fields, takes the result in place of a new
+    one. ``extras[0]`` (dt) is read on the host: the step loop hands it
+    over as a CPU tensor, so the launch waits on nothing on the
+    device."""
     names_in, names_out = DEVICE_FLUXES[kernel.device_flux]
     rho, vx, vy = (fields[n] for n in names_in)
     if rho.device.type == "cpu":
-        res = bulk_pass_plain(spec, kernel, fields, extras)
-        if out is not None:
-            out.copy_(res[names_out[0]])
-            res = {names_out[0]: out}
-        return res
-    if rho.device.type != "cuda":
-        raise ValueError(f"bulk_pass runs on CUDA or CPU, got {rho.device}")
-    code = _STORAGE_CODES.get(rho.dtype)
-    for t in (rho, vx, vy):
-        if (t.device != rho.device or t.dtype != rho.dtype
-                or t.shape != (spec.L,) or not t.is_contiguous()):
-            raise ValueError("bulk_pass needs contiguous [L] tensors of one "
-                             "dtype on one device")
-    if code is None:
-        raise ValueError(f"bulk_pass storage must be float32 or bfloat16, "
-                         f"got {rho.dtype}")
-    if out is None:
-        out = torch.empty_like(rho)
-    elif (out.device != rho.device or out.dtype != rho.dtype
-          or out.shape != (spec.L,) or not out.is_contiguous()):
-        raise ValueError("bulk_pass out must be a contiguous [L] tensor like "
-                         "the fields")
+        return _plain_into(bulk_pass_plain(spec, kernel, fields, extras),
+                           names_out[0], out)
+    code, out = _cuda_operands("bulk_pass", spec, rho, vx, vy, out)
     lib = _build.load("bulk_pass", _BULK_SIG)
     nx, ny, nz = spec.dims
     geom = (ctypes.c_int * 9)(nx, ny, nz, *(int(p) for p in spec.periodic),
@@ -226,6 +332,71 @@ def bulk_pass_plain(spec, kernel, fields, extras):
                         lambda j: _synth_col(synth, gidx, base, j), n_slots,
                         extras)
     return {f: res[f].to(fields[f].dtype) for f in names_out}
+
+
+# ---------------------------------------------------------------------
+# kernel A's k-deep pass
+# ---------------------------------------------------------------------
+
+_BULK_K_SIG = {
+    "dccrg_bulk_upwind_k": (ctypes.c_int, [
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_float,
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
+    "dccrg_bulk_k_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+}
+
+
+def bulk_pass_k(spec, kernel, fields, extras, k, out=None):
+    """``k`` steps of ``kernel``'s device flux in one pass: the same
+    contract as :func:`bulk_pass`, the carried field rounded to its
+    storage dtype after every sub-step. On CUDA tensors it is one
+    launch of kernel A's k-deep pass (csrc/bulk_pass_k.cu) on the route
+    ``spec.deep(k)`` names, counted in ``bulk_pass_k.launches``; a
+    ``k`` the rule declines raises ValueError, as does a failed build
+    or launch (RuntimeError). On CPU tensors it runs
+    :func:`bulk_pass_k_plain`. ``out`` must not alias an input."""
+    names_in, names_out = DEVICE_FLUXES[kernel.device_flux]
+    rho, vx, vy = (fields[n] for n in names_in)
+    if rho.device.type == "cpu":
+        return _plain_into(bulk_pass_k_plain(spec, kernel, fields, extras, k),
+                           names_out[0], out)
+    deep = spec.deep(k)
+    if deep is None:
+        raise ValueError(f"the k-deep pass declines k={k} for slots "
+                         f"{[s[1:4] for s in spec.slots]}")
+    code, out = _cuda_operands("bulk_pass_k", spec, rho, vx, vy, out)
+    lib = _build.load("bulk_pass_k", _BULK_K_SIG)
+    route, interior = deep
+    geom = (ctypes.c_int * 13)(*spec.dims, *(int(p) for p in spec.periodic),
+                               int(k), *interior, *spec.reach())
+    flat = [v for s in spec.slots for v in s[1:]]
+    slots = (ctypes.c_int * max(1, len(flat)))(*flat)
+    c0, c1 = _flux_coeffs(kernel, float(extras[0]))
+    rc = lib.dccrg_bulk_upwind_k(
+        code, _DEEP_ROUTES.index(route), rho.data_ptr(), vx.data_ptr(),
+        vy.data_ptr(), out.data_ptr(), geom, slots, len(spec.slots), c0, c1,
+        rho.device.index or 0,
+        torch.cuda.current_stream(rho.device).cuda_stream)
+    _build.check(lib, "dccrg_bulk_k", rc)
+    bulk_pass_k.launches += 1
+    if spec.L > spec.n0:
+        out[spec.n0:] = rho[spec.n0:]
+    return {names_out[0]: out}
+
+
+bulk_pass_k.launches = 0
+
+
+def bulk_pass_k_plain(spec, kernel, fields, extras, k):
+    """The plain PyTorch version of the k-deep pass: ``k`` applications
+    of :func:`bulk_pass_plain`, each rounded to the storage dtype."""
+    _names_in, names_out = DEVICE_FLUXES[kernel.device_flux]
+    cur = dict(fields)
+    for _ in range(int(k)):
+        cur.update(bulk_pass_plain(spec, kernel, cur, extras))
+    return {f: cur[f] for f in names_out}
 
 
 # ---------------------------------------------------------------------
@@ -351,10 +522,13 @@ def _eligible_fields(grid, kernel, fields_in, fields_out):
 def compile_bulk_step_loop(grid, kernel, fields_in, fields_out,
                            exchange_fields, neighborhood_id, n_extra):
     """The bulk replacement for Grid.compile_step_loop on an eligible
-    single-device closed-form plan: ``n_steps`` launches of kernel A
-    and nothing else on the device. Same ``(fn, tables, static_in)``
-    contract (no tables), ``fn.step_path == "bulk"``; returns None when
-    ineligible."""
+    single-device closed-form plan: with ``k`` = :func:`bulk_steps_per_pass`
+    (read here, and part of the program's key), ``n_steps // k``
+    k-deep passes and then ``n_steps % k`` one-step launches of kernel
+    A (``n_steps`` one-step launches at k = 1, or where ``spec.deep(k)``
+    declines), and nothing else on the device. Same ``(fn, tables,
+    static_in)`` contract (no tables), ``fn.step_path == "bulk"``;
+    returns None when ineligible."""
     fields_in = tuple(fields_in)
     fields_out = tuple(fields_out)
     if not _eligible_fields(grid, kernel, fields_in, fields_out):
@@ -365,10 +539,12 @@ def compile_bulk_step_loop(grid, kernel, fields_in, fields_out,
     spec = _grid_spec_for(grid, hood)
     if spec is None:
         return None
+    k = bulk_steps_per_pass()
+    deep = spec.deep(k) is not None
     L, R = grid.plan.L, grid.plan.R
     static_in = tuple(f for f in fields_in if f not in fields_out)
     key = ("bulksteploop", kernel, fields_in, fields_out, n_extra, L, R,
-           spec.shifts, spec.dims, spec.periodic)
+           spec.shifts, spec.dims, spec.periodic, k)
     fn = grid._program_cache.get(key)
     if fn is not None:
         return fn, (), static_in
@@ -383,17 +559,23 @@ def compile_bulk_step_loop(grid, kernel, fields_in, fields_out,
                        for e in args[n_static + n_out:])
 
         n_steps = int(n_steps)
+        # k-deep passes, then the one-step remainder (the reference's
+        # order, dccrg_tpu/ops/roll_executor.py:685-694)
+        passes, rem = divmod(n_steps, k) if deep else (0, n_steps)
         # the flux writes one field; the last launch writes the new
         # state's rows in place, and only the rows past L are copied
         (f_out,), (a_out,) = fields_out, outs_full
         new = torch.empty_like(a_out)
         state = {f_out: a_out[0, :L]}
-        for i in range(n_steps):
+        for i in range(passes + rem):
             full = dict(statics)
             full.update(state)
-            state = bulk_pass(spec, kernel, {f: full[f] for f in fields_in},
-                              extras,
-                              out=new[0, :L] if i + 1 == n_steps else None)
+            ins = {f: full[f] for f in fields_in}
+            out = new[0, :L] if i + 1 == passes + rem else None
+            if i < passes:
+                state = bulk_pass_k(spec, kernel, ins, extras, k, out=out)
+            else:
+                state = bulk_pass(spec, kernel, ins, extras, out=out)
         if n_steps == 0:
             new[0, :L] = a_out[0, :L]
         new[0, L:] = a_out[0, L:]

@@ -1,12 +1,15 @@
 """Profiles the port's paths on the card.
 
     python -m dccrg_tpu_torch.profiling [--path main] [--n 512] [--steps 20]
+                                       [--spp K]
     python -m dccrg_tpu_torch.profiling --path fleet [--n 64]
     python -m dccrg_tpu_torch.profiling --path amr [--n 128] [--parts 1]
     python -m dccrg_tpu_torch.profiling --path multi [--n 512] [--parts 4]
 
 ``--path main`` (the default) traces ``--steps`` steps of
-``GridAdvection(n).run`` after two warm-up steps. ``--path fleet``
+``GridAdvection(n).run`` after two warm-up steps; ``--spp K`` runs them
+under ``DCCRG_BULK_SPP=K`` (``steps // K`` launches of kernel A's k-deep
+pass and ``steps % K`` one-step launches, about 1 / K launches a step). ``--path fleet``
 traces one 8-step quantum (``DCCRG_FLEET_QUANTUM``'s default) of a full
 bucket of 128 ``diffuse`` jobs of ``n``^3 cells
 (``DCCRG_FLEET_MAX_BATCH``'s default; bench/fleet_bench.py's jobs,
@@ -92,16 +95,26 @@ def _trace(run, per, unit, summary):
     print(json.dumps(summary), flush=True)
 
 
-def profile_main_path(n, steps, card):
+def profile_main_path(n, steps, card, spp=None):
     from .models.advection import GridAdvection
+    from .ops import roll_executor
 
+    if spp is not None:
+        os.environ["DCCRG_BULK_SPP"] = str(spp)
     adv = GridAdvection(n=n, device="cuda")
     adv.run(2)
     torch.cuda.synchronize()
     if adv.grid.last_step_path != "bulk":
         raise SystemExit(f"the main path took {adv.grid.last_step_path!r}")
+    before = (roll_executor.bulk_pass_k.launches,
+              roll_executor.bulk_pass.launches)
     _trace(lambda: adv.run(steps), steps, "step",
            lambda: {"profile": "main_path", "n": n, "steps": steps,
+                    "spp": roll_executor.bulk_steps_per_pass(),
+                    "kernel_a_k_launches":
+                    roll_executor.bulk_pass_k.launches - before[0],
+                    "kernel_a_launches":
+                    roll_executor.bulk_pass.launches - before[1],
                     "card": card})
 
 
@@ -237,6 +250,10 @@ def main(argv=None) -> int:
                    help="grid edge (default 512 main and multi, 64 fleet, "
                         "128 amr)")
     p.add_argument("--steps", type=int, default=20)
+    p.add_argument("--spp", type=int, default=None,
+                   help="--path main: DCCRG_BULK_SPP for the traced steps "
+                        "(kernel A's k-deep pass; default: the variable as "
+                        "set)")
     p.add_argument("--parts", type=int, default=None,
                    help="partitions (default 4 for --path multi, 1 for "
                         "--path amr)")
@@ -245,7 +262,7 @@ def main(argv=None) -> int:
         print("profiling: needs a CUDA device", file=sys.stderr)
         return 2
     if args.path == "main":
-        profile_main_path(args.n or 512, args.steps, _card())
+        profile_main_path(args.n or 512, args.steps, _card(), args.spp)
     elif args.path == "amr":
         profile_amr(args.n or 128, args.steps, _card(), args.parts or 1)
     elif args.path == "multi":

@@ -79,6 +79,68 @@ def test_bulk_kernel_matches_plain(device, dims, periodic, hood, dtype):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("k", range(2, 9))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hood", ["face", "cube", "reach2"])
+@pytest.mark.parametrize("periodic", [(True, True, False), (False, True, True),
+                                      (False, False, False)])
+@pytest.mark.parametrize("dims", [(20, 20, 7), (24, 20, 36), (17, 9, 5)])
+def test_bulk_k_kernel_matches_plain(device, dims, periodic, hood, dtype, k):
+    """Kernel A's k-deep pass (one launch) against its plain version (k
+    plain steps) and against k launches of the one-step kernel, on both
+    of its routes: the face set's plane tiles and the bricks of the
+    26-cube and the reach-2 neighbourhood, whose halo wraps more than
+    once where it is wider than the grid. A k the rule declines raises
+    before any launch."""
+    hood_len = {"face": 0, "cube": 1, "reach2": 2}[hood]
+    g = _hood_grid(dims, periodic, hood_len, dtype, device, seed=sum(dims) + k)
+    hood_id = DEFAULT_NEIGHBORHOOD_ID
+    if hood == "reach2":
+        hood_id = 7
+        assert g.add_neighborhood(hood_id, REACH2_HOOD)
+    spec = roll_executor._grid_spec_for(g, g.plan.hoods[hood_id])
+    kern = make_uniform_flux_kernel(tuple(1.0 / d for d in dims))
+    fields = {f: g.data[f][0, :g.plan.L] for f in FIELDS}
+    extras = (torch.tensor(0.02, dtype=torch.float32),)
+    before = roll_executor.bulk_pass_k.launches
+    deep = spec.deep(k)
+    assert (deep is not None) == (hood != "reach2" or k <= 6)
+    if deep is None:
+        with pytest.raises(ValueError):
+            roll_executor.bulk_pass_k(spec, kern, fields, extras, k)
+        assert roll_executor.bulk_pass_k.launches == before
+        return
+    got = roll_executor.bulk_pass_k(spec, kern, fields, extras, k)["density"]
+    torch.cuda.synchronize()
+    assert roll_executor.bulk_pass_k.launches == before + 1
+    want = roll_executor.bulk_pass_k_plain(spec, kern, fields, extras,
+                                           k)["density"]
+    assert got.dtype == dtype and got.shape == (g.plan.L,)
+    assert torch.equal(got, want)
+    cur = dict(fields)
+    for _ in range(k):
+        cur.update(roll_executor.bulk_pass(spec, kern, cur, extras))
+    assert torch.equal(got, cur["density"])
+
+
+@pytest.mark.parametrize("k", [2, 3, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grid_run_steps_k_deep_on_the_card(device, k, dtype, monkeypatch):
+    """``DCCRG_BULK_SPP=k`` on the card: 2k + 1 steps launch the k-deep
+    pass twice and the one-step kernel once, bit for bit with the plain
+    roll path."""
+    monkeypatch.setenv("DCCRG_BULK_SPP", str(k))
+    a = GridAdvection(n=32, device=device, dtype=dtype)
+    deep, one = roll_executor.bulk_pass_k.launches, roll_executor.bulk_pass.launches
+    a.run(2 * k + 1)
+    assert a.grid.last_step_path == "bulk"
+    assert roll_executor.bulk_pass_k.launches == deep + 2
+    assert roll_executor.bulk_pass.launches == one + 1
+    b = GridAdvection(n=32, device=device, dtype=dtype)
+    b.run(2 * k + 1, bulk=False)
+    assert torch.equal(a.grid.data["density"], b.grid.data["density"])
+
+
 @pytest.mark.parametrize("tile", [None, (8, 8)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("spp", [1, 2, 3, 4, 5, 6, 7, 8])

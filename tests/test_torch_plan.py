@@ -114,7 +114,10 @@ def test_pass_spec_geometry():
     assert spec.face4
     assert spec.tile == (128, 16, 32)
     assert spec.bytes_moved(4) == 4 * 2 ** 27 * 4
-    assert spec.flops() == 49 * 2 ** 27
+    # one face term of 6 for each face slot and the final add; a
+    # k-deep pass computes the face coefficients once (16 + 9k)
+    assert spec.flops() == 25 * 2 ** 27
+    assert spec.flops(8) == 88 * 2 ** 27
     assert p.plan.L == 2 ** 27 and p.plan.R == 2 ** 27 + 1
     # the 26-cube: the direct route
     q = _port_grid((8, 12, 20), (False, True, False), 1, cell_data={})

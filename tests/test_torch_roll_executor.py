@@ -40,11 +40,13 @@ def _seeded_reference(n, seed):
     return ref
 
 
-@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("k", [1, 2, 4, 8])
 @pytest.mark.parametrize("n", [16, 24])
 def test_bulk_matches_reference_bulk_executor(n, k, monkeypatch):
     """The reference's k-deep Pallas passes (``DCCRG_BULK_SPP``) and its
-    epilogue against the port's one launch per step."""
+    epilogue against the port's k-deep passes under the same variable
+    (their plain version on the CPU), one k-deep pass and one remainder
+    pass each."""
     monkeypatch.setenv("DCCRG_BULK", "pallas")
     monkeypatch.setenv("DCCRG_BULK_SPP", str(k))
     ref = _seeded_reference(n, seed=n + k)
@@ -52,10 +54,11 @@ def test_bulk_matches_reference_bulk_executor(n, k, monkeypatch):
     fields_from_numpy(p.grid, {f: np.asarray(ref.grid.data[f]) for f in FIELDS},
                       L=ref.grid.plan.L)
     dt = 0.5 * ref.max_time_step()
-    n_steps = k + 1  # with k = 4: one 4-deep pass and one remainder pass
+    n_steps = k + 1  # one k-deep pass and one remainder pass
     ref.run(n_steps, dt)
     p.run(n_steps, dt)
     assert p.grid.last_step_path == "bulk"
+    assert roll_executor.bulk_steps_per_pass() == k
     want = np.asarray(ref.grid.data["density"])
     got = fields_to_numpy(p.grid)["density"]
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)

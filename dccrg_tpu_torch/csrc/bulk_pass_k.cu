@@ -6,50 +6,55 @@
 // (dccrg_tpu/ops/roll_executor.py:183; its sub-step loop :279-310). That
 // kernel stages flat [G, 8, 128] windows with halos of k times the
 // largest flat shift and applies the k sub-steps over shrinking row
-// regions. Here rows are grid order (flat = x + nx*(y + ny*z)), so a
-// block stages a 3-D window of the grid with a halo of k times the
-// stencil's reach per axis and recomputes the halo over shrinking
-// regions: sub-step t covers the interior plus k - t reaches, so the
-// last one covers the interior alone, which is the only part written.
-// Every window cell holds the value at its global coordinate modulo the
-// extent on a periodic axis (a halo wider than the grid wraps more than
-// once), and is zero beyond a non-periodic edge, where the slot's mask,
-// taken from the unwrapped global coordinate, drops it. The carried
-// density is rounded to the storage type after every sub-step, as the
-// reference rounds its carry (`carry = res.astype(dtypes[f])`, :310);
-// vx and vy are static and staged once.
+// regions, recomputing every window's halo. Here rows are grid order
+// (flat = x + nx*(y + ny*z)) and every neighbour is read at its exact
+// 3-D position: a value at a global coordinate is the grid's value
+// modulo the extent on a periodic axis (a halo wider than the grid
+// wraps more than once) and zero beyond a non-periodic edge, where the
+// slot's mask, taken from the unwrapped coordinate, drops it. The
+// carried density is rounded to the storage type after every sub-step,
+// as the reference rounds its carry (`carry = res.astype(dtypes[f])`,
+// :310); vx and vy are static over the pass.
 //
 // Bound on the H100: bytes, as for one step, but spread over k steps.
 // At 512^3, float32, a pass reads 3 fields and writes 1: 4 * 2^27 * 4 B
 // = 2.15 GB, 0.641 ms at 3.35 TB/s, 0.641 / k ms a step; the float ops
 // the function needs grow with k (16 + 9k a cell, the face coefficients
 // static over the pass: 0.176 ms a pass at k = 8, 67 TFLOP/s), so
-// bytes bound every k up to 8. What the design pays on top is the halo's
-// recomputation and the instructions around each flux, which decide
-// whether k steps on chip beat k one-step passes.
+// bytes bound every k up to 8. What a design pays on top is the
+// recomputed halo, the re-read bytes and the instructions around each
+// flux.
 //
 // Two routes, chosen in Python (ops/roll_executor.py PassSpec.deep) and
 // checked again here:
 //
-// Plane tiles (bulk_planes_k), for the face neighbourhood's four x / y
+// Plane route (bulk_planes_k), for the face neighbourhood's four x / y
 // slots in neighbourhood order (-y, -x, +x, +y): the main path. The set
-// has no z reach, so every z-plane is computed alone: a block owns one
-// 128-wide (x, y) tile (16 to 22 rows, so that the window with its halo
-// of k cells fills strips of 8 rows) and marches a chunk of z-planes. A
-// thread holds a strip of 8 rows of one column and the static face
-// coefficients of its cells in registers (k is a template argument, so
-// the sub-steps and rows unroll); the only shared memory is two density
-// buffers of the window (44,064 B at k = 8), and two blocks share an SM,
-// one loading while the other computes. The fluxes keep the one-step
-// plane kernel's order of operations (csrc/bulk_pass.cu, bulk_planes).
+// has no z reach, so every z-plane is a 2-D problem of its own, and the
+// k sub-steps stream through it as time-skewed levels: a block walks a
+// y segment of one plane's band of columns one input row an iteration,
+// level t computing the row t below the newest, so a row of a level is
+// computed once, the y halo only in the segment's first and last 2k
+// iterations; the x halo is k lanes each side of a 256-column band. At
+// 512^3 that is at most 1.2 thread-cells a useful cell-step and 1.1
+// times the bound's bytes at any k up to 8 (PassSpec.deep_cost). Rows
+// land by cp.async six iterations ahead of use; the static face
+// coefficients live in registers; one barrier an iteration.
 //
 // Bricks (bulk_bricks_k), for every other slot set (the 26-cube of a
-// neighbourhood of length 1, user neighbourhoods): a block stages a
-// bx x by x bz brick with a halo of k times the slots' reach per axis,
-// the slot loop at run time in the direct kernel's order of operations
-// (csrc/bulk_pass.cu, bulk_upwind_direct). A brick whose window does
-// not fit a block's shared memory is declined by the rule, before any
-// launch, and the step loop runs one-step launches instead.
+// neighbourhood of length 1, user neighbourhoods): the same streaming
+// along z. A block owns an (x, y) tile with a halo of k reaches and a
+// z segment; level t runs t planes (t times the z reach, if more)
+// behind the input, over the tile less t reaches, in rings of planes in
+// shared memory, the slot loop at run time in the direct kernel's order
+// of operations (csrc/bulk_pass.cu, bulk_upwind_direct). A set whose
+// reach exceeds 2 or whose smallest tile does not fit two blocks an SM
+// is declined by the rule before any launch. The bricks pay only where
+// the halo adds little to a long slot loop over a card's worth of
+// blocks: on the card the 26-cube ran 1.11 to 1.32 times faster than
+// two direct launches at k = 2 from 128^3 up, and won or lost at k = 3
+// by size; sets of 4 or 5 face terms lost at every k. So the step loop
+// takes them only as PassSpec.deep_pays says.
 //
 // Built with --fmad=false: a k-deep pass equals k one-step launches, and
 // k applications of the plain PyTorch version, bit for bit, in float32
@@ -62,18 +67,24 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <climits>
-#include <type_traits>
+#include <cstdint>
 
 namespace {
 
 constexpr int kMaxSlots = 26;
 constexpr int kMaxK = 8;
-constexpr int kWarps = 8;  // a brick block is 32 x kWarps threads
 constexpr size_t kMaxSmem = 232448;  // 227 KB opt-in per block on sm_90
-constexpr int kCellBytes = 4 * sizeof(float);  // bricks: density x 2, vx, vy
-constexpr int kTileX = 128;   // plane tile: interior x cells
-constexpr int kLanesX = 160;  // plane tile: threads along x (5 warps)
-constexpr int kStrip = 8;     // plane tile: rows a thread holds
+// bricks: two blocks an SM, each in half of an SM's 228 KB less the
+// 1 KB the system keeps per block (PassSpec's _BRICK_SMEM)
+constexpr size_t kBrickSmem = (233472 - 2 * 1024) / 2;
+constexpr int kBrickThreads = 512;   // bricks: threads a block
+constexpr int kBrickElems = 8;       // bricks: staged elements a thread
+constexpr int kMaxReach = 2;         // bricks: reach per axis (5 mask bits)
+constexpr int kBandMax = 256;  // plane route: widest band of interior columns
+constexpr int kPadX = 16;      // plane route: lanes each side of the band
+constexpr int kStageX = 8;     // plane route: staged halo columns each side
+constexpr int kInOff = 16;     // plane route: first staged column in a row
+constexpr int kRing = 8;       // plane route: input rows in shared memory
 
 // the face set in neighbourhood order, as (ox, oy, oz, fx, fy)
 constexpr int kFace4[4][5] = {
@@ -83,7 +94,7 @@ struct Geom {
   int nx, ny, nz;  // grid extents
   int px, py, pz;  // periodic flags
   int k;           // sub-steps per pass
-  int bx, by, bz;  // interior of a block's window (bz = 1 on plane tiles)
+  int bx, by, bz;  // a block's interior (planes: band, segment rows, 1)
   int hx, hy, hz;  // halo = k * reach
   int wx, wy, wz;  // window = interior + 2 * halo
   int rx, ry, rz;  // reach of one sub-step
@@ -140,288 +151,452 @@ __device__ __forceinline__ float face_term(float acc, float rc, float rn,
   return acc;
 }
 
-// Stage the block's window of the three fields as floats: window cell
-// (lx, ly, lz) holds the grid cell at unwrapped (x0 + lx, y0 + ly,
-// z0 + lz), wrapped on periodic axes, zero beyond a non-periodic edge.
-template <typename T>
-__device__ __forceinline__ void stage(const T* __restrict__ rho,
-                                      const T* __restrict__ vx,
-                                      const T* __restrict__ vy, float* sr,
-                                      float* su, float* sw, const Geom& g,
-                                      int x0, int y0, int z0) {
-  const long long nxy = (long long)g.nx * g.ny;
-  for (int r = threadIdx.y; r < g.wy * g.wz; r += kWarps) {
-    int gy = y0 + r % g.wy, gz = z0 + r / g.wy;
-    const bool row_in = wrap(gy, g.ny, g.py) && wrap(gz, g.nz, g.pz);
-    const long long base = (long long)g.nx * gy + nxy * gz;
-    const int lr = r * g.wx;
-    for (int lx = threadIdx.x; lx < g.wx; lx += 32) {
-      int gx = x0 + lx;
-      float a = 0.f, u = 0.f, w = 0.f;
-      if (row_in && wrap(gx, g.nx, g.px)) {
-        const long long f = base + gx;
-        a = Store<T>::load(rho[f]);
-        u = Store<T>::load(vx[f]);
-        w = Store<T>::load(vy[f]);
-      }
-      sr[lr + lx] = a;
-      su[lr + lx] = u;
-      sw[lr + lx] = w;
-    }
-  }
+// 16-byte asynchronous copy to shared memory; zero-fills when !valid
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Plane tiles of the face set. The window is W = kTileX + 2K columns by
-// HP rows (16 + 2K rounded up to a multiple of kStrip; the interior is
-// HP - 2K rows) of one z-plane. A thread owns one column of kStrip rows
-// (threadIdx.x the column, of kLanesX, threadIdx.y the strip) and keeps
-// its densities and the face coefficients of its cells in registers;
-// the coefficients are static over the pass: for each face m = v * c,
-// with v the face velocity 0.5 * (u + u'), and the sign of v, which
-// picks the upwind side. A face's flux (v >= 0 ? lower : upper) * m is
-// the same product for the two cells it joins, so each y face is
-// computed once in a strip. After each sub-step every thread writes its
-// strip to shared memory (two buffers, one barrier a sub-step), where
-// the neighbour columns and the rows beyond the strip are read. Rows
-// outside sub-step t's region [t, HP - t) are skipped (a strip's rows
-// share a warp, so the skip does not diverge); lanes outside it compute
-// values that no cell of a later region reads (the padding keeps their
-// reads inside the buffers). A block marches g.bz z-planes of its tile;
-// two blocks fit an SM (64 registers a thread at most), so one loads
-// while the other computes.
-template <typename T, int K>
-__global__ void __launch_bounds__(kLanesX * ((16 + 2 * K + kStrip - 1) /
-                                             kStrip), 2)
+// face_term for a slot whose face sign f is +1 or -1, in one sum:
+// acc - (valid ? up * m : 0) for f = +1 is acc + (valid ? up * m' : 0)
+// with m' = v * (-c) = -m exactly, and acc + 0 for f = -1 is acc (the
+// sum is never -0.0), so the two selected terms of face_term become one
+// with the same bits; f = 0 (no face) takes valid false. rn and vn may
+// hold anything where !valid.
+__device__ __forceinline__ float face(float acc, float rc, float rn,
+                                      float vc, float vn, float c,
+                                      bool valid, int f) {
+  const float v = 0.5f * (vc + vn);
+  const float up = (v >= 0.f) == (f > 0) ? rc : rn;
+  const float m = v * (f > 0 ? -c : c);
+  return acc + (valid ? up * m : 0.f);
+}
+
+// Shared memory of a plane block: the input ring (kRing rows of the
+// three fields in the storage type, kInRow elements a row) and the
+// two-row rings of levels 1 .. K-1 (floats, kLvRow a row), sized for the
+// widest band so that every offset is a constant.
+constexpr int kInRow = kBandMax + 48;
+constexpr int kLvRow = kBandMax + 2 * kPadX + 2;
+constexpr size_t plane_smem(int k, int item) {
+  return (size_t)kRing * 3 * kInRow * item +
+         (size_t)2 * (k - 1) * kLvRow * sizeof(float);
+}
+
+// Shared memory of a brick block with a W x H window: the input ring
+// (K sk + rz + 2 planes of the three fields) and the rings of levels
+// 1 .. K-1 (sk + rz + 1 planes each), floats; then two buffers of the
+// slot tables (K (n + 1) int4 each) and the column and row masks.
+__host__ __device__ constexpr size_t brick_tab_offset(int W, int H, int k,
+                                                      int rz) {
+  return ((size_t)4 * W * H *
+              (3 * (k * (rz > 1 ? rz : 1) + rz + 2) +
+               (k - 1) * ((rz > 1 ? rz : 1) + rz + 1)) + 15) / 16 * 16;
+}
+constexpr size_t brick_smem(int W, int H, int k, int rz, int n) {
+  return brick_tab_offset(W, H, k, rz) + (size_t)16 * 2 * k * (n + 1) +
+         (size_t)4 * (W + H);
+}
+
+// Plane route of the face set: time-skewed levels streamed along y.
+//
+// A block owns one z-plane's band of g.bx interior columns (a multiple
+// of 32, at most kBandMax) and a segment of g.by interior rows. Thread
+// j holds unwrapped column x0 - kPadX + j (lanes = band + 2 kPadX; the
+// k halo columns each side are recomputed, the lanes beyond them idle)
+// for every sub-step: iteration i brings input row ya - K + i (level 0)
+// and level t computes the row t below it, so each level runs one row
+// behind the one before and every row of a level is computed once. The
+// y halo is thus computed once a segment (2K rows of warm-up and
+// drain), not once a tile. A cell's vertical neighbours at level t - 1
+// are the thread's own values of this and the last iteration, kept in
+// registers; its x neighbours come from the level's two-row ring in
+// shared memory, written an iteration earlier, so one barrier an
+// iteration orders everything. The face coefficients (m = v * c with
+// v = 0.5 (u + u'), and the upwind sign) are static: each is computed
+// once a row, when the row's velocities land, and kept in registers
+// for the K iterations that use it (the loop unrolls by K + 1, so the
+// register rings never move). Each y face's flux is computed once and
+// carried to the next row, and the slots are summed in the one-step
+// kernel's order (-y, -x, +x, +y), so the result is bit for bit that
+// of K one-step launches. Input rows land kRing - 2 iterations ahead:
+// by cp.async in 16-byte chunks (VEC: nx a multiple of the chunk and
+// the arrays aligned; a chunk wraps as a whole on a periodic edge and
+// is zero-filled beyond a non-periodic one), or else element by element
+// through registers, stored an iteration after they were loaded. Level
+// K writes its row's interior columns straight to device memory. MASK
+// is the non-periodic form, whose x and y faces at an edge add a
+// selected +0.0. Three blocks an SM (72 registers) up to K = 4, two
+// (96) above, where the register rings of three spill more than the
+// third block gains: each was the faster on the card at its K.
+template <typename T, int K, bool MASK>
+__global__ void __launch_bounds__(kBandMax + 2 * kPadX, K <= 4 ? 3 : 2)
 bulk_planes_k(const T* __restrict__ rho, const T* __restrict__ vx,
               const T* __restrict__ vy, T* __restrict__ out, const Geom g,
-              const float c0, const float c1) {
-  constexpr int W = kTileX + 2 * K;
-  constexpr int HP = (16 + 2 * K + kStrip - 1) / kStrip * kStrip;
-  constexpr int TY = HP - 2 * K;  // interior rows
-  constexpr int S = kLanesX + 2;  // row stride: a pad column each side
-  static_assert(W <= kLanesX, "a window row fits the lanes");
-  // rows -1 .. HP and columns -1 .. kLanesX, at [row + 1][col + 1]
-  __shared__ float buf[2][HP + 2][S];
+              const float c0, const float c1, const bool vec) {
+  constexpr int R = K + 1;        // register rings: rows ya - K + i - t
+  constexpr int D = kRing - 2;    // input rows in flight
+  constexpr int V = 16 / sizeof(T);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int band = g.bx;
+  const int lanes = band + 2 * kPadX;
+  constexpr int IW = kInRow;
+  constexpr int LW = kLvRow;
+  const int SW = band + 2 * kStageX;  // staged columns of a field row
+  T* sin = reinterpret_cast<T*>(smem_raw);
+  float* slv = reinterpret_cast<float*>(smem_raw + (size_t)kRing * 3 * IW *
+                                                       sizeof(T));
 
-  const int c = threadIdx.x;            // window column
-  const int j0 = threadIdx.y * kStrip;  // the strip's first window row
+  const int j = threadIdx.x;
   const int b = blockIdx.x;
-  const int x0 = (b % g.nbx) * kTileX - K;  // unwrapped, window column 0
-  const int y0 = ((b / g.nbx) % g.nby) * TY - K;
-  const int zs = (b / (g.nbx * g.nby)) * g.bz;
-  const int np = min(g.bz, g.nz - zs);  // planes of this block
-  const long long nxy = (long long)g.nx * g.ny;
-  const int ugx = x0 + c;  // unwrapped
-  int gx = ugx;
-  const bool x_in = c < W && wrap(gx, g.nx, g.px);
-  // the strip's rows in the grid (-1 outside a non-periodic edge)
-  int rows[kStrip];
-#pragma unroll
-  for (int i = 0; i < kStrip; ++i) {
-    int gy = y0 + j0 + i;
-    rows[i] = x_in && wrap(gy, g.ny, g.py) ? gy : -1;
-  }
-  // the y faces' valid bits (mY[i] below row j0 + i) and the x faces'
-  unsigned vY = 0;
-#pragma unroll
-  for (int i = 0; i <= kStrip; ++i) {
-    const int gy = y0 + j0 + i - 1;  // the lower row, unwrapped
-    vY |= (unsigned)(g.py || (gy >= 0 && gy + 1 < g.ny)) << i;
-  }
-  const bool vL = g.px || ugx > 0;
-  const bool vR = g.px || ugx + 1 < g.nx;
+  const int x0 = (b % g.nbx) * band;
+  const int ya = ((b / g.nbx) % g.nby) * g.by;
+  const int z = b / (g.nbx * g.nby);
+  const int N = min(g.by, g.ny - ya) + 2 * K;  // iterations
+  const long long zoff = (long long)z * g.nx * g.ny;
+  const int ugx = x0 - kPadX + j;  // unwrapped column of this thread
+  const bool pL = !MASK || g.px || ugx > 0;
+  const bool pR = !MASK || g.px || ugx + 1 < g.nx;
+  const bool mine = j >= kPadX && j < kPadX + band && ugx < g.nx;
 
-  // the strip of plane zs + p, loaded into registers (while one block
-  // of the SM loads, the other computes)
-  float pr[kStrip], pu[kStrip], pw[kStrip];
-  auto fetch = [&](int p) {
-    const long long zoff = (long long)(zs + p) * nxy + gx;
-#pragma unroll
-    for (int i = 0; i < kStrip; ++i) {
-      float a = 0.f, q = 0.f, e = 0.f;
-      if (rows[i] >= 0) {
-        const long long f = zoff + (long long)g.nx * rows[i];
-        a = Store<T>::load(rho[f]);
-        q = Store<T>::load(vx[f]);
-        e = Store<T>::load(vy[f]);
-      }
-      pr[i] = a; pu[i] = q; pw[i] = e;
+  auto row_base = [&](int i, bool& ok) {
+    int gy = ya - K + i;
+    ok = wrap(gy, g.ny, g.py);
+    return zoff + (long long)gy * g.nx;
+  };
+  auto slot = [&](int i) { return sin + (i & (kRing - 1)) * 3 * IW; };
+  // vec: thread j < 3 SW / V copies one 16-byte chunk of a field row
+  const int per = SW / V;
+  const int qf = j / per;
+  const int qo = qf * IW + kInOff + (j - qf * per) * V;  // in a slot
+  int qgx = x0 - kStageX + (j - qf * per) * V;
+  const bool qin = vec && j < 3 * per;
+  const bool qx_ok = wrap(qgx, g.nx, g.px);
+  const T* qsrc = qf == 0 ? rho : (qf == 1 ? vx : vy);
+  auto issue = [&](int i) {  // cp.async of row i into its slot
+    bool ok;
+    const long long rb = row_base(i, ok);
+    if (qin) {
+      const bool v = ok && qx_ok;
+      cp_async16(slot(i) + qo, v ? qsrc + rb + qgx : qsrc, v);
     }
   };
-  for (int p = 0; p < np; ++p) {
-    fetch(p);
-    float r[kStrip], u[kStrip], w[kStrip];
+  // else element q = j + m * lanes (< 3 SW) of the staged row, loaded
+  // into registers an iteration before it is stored
+  T pend[3];
+  auto fetch = [&](int i) {
+    bool ok;
+    const long long rb = row_base(i, ok);
 #pragma unroll
-    for (int i = 0; i < kStrip; ++i) {
-      r[i] = pr[i]; u[i] = pu[i]; w[i] = pw[i];
+    for (int m = 0; m < 3; ++m) {
+      const int q = j + m * lanes, f = q / SW;
+      int gx = x0 - kStageX + (q - f * SW);
+      const T* src = f == 0 ? rho : (f == 1 ? vx : vy);
+      pend[m] = q < 3 * SW && ok && wrap(gx, g.nx, g.px)
+                    ? src[rb + gx] : Store<T>::pack(0.f);
     }
-    const long long zoff = (long long)(zs + p) * nxy;
-    __syncthreads();  // the previous plane's last reads are done
-    // the velocities go through shared memory to the neighbours (vx in
-    // buffer 0, vy in buffer 1)
+  };
+  auto land = [&](int i) {
 #pragma unroll
-    for (int i = 0; i < kStrip; ++i) {
-      buf[0][j0 + i + 1][c + 1] = u[i];
-      buf[1][j0 + i + 1][c + 1] = w[i];
+    for (int m = 0; m < 3; ++m) {
+      const int q = j + m * lanes, f = q / SW;
+      if (q < 3 * SW) slot(i)[f * IW + kInOff + (q - f * SW)] = pend[m];
     }
-    __syncthreads();
-    // the faces: the left and right x faces of each cell, and the y
-    // faces below each row and above the last
-    float mL[kStrip], mR[kStrip], mY[kStrip + 1];
-    unsigned sL = 0, sR = 0, sY = 0;
-#pragma unroll
-    for (int i = 0; i < kStrip; ++i) {
-      float v = 0.5f * (u[i] + buf[0][j0 + i + 1][c]);
-      mL[i] = v * c0;
-      sL |= (unsigned)(v >= 0.f) << i;
-      v = 0.5f * (u[i] + buf[0][j0 + i + 1][c + 2]);
-      mR[i] = v * c0;
-      sR |= (unsigned)(v >= 0.f) << i;
+  };
+  for (int i = 0; i < D; ++i) {
+    if (i < N) {
+      if (vec) {
+        issue(i);
+      } else {
+        fetch(i);
+        land(i);
+      }
     }
-#pragma unroll
-    for (int i = 0; i <= kStrip; ++i) {
-      const float lo = i > 0 ? w[i - 1] : buf[1][j0][c + 1];
-      const float hi = i < kStrip ? w[i] : buf[1][j0 + kStrip + 1][c + 1];
-      const float v = 0.5f * (lo + hi);
-      mY[i] = v * c1;
-      sY |= (unsigned)(v >= 0.f) << i;
-    }
-    __syncthreads();  // every thread has read the velocities
-#pragma unroll
-    for (int i = 0; i < kStrip; ++i) buf[0][j0 + i + 1][c + 1] = r[i];
-    __syncthreads();
+    cp_async_commit();
+  }
 
+  // register rings, indexed by iteration mod R: the densities of
+  // levels 0 .. K-1 (this thread's column) and the face coefficients
+  // of each row; the rows' upwind signs in one word shifted 3 bits an
+  // iteration (row ya - K + i - t at bit 3t: its -x / +x / -y face's
+  // velocity >= 0), which spills less at K >= 5 than a ring of words
+  float dn[K][R], mL[R], mR[R], mY[R];
+  unsigned sg = 0;
+  float fy[K];  // each level's flux through the face below its next row
 #pragma unroll
-    for (int t = 1; t <= K; ++t) {
-      const float(*cur)[S] = buf[(t - 1) & 1];
-      float(*nxt)[S] = buf[t & 1];
-      // sub-step t over the strip's rows; with `check`, only those in
-      // [t, HP - t). A masked slot adds a selected +0.0, which leaves
-      // the sum as the one-step kernel's skip leaves it (the sum is
-      // never -0.0), and keeps the rows free of branches.
-      auto sweep = [&](auto check) {
-        // the flux through the face below the strip, from the old rows
-        float fb = ((sY & 1u) ? cur[j0][c + 1] : r[0]) * mY[0];
-        const float above = cur[j0 + kStrip + 1][c + 1];
+  for (int u = 0; u < R; ++u) {
+    mL[u] = mR[u] = mY[u] = 0.f;
 #pragma unroll
-        for (int i = 0; i < kStrip; ++i) {
-          const int j = j0 + i;
-          const float rc = r[i];
-          const float rn = i + 1 < kStrip ? r[i + 1] : above;
-          const float fa = ((sY >> (i + 1)) & 1u ? rc : rn) * mY[i + 1];
-          if (!decltype(check)::value || (j >= t && j < HP - t)) {
-            const float rl = cur[j + 1][c], rr = cur[j + 1][c + 2];
-            const float fl = ((sL >> i) & 1u ? rl : rc) * mL[i];
-            const float fr = ((sR >> i) & 1u ? rc : rr) * mR[i];
-            float acc = 0.f;
-            acc = acc + ((vY >> i) & 1u ? fb : 0.f);        // slot -y
-            acc = acc + (vL ? fl : 0.f);                    // slot -x
-            acc = acc - (vR ? fr : 0.f);                    // slot +x
-            acc = acc - ((vY >> (i + 1)) & 1u ? fa : 0.f);  // slot +y
-            const float res = rc + acc;
-            if (t == K) {
-              // the interior; ragged tiles stop at the grid's edge
-              const int gy = y0 + j;
-              if (c >= K && c < K + kTileX && ugx < g.nx && gy < g.ny)
-                out[zoff + (long long)g.nx * gy + ugx] = Store<T>::pack(res);
-            } else {
-              r[i] = round_to<T>(res);
-              nxt[j + 1][c + 1] = r[i];
-            }
-          }
-          fb = fa;
+    for (int t = 0; t < K; ++t) dn[t][u] = 0.f;
+  }
+#pragma unroll
+  for (int t = 0; t < K; ++t) fy[t] = 0.f;
+  float wprev = 0.f;
+  const int col = kInOff + j - (kPadX - kStageX);  // this column in a row
+  long long op = zoff + (long long)(ya - 2 * K) * g.nx + ugx;  // level K
+
+  for (int i0 = 0; i0 < N; i0 += R) {
+#pragma unroll
+    for (int u = 0; u < R; ++u) {
+      const int i = i0 + u;
+      if (i < N) {
+        cp_async_wait<D - 1>();  // row i has landed (this thread's copies)
+        __syncthreads();
+        if (vec) {
+          if (i + D < N) issue(i + D);
+        } else {
+          if (i >= 1 && i - 1 + D < N) land(i - 1 + D);
+          if (i + D < N) fetch(i + D);
         }
-      };
-      // a strip wholly inside the region skips the row checks (at
-      // k <= 4: deeper passes run 640 threads at 48 registers, where
-      // a second copy of the sweep spills)
-      if (K <= 4 && j0 >= t && j0 + kStrip <= HP - t)
-        sweep(std::false_type());
-      else if (j0 + kStrip > t && j0 < HP - t)
-        sweep(std::true_type());
-      if (t < K) __syncthreads();
+        cp_async_commit();
+
+        // level 0: row i's density, and its face coefficients
+        const T* in = slot(i) + col;
+        dn[0][u] = Store<T>::load(in[0]);
+        {
+          const float uc = Store<T>::load(in[IW]);
+          const float wc = Store<T>::load(in[2 * IW]);
+          float v = 0.5f * (uc + Store<T>::load(in[IW - 1]));
+          mL[u] = v * c0;
+          unsigned bt = v >= 0.f;
+          v = 0.5f * (uc + Store<T>::load(in[IW + 1]));
+          mR[u] = v * c0;
+          bt |= (unsigned)(v >= 0.f) << 1;
+          v = 0.5f * (wprev + wc);
+          mY[u] = v * c1;
+          bt |= (unsigned)(v >= 0.f) << 2;
+          sg = (sg << 3) | bt;
+          wprev = wc;
+        }
+        const T* inp = slot(i - 1) + col;  // level 0, the last row
+        float* lw = slv + (i & 1) * LW + j + 1;
+        const float* lr = slv + ((i & 1) ^ 1) * LW + j + 1;
+#pragma unroll
+        for (int t = 1; t <= K; ++t) {
+          // level t, row ya - K + i - t: the cell (rc) and the one above
+          // (rn) at level t - 1, its x neighbours from the ring
+          const int ry = (u - t + R) % R, ra = (u - t + 1 + R) % R;
+          const float rc = dn[t - 1][(u + R - 1) % R];
+          const float rn = dn[t - 1][u];
+          float rl, rr;
+          if (t == 1) {
+            rl = Store<T>::load(inp[-1]);
+            rr = Store<T>::load(inp[1]);
+          } else {
+            rl = lr[(t - 2) * 2 * LW - 1];
+            rr = lr[(t - 2) * 2 * LW + 1];
+          }
+          // the y faces below and above the row inside the grid
+          const int gy = ya - K + i - t;  // unwrapped
+          const bool vb = !MASK || g.py || (gy >= 1 && gy < g.ny);
+          const bool va = !MASK || g.py || (gy >= 0 && gy + 1 < g.ny);
+          const float fa = ((sg >> (3 * t - 1)) & 1u ? rc : rn) * mY[ra];
+          const float fl = ((sg >> (3 * t)) & 1u ? rl : rc) * mL[ry];
+          const float fr = ((sg >> (3 * t + 1)) & 1u ? rc : rr) * mR[ry];
+          float acc = 0.f;
+          acc = acc + (vb ? fy[t - 1] : 0.f);  // slot -y
+          acc = acc + (pL ? fl : 0.f);         // slot -x
+          acc = acc - (pR ? fr : 0.f);         // slot +x
+          acc = acc - (va ? fa : 0.f);         // slot +y
+          const float res = rc + acc;
+          fy[t - 1] = fa;
+          if (t < K) {
+            const float r = round_to<T>(res);
+            dn[t][u] = r;
+            lw[(t - 1) * 2 * LW] = r;
+          } else if (i >= 2 * K && mine) {
+            out[op] = Store<T>::pack(res);
+          }
+        }
+        op += g.nx;
+      }
     }
   }
 }
 
-// Bricks of any other slot set, the slot loop at run time.
+// Bricks of any other slot set: time-skewed levels streamed along z.
+//
+// A block owns a g.bx x g.by (x, y) tile with a halo of K reaches each
+// side (window W x H) and a segment of g.bz z-planes, and walks it one
+// input plane an iteration: plane q (counted from the segment's first
+// halo plane) of the three fields lands as floats in a ring of QI
+// planes, and level t computes plane q - t sk, sk = max(rz, 1) planes
+// behind the level before, over the window less t reaches each side.
+// A plane of a level is computed once, so the recomputation is the
+// (x, y) halo alone; in z the segment adds 2 K rz planes. Levels 1 ..
+// K-1 keep rings of QL = sk + rz + 1 planes; the input ring spans what
+// the deepest level's velocities need, QI = K sk + rz + 2 planes. A
+// barrier follows every level but the last (level t reads what level
+// t - 1 wrote in the same iteration when sk = rz) and ends the
+// iteration. Per level and iteration a table gives each slot its
+// neighbour's offsets in shared memory and the bits of its mask
+// (built an iteration ahead, two buffers); the masks of a cell are bit
+// sets per column, row and plane over the offsets -r .. r, taken from
+// unwrapped coordinates. The slot loop runs in the direct kernel's
+// order with its face terms (csrc/bulk_pass.cu, bulk_upwind_direct),
+// each in one sum (face), a slot without an x (y) face adding a
+// selected +0.0 there, so the loop has no branch. The next plane's
+// elements load into registers at the start of an iteration and land
+// at its end. 512 threads a block, two blocks an SM: of the variants
+// timed on the card (256 threads, a branch on each face) the fastest.
 template <typename T>
-__global__ void __launch_bounds__(32 * kWarps)
+__global__ void __launch_bounds__(kBrickThreads, 2)
 bulk_bricks_k(const T* __restrict__ rho, const T* __restrict__ vx,
               const T* __restrict__ vy, T* __restrict__ out, const Geom g,
               const Slots s, const float c0, const float c1) {
-  extern __shared__ float smem[];
-  const int A = g.wx * g.wy * g.wz;
-  float* su = smem;
-  float* sw = smem + A;
-  float* cur = smem + 2 * A;
-  float* nxt = smem + 3 * A;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int K = g.k;
+  const int sk = g.rz > 1 ? g.rz : 1;
+  const int W = g.wx, H = g.wy, WH = W * H;
+  const int QI = K * sk + g.rz + 2, QL = sk + g.rz + 1;
+  const int n = s.n;
+  float* sm = reinterpret_cast<float*>(smem_raw);
+  const int lv0 = QI * 3 * WH;  // first float of the levels' rings
+  int4* tab = reinterpret_cast<int4*>(smem_raw +
+                                      brick_tab_offset(W, H, K, g.rz));
+  int* xmask = reinterpret_cast<int*>(tab + 2 * K * (n + 1));
+  int* ymask = xmask + W;
 
+  const int tid = threadIdx.x;
   const int b = blockIdx.x;
-  const int x0 = (b % g.nbx) * g.bx - g.hx;  // unwrapped, window cell 0
+  const int x0 = (b % g.nbx) * g.bx - g.hx;  // unwrapped, window column 0
   const int y0 = ((b / g.nbx) % g.nby) * g.by - g.hy;
-  const int z0 = (b / (g.nbx * g.nby)) * g.bz - g.hz;
+  const int za = (b / (g.nbx * g.nby)) * g.bz;
+  const int S = min(g.bz, g.nz - za);
+  const int z0 = za - g.hz;                  // plane q = 0, unwrapped
+  const int NI = S + 2 * g.hz;               // input planes
+  const int N = S + K * (g.rz + sk);         // iterations
   const long long nxy = (long long)g.nx * g.ny;
-  stage<T>(rho, vx, vy, cur, su, sw, g, x0, y0, z0);
-  __syncthreads();
 
-  const int sy = g.wx, sz = g.wx * g.wy;
-  for (int t = 1; t <= g.k; ++t) {
-    const int lox = t * g.rx, loy = t * g.ry, loz = t * g.rz;
-    const int ex = g.wx - 2 * lox, ey = g.wy - 2 * loy, ez = g.wz - 2 * loz;
-    const bool last = t == g.k;
-    for (int r = threadIdx.y; r < ey * ez; r += kWarps) {
-      const int ly = loy + r % ey, lz = loz + r / ey;
-      const int gy = y0 + ly, gz = z0 + lz;  // unwrapped
-      // slots valid for this row's y and z (non-periodic edges)
-      unsigned row_ok = 0;
-      for (int j = 0; j < s.n; ++j) {
-        bool v = true;
-        if (!g.py && s.oy[j]) {
-          const int c = gy + s.oy[j];
-          v = v && c >= 0 && c < g.ny;
-        }
-        if (!g.pz && s.oz[j]) {
-          const int c = gz + s.oz[j];
-          v = v && c >= 0 && c < g.nz;
-        }
-        row_ok |= (unsigned)v << j;
-      }
-      const int lrow = sy * ly + sz * lz;
-      for (int lx = lox + threadIdx.x; lx < lox + ex; lx += 32) {
-        const int li = lrow + lx;
-        const int gx = x0 + lx;
-        const float rc = cur[li], vxc = su[li], vyc = sw[li];
-        float acc = 0.f;
-        for (int j = 0; j < s.n; ++j) {
-          bool valid = (row_ok >> j) & 1u;
-          if (!g.px && s.ox[j]) {
-            const int c = gx + s.ox[j];
-            valid = valid && c >= 0 && c < g.nx;
+  // the masks' bits: offset o of an axis of reach r at bit o + r
+  auto axis_bits = [](int c, int r, int n_, int periodic) {
+    int m = 0;
+    for (int o = -r; o <= r; ++o)
+      m |= (int)(periodic || (c + o >= 0 && c + o < n_)) << (o + r);
+    return m;
+  };
+  for (int x = tid; x < W; x += kBrickThreads)
+    xmask[x] = axis_bits(x0 + x, g.rx, g.nx, g.px);
+  for (int y = tid; y < H; y += kBrickThreads)
+    ymask[y] = axis_bits(y0 + y, g.ry, g.ny, g.py) << 5;
+
+  // the staged elements of this thread: element e = tid + m * threads
+  // of a plane's [3][WH] block, its offset in a z-plane of the grid
+  // (wrapped; -1 beyond a non-periodic edge)
+  int gofs[kBrickElems];
+#pragma unroll
+  for (int m = 0; m < kBrickElems; ++m) {
+    const int e = tid + m * kBrickThreads;
+    const int r = e % WH, y = r / W;
+    int gx = x0 + r - y * W, gy = y0 + y;
+    gofs[m] = e < 3 * WH && wrap(gx, g.nx, g.px) && wrap(gy, g.ny, g.py)
+                  ? gx + g.nx * gy : -1;
+  }
+  T pend[kBrickElems];
+  auto fetch = [&](int q) {
+    int gz = z0 + q;
+    const bool ok = wrap(gz, g.nz, g.pz);
+    const long long zoff = nxy * gz;
+#pragma unroll
+    for (int m = 0; m < kBrickElems; ++m) {
+      const int e = tid + m * kBrickThreads;
+      const T* src = e < WH ? rho : (e < 2 * WH ? vx : vy);
+      pend[m] = ok && gofs[m] >= 0 ? src[zoff + gofs[m]]
+                                   : Store<T>::pack(0.f);
+    }
+  };
+  auto land = [&](int q) {
+    float* dst = sm + (q % QI) * 3 * WH;
+#pragma unroll
+    for (int m = 0; m < kBrickElems; ++m) {
+      const int e = tid + m * kBrickThreads;
+      if (e < 3 * WH) dst[e] = Store<T>::load(pend[m]);
+    }
+  };
+  // the slot tables of iteration i: entry (t, j) holds, for level t,
+  // slot j's neighbour offsets (level t - 1's density, vx) and mask
+  // bits, and its face signs; entry (t, n) the cell itself
+  auto tables = [&](int i) {
+    int4* tb = tab + (i & 1) * K * (n + 1);
+    for (int e = tid; e < K * (n + 1); e += kBrickThreads) {
+      const int t = e / (n + 1) + 1, j = e % (n + 1);
+      const bool c = j == n;
+      const int ox = c ? 0 : s.ox[j], oy = c ? 0 : s.oy[j];
+      const int oz = c ? 0 : s.oz[j];
+      const int q = i - t * sk + oz;
+      if (q < 0) continue;  // level t is not active yet
+      const int d = ox + W * oy;
+      const int in = (q % QI) * 3 * WH;
+      const int r = t == 1 ? in : lv0 + ((t - 2) * QL + q % QL) * WH;
+      const int need = (1 << (ox + g.rx)) | (1 << (5 + oy + g.ry)) |
+                       (1 << (10 + oz + g.rz));
+      const int face = c ? 0 : (s.fx[j] + 1) | ((s.fy[j] + 1) << 2);
+      tb[e] = make_int4(r + d, in + WH + d, need, face);
+    }
+  };
+
+  fetch(0);
+  land(0);
+  tables(0);
+  __syncthreads();
+  for (int i = 0; i < N; ++i) {
+    if (i + 1 < NI) fetch(i + 1);
+    tables(i + 1);
+    const int4* tb = tab + (i & 1) * K * (n + 1);
+    for (int t = 1; t <= K; ++t) {
+      const int q = i - t * sk;  // this level's plane
+      if (q >= t * g.rz && q < NI - t * g.rz) {
+        int gz = z0 + q;  // unwrapped
+        int zm = 0;
+        for (int o = -g.rz; o <= g.rz; ++o)
+          zm |= (int)(g.pz || (gz + o >= 0 && gz + o < g.nz))
+                << (10 + o + g.rz);
+        const int4* tt = tb + (t - 1) * (n + 1);
+        const int4 ce = tt[n];
+        const int lx = t * g.rx, ly = t * g.ry;
+        const int cw = W - 2 * lx, ch = H - 2 * ly;
+        float* dst = sm + lv0 + ((t - 1) * QL + q % QL) * WH;
+        for (int c = tid; c < cw * ch; c += kBrickThreads) {
+          const int y = ly + c / cw, x = lx + c % cw;
+          const int li = x + W * y;
+          const int m = xmask[x] | ymask[y] | zm;
+          const float rc = sm[ce.x + li];
+          const float vxc = sm[ce.y + li], vyc = sm[ce.y + WH + li];
+          float acc = 0.f;
+#pragma unroll 4
+          for (int j = 0; j < n; ++j) {
+            const int4 e = tt[j];
+            const bool valid = (m & e.z) == e.z;
+            const float rn = sm[e.x + li];
+            const int fx = (e.w & 3) - 1, fy = (e.w >> 2) - 1;
+            acc = face(acc, rc, rn, vxc, sm[e.y + li], c0, valid && fx, fx);
+            acc = face(acc, rc, rn, vyc, sm[e.y + WH + li], c1, valid && fy,
+                       fy);
           }
-          const int ln = li + s.ox[j] + sy * s.oy[j] + sz * s.oz[j];
-          const float rn = valid ? cur[ln] : 0.f;
-          const float vxn = valid ? su[ln] : 0.f;
-          const float vyn = valid ? sw[ln] : 0.f;
-          acc = face_term(acc, rc, rn, vxc, vxn, c0, valid, s.fx[j]);
-          acc = face_term(acc, rc, rn, vyc, vyn, c1, valid, s.fy[j]);
-        }
-        const float res = rc + acc;
-        if (last) {
-          // the interior: gx, gy, gz >= 0; ragged bricks stop at the edge
-          if (gx < g.nx && gy < g.ny && gz < g.nz)
-            out[gx + (long long)g.nx * gy + nxy * gz] = Store<T>::pack(res);
-        } else {
-          nxt[li] = round_to<T>(res);
+          const float res = rc + acc;
+          if (t < K) {
+            dst[li] = round_to<T>(res);
+          } else {
+            int gx = x0 + x, gy = y0 + y;
+            if (gx < g.nx && gy < g.ny)
+              out[gx + (long long)g.nx * gy + nxy * gz] = Store<T>::pack(res);
+          }
         }
       }
+      if (t < K) __syncthreads();
     }
-    if (!last) {
-      __syncthreads();
-      float* tmp = cur;
-      cur = nxt;
-      nxt = tmp;
-    }
+    if (i + 1 < NI) land(i + 1);
+    __syncthreads();
   }
 }
 
@@ -433,17 +608,6 @@ bool is_face4(const int* si, int n_slots) {
   return true;
 }
 
-template <typename T, int K>
-int launch_planes(const void* rho, const void* vx, const void* vy, void* out,
-                  const Geom& g, float c0, float c1, long long blocks,
-                  void* stream) {
-  constexpr int strips = (16 + 2 * K + kStrip - 1) / kStrip;
-  bulk_planes_k<T, K><<<(unsigned)blocks, dim3(kLanesX, strips), 0,
-                        (cudaStream_t)stream>>>(
-      (const T*)rho, (const T*)vx, (const T*)vy, (T*)out, g, c0, c1);
-  return (int)cudaGetLastError();
-}
-
 // Check the launch against the card's limits and opt the kernel into
 // its dynamic shared memory.
 template <typename K>
@@ -451,6 +615,33 @@ int prepare(K kernel, size_t smem, long long blocks) {
   if (smem > kMaxSmem || blocks > INT_MAX) return (int)cudaErrorInvalidValue;
   return (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <typename T, int K, bool MASK>
+int launch_planes(const void* rho, const void* vx, const void* vy, void* out,
+                  const Geom& g, float c0, float c1, bool vec,
+                  long long blocks, void* stream) {
+  const size_t smem = plane_smem(K, sizeof(T));
+  int rc = prepare(bulk_planes_k<T, K, MASK>, smem, blocks);
+  if (rc != 0) return rc;
+  bulk_planes_k<T, K, MASK><<<(unsigned)blocks, g.bx + 2 * kPadX, smem,
+                              (cudaStream_t)stream>>>(
+      (const T*)rho, (const T*)vx, (const T*)vy, (T*)out, g, c0, c1, vec);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int K>
+int launch_planes(const void* rho, const void* vx, const void* vy, void* out,
+                  const Geom& g, float c0, float c1, long long blocks,
+                  void* stream) {
+  constexpr int V = 16 / sizeof(T);
+  const bool vec = g.nx % V == 0 &&
+                   ((uintptr_t)rho | (uintptr_t)vx | (uintptr_t)vy) % 16 == 0;
+  if (g.px && g.py)
+    return launch_planes<T, K, false>(rho, vx, vy, out, g, c0, c1, vec,
+                                      blocks, stream);
+  return launch_planes<T, K, true>(rho, vx, vy, out, g, c0, c1, vec, blocks,
+                                   stream);
 }
 
 template <typename T>
@@ -469,10 +660,10 @@ int launch(int route, const void* rho, const void* vx, const void* vy,
     return (int)cudaErrorInvalidValue;
   const bool face = route == 0;
   // the plane route is the face set's: reach 1 in x and y, none in z,
-  // on the kernel's own tile
-  const int tile_y = (16 + 2 * g.k + kStrip - 1) / kStrip * kStrip - 2 * g.k;
-  if (face && (!is_face4(si, n_slots) || g.bx != kTileX ||
-               g.by != tile_y || g.rx != 1 || g.ry != 1 || g.rz != 0))
+  // a band of whole warps and one z-plane a block
+  if (face && (!is_face4(si, n_slots) || g.bx % 32 != 0 ||
+               g.bx > kBandMax || g.bz != 1 || g.rx != 1 || g.ry != 1 ||
+               g.rz != 0))
     return (int)cudaErrorInvalidValue;
   if (route != 0 && route != 1) return (int)cudaErrorInvalidValue;
   g.hx = g.k * g.rx; g.hy = g.k * g.ry; g.hz = g.k * g.rz;
@@ -484,9 +675,8 @@ int launch(int route, const void* rho, const void* vx, const void* vy,
   if (e != cudaSuccess) return (int)e;
   long long blocks = (long long)g.nbx * g.nby * g.nbz;
   if (face) {
-    // static shared memory: two density buffers of the padded window,
-    // 2 * 34 * 162 floats at k = 8 (44,064 B)
-    if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+    // dynamic shared memory: the input ring and the levels' rows,
+    // 45,424 B at a 256 band, k = 8, float32
     switch (g.k) {
       case 2: return launch_planes<T, 2>(rho, vx, vy, out, g, c0, c1,
                                          blocks, stream);
@@ -504,11 +694,14 @@ int launch(int route, const void* rho, const void* vx, const void* vy,
                                           blocks, stream);
     }
   }
-  // the shared-memory rule of PassSpec.deep: 16 B a window cell
-  const size_t smem = (size_t)kCellBytes * g.wx * g.wy * g.wz;
-  const dim3 threads(32, kWarps);
+  // the bricks: the rule of PassSpec.deep (reach at most kMaxReach an
+  // axis, the staged plane within the threads' elements, the rings
+  // within kBrickSmem, two blocks an SM)
   Slots s;
   s.n = n_slots;
+  if (g.rx > kMaxReach || g.ry > kMaxReach || g.rz > kMaxReach ||
+      3 * g.wx * g.wy > kBrickElems * kBrickThreads)
+    return (int)cudaErrorInvalidValue;
   for (int j = 0; j < n_slots; ++j) {
     s.ox[j] = si[5 * j]; s.oy[j] = si[5 * j + 1]; s.oz[j] = si[5 * j + 2];
     s.fx[j] = si[5 * j + 3]; s.fy[j] = si[5 * j + 4];
@@ -517,9 +710,11 @@ int launch(int route, const void* rho, const void* vx, const void* vy,
         -s.oy[j] > g.ry || s.oz[j] > g.rz || -s.oz[j] > g.rz)
       return (int)cudaErrorInvalidValue;
   }
+  const size_t smem = brick_smem(g.wx, g.wy, g.k, g.rz, n_slots);
+  if (smem > kBrickSmem) return (int)cudaErrorInvalidValue;
   int rc = prepare(bulk_bricks_k<T>, smem, blocks);
   if (rc != 0) return rc;
-  bulk_bricks_k<T><<<(unsigned)blocks, threads, smem,
+  bulk_bricks_k<T><<<(unsigned)blocks, kBrickThreads, smem,
                      (cudaStream_t)stream>>>(
       (const T*)rho, (const T*)vx, (const T*)vy, (T*)out, g, s, c0, c1);
   return (int)cudaGetLastError();
@@ -528,11 +723,11 @@ int launch(int route, const void* rho, const void* vx, const void* vy,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (all four arrays the same type).
-// route: 0 = plane tiles (the face set), 1 = bricks (any slot set).
+// route: 0 = the plane route (the face set), 1 = bricks (any slot set).
 // geom: nx, ny, nz, px, py, pz, k, bx, by, bz, rx, ry, rz: the interior
-// of a block's window and the reach of one sub-step per axis (plane
-// tiles: 128 x (16 + 2k rounded up to 8, less 2k), bz the z-planes a
-// block marches, reach 1, 1, 0). slots: n_slots rows of
+// of a block's window and the reach of one sub-step per axis (the plane
+// route: bx a band of whole warps up to 256 columns, by the rows of a
+// y segment, bz 1, reach 1, 1, 0). slots: n_slots rows of
 // (ox, oy, oz, fx, fy). `out` must not alias an input.
 extern "C" int dccrg_bulk_upwind_k(int dtype, int route, const void* rho,
                                    const void* vx, const void* vy, void* out,

@@ -10,10 +10,12 @@ With ``DCCRG_BULK_SPP=k`` (:func:`bulk_steps_per_pass`, 1..8, the
 reference's knob) the loop runs as the reference's does: ``n // k``
 launches of **kernel A's k-deep pass** (``bulk_pass_k``,
 csrc/bulk_pass_k.cu: k sub-steps on chip, the carried field rounded to
-storage after each), then ``n % k`` one-step launches. A block of the
-k-deep pass holds a window with a halo of k reaches on chip; a slot set
-whose window does not fit (:meth:`PassSpec.deep` declines it before any
-launch) runs one-step launches only, as the reference's executor
+storage after each), then ``n % k`` one-step launches. The k-deep pass
+streams the sub-steps through the grid as time-skewed levels: along y
+in each z-plane for the face set, along z in (x, y) bricks for any
+other slot set. The step loop takes the bricks only where they beat
+one-step launches (:meth:`PassSpec.deep_pays`), and runs one-step
+launches where the rule declines a set, as the reference's executor
 declines a spec whose halo does not fit.
 
 The TPU kernel walked flat ``[G, 8, 128]`` windows and left the rows
@@ -106,12 +108,38 @@ _FACE4 = ((0, -1, 0, 0, -1), (-1, 0, 0, -1, 0), (1, 0, 0, 1, 0),
 _TILE = (128, 16)  # plane-tile route: cells of x and rows of y per block
 _TARGET_BLOCKS = 2048  # z is cut into chunks until about this many blocks
 
-# the k-deep pass's bricks (csrc/bulk_pass_k.cu): a block stages its
-# window as four floats a cell (density twice, vx, vy) and may opt into
-# this much shared memory on sm_90
+# the k-deep pass (csrc/bulk_pass_k.cu). Its plane route: bands of at
+# most _DEEP_BAND interior columns (whole warps), _DEEP_PAD lanes each
+# side of a band, _DEEP_STAGE staged halo columns each side, y segments
+# of at most _DEEP_SEG rows, cut down to _DEEP_SEG_MIN rows until about
+# _DEEP_BLOCKS blocks fill the card. Its bricks: _BRICK_THREADS threads
+# a block, at most _BRICK_ELEMS staged elements a thread (a plane's
+# three fields), a reach of at most _BRICK_REACH an axis, two blocks an
+# SM in _BRICK_SMEM bytes each (an SM's 228 KB, less the 1 KB the
+# system keeps per block, halved), z segments of at least 16 planes
+# until about _BRICK_BLOCKS blocks fill the card. A block may opt into
+# _MAX_SMEM bytes of shared memory on sm_90.
+_DEEP_BAND, _DEEP_PAD, _DEEP_STAGE, _DEEP_SEG = 256, 16, 8, 256
+_DEEP_SEG_MIN, _DEEP_BLOCKS = 64, 1024
 _MAX_SMEM = 232448
-_DEEP_CELL_BYTES = 16
+_BRICK_THREADS, _BRICK_ELEMS, _BRICK_REACH = 512, 8, 2
+_BRICK_SMEM = (233472 - 2 * 1024) // 2
+_BRICK_BLOCKS = 264
+# the step loop takes the bricks only where they beat k one-step
+# launches of the direct kernel on the card (PERF.md): at this k, at
+# least this many face terms a cell (20 and 36 paid, 12 broke even, 4
+# and 5 lost) and this many blocks (128 paid, 54 did not)
+_BRICK_PAYS_K, _BRICK_PAYS_TERMS, _BRICK_PAYS_BLOCKS = 2, 20, 128
 _DEEP_ROUTES = ("planes", "bricks")
+
+
+def _brick_smem(w, h, k, rz, n):
+    """Shared memory of a brick block (csrc/bulk_pass_k.cu,
+    ``brick_smem``): the input ring and the levels' rings of a ``w`` x
+    ``h`` window, the slot tables of ``n`` slots, the masks."""
+    sk = max(rz, 1)
+    rings = 4 * w * h * (3 * (k * sk + rz + 2) + (k - 1) * (sk + rz + 1))
+    return -(-rings // 16) * 16 + 16 * 2 * k * (n + 1) + 4 * (w + h)
 
 
 class PassSpec:
@@ -156,52 +184,111 @@ class PassSpec:
                      for d in range(3))
 
     def deep(self, k):
-        """The k-deep pass's ``(route, interior)``: a block's window is
-        ``interior`` cells (x, y, z) plus a halo of ``k`` times
-        :meth:`reach` on each side. None for ``k`` < 2, and where the
-        rule declines the slot set (the step loop then runs one-step
-        launches).
+        """The k-deep pass's ``(route, interior)`` for this slot set:
+        None for ``k`` < 2 or > 8, and where the kernel declines the
+        set. :meth:`deep_pays` says whether the step loop takes it.
 
-        The rule: the face set takes ``"planes"`` at every k: a block
-        owns one 128 x ``ty`` (x, y) tile, ``ty`` = 16 + 2k rounded up
-        to a multiple of 8, less 2k, so that the window's rows fill
-        whole strips of 8, and marches the interior's z extent (its
-        z-planes, cut into chunks as the one-step plane tiles cut them);
-        its two density buffers, 44,064 B at k = 8, always fit. Any
-        other set takes ``"bricks"``, staged at 16 B a window cell: a
-        window row of 64 cells in x (or the next multiple of 32 that
-        leaves 16 interior cells), 16 cells of y and 4 of z, clipped to
-        the grid and halved (y, then z, then x down to 8) until the
-        window fits ``_MAX_SMEM``; a set whose smallest brick does not
-        fit is declined. The C launcher checks the same bound."""
+        The face set takes ``"planes"``: a block owns one z-plane's band
+        of ``bx`` interior columns (x cut into equal bands of at most
+        256, rounded up to whole warps) and a y segment of ``by`` rows
+        (y cut into equal segments of at most 256 rows, and of at least
+        64 while fewer than about 1024 blocks would fill the card),
+        ``bz`` = 1, and streams the k sub-steps through it as
+        time-skewed levels. Any other set takes ``"bricks"``: a block
+        owns a ``bx`` x ``by`` (x, y) tile with a halo of k reaches each
+        side and a segment of ``bz`` z-planes, and streams the k
+        sub-steps along z as time-skewed levels; the tile starts at 32 x
+        32 (clipped to the grid) and is halved (y down to 4, then x down
+        to 8) until its rings fit two blocks an SM and a staged plane
+        fits the threads' elements; z is cut into segments of at least
+        16 planes until about 264 blocks fill the card. A set with a
+        reach above 2, or whose smallest tile does not fit, is declined.
+        The C launcher checks the same bounds."""
         k = int(k)
         if not 2 <= k <= 8:
             return None
         if self.face4:
             nx, ny, nz = self.dims
-            ty = -(-(16 + 2 * k) // 8) * 8 - 2 * k
-            tiles = -(-nx // _TILE[0]) * -(-ny // ty)
-            chunks = max(1, min(nz, -(-_TARGET_BLOCKS // tiles)))
-            return "planes", (_TILE[0], ty, -(-nz // chunks))
-        halo = tuple(k * r for r in self.reach())
-
-        def smem(b):
-            cells = 1
-            for d in range(3):
-                cells *= b[d] + 2 * halo[d]
-            return _DEEP_CELL_BYTES * cells
-
-        row = 64
-        while row - 2 * halo[0] < 16:
-            row += 32
-        b = [min(row - 2 * halo[0], self.dims[0]), min(16, self.dims[1]),
-             min(4, self.dims[2])]
-        for axis, floor in ((1, 1), (2, 1), (0, 8)):
-            while smem(b) > _MAX_SMEM and b[axis] > floor:
-                b[axis] = max(floor, b[axis] // 2)
-        if smem(b) > _MAX_SMEM:
+            bands = -(-nx // _DEEP_BAND)
+            band = -(-(-(-nx // bands)) // 32) * 32  # whole warps
+            segs = max(-(-ny // _DEEP_SEG),
+                       min(-(-ny // _DEEP_SEG_MIN),
+                           -(-_DEEP_BLOCKS // (bands * nz))))
+            return "planes", (band, -(-ny // segs), 1)
+        rx, ry, rz = self.reach()
+        if max(rx, ry, rz) > _BRICK_REACH:
             return None
-        return "bricks", tuple(b)
+        nx, ny, nz = self.dims
+        n = len(self.slots)
+
+        def fits(b):
+            w, h = b[0] + 2 * k * rx, b[1] + 2 * k * ry
+            return (_brick_smem(w, h, k, rz, n) <= _BRICK_SMEM
+                    and 3 * w * h <= _BRICK_THREADS * _BRICK_ELEMS)
+
+        b = [min(32, nx), min(32, ny)]
+        for axis, floor in ((1, 4), (0, 8)):
+            while not fits(b) and b[axis] > floor:
+                b[axis] = max(floor, b[axis] // 2)
+        if not fits(b):
+            return None
+        tiles = -(-nx // b[0]) * -(-ny // b[1])
+        segs = max(1, min(-(-nz // 16), -(-_BRICK_BLOCKS // tiles)))
+        return "bricks", (b[0], b[1], -(-nz // segs))
+
+    def deep_pays(self, k):
+        """Whether the step loop runs ``k``-deep passes: on the plane
+        route always; on the bricks where they beat k one-step launches
+        of the direct kernel, as measured on the card (PERF.md): at k =
+        2, with at least 20 face terms a cell (the 26-cube has 36) and
+        at least 128 blocks. From k = 3 the readings won and lost at
+        neighbouring sizes, so the loop declines them. Elsewhere
+        ``bulk_pass_k`` still launches the bricks when called."""
+        deep = self.deep(k)
+        if deep is None:
+            return False
+        route, (bx, by, bz) = deep
+        if route == "planes":
+            return True
+        nx, ny, nz = self.dims
+        blocks = -(-nx // bx) * -(-ny // by) * -(-nz // bz)
+        terms = sum((fx != 0) + (fy != 0) for *_, fx, fy in self.slots)
+        return (k == _BRICK_PAYS_K and terms >= _BRICK_PAYS_TERMS
+                and blocks >= _BRICK_PAYS_BLOCKS)
+
+    def deep_cost(self, k, itemsize=4):
+        """``(work, bytes)`` of one k-deep pass over this grid, each as a
+        multiple of the least: thread-cells computed (idle lanes and
+        recomputed halo included) per useful cell-step, and the device
+        memory bytes the blocks read and write (each staged element read
+        once a block) per the bound's ``bytes_moved``. None where
+        :meth:`deep` is."""
+        deep = self.deep(k)
+        if deep is None:
+            return None
+        route, (bx, by, bz) = deep
+        nx, ny, nz = self.dims
+        nbx, nby, nbz = -(-nx // bx), -(-ny // by), -(-nz // bz)
+        if route == "planes":
+            # every segment of every band walks its rows plus 2k
+            lanes = bx + 2 * _DEEP_PAD
+            iters = ny + 2 * k * nby
+            work = nbx * lanes * iters * k * nz
+            read = 3 * nbx * (bx + 2 * _DEEP_STAGE) * iters * nz
+        else:
+            # level t computes its window less t reaches each side, over
+            # the segment's planes and (k - t) reaches of z each side;
+            # every input plane of the segment's halo is read once
+            rx, ry, rz = self.reach()
+            w, h = bx + 2 * k * rx, by + 2 * k * ry
+            planes = nz + 2 * k * rz * nbz
+            work = nbx * nby * sum(
+                (w - 2 * t * rx) * (h - 2 * t * ry)
+                * (planes - 2 * t * rz * nbz) for t in range(1, k + 1))
+            read = 3 * nbx * nby * w * h * planes
+        cells = nx * ny * nz
+        return (work / (cells * k),
+                (read + cells) * itemsize / self.bytes_moved(itemsize))
 
     def bytes_moved(self, itemsize, n_in=3, n_out=1):
         """HBM bytes of one step, or of one k-deep pass, at the bound:
@@ -525,10 +612,10 @@ def compile_bulk_step_loop(grid, kernel, fields_in, fields_out,
     single-device closed-form plan: with ``k`` = :func:`bulk_steps_per_pass`
     (read here, and part of the program's key), ``n_steps // k``
     k-deep passes and then ``n_steps % k`` one-step launches of kernel
-    A (``n_steps`` one-step launches at k = 1, or where ``spec.deep(k)``
-    declines), and nothing else on the device. Same ``(fn, tables,
-    static_in)`` contract (no tables), ``fn.step_path == "bulk"``;
-    returns None when ineligible."""
+    A (``n_steps`` one-step launches at k = 1, or where
+    ``spec.deep_pays(k)`` is false), and nothing else on the device.
+    Same ``(fn, tables, static_in)`` contract (no tables),
+    ``fn.step_path == "bulk"``; returns None when ineligible."""
     fields_in = tuple(fields_in)
     fields_out = tuple(fields_out)
     if not _eligible_fields(grid, kernel, fields_in, fields_out):
@@ -540,7 +627,7 @@ def compile_bulk_step_loop(grid, kernel, fields_in, fields_out,
     if spec is None:
         return None
     k = bulk_steps_per_pass()
-    deep = spec.deep(k) is not None
+    deep = spec.deep_pays(k)
     L, R = grid.plan.L, grid.plan.R
     static_in = tuple(f for f in fields_in if f not in fields_out)
     key = ("bulksteploop", kernel, fields_in, fields_out, n_extra, L, R,

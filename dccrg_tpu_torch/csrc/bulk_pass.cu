@@ -1,5 +1,6 @@
-// Bulk stencil pass of the grid step loop: one sub-step of the upwind
-// advection flux over a single-device closed-form plan.
+// Bulk stencil pass of the grid step loop: one sub-step of a device flux
+// (csrc/fluxes.cuh: the upwind advection flux, the fleet twins diffuse
+// and advect_x) over a single-device closed-form plan.
 //
 // Replaces the Pallas kernel `make_bulk_pass`
 // (dccrg_tpu/ops/roll_executor.py:183). That kernel walks the flat row
@@ -33,33 +34,50 @@
 // are not a multiple of V, or unaligned arrays, take the same kernel
 // with element-wise loads and stores.
 //
-// Direct (bulk_upwind_direct), for every other slot set (the 26-cube of
-// a neighbourhood of length 1, user neighbourhoods): one cell per
-// thread, the runtime slot loop, neighbours read straight from device
-// memory through the read-only cache.
+// Direct (bulk_direct), for every other flux and slot set (the upwind
+// flux on the 26-cube of a neighbourhood of length 1 and on user
+// neighbourhoods; diffuse and advect_x on the neighbourhoods of length
+// 0, 1 and 2): a thread owns one (x, y) column and walks a chunk of
+// kDirectZ consecutive z-planes of it, so the planes a cell's z
+// neighbours lie in are the block's own, in L1 or L2; the flux's slot
+// table (at most 124 slots, from a device buffer) is staged in shared
+// memory once a block with each slot's flat row offset. A cell at least
+// the table's reach inside the grid on every axis reads each neighbour
+// at its row plus that offset, with no wrap and no mask (every warp but
+// those at the faces); the rest wrap each coordinate. The slot loop
+// runs in the table's order, unrolled by four so a group's loads issue
+// together. At 512^3 float32 the single-field fluxes move 1 field in
+// and 1 out, 2 * 2^27 * 4 B, 0.3205 ms at 3.35 TB/s.
 //
-// The flux is the upwind flux of dccrg_tpu/models/advection.py:107-129
+// The upwind flux is that of dccrg_tpu/models/advection.py:107-129
 // over fields density, vx, vy, with its arithmetic in the same order
 // (per slot: x face then y face; acc - where(face_pos, up_pos*m, 0),
 // then + where(face_neg, up_neg*m, 0)). A face term whose face flag is
 // 0, or whose slot is masked, adds or subtracts an exact 0 to a sum that
 // is never -0.0 (it starts at +0.0 and every step ends in an addition),
 // so the plane tiles leave those terms out. Storage is float32 or
-// bfloat16, the arithmetic float32, the result rounded to the storage
-// type once. Built with --fmad=false, so results equal the plain
-// PyTorch version bit for bit.
+// bfloat16; the upwind arithmetic is float32, its result rounded to the
+// storage type once; the single-field twins round each term and partial
+// sum to the storage type (fluxes.cuh). Built with --fmad=false, so
+// results equal the plain PyTorch version bit for bit.
 //
-// C entry point: dccrg_bulk_upwind(); returns cudaGetLastError() of the
-// launch (0 on success).
+// C entry points: dccrg_bulk_upwind() (the face set's plane tiles) and
+// dccrg_bulk_direct() (any flux, any slot table); each returns
+// cudaGetLastError() of the launch (0 on success).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <climits>
 #include <cstdint>
 
+#include "fluxes.cuh"
+
 namespace {
 
-constexpr int kMaxSlots = 26;
+using namespace fluxes;
+
+constexpr int kMaxSlots = 124;  // the cube of a neighbourhood of length 2
+constexpr int kDirectZ = 8;     // direct route: z-planes a block walks
 constexpr int kThreads = 256;
 constexpr int kTileX = 128, kTileY = 16;  // plane tile: x cells, y rows
 constexpr int kPad = 8;                   // x halo columns on each side
@@ -75,26 +93,12 @@ struct Geom {
   int nx, ny, nz;  // grid extents
   int px, py, pz;  // periodic flags
   int zc;          // z-planes per block (plane tiles)
+  int rx, ry, rz;  // the slot table's reach per axis (direct route)
 };
 
-struct Slots {
-  int n;
-  int ox[kMaxSlots], oy[kMaxSlots], oz[kMaxSlots];  // cell offsets
-  int fx[kMaxSlots], fy[kMaxSlots];  // face sign in x / y: +1, -1 or 0
-};
-
-template <typename T> struct Store;
-template <> struct Store<float> {
-  static __device__ __forceinline__ float load(float v) { return v; }
-  static __device__ __forceinline__ float pack(float v) { return v; }
-};
-template <> struct Store<__nv_bfloat16> {
-  static __device__ __forceinline__ float load(__nv_bfloat16 v) {
-    return __bfloat162float(v);
-  }
-  static __device__ __forceinline__ __nv_bfloat16 pack(float v) {
-    return __float2bfloat16_rn(v);
-  }
+// a flux's fields, field 0 the carried one
+template <typename T> struct Fields {
+  const T* f[3];
 };
 
 // 16 bytes of shared memory as floats, and V floats back to 16 bytes
@@ -139,31 +143,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Wrap a coordinate into [0, n) on a periodic axis; false when it lies
-// outside a non-periodic one.
-__device__ __forceinline__ bool wrap(int& c, int n, int periodic) {
-  if (c >= 0 && c < n) return true;
-  if (!periodic) return false;
-  c %= n;
-  if (c < 0) c += n;
-  return true;
-}
-
-// One dimension's face term of one slot (models/advection.py:118-125).
-__device__ __forceinline__ float face_term(float acc, float rc, float rn,
-                                           float vc, float vn, float c,
-                                           bool valid, int face) {
-  const float v = 0.5f * (vc + vn);
-  const float up_pos = v >= 0.f ? rc : rn;
-  const float up_neg = v >= 0.f ? rn : rc;
-  const float m = v * c;
-  const bool fp = valid && face == 1;
-  const bool fn = valid && face == -1;
-  acc = acc - (fp ? up_pos * m : 0.f);
-  acc = acc + (fn ? up_neg * m : 0.f);
-  return acc;
 }
 
 // Plane tiles of the face set, unrolled.
@@ -302,39 +281,65 @@ bulk_planes(const T* __restrict__ rho, const T* __restrict__ vx,
   }
 }
 
-// Any other slot set: one cell per thread, neighbours read from device
-// memory.
-template <typename T>
+// Any other flux or slot set: a column of kDirectZ cells per thread,
+// the slot table in shared memory, neighbours read from device memory.
+template <typename T, typename F>
 __global__ void __launch_bounds__(kThreads)
-bulk_upwind_direct(const T* __restrict__ rho, const T* __restrict__ vx,
-                   const T* __restrict__ vy, T* __restrict__ out,
-                   const Geom g, const Slots s, const float c0,
-                   const float c1) {
+bulk_direct(const Fields<T> in, T* __restrict__ out, const Geom g,
+            const int4* __restrict__ slots, const int n_slots,
+            const Coef k) {
+  constexpr int NF = F::kFields;
+  __shared__ int4 tab[kMaxSlots];
+  __shared__ long long dl[kMaxSlots];  // each slot's flat row offset
+  const long long nxy = (long long)g.nx * g.ny;
+  const int tid = threadIdx.x + blockDim.x * threadIdx.y;
+  for (int j = tid; j < n_slots; j += kThreads) {
+    const int4 e = slots[j];
+    tab[j] = e;
+    dl[j] = e.x + (long long)g.nx * e.y + nxy * e.z;
+  }
+  __syncthreads();
   const int gx = blockIdx.x * 32 + threadIdx.x;
   const int gy = blockIdx.y * blockDim.y + threadIdx.y;
   if (gx >= g.nx || gy >= g.ny) return;
-  const long long nxy = (long long)g.nx * g.ny;
-  for (int gz = blockIdx.z; gz < g.nz; gz += gridDim.z) {
+  const bool in_xy = gx >= g.rx && gx < g.nx - g.rx && gy >= g.ry &&
+                     gy < g.ny - g.ry;
+  const int z0 = blockIdx.z * kDirectZ;
+  const int z1 = min(z0 + kDirectZ, g.nz);
+  for (int gz = z0; gz < z1; ++gz) {
     const long long f = gx + (long long)g.nx * gy + nxy * gz;
-    const float rc = Store<T>::load(rho[f]);
-    const float vxc = Store<T>::load(vx[f]);
-    const float vyc = Store<T>::load(vy[f]);
+    float c[NF];
+#pragma unroll
+    for (int q = 0; q < NF; ++q) c[q] = Store<T>::load(in.f[q][f]);
     float acc = 0.f;
-    for (int j = 0; j < s.n; ++j) {
-      int tx = gx + s.ox[j], ty = gy + s.oy[j], tz = gz + s.oz[j];
-      const bool valid = wrap(tx, g.nx, g.px) && wrap(ty, g.ny, g.py) &&
-                         wrap(tz, g.nz, g.pz);
-      float rn = 0.f, vxn = 0.f, vyn = 0.f;
-      if (valid) {
-        const long long fn = tx + (long long)g.nx * ty + nxy * tz;
-        rn = Store<T>::load(rho[fn]);
-        vxn = Store<T>::load(vx[fn]);
-        vyn = Store<T>::load(vy[fn]);
+    if (in_xy && gz >= g.rz && gz < g.nz - g.rz) {
+#pragma unroll 4
+      for (int j = 0; j < n_slots; ++j) {
+        const long long fn = f + dl[j];
+        float n[NF];
+#pragma unroll
+        for (int q = 0; q < NF; ++q) n[q] = Store<T>::load(in.f[q][fn]);
+        acc = F::template add<T>(acc, c, n, true, tab[j].w, k);
       }
-      acc = face_term(acc, rc, rn, vxc, vxn, c0, valid, s.fx[j]);
-      acc = face_term(acc, rc, rn, vyc, vyn, c1, valid, s.fy[j]);
+    } else {
+#pragma unroll 4
+      for (int j = 0; j < n_slots; ++j) {
+        const int4 e = tab[j];
+        int tx = gx + e.x, ty = gy + e.y, tz = gz + e.z;
+        const bool valid = wrap(tx, g.nx, g.px) && wrap(ty, g.ny, g.py) &&
+                           wrap(tz, g.nz, g.pz);
+        float n[NF];
+#pragma unroll
+        for (int q = 0; q < NF; ++q) n[q] = 0.f;
+        if (valid) {
+          const long long fn = tx + (long long)g.nx * ty + nxy * tz;
+#pragma unroll
+          for (int q = 0; q < NF; ++q) n[q] = Store<T>::load(in.f[q][fn]);
+        }
+        acc = F::template add<T>(acc, c, n, valid, e.w, k);
+      }
     }
-    out[f] = Store<T>::pack(rc + acc);
+    out[f] = Store<T>::pack(F::template finish<T>(c, acc, k));
   }
 }
 
@@ -372,43 +377,73 @@ int launch(const void* rho, const void* vx, const void* vy, void* out,
   g.nx = gi[0]; g.ny = gi[1]; g.nz = gi[2];
   g.px = gi[3]; g.py = gi[4]; g.pz = gi[5];
   g.zc = gi[8];
-  if (n_slots < 0 || n_slots > kMaxSlots || g.nx < 1 || g.ny < 1 ||
-      g.nz < 1)
+  if (!is_face4(si, n_slots) || g.nx < 1 || g.ny < 1 || g.nz < 1 ||
+      gi[6] != kTileX || gi[7] != kTileY || g.zc < 1)
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  if (is_face4(si, n_slots)) {
-    if (gi[6] != kTileX || gi[7] != kTileY || g.zc < 1)
-      return (int)cudaErrorInvalidValue;
-    constexpr int V = 16 / sizeof(T);
-    const bool aligned = g.nx % V == 0 &&
-                         ((uintptr_t)rho | (uintptr_t)vx | (uintptr_t)vy |
-                          (uintptr_t)out) % 16 == 0;
-    return aligned ? launch_planes<T, true>(rho, vx, vy, out, g, c0, c1, stream)
-                   : launch_planes<T, false>(rho, vx, vy, out, g, c0, c1,
-                                             stream);
-  }
-  Slots s;
-  s.n = n_slots;
-  for (int j = 0; j < n_slots; ++j) {
-    s.ox[j] = si[5 * j]; s.oy[j] = si[5 * j + 1]; s.oz[j] = si[5 * j + 2];
-    s.fx[j] = si[5 * j + 3]; s.fy[j] = si[5 * j + 4];
-  }
+  constexpr int V = 16 / sizeof(T);
+  const bool aligned = g.nx % V == 0 &&
+                       ((uintptr_t)rho | (uintptr_t)vx | (uintptr_t)vy |
+                        (uintptr_t)out) % 16 == 0;
+  return aligned ? launch_planes<T, true>(rho, vx, vy, out, g, c0, c1, stream)
+                 : launch_planes<T, false>(rho, vx, vy, out, g, c0, c1,
+                                           stream);
+}
+
+template <typename T, typename F>
+int launch_direct(const void* const* in, void* out, const int* gi,
+                  const void* slots, int n_slots, Coef k, int device,
+                  void* stream) {
+  Geom g;
+  g.nx = gi[0]; g.ny = gi[1]; g.nz = gi[2];
+  g.px = gi[3]; g.py = gi[4]; g.pz = gi[5];
+  g.zc = 1;
+  g.rx = gi[6]; g.ry = gi[7]; g.rz = gi[8];
+  if (n_slots < 0 || n_slots > kMaxSlots || g.nx < 1 || g.ny < 1 ||
+      g.nz < 1 || (n_slots > 0 && slots == nullptr) || g.rx < 0 ||
+      g.ry < 0 || g.rz < 0)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  Fields<T> f;
+  for (int q = 0; q < 3; ++q)
+    f.f[q] = (const T*)in[q < F::kFields ? q : 0];
   const dim3 grid((g.nx + 31) / 32, (g.ny + kThreads / 32 - 1) /
-                  (kThreads / 32), g.nz < 65535 ? g.nz : 65535);
-  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
-  bulk_upwind_direct<T><<<grid, dim3(32, kThreads / 32), 0,
-                          (cudaStream_t)stream>>>(
-      (const T*)rho, (const T*)vx, (const T*)vy, (T*)out, g, s, c0, c1);
+                  (kThreads / 32), (g.nz + kDirectZ - 1) / kDirectZ);
+  if (grid.y > 65535 || grid.z > 65535) return (int)cudaErrorInvalidValue;
+  bulk_direct<T, F><<<grid, dim3(32, kThreads / 32), 0,
+                      (cudaStream_t)stream>>>(
+      f, (T*)out, g, (const int4*)slots, n_slots, k);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_direct(int flux, const void* const* in, void* out, const int* gi,
+                  const void* slots, int n_slots, Coef k, int device,
+                  void* stream) {
+  switch (flux) {
+    case Diffuse::kCode:
+      return launch_direct<T, Diffuse>(in, out, gi, slots, n_slots, k, device,
+                                       stream);
+    case AdvectX::kCode:
+      return launch_direct<T, AdvectX>(in, out, gi, slots, n_slots, k, device,
+                                       stream);
+    case UpwindXY::kCode:
+      return launch_direct<T, UpwindXY>(in, out, gi, slots, n_slots, k,
+                                        device, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (all four arrays the same type).
 // geom: nx, ny, nz, px, py, pz, tile x, tile y, z-planes per block.
-// The plane tiles (the face set) take tile 128 x 16; the direct route
-// ignores the tile. slots: n_slots rows of (ox, oy, oz, fx, fy).
+// The face set's plane tiles: tile 128 x 16, slots the four rows of
+// (ox, oy, oz, fx, fy) in kFace4's order; any other set takes
+// dccrg_bulk_direct.
 extern "C" int dccrg_bulk_upwind(int dtype, const void* rho, const void* vx,
                                  const void* vy, void* out, const int* geom,
                                  const int* slots, int n_slots, float c0,
@@ -419,6 +454,26 @@ extern "C" int dccrg_bulk_upwind(int dtype, const void* rho, const void* vx,
   if (dtype == 1)
     return launch<__nv_bfloat16>(rho, vx, vy, out, geom, slots, n_slots, c0,
                                  c1, device, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// dtype as above; flux: a functor's kCode (fluxes.cuh); in: the flux's
+// kFields field pointers, field 0 the carried one; geom: nx, ny, nz,
+// px, py, pz, and the table's reach rx, ry, rz (the largest |offset|
+// per axis: a cell that far inside the grid reads its neighbours
+// unwrapped); slots: a device buffer of n_slots int4 rows (ox, oy, oz,
+// code) in the neighbourhood's order, at most 124; a, b: Coef.
+extern "C" int dccrg_bulk_direct(int dtype, int flux, const void* const* in,
+                                 void* out, const int* geom,
+                                 const void* slots, int n_slots, float a,
+                                 float b, int device, void* stream) {
+  const Coef k = {a, b};
+  if (dtype == 0)
+    return launch_direct<float>(flux, in, out, geom, slots, n_slots, k,
+                                device, stream);
+  if (dtype == 1)
+    return launch_direct<__nv_bfloat16>(flux, in, out, geom, slots, n_slots,
+                                        k, device, stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,6 +1,7 @@
-// Temporally blocked bulk pass of the grid step loop: k sub-steps of the
-// upwind advection flux over a single-device closed-form plan in one
-// pass over device memory (DCCRG_BULK_SPP = k, 2..8).
+// Temporally blocked bulk pass of the grid step loop: k sub-steps of a
+// device flux (csrc/fluxes.cuh: the upwind advection flux, the fleet
+// twins diffuse and advect_x) over a single-device closed-form plan in
+// one pass over device memory (DCCRG_BULK_SPP = k, 2..8).
 //
 // Replaces the k >= 2 form of the Pallas kernel `make_bulk_pass`
 // (dccrg_tpu/ops/roll_executor.py:183; its sub-step loop :279-310). That
@@ -12,9 +13,9 @@
 // modulo the extent on a periodic axis (a halo wider than the grid
 // wraps more than once) and zero beyond a non-periodic edge, where the
 // slot's mask, taken from the unwrapped coordinate, drops it. The
-// carried density is rounded to the storage type after every sub-step,
+// carried field is rounded to the storage type after every sub-step,
 // as the reference rounds its carry (`carry = res.astype(dtypes[f])`,
-// :310); vx and vy are static over the pass.
+// :310); the upwind flux's vx and vy are static over the pass.
 //
 // Bound on the H100: bytes, as for one step, but spread over k steps.
 // At 512^3, float32, a pass reads 3 fields and writes 1: 4 * 2^27 * 4 B
@@ -41,26 +42,28 @@
 // land by cp.async six iterations ahead of use; the static face
 // coefficients live in registers; one barrier an iteration.
 //
-// Bricks (bulk_bricks_k), for every other slot set (the 26-cube of a
-// neighbourhood of length 1, user neighbourhoods): the same streaming
-// along z. A block owns an (x, y) tile with a halo of k reaches and a
+// Bricks (bulk_bricks_k), for every other flux and slot set (the upwind
+// flux on the 26-cube of a neighbourhood of length 1 and on user
+// neighbourhoods; diffuse and advect_x, one field staged a plane): the
+// same streaming along z. A block owns an (x, y) tile with a halo of k reaches and a
 // z segment; level t runs t planes (t times the z reach, if more)
 // behind the input, over the tile less t reaches, in rings of planes in
 // shared memory, the slot loop at run time in the direct kernel's order
-// of operations (csrc/bulk_pass.cu, bulk_upwind_direct). A set whose
+// of operations (csrc/bulk_pass.cu, bulk_direct). A set whose
 // reach exceeds 2 or whose smallest tile does not fit two blocks an SM
 // is declined by the rule before any launch. The bricks pay only where
 // the halo adds little to a long slot loop over a card's worth of
 // blocks: on the card the 26-cube ran 1.11 to 1.32 times faster than
 // two direct launches at k = 2 from 128^3 up, and won or lost at k = 3
 // by size; sets of 4 or 5 face terms lost at every k. So the step loop
-// takes them only as PassSpec.deep_pays says.
+// takes them only as PassSpec.deep_pays says, by a rule per flux.
 //
 // Built with --fmad=false: a k-deep pass equals k one-step launches, and
 // k applications of the plain PyTorch version, bit for bit, in float32
 // and in bfloat16.
 //
-// C entry point: dccrg_bulk_upwind_k(); returns cudaGetLastError() of
+// C entry points: dccrg_bulk_upwind_k() (the plane route) and
+// dccrg_bulk_bricks() (any flux); each returns cudaGetLastError() of
 // the launch (0 on success), or cudaErrorInvalidValue for geometry the
 // rule declines.
 
@@ -69,9 +72,13 @@
 #include <climits>
 #include <cstdint>
 
+#include "fluxes.cuh"
+
 namespace {
 
-constexpr int kMaxSlots = 26;
+using namespace fluxes;
+
+constexpr int kMaxSlots = 124;  // the cube of a neighbourhood of length 2
 constexpr int kMaxK = 8;
 constexpr size_t kMaxSmem = 232448;  // 227 KB opt-in per block on sm_90
 // bricks: two blocks an SM, each in half of an SM's 228 KB less the
@@ -101,55 +108,10 @@ struct Geom {
   int nbx, nby, nbz;  // blocks per axis
 };
 
-struct Slots {
-  int n;
-  int ox[kMaxSlots], oy[kMaxSlots], oz[kMaxSlots];  // cell offsets
-  int fx[kMaxSlots], fy[kMaxSlots];  // face sign in x / y: +1, -1 or 0
+// a flux's fields, field 0 the carried one
+template <typename T> struct Fields {
+  const T* f[3];
 };
-
-template <typename T> struct Store;
-template <> struct Store<float> {
-  static __device__ __forceinline__ float load(float v) { return v; }
-  static __device__ __forceinline__ float pack(float v) { return v; }
-};
-template <> struct Store<__nv_bfloat16> {
-  static __device__ __forceinline__ float load(__nv_bfloat16 v) {
-    return __bfloat162float(v);
-  }
-  static __device__ __forceinline__ __nv_bfloat16 pack(float v) {
-    return __float2bfloat16_rn(v);
-  }
-};
-
-template <typename T>
-__device__ __forceinline__ float round_to(float v) {
-  return Store<T>::load(Store<T>::pack(v));
-}
-
-// Wrap a coordinate into [0, n) on a periodic axis (any number of times
-// around); false when it lies outside a non-periodic one.
-__device__ __forceinline__ bool wrap(int& c, int n, int periodic) {
-  if (c >= 0 && c < n) return true;
-  if (!periodic) return false;
-  c %= n;
-  if (c < 0) c += n;
-  return true;
-}
-
-// One dimension's face term of one slot (models/advection.py:118-125).
-__device__ __forceinline__ float face_term(float acc, float rc, float rn,
-                                           float vc, float vn, float c,
-                                           bool valid, int face) {
-  const float v = 0.5f * (vc + vn);
-  const float up_pos = v >= 0.f ? rc : rn;
-  const float up_neg = v >= 0.f ? rn : rc;
-  const float m = v * c;
-  const bool fp = valid && face == 1;
-  const bool fn = valid && face == -1;
-  acc = acc - (fp ? up_pos * m : 0.f);
-  acc = acc + (fn ? up_neg * m : 0.f);
-  return acc;
-}
 
 // 16-byte asynchronous copy to shared memory; zero-fills when !valid
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -167,21 +129,6 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// face_term for a slot whose face sign f is +1 or -1, in one sum:
-// acc - (valid ? up * m : 0) for f = +1 is acc + (valid ? up * m' : 0)
-// with m' = v * (-c) = -m exactly, and acc + 0 for f = -1 is acc (the
-// sum is never -0.0), so the two selected terms of face_term become one
-// with the same bits; f = 0 (no face) takes valid false. rn and vn may
-// hold anything where !valid.
-__device__ __forceinline__ float face(float acc, float rc, float rn,
-                                      float vc, float vn, float c,
-                                      bool valid, int f) {
-  const float v = 0.5f * (vc + vn);
-  const float up = (v >= 0.f) == (f > 0) ? rc : rn;
-  const float m = v * (f > 0 ? -c : c);
-  return acc + (valid ? up * m : 0.f);
-}
-
 // Shared memory of a plane block: the input ring (kRing rows of the
 // three fields in the storage type, kInRow elements a row) and the
 // two-row rings of levels 1 .. K-1 (floats, kLvRow a row), sized for the
@@ -194,17 +141,17 @@ constexpr size_t plane_smem(int k, int item) {
 }
 
 // Shared memory of a brick block with a W x H window: the input ring
-// (K sk + rz + 2 planes of the three fields) and the rings of levels
-// 1 .. K-1 (sk + rz + 1 planes each), floats; then two buffers of the
-// slot tables (K (n + 1) int4 each) and the column and row masks.
+// (K sk + rz + 2 planes of the flux's nf fields) and the rings of
+// levels 1 .. K-1 (sk + rz + 1 planes each), floats; then two buffers
+// of the slot tables (K (n + 1) int4 each) and the column and row masks.
 __host__ __device__ constexpr size_t brick_tab_offset(int W, int H, int k,
-                                                      int rz) {
+                                                      int rz, int nf) {
   return ((size_t)4 * W * H *
-              (3 * (k * (rz > 1 ? rz : 1) + rz + 2) +
+              (nf * (k * (rz > 1 ? rz : 1) + rz + 2) +
                (k - 1) * ((rz > 1 ? rz : 1) + rz + 1)) + 15) / 16 * 16;
 }
-constexpr size_t brick_smem(int W, int H, int k, int rz, int n) {
-  return brick_tab_offset(W, H, k, rz) + (size_t)16 * 2 * k * (n + 1) +
+constexpr size_t brick_smem(int W, int H, int k, int rz, int n, int nf) {
+  return brick_tab_offset(W, H, k, rz, nf) + (size_t)16 * 2 * k * (n + 1) +
          (size_t)4 * (W + H);
 }
 
@@ -429,7 +376,7 @@ bulk_planes_k(const T* __restrict__ rho, const T* __restrict__ vx,
 // A block owns a g.bx x g.by (x, y) tile with a halo of K reaches each
 // side (window W x H) and a segment of g.bz z-planes, and walks it one
 // input plane an iteration: plane q (counted from the segment's first
-// halo plane) of the three fields lands as floats in a ring of QI
+// halo plane) of the flux's fields lands as floats in a ring of QI
 // planes, and level t computes plane q - t sk, sk = max(rz, 1) planes
 // behind the level before, over the window less t reaches each side.
 // A plane of a level is computed once, so the recomputation is the
@@ -443,27 +390,26 @@ bulk_planes_k(const T* __restrict__ rho, const T* __restrict__ vx,
 // (built an iteration ahead, two buffers); the masks of a cell are bit
 // sets per column, row and plane over the offsets -r .. r, taken from
 // unwrapped coordinates. The slot loop runs in the direct kernel's
-// order with its face terms (csrc/bulk_pass.cu, bulk_upwind_direct),
-// each in one sum (face), a slot without an x (y) face adding a
-// selected +0.0 there, so the loop has no branch. The next plane's
+// order with the flux's terms (csrc/bulk_pass.cu, bulk_direct; the
+// upwind flux's each in one sum, `face`, a slot without an x (y) face
+// adding a selected +0.0 there), so the loop has no branch. The next plane's
 // elements load into registers at the start of an iteration and land
 // at its end. 512 threads a block, two blocks an SM: of the variants
 // timed on the card (256 threads, a branch on each face) the fastest.
-template <typename T>
+template <typename T, typename F>
 __global__ void __launch_bounds__(kBrickThreads, 2)
-bulk_bricks_k(const T* __restrict__ rho, const T* __restrict__ vx,
-              const T* __restrict__ vy, T* __restrict__ out, const Geom g,
-              const Slots s, const float c0, const float c1) {
+bulk_bricks_k(const Fields<T> in, T* __restrict__ out, const Geom g,
+              const int4* __restrict__ slots, const int n, const Coef coef) {
+  constexpr int NF = F::kFields;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int K = g.k;
   const int sk = g.rz > 1 ? g.rz : 1;
   const int W = g.wx, H = g.wy, WH = W * H;
   const int QI = K * sk + g.rz + 2, QL = sk + g.rz + 1;
-  const int n = s.n;
   float* sm = reinterpret_cast<float*>(smem_raw);
-  const int lv0 = QI * 3 * WH;  // first float of the levels' rings
+  const int lv0 = QI * NF * WH;  // first float of the levels' rings
   int4* tab = reinterpret_cast<int4*>(smem_raw +
-                                      brick_tab_offset(W, H, K, g.rz));
+                                      brick_tab_offset(W, H, K, g.rz, NF));
   int* xmask = reinterpret_cast<int*>(tab + 2 * K * (n + 1));
   int* ymask = xmask + W;
 
@@ -491,7 +437,7 @@ bulk_bricks_k(const T* __restrict__ rho, const T* __restrict__ vx,
     ymask[y] = axis_bits(y0 + y, g.ry, g.ny, g.py) << 5;
 
   // the staged elements of this thread: element e = tid + m * threads
-  // of a plane's [3][WH] block, its offset in a z-plane of the grid
+  // of a plane's [NF][WH] block, its offset in a z-plane of the grid
   // (wrapped; -1 beyond a non-periodic edge)
   int gofs[kBrickElems];
 #pragma unroll
@@ -499,7 +445,7 @@ bulk_bricks_k(const T* __restrict__ rho, const T* __restrict__ vx,
     const int e = tid + m * kBrickThreads;
     const int r = e % WH, y = r / W;
     int gx = x0 + r - y * W, gy = y0 + y;
-    gofs[m] = e < 3 * WH && wrap(gx, g.nx, g.px) && wrap(gy, g.ny, g.py)
+    gofs[m] = e < NF * WH && wrap(gx, g.nx, g.px) && wrap(gy, g.ny, g.py)
                   ? gx + g.nx * gy : -1;
   }
   T pend[kBrickElems];
@@ -510,38 +456,37 @@ bulk_bricks_k(const T* __restrict__ rho, const T* __restrict__ vx,
 #pragma unroll
     for (int m = 0; m < kBrickElems; ++m) {
       const int e = tid + m * kBrickThreads;
-      const T* src = e < WH ? rho : (e < 2 * WH ? vx : vy);
+      const T* src = in.f[NF == 1 || e < WH ? 0 : (e < 2 * WH ? 1 : 2)];
       pend[m] = ok && gofs[m] >= 0 ? src[zoff + gofs[m]]
                                    : Store<T>::pack(0.f);
     }
   };
   auto land = [&](int q) {
-    float* dst = sm + (q % QI) * 3 * WH;
+    float* dst = sm + (q % QI) * NF * WH;
 #pragma unroll
     for (int m = 0; m < kBrickElems; ++m) {
       const int e = tid + m * kBrickThreads;
-      if (e < 3 * WH) dst[e] = Store<T>::load(pend[m]);
+      if (e < NF * WH) dst[e] = Store<T>::load(pend[m]);
     }
   };
   // the slot tables of iteration i: entry (t, j) holds, for level t,
-  // slot j's neighbour offsets (level t - 1's density, vx) and mask
-  // bits, and its face signs; entry (t, n) the cell itself
+  // slot j's neighbour offsets (level t - 1's carried field; the input
+  // plane, whose fields 1 .. NF-1 are static) and mask bits, and its
+  // code; entry (t, n) the cell itself
   auto tables = [&](int i) {
     int4* tb = tab + (i & 1) * K * (n + 1);
     for (int e = tid; e < K * (n + 1); e += kBrickThreads) {
       const int t = e / (n + 1) + 1, j = e % (n + 1);
       const bool c = j == n;
-      const int ox = c ? 0 : s.ox[j], oy = c ? 0 : s.oy[j];
-      const int oz = c ? 0 : s.oz[j];
-      const int q = i - t * sk + oz;
+      const int4 sl = c ? make_int4(0, 0, 0, 0) : slots[j];
+      const int q = i - t * sk + sl.z;
       if (q < 0) continue;  // level t is not active yet
-      const int d = ox + W * oy;
-      const int in = (q % QI) * 3 * WH;
-      const int r = t == 1 ? in : lv0 + ((t - 2) * QL + q % QL) * WH;
-      const int need = (1 << (ox + g.rx)) | (1 << (5 + oy + g.ry)) |
-                       (1 << (10 + oz + g.rz));
-      const int face = c ? 0 : (s.fx[j] + 1) | ((s.fy[j] + 1) << 2);
-      tb[e] = make_int4(r + d, in + WH + d, need, face);
+      const int d = sl.x + W * sl.y;
+      const int ip = (q % QI) * NF * WH;
+      const int r = t == 1 ? ip : lv0 + ((t - 2) * QL + q % QL) * WH;
+      const int need = (1 << (sl.x + g.rx)) | (1 << (5 + sl.y + g.ry)) |
+                       (1 << (10 + sl.z + g.rz));
+      tb[e] = make_int4(r + d, ip + d, need, sl.w);
     }
   };
 
@@ -570,20 +515,22 @@ bulk_bricks_k(const T* __restrict__ rho, const T* __restrict__ vx,
           const int y = ly + c / cw, x = lx + c % cw;
           const int li = x + W * y;
           const int m = xmask[x] | ymask[y] | zm;
-          const float rc = sm[ce.x + li];
-          const float vxc = sm[ce.y + li], vyc = sm[ce.y + WH + li];
+          float cv[NF];
+          cv[0] = sm[ce.x + li];
+#pragma unroll
+          for (int f = 1; f < NF; ++f) cv[f] = sm[ce.y + f * WH + li];
           float acc = 0.f;
 #pragma unroll 4
           for (int j = 0; j < n; ++j) {
             const int4 e = tt[j];
             const bool valid = (m & e.z) == e.z;
-            const float rn = sm[e.x + li];
-            const int fx = (e.w & 3) - 1, fy = (e.w >> 2) - 1;
-            acc = face(acc, rc, rn, vxc, sm[e.y + li], c0, valid && fx, fx);
-            acc = face(acc, rc, rn, vyc, sm[e.y + WH + li], c1, valid && fy,
-                       fy);
+            float nv[NF];
+            nv[0] = sm[e.x + li];
+#pragma unroll
+            for (int f = 1; f < NF; ++f) nv[f] = sm[e.y + f * WH + li];
+            acc = F::template add<T>(acc, cv, nv, valid, e.w, coef);
           }
-          const float res = rc + acc;
+          const float res = F::template finish<T>(cv, acc, coef);
           if (t < K) {
             dst[li] = round_to<T>(res);
           } else {
@@ -644,102 +591,152 @@ int launch_planes(const void* rho, const void* vx, const void* vy, void* out,
                                    stream);
 }
 
-template <typename T>
-int launch(int route, const void* rho, const void* vx, const void* vy,
-           void* out, const int* gi, const int* si, int n_slots, float c0,
-           float c1, int device, void* stream) {
-  Geom g;
+// The geometry of a launch from its host array, the windows and block
+// counts derived; false for a geometry no route takes.
+bool parse_geom(const int* gi, Geom& g) {
   g.nx = gi[0]; g.ny = gi[1]; g.nz = gi[2];
   g.px = gi[3]; g.py = gi[4]; g.pz = gi[5];
   g.k = gi[6];
   g.bx = gi[7]; g.by = gi[8]; g.bz = gi[9];
   g.rx = gi[10]; g.ry = gi[11]; g.rz = gi[12];
-  if (n_slots < 0 || n_slots > kMaxSlots || g.k < 2 || g.k > kMaxK ||
-      g.nx < 1 || g.ny < 1 || g.nz < 1 || g.bx < 1 || g.by < 1 ||
-      g.bz < 1 || g.rx < 0 || g.ry < 0 || g.rz < 0)
-    return (int)cudaErrorInvalidValue;
-  const bool face = route == 0;
-  // the plane route is the face set's: reach 1 in x and y, none in z,
-  // a band of whole warps and one z-plane a block
-  if (face && (!is_face4(si, n_slots) || g.bx % 32 != 0 ||
-               g.bx > kBandMax || g.bz != 1 || g.rx != 1 || g.ry != 1 ||
-               g.rz != 0))
-    return (int)cudaErrorInvalidValue;
-  if (route != 0 && route != 1) return (int)cudaErrorInvalidValue;
+  if (g.k < 2 || g.k > kMaxK || g.nx < 1 || g.ny < 1 || g.nz < 1 ||
+      g.bx < 1 || g.by < 1 || g.bz < 1 || g.rx < 0 || g.ry < 0 || g.rz < 0)
+    return false;
   g.hx = g.k * g.rx; g.hy = g.k * g.ry; g.hz = g.k * g.rz;
   g.wx = g.bx + 2 * g.hx; g.wy = g.by + 2 * g.hy; g.wz = g.bz + 2 * g.hz;
   g.nbx = (g.nx + g.bx - 1) / g.bx;
   g.nby = (g.ny + g.by - 1) / g.by;
   g.nbz = (g.nz + g.bz - 1) / g.bz;
+  return true;
+}
+
+// the plane route of the face set: reach 1 in x and y, none in z, a
+// band of whole warps and one z-plane a block
+template <typename T>
+int launch_face(const void* rho, const void* vx, const void* vy, void* out,
+                const int* gi, const int* si, int n_slots, float c0,
+                float c1, int device, void* stream) {
+  Geom g;
+  if (!parse_geom(gi, g) || !is_face4(si, n_slots) || g.bx % 32 != 0 ||
+      g.bx > kBandMax || g.bz != 1 || g.rx != 1 || g.ry != 1 || g.rz != 0)
+    return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  long long blocks = (long long)g.nbx * g.nby * g.nbz;
-  if (face) {
-    // dynamic shared memory: the input ring and the levels' rows,
-    // 45,424 B at a 256 band, k = 8, float32
-    switch (g.k) {
-      case 2: return launch_planes<T, 2>(rho, vx, vy, out, g, c0, c1,
-                                         blocks, stream);
-      case 3: return launch_planes<T, 3>(rho, vx, vy, out, g, c0, c1,
-                                         blocks, stream);
-      case 4: return launch_planes<T, 4>(rho, vx, vy, out, g, c0, c1,
-                                         blocks, stream);
-      case 5: return launch_planes<T, 5>(rho, vx, vy, out, g, c0, c1,
-                                         blocks, stream);
-      case 6: return launch_planes<T, 6>(rho, vx, vy, out, g, c0, c1,
-                                         blocks, stream);
-      case 7: return launch_planes<T, 7>(rho, vx, vy, out, g, c0, c1,
-                                         blocks, stream);
-      default: return launch_planes<T, 8>(rho, vx, vy, out, g, c0, c1,
-                                          blocks, stream);
-    }
+  const long long blocks = (long long)g.nbx * g.nby * g.nbz;
+  // dynamic shared memory: the input ring and the levels' rows,
+  // 45,424 B at a 256 band, k = 8, float32
+  switch (g.k) {
+    case 2: return launch_planes<T, 2>(rho, vx, vy, out, g, c0, c1,
+                                       blocks, stream);
+    case 3: return launch_planes<T, 3>(rho, vx, vy, out, g, c0, c1,
+                                       blocks, stream);
+    case 4: return launch_planes<T, 4>(rho, vx, vy, out, g, c0, c1,
+                                       blocks, stream);
+    case 5: return launch_planes<T, 5>(rho, vx, vy, out, g, c0, c1,
+                                       blocks, stream);
+    case 6: return launch_planes<T, 6>(rho, vx, vy, out, g, c0, c1,
+                                       blocks, stream);
+    case 7: return launch_planes<T, 7>(rho, vx, vy, out, g, c0, c1,
+                                       blocks, stream);
+    default: return launch_planes<T, 8>(rho, vx, vy, out, g, c0, c1,
+                                        blocks, stream);
   }
-  // the bricks: the rule of PassSpec.deep (reach at most kMaxReach an
-  // axis, the staged plane within the threads' elements, the rings
-  // within kBrickSmem, two blocks an SM)
-  Slots s;
-  s.n = n_slots;
-  if (g.rx > kMaxReach || g.ry > kMaxReach || g.rz > kMaxReach ||
-      3 * g.wx * g.wy > kBrickElems * kBrickThreads)
+}
+
+// the bricks: the rule of PassSpec.deep (reach at most kMaxReach an
+// axis and covering every slot, the staged plane within the threads'
+// elements, the rings within kBrickSmem, two blocks an SM)
+template <typename T, typename F>
+int launch_bricks(const void* const* in, void* out, const int* gi,
+                  const int* si, const void* slots, int n_slots, Coef k,
+                  int device, void* stream) {
+  constexpr int NF = F::kFields;
+  Geom g;
+  if (!parse_geom(gi, g) || n_slots < 0 || n_slots > kMaxSlots ||
+      (n_slots > 0 && slots == nullptr) || g.rx > kMaxReach ||
+      g.ry > kMaxReach || g.rz > kMaxReach ||
+      NF * g.wx * g.wy > kBrickElems * kBrickThreads)
     return (int)cudaErrorInvalidValue;
   for (int j = 0; j < n_slots; ++j) {
-    s.ox[j] = si[5 * j]; s.oy[j] = si[5 * j + 1]; s.oz[j] = si[5 * j + 2];
-    s.fx[j] = si[5 * j + 3]; s.fy[j] = si[5 * j + 4];
-    // the halo must cover every slot's offset
-    if (s.ox[j] > g.rx || -s.ox[j] > g.rx || s.oy[j] > g.ry ||
-        -s.oy[j] > g.ry || s.oz[j] > g.rz || -s.oz[j] > g.rz)
+    const int* r = si + 4 * j;
+    if (r[0] > g.rx || -r[0] > g.rx || r[1] > g.ry || -r[1] > g.ry ||
+        r[2] > g.rz || -r[2] > g.rz)
       return (int)cudaErrorInvalidValue;
   }
-  const size_t smem = brick_smem(g.wx, g.wy, g.k, g.rz, n_slots);
+  const size_t smem = brick_smem(g.wx, g.wy, g.k, g.rz, n_slots, NF);
   if (smem > kBrickSmem) return (int)cudaErrorInvalidValue;
-  int rc = prepare(bulk_bricks_k<T>, smem, blocks);
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  const long long blocks = (long long)g.nbx * g.nby * g.nbz;
+  int rc = prepare(bulk_bricks_k<T, F>, smem, blocks);
   if (rc != 0) return rc;
-  bulk_bricks_k<T><<<(unsigned)blocks, kBrickThreads, smem,
-                     (cudaStream_t)stream>>>(
-      (const T*)rho, (const T*)vx, (const T*)vy, (T*)out, g, s, c0, c1);
+  Fields<T> f;
+  for (int q = 0; q < 3; ++q) f.f[q] = (const T*)in[q < NF ? q : 0];
+  bulk_bricks_k<T, F><<<(unsigned)blocks, kBrickThreads, smem,
+                        (cudaStream_t)stream>>>(
+      f, (T*)out, g, (const int4*)slots, n_slots, k);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_bricks(int flux, const void* const* in, void* out, const int* gi,
+                  const int* si, const void* slots, int n_slots, Coef k,
+                  int device, void* stream) {
+  switch (flux) {
+    case Diffuse::kCode:
+      return launch_bricks<T, Diffuse>(in, out, gi, si, slots, n_slots, k,
+                                       device, stream);
+    case AdvectX::kCode:
+      return launch_bricks<T, AdvectX>(in, out, gi, si, slots, n_slots, k,
+                                       device, stream);
+    case UpwindXY::kCode:
+      return launch_bricks<T, UpwindXY>(in, out, gi, si, slots, n_slots, k,
+                                        device, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (all four arrays the same type).
-// route: 0 = the plane route (the face set), 1 = bricks (any slot set).
 // geom: nx, ny, nz, px, py, pz, k, bx, by, bz, rx, ry, rz: the interior
 // of a block's window and the reach of one sub-step per axis (the plane
 // route: bx a band of whole warps up to 256 columns, by the rows of a
-// y segment, bz 1, reach 1, 1, 0). slots: n_slots rows of
-// (ox, oy, oz, fx, fy). `out` must not alias an input.
-extern "C" int dccrg_bulk_upwind_k(int dtype, int route, const void* rho,
+// y segment, bz 1, reach 1, 1, 0). slots: the face set's four rows of
+// (ox, oy, oz, fx, fy) in kFace4's order. `out` must not alias an input.
+extern "C" int dccrg_bulk_upwind_k(int dtype, const void* rho,
                                    const void* vx, const void* vy, void* out,
                                    const int* geom, const int* slots,
                                    int n_slots, float c0, float c1,
                                    int device, void* stream) {
   if (dtype == 0)
-    return launch<float>(route, rho, vx, vy, out, geom, slots, n_slots, c0,
-                         c1, device, stream);
+    return launch_face<float>(rho, vx, vy, out, geom, slots, n_slots, c0,
+                              c1, device, stream);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(route, rho, vx, vy, out, geom, slots,
-                                 n_slots, c0, c1, device, stream);
+    return launch_face<__nv_bfloat16>(rho, vx, vy, out, geom, slots,
+                                      n_slots, c0, c1, device, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The bricks of any flux: dtype and geom as above; flux a functor's
+// kCode (fluxes.cuh); in the flux's kFields field pointers, field 0 the
+// carried one; host_slots and slots the same n_slots int4 rows (ox, oy,
+// oz, code) in the neighbourhood's order, on the host (checked against
+// the reach) and in device memory (read by the kernel), at most 124;
+// a, b: Coef. `out` must not alias an input.
+extern "C" int dccrg_bulk_bricks(int dtype, int flux, const void* const* in,
+                                 void* out, const int* geom,
+                                 const int* host_slots, const void* slots,
+                                 int n_slots, float a, float b, int device,
+                                 void* stream) {
+  const Coef k = {a, b};
+  if (dtype == 0)
+    return launch_bricks<float>(flux, in, out, geom, host_slots, slots,
+                                n_slots, k, device, stream);
+  if (dtype == 1)
+    return launch_bricks<__nv_bfloat16>(flux, in, out, geom, host_slots,
+                                        slots, n_slots, k, device, stream);
   return (int)cudaErrorInvalidValue;
 }
 

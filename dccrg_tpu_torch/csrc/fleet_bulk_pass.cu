@@ -36,9 +36,13 @@
 // and the address arithmetic the instructions issued come close to the
 // bytes' time, so the design keeps both few and overlaps them.
 //
-// Two routes, both in one launch with the pad rows and the zero row
+// Three routes, each in one launch with the pad rows and the zero row
 // (blocks past the grid's work items take those rows, and a frozen
-// slot's blocks copy its rows):
+// slot's blocks copy its rows). The 26-cube of the default
+// neighbourhood of length 1 (the fleet's default `hood_len`) takes the
+// plane route or the direct route, both unrolled over the cube; any
+// other neighbourhood (a bucket of `hood_len` 0 or 2) the slot-table
+// route:
 //
 // Planes (fleet_planes), for x extents up to 256 that are a multiple
 // of V = 16 bytes' elements (the fleet's buckets). A block owns one
@@ -69,16 +73,24 @@
 // patches of planes z-1 and z in registers and the new patch read
 // through the cache.
 //
-// The flux is a compile-time functor, with the arithmetic of the
-// twins in dccrg_tpu_torch/fleet.py (the reference's fleet.py:208-236)
-// in the same order:
+// Slot table (fleet_slots), for any other neighbourhood: one cell per
+// thread marching 16 planes of z, the flux's slot table (the slots it
+// reads, in hood.offs_const order: at most 124, diffuse's at length 2;
+// from a device buffer) staged in shared memory, every
+// neighbour read through the cache at its wrapped coordinate (wrap():
+// a reach of 2 crosses an extent of 1 or 2 more than once).
+//
+// The flux is a compile-time functor (csrc/fluxes.cuh), with the
+// arithmetic of the twins in dccrg_tpu_torch/fleet.py (the reference's
+// fleet.py:208-236) in the same order:
 //   diffuse:  acc += valid_j ? (n_j - c) : 0;       out = c + dt*acc
 //   advect_x: acc += (up_j && valid_j) ? n_j : 0;   out = (1-cfl)*c + cfl*acc
-// with up_j true for the slot (-1, 0, 0) only (the twin's test
-// ox < 0, oy == 0, oz == 0 on the cube). The slots are added in the
-// default neighbourhood's order (z-major, x fastest: the order of
-// hood.offs_const, which the wrapper checks). The plane route leaves
-// out the terms a flux never reads: each adds an exact +0.0 to a sum
+// with up_j true for the slot (-1, 0, 0) only on the cube (the twin's
+// test ox < 0, oy == 0, oz == 0; (-2, 0, 0) too at length 2). The slots
+// are added in the neighbourhood's order (on the cube z-major, x
+// fastest: the order of hood.offs_const, which the wrapper checks).
+// The plane and slot-table routes leave out the terms a flux never
+// reads: each adds an exact +0.0 to a sum
 // that starts at +0.0 and so is never -0.0, which changes no bit.
 // Storage is float32 or bfloat16; `n_j - c` and every partial sum are
 // rounded to the storage type, as PyTorch's bfloat16 arithmetic rounds
@@ -95,7 +107,11 @@
 #include <climits>
 #include <cstdint>
 
+#include "fluxes.cuh"
+
 namespace {
+
+using namespace fluxes;
 
 constexpr int kThreads = 256;
 constexpr int kMaxTailBlocks = 1024;
@@ -110,6 +126,8 @@ constexpr int kCopyDepth = 16;       // loads in flight of a frozen copy
 // direct route
 constexpr int kChunkZ = 16;          // z planes a thread marches
 constexpr int kDirY = kThreads / 32; // rows of a block
+// slot-table route
+constexpr int kMaxSlots = 124;       // the cube of a neighbourhood of length 2
 
 struct Geom {
   int nx, ny, nz;  // grid extents
@@ -132,37 +150,6 @@ struct Geom {
   // direct route
   int dtx, dty;    // tiles of a plane along x and y
 };
-
-template <typename T> struct Store;
-template <> struct Store<float> {
-  using Bits = unsigned;
-  static __device__ __forceinline__ float load(float v) { return v; }
-  static __device__ __forceinline__ float pack(float v) { return v; }
-};
-template <> struct Store<__nv_bfloat16> {
-  using Bits = unsigned short;
-  static __device__ __forceinline__ float load(__nv_bfloat16 v) {
-    return __bfloat162float(v);
-  }
-  static __device__ __forceinline__ __nv_bfloat16 pack(float v) {
-    return __float2bfloat16_rn(v);
-  }
-};
-
-template <typename T>
-__device__ __forceinline__ float round_to(float v) {
-  return Store<T>::load(Store<T>::pack(v));
-}
-
-// Wrap a coordinate into [0, n) on a periodic axis; false when it lies
-// outside a non-periodic one.
-__device__ __forceinline__ bool wrap(int& c, int n, int periodic) {
-  if (c >= 0 && c < n) return true;
-  if (!periodic) return false;
-  c %= n;
-  if (c < 0) c += n;
-  return true;
-}
 
 // wrap() for a coordinate at most one period outside [0, n)
 __device__ __forceinline__ bool wrap1(int& c, int n, int periodic) {
@@ -193,46 +180,6 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
-
-// fleet.py _make_diffuse_slotwise: acc + where(mask, nbr - c, 0)
-struct Diffuse {
-  // whether slot (dx, dy, dz) (each 0, 1, 2 for -1, 0, +1) is read
-  static __device__ __forceinline__ constexpr bool reads(int, int, int) {
-    return true;
-  }
-  // whether column (dx, dy) is read in any plane
-  static __device__ __forceinline__ constexpr bool reads_column(int, int) {
-    return true;
-  }
-  template <typename T>
-  static __device__ __forceinline__ float term(float c, float n) {
-    return round_to<T>(n - c);
-  }
-  static __device__ __forceinline__ float finish(float c, float acc,
-                                                 float p) {
-    return c + p * acc;
-  }
-};
-
-// fleet.py _make_advect_x_slotwise: acc + where(up & mask, nbr, 0)
-struct AdvectX {
-  static __device__ __forceinline__ constexpr bool reads(int dx, int dy,
-                                                         int dz) {
-    return dx == 0 && dy == 1 && dz == 1;
-  }
-  static __device__ __forceinline__ constexpr bool reads_column(int dx,
-                                                                int dy) {
-    return dx == 0 && dy == 1;
-  }
-  template <typename T>
-  static __device__ __forceinline__ float term(float, float n) {
-    return n;
-  }
-  static __device__ __forceinline__ float finish(float c, float acc,
-                                                 float p) {
-    return (1.f - p) * c + p * acc;
-  }
-};
 
 __device__ __forceinline__ bool frozen(const int* budget, int b, int step) {
   return budget != nullptr && budget[b] <= step;
@@ -634,6 +581,66 @@ fleet_direct(const T* __restrict__ in, T* __restrict__ out,
 }
 
 // ---------------------------------------------------------------------
+// slot-table route
+// ---------------------------------------------------------------------
+
+// A block is 32 cells along x by kDirY rows of y of one slot, as on the
+// direct route, and each thread marches its column through a chunk of
+// kChunkZ planes; per cell the table's slots in order.
+template <typename T, typename F>
+__global__ void __launch_bounds__(kThreads)
+fleet_slots(const T* __restrict__ in, T* __restrict__ out,
+            const float* __restrict__ extras, const int* __restrict__ budget,
+            const int step, const int4* __restrict__ slots,
+            const int n_slots, const Geom g) {
+  using Bits = typename Store<T>::Bits;
+  if ((int)blockIdx.x >= g.n_main) {
+    tail_rows<T, F>(in, out, extras, budget, step, g);
+    return;
+  }
+  __shared__ int4 tab[kMaxSlots];
+  for (int j = threadIdx.x; j < n_slots; j += kThreads) tab[j] = slots[j];
+  __syncthreads();
+  const int w = blockIdx.x;
+  const int b = w / g.per_slot;
+  int item = w - b * g.per_slot;
+  const int tz = item / (g.dtx * g.dty);
+  item -= tz * g.dtx * g.dty;
+  const int ty = item / g.dtx;
+  const int gx = (item - ty * g.dtx) * 32 + threadIdx.x % 32;
+  const int gy = ty * kDirY + threadIdx.x / 32;
+  if (gx >= g.nx || gy >= g.ny) return;
+  const int z0 = tz * kChunkZ;
+  const int z1 = min(z0 + kChunkZ, g.nz);
+  const long long nxy = (long long)g.nx * g.ny;
+  const long long cell = gx + (long long)g.nx * gy;
+  if (frozen(budget, b, step)) {
+    const Bits* s = reinterpret_cast<const Bits*>(in) + b * g.R;
+    Bits* d = reinterpret_cast<Bits*>(out) + b * g.R;
+    for (int z = z0; z < z1; ++z) d[cell + nxy * z] = s[cell + nxy * z];
+    return;
+  }
+  const T* src = in + b * g.R;
+  T* dst = out + b * g.R;
+  const Coef k = {extras[(long long)b * g.E], 0.f};
+  for (int z = z0; z < z1; ++z) {
+    const float c[1] = {Store<T>::load(src[cell + nxy * z])};
+    float acc = 0.f;
+    for (int j = 0; j < n_slots; ++j) {
+      const int4 e = tab[j];
+      int tx = gx + e.x, tyy = gy + e.y, tzz = z + e.z;
+      const bool valid = wrap(tx, g.nx, g.px) && wrap(tyy, g.ny, g.py) &&
+                         wrap(tzz, g.nz, g.pz);
+      float n[1] = {0.f};
+      if (valid) n[0] = Store<T>::load(src[tx + (long long)g.nx * tyy +
+                                           nxy * tzz]);
+      acc = F::template add<T>(acc, c, n, valid, e.w, k);
+    }
+    dst[cell + nxy * z] = Store<T>::pack(F::template finish<T>(c, acc, k));
+  }
+}
+
+// ---------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------
 
@@ -651,7 +658,8 @@ int tail_blocks(const Geom& g) {
 
 template <typename T, typename F>
 int launch(const void* in, void* out, const float* extras, const int* budget,
-           int step, Geom g, int route, void* stream) {
+           int step, Geom g, int route, const void* slots, int n_slots,
+           void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   long long n_main;
   if (route == 0) {
@@ -681,7 +689,10 @@ int launch(const void* in, void* out, const float* extras, const int* budget,
     const long long per = (long long)((g.ny + g.by - 1) / g.by) * g.n_zc;
     if (per > INT_MAX) return (int)cudaErrorInvalidValue;
     g.per_slot = (int)per;
-  } else {
+  } else {  // the direct and slot-table routes
+    if (route == 2 && (n_slots < 0 || n_slots > kMaxSlots ||
+                       (n_slots > 0 && slots == nullptr)))
+      return (int)cudaErrorInvalidValue;
     g.dtx = (g.nx + 31) / 32;
     g.dty = (g.ny + kDirY - 1) / kDirY;
     const long long per =
@@ -703,9 +714,13 @@ int launch(const void* in, void* out, const float* extras, const int* budget,
     else
       fleet_planes<T, F, true><<<blocks, kThreads, smem, st>>>(
           (const T*)in, (T*)out, extras, budget, step, g);
-  } else {
+  } else if (route == 1) {
     fleet_direct<T, F><<<blocks, kThreads, 0, st>>>(
         (const T*)in, (T*)out, extras, budget, step, g);
+  } else {
+    fleet_slots<T, F><<<blocks, kThreads, 0, st>>>(
+        (const T*)in, (T*)out, extras, budget, step, (const int4*)slots,
+        n_slots, g);
   }
   return (int)cudaGetLastError();
 }
@@ -713,15 +728,19 @@ int launch(const void* in, void* out, const float* extras, const int* budget,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (state and out the same type).
-// flux: 0 = diffuse, 1 = advect_x. route: 0 = planes, 1 = direct.
-// geom: nx, ny, nz, px, py, pz, B, E. budget: int32 [B] or null (every
-// slot live); a slot with budget[b] <= step is copied unchanged.
+// flux: a functor's kCode (fluxes.cuh: 0 = diffuse, 1 = advect_x).
+// route: 0 = planes, 1 = direct (both the 26-cube in its default
+// order), 2 = the slot table `slots` (a device buffer of n_slots int4
+// rows (ox, oy, oz, code) in the neighbourhood's order, at most 124;
+// ignored by the other routes). geom: nx, ny, nz, px, py, pz, B, E.
+// budget: int32 [B] or null (every slot live); a slot with
+// budget[b] <= step is copied unchanged.
 extern "C" int dccrg_fleet_bulk(int dtype, int flux, int route,
                                 const void* state, void* out,
                                 const float* extras, const int* budget,
                                 int step, const int* geom, long long n0,
-                                long long L, long long R, int device,
-                                void* stream) {
+                                long long L, long long R, const void* slots,
+                                int n_slots, int device, void* stream) {
   Geom g = {};
   g.nx = geom[0]; g.ny = geom[1]; g.nz = geom[2];
   g.px = geom[3]; g.py = geom[4]; g.pz = geom[5];
@@ -730,22 +749,22 @@ extern "C" int dccrg_fleet_bulk(int dtype, int flux, int route,
   g.total = (long long)g.B * R;
   if (g.nx < 1 || g.ny < 1 || g.nz < 1 || g.B < 1 || g.E < 1 ||
       n0 != (long long)g.nx * g.ny * g.nz || L < n0 || R != L + 1 ||
-      (route != 0 && route != 1))
+      route < 0 || route > 2)
     return (int)cudaErrorInvalidValue;
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   if (dtype == 0 && flux == 0)
     return launch<float, Diffuse>(state, out, extras, budget, step, g, route,
-                                  stream);
+                                  slots, n_slots, stream);
   if (dtype == 0 && flux == 1)
     return launch<float, AdvectX>(state, out, extras, budget, step, g, route,
-                                  stream);
+                                  slots, n_slots, stream);
   if (dtype == 1 && flux == 0)
     return launch<__nv_bfloat16, Diffuse>(state, out, extras, budget, step, g,
-                                          route, stream);
+                                          route, slots, n_slots, stream);
   if (dtype == 1 && flux == 1)
     return launch<__nv_bfloat16, AdvectX>(state, out, extras, budget, step, g,
-                                          route, stream);
+                                          route, slots, n_slots, stream);
   return (int)cudaErrorInvalidValue;
 }
 

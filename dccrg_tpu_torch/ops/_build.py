@@ -5,7 +5,9 @@ it compiles with ``nvcc`` alone, without PyTorch's headers (seconds,
 where an extension that includes them takes minutes). The shared
 library goes into ``dccrg_tpu_torch/_build/`` (git-ignored), named by a
 hash of the source and the flags, so an edited source is never served
-from a stale build; a warm-start cache (``DCCRG_COMPILE_CACHE``) moves
+from a stale build (the hash covers the ``.cuh`` headers a source
+includes, such as the flux functors of ``csrc/fluxes.cuh``); a
+warm-start cache (``DCCRG_COMPILE_CACHE``) moves
 it to the cache's ``build/`` with :func:`set_build_dir`. Nothing is
 compiled or loaded on import: the first CUDA call of a kernel builds
 it, and ``build`` compiles several sources at once, one ``nvcc``
@@ -22,6 +24,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -62,11 +65,31 @@ def set_build_dir(path) -> Path:
     return old
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+\.cuh)"', re.M)
+
+
+def _headers(src: Path) -> list:
+    """The ``csrc`` headers ``src`` includes with quotes, and theirs,
+    each once, in the order first met."""
+    seen, todo = [], [src]
+    while todo:
+        for inc in _INCLUDE.findall(todo.pop(0).read_bytes()):
+            h = CSRC / inc.decode()
+            if h not in seen:
+                seen.append(h)
+                todo.append(h)
+    return seen
+
+
 def library_name(name: str) -> str:
     """File name of source ``name``'s library: ``lib<name>-<hash>.so``,
-    the hash over the source and the flags."""
+    the hash over the source, every ``csrc`` header it includes and the
+    flags, so an edited header is never served from a stale build."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(src.read_bytes())
+    for h in _headers(src):
+        digest.update(h.name.encode() + b"\0" + h.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -4,7 +4,11 @@ Port of ``dccrg_tpu/ops/roll_executor.py``. An eligible
 ``Grid.run_steps`` runs as one launch of **kernel A** (``bulk_pass``,
 csrc/bulk_pass.cu) per step: one step of the kernel's device flux over
 all rows, the carried field rounded to its storage dtype between steps
-as the reference's step loop rounds its state.
+as the reference's step loop rounds its state. The device fluxes
+(:data:`DEVICE_FLUXES`, the functors of csrc/fluxes.cuh) are the
+upwind advection flux and the fleet's twins ``diffuse`` and
+``advect_x``, on any neighbourhood of up to 124 slots (the cube of
+length 2).
 
 With ``DCCRG_BULK_SPP=k`` (:func:`bulk_steps_per_pass`, 1..8, the
 reference's knob) the loop runs as the reference's does: ``n // k``
@@ -31,17 +35,22 @@ Eligibility (anything else takes the plain roll path of
 ``Grid.compile_step_loop``): a single-device closed-form plan, scalar
 cell fields, a ``SlotwiseKernel`` that names a device flux this module
 knows, and the flux's field set in one storage dtype (float32 or
-bfloat16). On a CUDA grid an eligible step loop always launches kernel
-A; on a CPU grid ``bulk_pass`` computes the same pass with its plain
-PyTorch version.
+bfloat16). The reference traces any Python flux into its Pallas body;
+the port compiles its fluxes from the repo's sources, so a
+``SlotwiseKernel`` with no named device flux, or fields of mixed
+storage dtypes, takes the plain roll path. On a CUDA grid an eligible
+step loop always launches kernel A; on a CPU grid ``bulk_pass``
+computes the same pass with its plain PyTorch version.
 
 The fleet's batched form (``make_fleet_bulk_step``, for ``GridBatch``)
 is **kernel A'** (``fleet_bulk_pass``, csrc/fleet_bulk_pass.cu): one
 step of a fleet twin (``diffuse``, ``advect_x``) over every slot of a
-``[B, R]`` bucket state with per-slot extras read on the device. It
-wraps exactly, so no epilogue follows it, and it takes the per-slot
-step budgets: a slot whose budget is spent is copied unchanged by the
-same launch, so a fleet step on the card is one launch.
+``[B, R]`` bucket state with per-slot extras read on the device, on
+any default neighbourhood a bucket can have (the 26-cube unrolled,
+lengths 0 and 2 over a slot table). It wraps exactly, so no epilogue
+follows it, and it takes the per-slot step budgets: a slot whose
+budget is spent is copied unchanged by the same launch, so a fleet
+step on the card is one launch.
 """
 
 from __future__ import annotations
@@ -72,17 +81,21 @@ def bulk_steps_per_pass() -> int:
 
 
 # ---------------------------------------------------------------------
-# device fluxes: the compile-time functors of csrc/bulk_pass.cu
+# device fluxes: the compile-time functors of csrc/fluxes.cuh
 # ---------------------------------------------------------------------
 
-# name -> (fields read, fields written): the upwind flux of
-# models.advection.make_uniform_flux_kernel
+# name -> (fields read, fields written, the functor's kCode): the
+# upwind flux of models.advection.make_uniform_flux_kernel and the
+# fleet's twins (fleet._make_diffuse_slotwise, _make_advect_x_slotwise).
+# Field 0 is the carried one; the rest are static over a pass.
 DEVICE_FLUXES = {
-    "upwind_xy": (("density", "vx", "vy"), ("density",)),
+    "diffuse": (("rho",), ("rho",), 0),
+    "advect_x": (("rho",), ("rho",), 1),
+    "upwind_xy": (("density", "vx", "vy"), ("density",), 2),
 }
 
 _STORAGE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_SLOTS = 26
+_MAX_SLOTS = 124  # the cube of a neighbourhood of length 2
 
 
 def _face_slots(offs_cells, offs_const):
@@ -100,6 +113,62 @@ def _face_slots(offs_cells, offs_const):
     return out
 
 
+def _flux_slots(flux, offs_cells, offs_const):
+    """The slots ``flux`` reads, in the neighbourhood's order, as
+    ``[(j, ox, oy, oz, fx, fy)]`` (the predicate each functor of
+    csrc/fluxes.cuh states): the upwind flux's face slots
+    (:func:`_face_slots`); every slot for ``diffuse``; for ``advect_x``
+    the slots whose offset has x < 0, y == 0, z == 0 (the twin's ``up``
+    test, on ``offs_const`` as the twin reads it). ``fx`` and ``fy`` are
+    0 but for the upwind flux. A slot left out adds an exact +0.0 to a
+    sum that is never -0.0."""
+    if flux == "upwind_xy":
+        return _face_slots(offs_cells, offs_const)
+    out = []
+    for j, (o, oc) in enumerate(zip(offs_cells, offs_const)):
+        if flux == "diffuse" or (oc[0] < 0 and oc[1] == 0 and oc[2] == 0):
+            out.append((j, int(o[0]), int(o[1]), int(o[2]), 0, 0))
+    return out
+
+
+def _slot_rows(slots):
+    """The kernels' slot table: one ``(ox, oy, oz, code)`` row a slot,
+    the code ``(fx + 1) | (fy + 1) << 2`` (read by the upwind flux
+    alone)."""
+    return [(ox, oy, oz, (fx + 1) | ((fy + 1) << 2))
+            for _j, ox, oy, oz, fx, fy in slots]
+
+
+def _flux_flops(flux, n_read):
+    """Float operations a cell of one step of a single-field twin over
+    ``n_read`` read slots: ``diffuse`` a subtract and an add a slot, a
+    multiply and an add in the finish; ``advect_x`` an add a slot and
+    four in the finish."""
+    return 2 * n_read + 2 if flux == "diffuse" else n_read + 4
+
+
+class _SlotTables:
+    """A slot table's rows on the host and, made at first use, one int32
+    ``[n, 4]`` copy per device (the kernels read it from device memory:
+    up to 124 rows do not fit a launch's parameters)."""
+
+    def __init__(self, rows):
+        self.rows = [tuple(int(v) for v in r) for r in rows]
+        self._dev = {}
+
+    def host(self):
+        flat = [v for r in self.rows for v in r]
+        return (ctypes.c_int * max(1, len(flat)))(*flat)
+
+    def on(self, device):
+        t = self._dev.get(device)
+        if t is None:
+            t = torch.tensor(self.rows or [(0, 0, 0, 0)], dtype=torch.int32,
+                             device=device).contiguous()
+            self._dev[device] = t
+        return t
+
+
 # the face neighbourhood's four flux slots as (ox, oy, oz, fx, fy), in
 # the order of make_neighborhood(0) (-y, -x, +x, +y): the slot set that
 # kernel A's plane-tile route unrolls at compile time
@@ -114,8 +183,9 @@ _TARGET_BLOCKS = 2048  # z is cut into chunks until about this many blocks
 # of at most _DEEP_SEG rows, cut down to _DEEP_SEG_MIN rows until about
 # _DEEP_BLOCKS blocks fill the card. Its bricks: _BRICK_THREADS threads
 # a block, at most _BRICK_ELEMS staged elements a thread (a plane's
-# three fields), a reach of at most _BRICK_REACH an axis, two blocks an
-# SM in _BRICK_SMEM bytes each (an SM's 228 KB, less the 1 KB the
+# fields: three for the upwind flux, one for the fleet twins), a reach
+# of at most _BRICK_REACH an axis, two blocks an SM in _BRICK_SMEM
+# bytes each (an SM's 228 KB, less the 1 KB the
 # system keeps per block, halved), z segments of at least 16 planes
 # until about _BRICK_BLOCKS blocks fill the card. A block may opt into
 # _MAX_SMEM bytes of shared memory on sm_90.
@@ -126,38 +196,51 @@ _BRICK_THREADS, _BRICK_ELEMS, _BRICK_REACH = 512, 8, 2
 _BRICK_SMEM = (233472 - 2 * 1024) // 2
 _BRICK_BLOCKS = 264
 # the step loop takes the bricks only where they beat k one-step
-# launches of the direct kernel on the card (PERF.md): at this k, at
-# least this many face terms a cell (20 and 36 paid, 12 broke even, 4
-# and 5 lost) and this many blocks (128 paid, 54 did not)
-_BRICK_PAYS_K, _BRICK_PAYS_TERMS, _BRICK_PAYS_BLOCKS = 2, 20, 128
-_DEEP_ROUTES = ("planes", "bricks")
+# launches of the direct kernel on the card (PERF.md), by flux: the
+# depths k taken, at least this many terms a cell and this many blocks;
+# None: never. The upwind flux's face terms: 20 and 36 paid, 12 broke
+# even, 4 and 5 lost; 128 blocks paid, 54 did not. diffuse's read
+# slots: 124 paid at k = 2 from 54 blocks up (1.20-2.89), at k = 3 by
+# 1.03-2.21, and lost at k = 4 (its tile cut to 16 x 4); 26 paid at
+# 128^3 and lost from 256^3, 6 lost from 192^3. advect_x (1 or 2
+# slots) won at 128^3 and lost from 256^3.
+_BRICK_PAYS = {
+    "upwind_xy": ((2,), 20, 128),
+    "diffuse": ((2,), 124, 128),
+    "advect_x": None,
+}
 
 
-def _brick_smem(w, h, k, rz, n):
+def _brick_smem(w, h, k, rz, n, fields=3):
     """Shared memory of a brick block (csrc/bulk_pass_k.cu,
-    ``brick_smem``): the input ring and the levels' rings of a ``w`` x
-    ``h`` window, the slot tables of ``n`` slots, the masks."""
+    ``brick_smem``): the input ring of ``fields`` fields and the levels'
+    rings of a ``w`` x ``h`` window, the slot tables of ``n`` slots,
+    the masks."""
     sk = max(rz, 1)
-    rings = 4 * w * h * (3 * (k * sk + rz + 2) + (k - 1) * (sk + rz + 1))
+    rings = 4 * w * h * (fields * (k * sk + rz + 2)
+                         + (k - 1) * (sk + rz + 1))
     return -(-rings // 16) * 16 + 16 * 2 * k * (n + 1) + 4 * (w + h)
 
 
 class PassSpec:
-    """Static geometry of one bulk step over a single-device
-    closed-form plan: the port's counterpart of ``RollPassSpec``
-    (dccrg_tpu/ops/roll_executor.py:90). ``slots`` are the flux slots.
+    """Static geometry of one bulk step of device flux ``flux`` over a
+    single-device closed-form plan: the port's counterpart of
+    ``RollPassSpec`` (dccrg_tpu/ops/roll_executor.py:90). ``slots`` are
+    the slots the flux reads (:func:`_flux_slots`), ``n_fields`` the
+    fields it stages a cell.
 
-    The face set (``face4``: the four x / y face slots in ``_FACE4``
-    order, the main path's) takes kernel A's plane tiles: a block owns
-    a ``tile[0]`` x ``tile[1]`` (x, y) tile and marches ``tile[2]``
-    z-planes, each staged with its halo in a shared-memory ring of three
-    planes while the next ones load. Any other set takes
-    the direct kernel (one cell per thread, neighbours read through the
-    cache; ``tile`` is its 32 x 8 block). :meth:`deep` states the k-deep
+    The upwind flux's face set (``face4``: the four x / y face slots in
+    ``_FACE4`` order, the main path's) takes kernel A's plane tiles: a
+    block owns a ``tile[0]`` x ``tile[1]`` (x, y) tile and marches
+    ``tile[2]`` z-planes, each staged with its halo in a shared-memory
+    ring of three planes while the next ones load. Any other set takes
+    the direct kernel (a column of 8 z-planes a thread over the flux's
+    slot table, neighbours read through the cache; ``tile`` is its 32 x
+    8 block). :meth:`deep` states the k-deep
     pass's route and blocking, and the rule that declines it."""
 
     def __init__(self, shifts, dims, periodic, offs_cells, offs_const, n0,
-                 L):
+                 L, flux="upwind_xy"):
         self.shifts = tuple(int(s) for s in shifts)
         self.dims = tuple(int(d) for d in dims)
         self.periodic = tuple(bool(p) for p in periodic)
@@ -165,10 +248,14 @@ class PassSpec:
         self.offs_const = tuple(tuple(int(v) for v in o) for o in offs_const)
         self.n0 = int(n0)
         self.L = int(L)
-        self.slots = _face_slots(self.offs_cells, self.offs_const)
+        self.flux = flux
+        self.n_fields = len(DEVICE_FLUXES[flux][0])
+        self.slots = _flux_slots(flux, self.offs_cells, self.offs_const)
         if len(self.slots) > _MAX_SLOTS:
             raise ValueError(f"{len(self.slots)} slots exceed {_MAX_SLOTS}")
-        self.face4 = tuple(s[1:] for s in self.slots) == _FACE4
+        self.table = _SlotTables(_slot_rows(self.slots))
+        self.face4 = (flux == "upwind_xy"
+                      and tuple(s[1:] for s in self.slots) == _FACE4)
         nx, ny, nz = self.dims
         if self.face4:
             tiles = -(-nx // _TILE[0]) * -(-ny // _TILE[1])
@@ -200,8 +287,9 @@ class PassSpec:
         sub-steps along z as time-skewed levels; the tile starts at 32 x
         32 (clipped to the grid) and is halved (y down to 4, then x down
         to 8) until its rings fit two blocks an SM and a staged plane
-        fits the threads' elements; z is cut into segments of at least
-        16 planes until about 264 blocks fill the card. A set with a
+        (``n_fields`` fields) fits the threads' elements; z is cut into
+        segments of at least 16 planes until about 264 blocks fill the
+        card. A set with a
         reach above 2, or whose smallest tile does not fit, is declined.
         The C launcher checks the same bounds."""
         k = int(k)
@@ -219,12 +307,12 @@ class PassSpec:
         if max(rx, ry, rz) > _BRICK_REACH:
             return None
         nx, ny, nz = self.dims
-        n = len(self.slots)
+        n, nf = len(self.slots), self.n_fields
 
         def fits(b):
             w, h = b[0] + 2 * k * rx, b[1] + 2 * k * ry
-            return (_brick_smem(w, h, k, rz, n) <= _BRICK_SMEM
-                    and 3 * w * h <= _BRICK_THREADS * _BRICK_ELEMS)
+            return (_brick_smem(w, h, k, rz, n, nf) <= _BRICK_SMEM
+                    and nf * w * h <= _BRICK_THREADS * _BRICK_ELEMS)
 
         b = [min(32, nx), min(32, ny)]
         for axis, floor in ((1, 4), (0, 8)):
@@ -236,25 +324,36 @@ class PassSpec:
         segs = max(1, min(-(-nz // 16), -(-_BRICK_BLOCKS // tiles)))
         return "bricks", (b[0], b[1], -(-nz // segs))
 
+    def terms(self):
+        """Terms a cell of one step: the upwind flux's active face terms
+        (a slot's nonzero face sign in x or y), a twin's read slots."""
+        if self.flux == "upwind_xy":
+            return sum((fx != 0) + (fy != 0) for *_, fx, fy in self.slots)
+        return len(self.slots)
+
     def deep_pays(self, k):
         """Whether the step loop runs ``k``-deep passes: on the plane
         route always; on the bricks where they beat k one-step launches
-        of the direct kernel, as measured on the card (PERF.md): at k =
-        2, with at least 20 face terms a cell (the 26-cube has 36) and
-        at least 128 blocks. From k = 3 the readings won and lost at
-        neighbouring sizes, so the loop declines them. Elsewhere
-        ``bulk_pass_k`` still launches the bricks when called."""
+        of the direct kernel, as measured on the card (PERF.md), by the
+        flux's rule in ``_BRICK_PAYS``: the upwind flux at k = 2, with
+        at least 20 face terms a cell (the 26-cube has 36) and at least
+        128 blocks (from k = 3 the readings won and lost at neighbouring
+        sizes, so the loop declines them). Elsewhere ``bulk_pass_k``
+        still launches the bricks when called."""
         deep = self.deep(k)
         if deep is None:
             return False
         route, (bx, by, bz) = deep
         if route == "planes":
             return True
+        rule = _BRICK_PAYS[self.flux]
+        if rule is None:
+            return False
+        ks, min_terms, min_blocks = rule
         nx, ny, nz = self.dims
         blocks = -(-nx // bx) * -(-ny // by) * -(-nz // bz)
-        terms = sum((fx != 0) + (fy != 0) for *_, fx, fy in self.slots)
-        return (k == _BRICK_PAYS_K and terms >= _BRICK_PAYS_TERMS
-                and blocks >= _BRICK_PAYS_BLOCKS)
+        return (k in ks and self.terms() >= min_terms
+                and blocks >= min_blocks)
 
     def deep_cost(self, k, itemsize=4):
         """``(work, bytes)`` of one k-deep pass over this grid, each as a
@@ -285,24 +384,29 @@ class PassSpec:
             work = nbx * nby * sum(
                 (w - 2 * t * rx) * (h - 2 * t * ry)
                 * (planes - 2 * t * rz * nbz) for t in range(1, k + 1))
-            read = 3 * nbx * nby * w * h * planes
+            read = self.n_fields * nbx * nby * w * h * planes
         cells = nx * ny * nz
         return (work / (cells * k),
                 (read + cells) * itemsize / self.bytes_moved(itemsize))
 
-    def bytes_moved(self, itemsize, n_in=3, n_out=1):
+    def bytes_moved(self, itemsize, n_in=None, n_out=1):
         """HBM bytes of one step, or of one k-deep pass, at the bound:
-        each input read once, each output written once."""
+        each input (``n_fields`` by default) read once, each output
+        written once."""
+        n_in = self.n_fields if n_in is None else n_in
         return (n_in + n_out) * self.n0 * itemsize
 
     def flops(self, k=1):
-        """Float operations of ``k`` steps (one k-deep pass), per cell:
-        each active face term (a slot's nonzero face sign in x or y)
-        costs its face velocity and coefficient (add, 2 multiplies,
-        compare), static over a pass, then in every step its upwind
-        product and its accumulate; each step ends in one add. The face
-        set: 4 terms, 16 + 9k a cell."""
-        terms = sum((fx != 0) + (fy != 0) for *_, fx, fy in self.slots)
+        """Float operations of ``k`` steps (one k-deep pass), per cell.
+        The upwind flux: each active face term (a slot's nonzero face
+        sign in x or y) costs its face velocity and coefficient (add, 2
+        multiplies, compare), static over a pass, then in every step its
+        upwind product and its accumulate; each step ends in one add
+        (the face set: 4 terms, 16 + 9k a cell). A twin: ``k`` times
+        :func:`_flux_flops`."""
+        if self.flux != "upwind_xy":
+            return self.n0 * k * _flux_flops(self.flux, len(self.slots))
+        terms = self.terms()
         return self.n0 * (4 * terms + k * (2 * terms + 1))
 
 
@@ -316,15 +420,24 @@ _BULK_SIG = {
         ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
         ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_float,
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
+    "dccrg_bulk_direct": (ctypes.c_int, [
+        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_int), ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int,
+        ctypes.c_void_p]),
     "dccrg_bulk_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
 
 
 def _flux_coeffs(kernel, dt):
-    """``dt * (1/dx)`` and ``dt * (1/dy)`` in float32, as the flux's
-    ``dt * inv[d]`` rounds them."""
-    inv = kernel.device_params["inv"]
+    """The flux's two float32 constants (csrc/fluxes.cuh ``Coef``): for
+    the upwind flux ``dt * (1/dx)`` and ``dt * (1/dy)``, rounded as its
+    ``dt * inv[d]`` rounds them; for a twin its extra (dt or cfl) in
+    float32, and 0."""
     dt32 = np.float32(dt)
+    if kernel.device_flux != "upwind_xy":
+        return float(dt32), 0.0
+    inv = kernel.device_params["inv"]
     return float(dt32 * np.float32(inv[0])), float(dt32 * np.float32(inv[1]))
 
 
@@ -337,14 +450,24 @@ def _plain_into(res, name, out):
     return {name: out}
 
 
-def _cuda_operands(fn, spec, rho, vx, vy, out):
+def _flux_inputs(fn, spec, kernel, fields):
+    """The flux's input tensors, field 0 first, after checking that
+    ``spec`` was built for the kernel's flux."""
+    if spec.flux != kernel.device_flux:
+        raise ValueError(f"{fn}: the spec is the {spec.flux} flux's, the "
+                         f"kernel's is {kernel.device_flux}")
+    return [fields[n] for n in DEVICE_FLUXES[spec.flux][0]]
+
+
+def _cuda_operands(fn, spec, ins, out):
     """Check kernel A's operands for a launch of ``fn``: contiguous
     ``[L]`` CUDA tensors of one storage dtype, and ``out`` like them
     and apart from them (a new one where None). Returns ``(storage
     code, out)``."""
+    rho = ins[0]
     if rho.device.type != "cuda":
         raise ValueError(f"{fn} runs on CUDA or CPU, got {rho.device}")
-    for t in (rho, vx, vy):
+    for t in ins:
         if (t.device != rho.device or t.dtype != rho.dtype
                 or t.shape != (spec.L,) or not t.is_contiguous()):
             raise ValueError(f"{fn} needs contiguous [L] tensors of one "
@@ -357,40 +480,56 @@ def _cuda_operands(fn, spec, rho, vx, vy, out):
         return code, torch.empty_like(rho)
     if (out.device != rho.device or out.dtype != rho.dtype
             or out.shape != (spec.L,) or not out.is_contiguous()
-            or any(out.data_ptr() == t.data_ptr() for t in (rho, vx, vy))):
+            or any(out.data_ptr() == t.data_ptr() for t in ins)):
         raise ValueError(f"{fn} out must be a contiguous [L] tensor like "
                          f"the fields and apart from them")
     return code, out
 
 
+def _field_ptrs(ins):
+    """The fields' device pointers as the C entry points take them."""
+    return (ctypes.c_void_p * 3)(*[t.data_ptr() for t in ins],
+                                 *([None] * (3 - len(ins))))
+
+
 def bulk_pass(spec, kernel, fields, extras, out=None):
     """One step of ``kernel``'s device flux over all ``[L]`` rows of
-    ``fields`` (name -> tensor, the flux's input fields). Returns
-    ``{out field: [L] tensor}`` in the storage dtype; pad rows keep
-    their values. On CUDA tensors it is one launch of kernel A
-    (csrc/bulk_pass.cu), counted in ``bulk_pass.launches``; on CPU
-    tensors it runs :func:`bulk_pass_plain`. ``out``, an ``[L]``
-    tensor apart from the fields, takes the result in place of a new
-    one. ``extras[0]`` (dt) is read on the host: the step loop hands it
-    over as a CPU tensor, so the launch waits on nothing on the
-    device."""
-    names_in, names_out = DEVICE_FLUXES[kernel.device_flux]
-    rho, vx, vy = (fields[n] for n in names_in)
+    ``fields`` (name -> tensor, the flux's input fields; ``spec`` built
+    for that flux). Returns ``{out field: [L] tensor}`` in the storage
+    dtype; pad rows keep their values. On CUDA tensors it is one launch
+    of kernel A (csrc/bulk_pass.cu: the upwind face set's plane tiles,
+    every other flux and set the direct kernel over ``spec``'s slot
+    table), counted in ``bulk_pass.launches``; on CPU tensors it runs
+    :func:`bulk_pass_plain`. ``out``, an ``[L]`` tensor apart from the
+    fields, takes the result in place of a new one. ``extras[0]`` (dt,
+    or a twin's cfl) is read on the host: the step loop hands it over
+    as a CPU tensor, so the launch waits on nothing on the device."""
+    names_out = DEVICE_FLUXES[kernel.device_flux][1]
+    ins = _flux_inputs("bulk_pass", spec, kernel, fields)
+    rho = ins[0]
     if rho.device.type == "cpu":
         return _plain_into(bulk_pass_plain(spec, kernel, fields, extras),
                            names_out[0], out)
-    code, out = _cuda_operands("bulk_pass", spec, rho, vx, vy, out)
+    code, out = _cuda_operands("bulk_pass", spec, ins, out)
     lib = _build.load("bulk_pass", _BULK_SIG)
     nx, ny, nz = spec.dims
+    # the plane tiles take the tile, the direct kernel the table's reach
     geom = (ctypes.c_int * 9)(nx, ny, nz, *(int(p) for p in spec.periodic),
-                              *spec.tile)
-    flat = [v for s in spec.slots for v in s[1:]]
-    slots = (ctypes.c_int * max(1, len(flat)))(*flat)
+                              *(spec.tile if spec.face4 else spec.reach()))
     c0, c1 = _flux_coeffs(kernel, float(extras[0]))
-    rc = lib.dccrg_bulk_upwind(
-        code, rho.data_ptr(), vx.data_ptr(), vy.data_ptr(), out.data_ptr(),
-        geom, slots, len(spec.slots), c0, c1, rho.device.index or 0,
-        torch.cuda.current_stream(rho.device).cuda_stream)
+    dev = rho.device.index or 0
+    stream = torch.cuda.current_stream(rho.device).cuda_stream
+    if spec.face4:
+        flat = [v for s in spec.slots for v in s[1:]]
+        slots = (ctypes.c_int * len(flat))(*flat)
+        rc = lib.dccrg_bulk_upwind(
+            code, *(t.data_ptr() for t in ins), out.data_ptr(), geom, slots,
+            len(spec.slots), c0, c1, dev, stream)
+    else:
+        rc = lib.dccrg_bulk_direct(
+            code, DEVICE_FLUXES[spec.flux][2], _field_ptrs(ins),
+            out.data_ptr(), geom, spec.table.on(rho.device).data_ptr(),
+            len(spec.slots), c0, c1, dev, stream)
     _build.check(lib, "dccrg_bulk", rc)
     bulk_pass.launches += 1
     if spec.L > spec.n0:
@@ -406,7 +545,7 @@ def bulk_pass_plain(spec, kernel, fields, extras):
     slot functions, each slot gathered with an exact 3-D ``torch.roll``
     and masked in closed form, the result rounded to its storage
     dtype."""
-    _names_in, names_out = DEVICE_FLUXES[kernel.device_flux]
+    names_out = DEVICE_FLUXES[kernel.device_flux][1]
     any_t = next(iter(fields.values()))
     synth = (spec.dims, spec.periodic, spec.n0, spec.offs_cells, False)
     gidx, base = _synth_prep(synth, spec.L, any_t.device)
@@ -427,10 +566,15 @@ def bulk_pass_plain(spec, kernel, fields, extras):
 
 _BULK_K_SIG = {
     "dccrg_bulk_upwind_k": (ctypes.c_int, [
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
         ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_float,
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
+    "dccrg_bulk_bricks": (ctypes.c_int, [
+        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_int), ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
     "dccrg_bulk_k_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
 
@@ -444,8 +588,9 @@ def bulk_pass_k(spec, kernel, fields, extras, k, out=None):
     ``k`` the rule declines raises ValueError, as does a failed build
     or launch (RuntimeError). On CPU tensors it runs
     :func:`bulk_pass_k_plain`. ``out`` must not alias an input."""
-    names_in, names_out = DEVICE_FLUXES[kernel.device_flux]
-    rho, vx, vy = (fields[n] for n in names_in)
+    names_out = DEVICE_FLUXES[kernel.device_flux][1]
+    ins = _flux_inputs("bulk_pass_k", spec, kernel, fields)
+    rho = ins[0]
     if rho.device.type == "cpu":
         return _plain_into(bulk_pass_k_plain(spec, kernel, fields, extras, k),
                            names_out[0], out)
@@ -453,19 +598,26 @@ def bulk_pass_k(spec, kernel, fields, extras, k, out=None):
     if deep is None:
         raise ValueError(f"the k-deep pass declines k={k} for slots "
                          f"{[s[1:4] for s in spec.slots]}")
-    code, out = _cuda_operands("bulk_pass_k", spec, rho, vx, vy, out)
+    code, out = _cuda_operands("bulk_pass_k", spec, ins, out)
     lib = _build.load("bulk_pass_k", _BULK_K_SIG)
     route, interior = deep
     geom = (ctypes.c_int * 13)(*spec.dims, *(int(p) for p in spec.periodic),
                                int(k), *interior, *spec.reach())
-    flat = [v for s in spec.slots for v in s[1:]]
-    slots = (ctypes.c_int * max(1, len(flat)))(*flat)
     c0, c1 = _flux_coeffs(kernel, float(extras[0]))
-    rc = lib.dccrg_bulk_upwind_k(
-        code, _DEEP_ROUTES.index(route), rho.data_ptr(), vx.data_ptr(),
-        vy.data_ptr(), out.data_ptr(), geom, slots, len(spec.slots), c0, c1,
-        rho.device.index or 0,
-        torch.cuda.current_stream(rho.device).cuda_stream)
+    dev = rho.device.index or 0
+    stream = torch.cuda.current_stream(rho.device).cuda_stream
+    if route == "planes":
+        flat = [v for s in spec.slots for v in s[1:]]
+        slots = (ctypes.c_int * len(flat))(*flat)
+        rc = lib.dccrg_bulk_upwind_k(
+            code, *(t.data_ptr() for t in ins), out.data_ptr(), geom, slots,
+            len(spec.slots), c0, c1, dev, stream)
+    else:
+        rc = lib.dccrg_bulk_bricks(
+            code, DEVICE_FLUXES[spec.flux][2], _field_ptrs(ins),
+            out.data_ptr(), geom, spec.table.host(),
+            spec.table.on(rho.device).data_ptr(), len(spec.slots), c0, c1,
+            dev, stream)
     _build.check(lib, "dccrg_bulk_k", rc)
     bulk_pass_k.launches += 1
     if spec.L > spec.n0:
@@ -479,7 +631,7 @@ bulk_pass_k.launches = 0
 def bulk_pass_k_plain(spec, kernel, fields, extras, k):
     """The plain PyTorch version of the k-deep pass: ``k`` applications
     of :func:`bulk_pass_plain`, each rounded to the storage dtype."""
-    _names_in, names_out = DEVICE_FLUXES[kernel.device_flux]
+    names_out = DEVICE_FLUXES[kernel.device_flux][1]
     cur = dict(fields)
     for _ in range(int(k)):
         cur.update(bulk_pass_plain(spec, kernel, cur, extras))
@@ -572,9 +724,10 @@ def build_epilogue_sets(spec, wrong_rows_host, k=1):
 # Grid.run_steps integration
 # ---------------------------------------------------------------------
 
-def _grid_spec_for(grid, hood):
-    """PassSpec for a grid's hood, or None when the bulk executor
-    cannot express the plan (the caller takes the plain roll path)."""
+def _grid_spec_for(grid, hood, flux="upwind_xy"):
+    """PassSpec of device flux ``flux`` for a grid's hood, or None when
+    the bulk executor cannot express the plan (the caller takes the
+    plain roll path)."""
     cf = hood.closed_form
     if cf is None or cf.get("multi") or grid.n_dev != 1:
         return None
@@ -583,7 +736,7 @@ def _grid_spec_for(grid, hood):
         return None
     try:
         return PassSpec(roll[0], cf["dims"], cf["periodic"], cf["offsets"],
-                        hood.offs_const, cf["n0"], int(grid.plan.L))
+                        hood.offs_const, cf["n0"], int(grid.plan.L), flux)
     except ValueError:
         return None
 
@@ -594,7 +747,7 @@ def _eligible_fields(grid, kernel, fields_in, fields_out):
     flux = DEVICE_FLUXES.get(getattr(kernel, "device_flux", None))
     if flux is None:
         return False
-    names_in, names_out = flux
+    names_in, names_out, _code = flux
     if set(fields_in) != set(names_in) or tuple(fields_out) != names_out:
         return False
     dtypes = set()
@@ -623,7 +776,7 @@ def compile_bulk_step_loop(grid, kernel, fields_in, fields_out,
     hood = grid.plan.hoods[neighborhood_id]
     if hood.offs_const is None:
         return None
-    spec = _grid_spec_for(grid, hood)
+    spec = _grid_spec_for(grid, hood, kernel.device_flux)
     if spec is None:
         return None
     k = bulk_steps_per_pass()
@@ -677,28 +830,26 @@ def compile_bulk_step_loop(grid, kernel, fields_in, fields_out,
 # kernel A': the fleet's batched bulk pass (GridBatch integration)
 # ---------------------------------------------------------------------
 
-# device flux of a fleet twin -> (fields read, fields written, the
-# functor's code in csrc/fleet_bulk_pass.cu); the twins are
+# the device fluxes kernel A' computes: the single-field twins
 # fleet._make_diffuse_slotwise / _make_advect_x_slotwise
-FLEET_FLUXES = {
-    "diffuse": (("rho",), ("rho",), 0),
-    "advect_x": (("rho",), ("rho",), 1),
-}
+FLEET_FLUXES = {name: DEVICE_FLUXES[name] for name in ("diffuse", "advect_x")}
 
 _FLEET_SIG = {
     "dccrg_fleet_bulk": (ctypes.c_int, [
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.POINTER(ctypes.c_int), ctypes.c_longlong, ctypes.c_longlong,
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]),
+        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]),
     "dccrg_fleet_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
 
-# kernel A''s routes, by the code its entry point takes: the plane
-# route stages z-planes of a y band in shared memory (x extents up to
-# 256 that are a whole number of 16-byte chunks), the direct route
-# reads neighbours through the cache
-FLEET_ROUTES = ("planes", "direct")
+# kernel A''s routes, by the code its entry point takes: on the
+# 26-cube the plane route stages z-planes of a y band in shared memory
+# (x extents up to 256 that are a whole number of 16-byte chunks) and
+# the direct route reads neighbours through the cache; any other
+# neighbourhood takes the slot-table route
+FLEET_ROUTES = ("planes", "direct", "slots")
 _MAX_PLANE_X = 256
 
 
@@ -711,10 +862,11 @@ _CUBE = tuple((x, y, z) for z in (-1, 0, 1) for y in (-1, 0, 1)
 class FleetPassSpec:
     """Static geometry of kernel A' over one bucket's single-device
     closed-form plan: grid extents and periodicity and the slots' cell
-    offsets in ``offs_const`` order. Kernel A' unrolls the 26 slots of
-    the default neighbourhood of length 1 in that order; any other
-    neighbourhood raises ValueError (the bucket keeps the table
-    program)."""
+    offsets in ``offs_const`` order. ``cube``: the 26 slots of the
+    default neighbourhood of length 1 in that order, which kernel A'
+    unrolls; any other neighbourhood (lengths 0 and 2) takes its
+    slot-table route over the slots a flux reads
+    (:meth:`slot_table`)."""
 
     def __init__(self, dims, periodic, offs_cells, offs_const, n0, L):
         self.dims = tuple(int(d) for d in dims)
@@ -725,9 +877,18 @@ class FleetPassSpec:
         self.L = int(L)
         self.R = self.L + 1
         signs = tuple(tuple(int(np.sign(v)) for v in o) for o in self.offs_const)
-        if self.offs_cells != _CUBE or signs != _CUBE:
-            raise ValueError("kernel A' needs the 26-slot neighbourhood of "
-                             "length 1 in its default order")
+        self.cube = self.offs_cells == _CUBE and signs == _CUBE
+        self._tables = {}
+
+    def slot_table(self, flux):
+        """The slot-table route's table of ``flux``: the slots it reads
+        (:func:`_flux_slots`) in ``offs_const`` order."""
+        t = self._tables.get(flux)
+        if t is None:
+            t = _SlotTables(_slot_rows(
+                _flux_slots(flux, self.offs_cells, self.offs_const)))
+            self._tables[flux] = t
+        return t
 
     def bytes_moved(self, batch, itemsize):
         """HBM bytes of one pass at the bound: every slot's rows read
@@ -735,20 +896,21 @@ class FleetPassSpec:
         return 2 * batch * self.R * itemsize
 
     def flops(self, batch, flux):
-        """Float operations of one pass: ``diffuse`` a subtract and an
-        add per slot, ``advect_x`` an add per slot; two (diffuse) or
-        four (advect_x) in the finish."""
-        per_cell = (2 * len(self.offs_cells) + 2 if flux == "diffuse"
-                    else len(self.offs_cells) + 4)
-        return batch * self.n0 * per_cell
+        """Float operations of one pass: :func:`_flux_flops` over the
+        slots ``flux`` reads, a cell."""
+        return batch * self.n0 * _flux_flops(
+            flux, len(self.slot_table(flux).rows))
 
 
 def fleet_route(spec, state):
-    """The route kernel A' takes for ``spec`` over ``state``:
-    ``"planes"`` where the x extent is at most 256 and a multiple of
-    16 bytes' elements (4 float32, 8 bfloat16), the row stride fits 32
-    bits and the allocation is 16-byte aligned, else ``"direct"``. The
-    kernel's entry point checks the same rule."""
+    """The route kernel A' takes for ``spec`` over ``state``: off the
+    26-cube ``"slots"``; on it ``"planes"`` where the x extent is at
+    most 256 and a multiple of 16 bytes' elements (4 float32, 8
+    bfloat16), the row stride fits 32 bits and the allocation is
+    16-byte aligned, else ``"direct"``. The kernel's entry point checks
+    the same rule."""
+    if not spec.cube:
+        return FLEET_ROUTES[2]
     nx = spec.dims[0]
     fits = (nx <= _MAX_PLANE_X and nx % (16 // state.element_size()) == 0
             and spec.R < 2 ** 31 - 1 and state.data_ptr() % 16 == 0)
@@ -819,10 +981,15 @@ def fleet_bulk_pass(spec, kernel, state, extras, budget=None, i=0):
     geom = (ctypes.c_int * 8)(nx, ny, nz, *(int(p) for p in spec.periodic),
                               B, extras.shape[1])
     route = FLEET_ROUTES.index(fleet_route(spec, state))
+    table, n_slots = None, 0
+    if route == 2:
+        tab = spec.slot_table(kernel.device_flux)
+        table, n_slots = tab.on(state.device).data_ptr(), len(tab.rows)
     rc = lib.dccrg_fleet_bulk(
         code, flux, route, state.data_ptr(), out.data_ptr(),
         extras.data_ptr(), None if budget is None else budget.data_ptr(),
-        int(i), geom, spec.n0, spec.L, spec.R, state.device.index or 0,
+        int(i), geom, spec.n0, spec.L, spec.R, table, n_slots,
+        state.device.index or 0,
         torch.cuda.current_stream(state.device).cuda_stream)
     _build.check(lib, "dccrg_fleet", rc)
     fleet_bulk_pass.launches += 1
@@ -886,10 +1053,9 @@ def make_fleet_bulk_step(grid, kernel, fields_in, fields_out, n_extra):
     cf = hood.closed_form
     if cf is None or cf.get("multi") or hood.offs_const is None:
         return None
-    try:
-        spec = FleetPassSpec(cf["dims"], cf["periodic"], cf["offsets"],
-                             hood.offs_const, cf["n0"], grid.plan.L)
-    except ValueError:
+    spec = FleetPassSpec(cf["dims"], cf["periodic"], cf["offsets"],
+                         hood.offs_const, cf["n0"], grid.plan.L)
+    if len(spec.offs_cells) > _MAX_SLOTS:
         return None
     name_out = names_out[0]
 

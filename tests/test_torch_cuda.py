@@ -170,6 +170,117 @@ def test_grid_run_steps_k_deep_bricks_on_the_card(device, k, monkeypatch):
     assert torch.equal(a.data["density"], b.data["density"])
 
 
+def _rho_grid(dims, periodic, hood_len, dtype, device, seed):
+    """A grid with the fleet twins' field ``rho``, seeded."""
+    g = (port.Grid(cell_data={"rho": torch.float32}, dtype=dtype)
+         .set_initial_length(dims).set_periodic(*periodic)
+         .set_maximum_refinement_level(0).set_neighborhood_length(hood_len)
+         .initialize(device))
+    n0 = int(np.prod(dims))
+    gen = torch.Generator(device=device).manual_seed(seed)
+    g.data["rho"][0, :n0] = (torch.rand(n0, generator=gen, device=device)
+                             * 100).to(dtype)
+    return g
+
+
+# the fleet twins' flux extras: diffuse's dt, advect_x's cfl
+TWIN_EXTRA = {"diffuse": 0.05, "advect_x": 0.4}
+TWIN_DIMS = [(20, 20, 7), (17, 9, 5), (8, 4, 2)]
+TWIN_PERIODIC = [(True, True, True), (True, True, False), (False, False, False)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hood_len", [0, 1, 2])
+@pytest.mark.parametrize("flux", ["diffuse", "advect_x"])
+@pytest.mark.parametrize("periodic", TWIN_PERIODIC)
+@pytest.mark.parametrize("dims", TWIN_DIMS)
+def test_bulk_twin_kernel_matches_plain(device, dims, periodic, flux,
+                                        hood_len, dtype):
+    """Kernel A's direct route for the fleet twins (one launch over the
+    flux's slot table: 6, 26 or 124 slots for diffuse, 1 or 2 for
+    advect_x) against its plain version bit for bit, at extents smaller
+    than the reach of length 2 ((8, 4, 2): a neighbour wraps more than
+    once on a periodic axis)."""
+    g = _rho_grid(dims, periodic, hood_len, dtype, device, sum(dims))
+    kern = fleet.FLEET_BULK_KERNELS[flux]
+    spec = roll_executor._grid_spec_for(
+        g, g.plan.hoods[DEFAULT_NEIGHBORHOOD_ID], flux)
+    assert not spec.face4
+    fields = {"rho": g.data["rho"][0, :g.plan.L]}
+    extras = (torch.tensor(TWIN_EXTRA[flux], dtype=torch.float32),)
+    before = roll_executor.bulk_pass.launches
+    got = roll_executor.bulk_pass(spec, kern, fields, extras)["rho"]
+    assert roll_executor.bulk_pass.launches == before + 1
+    want = roll_executor.bulk_pass_plain(spec, kern, fields, extras)["rho"]
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("k", [2, 3, 5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hood_len", [0, 1, 2])
+@pytest.mark.parametrize("flux", ["diffuse", "advect_x"])
+@pytest.mark.parametrize("periodic", TWIN_PERIODIC)
+@pytest.mark.parametrize("dims", [(20, 20, 7), (17, 9, 5), (40, 36, 18)])
+def test_bulk_twin_bricks_match_plain(device, dims, periodic, flux, hood_len,
+                                      dtype, k):
+    """Kernel A's bricks for the fleet twins (one field staged a plane),
+    launched directly whatever the step loop's rule, against k plain
+    steps and k one-step launches bit for bit; a k the rule declines
+    (no tile fits) raises before any launch."""
+    g = _rho_grid(dims, periodic, hood_len, dtype, device, sum(dims) + k)
+    kern = fleet.FLEET_BULK_KERNELS[flux]
+    spec = roll_executor._grid_spec_for(
+        g, g.plan.hoods[DEFAULT_NEIGHBORHOOD_ID], flux)
+    fields = {"rho": g.data["rho"][0, :g.plan.L]}
+    extras = (torch.tensor(TWIN_EXTRA[flux], dtype=torch.float32),)
+    before = roll_executor.bulk_pass_k.launches
+    if spec.deep(k) is None:
+        with pytest.raises(ValueError):
+            roll_executor.bulk_pass_k(spec, kern, fields, extras, k)
+        assert roll_executor.bulk_pass_k.launches == before
+        return
+    assert spec.deep(k)[0] == "bricks"
+    got = roll_executor.bulk_pass_k(spec, kern, fields, extras, k)["rho"]
+    torch.cuda.synchronize()
+    assert roll_executor.bulk_pass_k.launches == before + 1
+    want = roll_executor.bulk_pass_k_plain(spec, kern, fields, extras, k)["rho"]
+    assert torch.equal(got, want)
+    cur = dict(fields)
+    for _ in range(k):
+        cur.update(roll_executor.bulk_pass(spec, kern, cur, extras))
+    assert torch.equal(got, cur["rho"])
+
+
+@pytest.mark.parametrize("k", [1, 2, 4])
+@pytest.mark.parametrize("hood_len", [0, 1, 2])
+@pytest.mark.parametrize("flux", ["diffuse", "advect_x"])
+def test_grid_run_steps_twins_on_the_card(device, flux, hood_len, k,
+                                          monkeypatch):
+    """``Grid.run_steps`` with a fleet twin on the card takes the bulk
+    path: 2k + 1 steps launch kernel A's k-deep pass n // k times where
+    the step loop's rule takes it and the one-step kernel for the rest,
+    bit for bit with the plain roll path."""
+    monkeypatch.setenv("DCCRG_BULK_SPP", str(k))
+    dims = (24, 20, 12)
+    a, b = (_rho_grid(dims, (True, False, True), hood_len, torch.float32,
+                      device, 9) for _ in range(2))
+    kern = fleet.FLEET_BULK_KERNELS[flux]
+    spec = roll_executor._grid_spec_for(
+        a, a.plan.hoods[DEFAULT_NEIGHBORHOOD_ID], flux)
+    n = 2 * k + 1
+    dt = torch.tensor(TWIN_EXTRA[flux], dtype=torch.float32)
+    deep, one = (roll_executor.bulk_pass_k.launches,
+                 roll_executor.bulk_pass.launches)
+    a.run_steps(kern, ["rho"], ["rho"], n, extra_args=(dt,))
+    assert a.last_step_path == "bulk"
+    want = divmod(n, k) if spec.deep_pays(k) else (0, n)
+    assert (roll_executor.bulk_pass_k.launches - deep,
+            roll_executor.bulk_pass.launches - one) == want
+    b.run_steps(kern, ["rho"], ["rho"], n, extra_args=(dt,), bulk=False)
+    assert b.last_step_path == "roll"
+    assert torch.equal(a.data["rho"], b.data["rho"])
+
+
 @pytest.mark.parametrize("tile", [None, (8, 8)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("spp", [1, 2, 3, 4, 5, 6, 7, 8])
@@ -333,6 +444,88 @@ def test_fleet_bulk_kernel_matches_plain(device, length, periodic, kernel, dtype
     assert torch.equal(_bits(got), _bits(want))
     frozen = (budget <= 1).nonzero().flatten()
     assert torch.equal(_bits(got[frozen]), _bits(state[frozen]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["diffuse", "advect_x"])
+@pytest.mark.parametrize("hood_len", [0, 2])
+@pytest.mark.parametrize("periodic", [(True, True, True), (False, True, True),
+                                      (False, False, False)])
+@pytest.mark.parametrize("length", [(8, 8, 8), (24, 20, 36), (17, 9, 5),
+                                    (8, 4, 2)])
+def test_fleet_slots_route_matches_plain(device, length, periodic, hood_len,
+                                         kernel, dtype):
+    """Kernel A''s slot-table route (a bucket of neighbourhood length 0
+    or 2) against its plain version on a [5, R] state bit for bit, and
+    with the freeze at step 1 of budgets [2, 0, 1, 3, 1]: the frozen
+    slots keep their bytes, a NaN with a payload and a -0.0 included.
+    At (8, 4, 2) a reach of 2 crosses the extent more than once."""
+    job = fleet.FleetJob("p", length=length, kernel=kernel, periodic=periodic,
+                         cell_data={"rho": dtype}, hood_len=hood_len)
+    grid = fleet.template_grid(job, device)
+    twin = fleet.FLEET_BULK_KERNELS[kernel]
+    spec = roll_executor.make_fleet_bulk_step(grid, twin, ("rho",), ("rho",),
+                                              1).spec
+    B = 5
+    gen = torch.Generator(device=device).manual_seed(sum(length) + hood_len)
+    state = (torch.rand((B, spec.R), generator=gen, device=device)
+             * 100).to(dtype)
+    state[:, -1] = 0
+    extras = (0.02 + 0.03 * torch.arange(B, device=device,
+                                         dtype=torch.float32))[:, None]
+    assert roll_executor.fleet_route(spec, state) == "slots"
+    before = roll_executor.fleet_bulk_pass.launches
+    got = roll_executor.fleet_bulk_pass(spec, twin, state, extras)
+    assert roll_executor.fleet_bulk_pass.launches == before + 1
+    want = roll_executor.fleet_bulk_pass_plain(spec, twin, state, extras)
+    assert torch.equal(got, want)
+    budget = torch.tensor([2, 0, 1, 3, 1], dtype=torch.int32, device=device)
+    _bits(state)[2, 3] = 0x7FC01234 if dtype == torch.float32 else 0x7FC5
+    state[2, 4] = -0.0
+    got = roll_executor.fleet_bulk_pass(spec, twin, state, extras, budget, 1)
+    want = roll_executor.fleet_freeze(
+        roll_executor.fleet_bulk_pass_plain(spec, twin, state, extras),
+        state, budget, 1)
+    assert torch.equal(_bits(got), _bits(want))
+    frozen = (budget <= 1).nonzero().flatten()
+    assert torch.equal(_bits(got[frozen]), _bits(state[frozen]))
+
+
+@pytest.mark.parametrize("hood_len", [0, 2])
+def test_grid_batch_hood_len_on_the_card(device, hood_len):
+    """A GridBatch bucket of neighbourhood length 0 or 2 on the card
+    takes kernel A' (the slot-table route), one launch a step, equal
+    to q plain passes each followed by the freeze bit for bit, and to
+    the table program within float re-association (at length 2 a dt
+    below 1 / 124, the explicit step's stability limit there)."""
+    dt0 = 0.002 if hood_len == 2 else 0.02
+    jobs = [fleet.FleetJob(f"j{i}", length=(16, 12, 10), n_steps=3,
+                           params=(dt0 + 0.001 * i,), seed=i,
+                           hood_len=hood_len) for i in range(3)]
+    bulk = fleet.GridBatch(jobs[0], 3, device=device)
+    table = fleet.GridBatch(jobs[0], 3, device=device, bulk=False)
+    for b in (bulk, table):
+        for j in jobs:
+            j.apply_init(b.grid)
+            b.admit(j)
+    budget = np.array([3, 1, 3], np.int32)
+    spec = roll_executor.make_fleet_bulk_step(
+        bulk.grid, bulk.bulk_kernel, ("rho",), ("rho",), 1).spec
+    ref = bulk.state["rho"].clone()
+    extras = torch.as_tensor(bulk._extras, device=device)
+    budget_dev = torch.as_tensor(budget, device=device)
+    for i in range(3):
+        ref = roll_executor.fleet_freeze(
+            roll_executor.fleet_bulk_pass_plain(spec, bulk.bulk_kernel, ref,
+                                                extras), ref, budget_dev, i)
+    before = roll_executor.fleet_bulk_pass.launches
+    bulk.step(budget)
+    assert bulk.bulk_active() and not table.bulk_active()
+    assert roll_executor.fleet_bulk_pass.launches == before + 3
+    assert torch.equal(_bits(bulk.state["rho"]), _bits(ref))
+    table.step(budget)
+    torch.testing.assert_close(bulk.state["rho"], table.state["rho"],
+                               rtol=1e-5, atol=1e-6)
 
 
 def test_grid_batch_bulk_quantum_on_the_card(device):

@@ -34,7 +34,8 @@
 // are not a multiple of V, or unaligned arrays, take the same kernel
 // with element-wise loads and stores.
 //
-// Direct (bulk_direct), for every other flux and slot set (the upwind
+// Direct (bulk_direct of bulk_direct.cuh, the template a generated
+// flux instantiates too), for every other flux and slot set (the upwind
 // flux on the 26-cube of a neighbourhood of length 1 and on user
 // neighbourhoods; diffuse and advect_x on the neighbourhoods of length
 // 0, 1 and 2): a thread owns one (x, y) column and walks a chunk of
@@ -70,14 +71,13 @@
 #include <climits>
 #include <cstdint>
 
+#include "bulk_direct.cuh"
 #include "fluxes.cuh"
 
 namespace {
 
 using namespace fluxes;
 
-constexpr int kMaxSlots = 124;  // the cube of a neighbourhood of length 2
-constexpr int kDirectZ = 8;     // direct route: z-planes a block walks
 constexpr int kThreads = 256;
 constexpr int kTileX = 128, kTileY = 16;  // plane tile: x cells, y rows
 constexpr int kPad = 8;                   // x halo columns on each side
@@ -93,12 +93,6 @@ struct Geom {
   int nx, ny, nz;  // grid extents
   int px, py, pz;  // periodic flags
   int zc;          // z-planes per block (plane tiles)
-  int rx, ry, rz;  // the slot table's reach per axis (direct route)
-};
-
-// a flux's fields, field 0 the carried one
-template <typename T> struct Fields {
-  const T* f[3];
 };
 
 // 16 bytes of shared memory as floats, and V floats back to 16 bytes
@@ -281,68 +275,6 @@ bulk_planes(const T* __restrict__ rho, const T* __restrict__ vx,
   }
 }
 
-// Any other flux or slot set: a column of kDirectZ cells per thread,
-// the slot table in shared memory, neighbours read from device memory.
-template <typename T, typename F>
-__global__ void __launch_bounds__(kThreads)
-bulk_direct(const Fields<T> in, T* __restrict__ out, const Geom g,
-            const int4* __restrict__ slots, const int n_slots,
-            const Coef k) {
-  constexpr int NF = F::kFields;
-  __shared__ int4 tab[kMaxSlots];
-  __shared__ long long dl[kMaxSlots];  // each slot's flat row offset
-  const long long nxy = (long long)g.nx * g.ny;
-  const int tid = threadIdx.x + blockDim.x * threadIdx.y;
-  for (int j = tid; j < n_slots; j += kThreads) {
-    const int4 e = slots[j];
-    tab[j] = e;
-    dl[j] = e.x + (long long)g.nx * e.y + nxy * e.z;
-  }
-  __syncthreads();
-  const int gx = blockIdx.x * 32 + threadIdx.x;
-  const int gy = blockIdx.y * blockDim.y + threadIdx.y;
-  if (gx >= g.nx || gy >= g.ny) return;
-  const bool in_xy = gx >= g.rx && gx < g.nx - g.rx && gy >= g.ry &&
-                     gy < g.ny - g.ry;
-  const int z0 = blockIdx.z * kDirectZ;
-  const int z1 = min(z0 + kDirectZ, g.nz);
-  for (int gz = z0; gz < z1; ++gz) {
-    const long long f = gx + (long long)g.nx * gy + nxy * gz;
-    float c[NF];
-#pragma unroll
-    for (int q = 0; q < NF; ++q) c[q] = Store<T>::load(in.f[q][f]);
-    float acc = 0.f;
-    if (in_xy && gz >= g.rz && gz < g.nz - g.rz) {
-#pragma unroll 4
-      for (int j = 0; j < n_slots; ++j) {
-        const long long fn = f + dl[j];
-        float n[NF];
-#pragma unroll
-        for (int q = 0; q < NF; ++q) n[q] = Store<T>::load(in.f[q][fn]);
-        acc = F::template add<T>(acc, c, n, true, tab[j].w, k);
-      }
-    } else {
-#pragma unroll 4
-      for (int j = 0; j < n_slots; ++j) {
-        const int4 e = tab[j];
-        int tx = gx + e.x, ty = gy + e.y, tz = gz + e.z;
-        const bool valid = wrap(tx, g.nx, g.px) && wrap(ty, g.ny, g.py) &&
-                           wrap(tz, g.nz, g.pz);
-        float n[NF];
-#pragma unroll
-        for (int q = 0; q < NF; ++q) n[q] = 0.f;
-        if (valid) {
-          const long long fn = tx + (long long)g.nx * ty + nxy * tz;
-#pragma unroll
-          for (int q = 0; q < NF; ++q) n[q] = Store<T>::load(in.f[q][fn]);
-        }
-        acc = F::template add<T>(acc, c, n, valid, e.w, k);
-      }
-    }
-    out[f] = Store<T>::pack(F::template finish<T>(c, acc, k));
-  }
-}
-
 bool is_face4(const int* si, int n_slots) {
   if (n_slots != 4) return false;
   for (int j = 0; j < 4; ++j)
@@ -395,27 +327,12 @@ template <typename T, typename F>
 int launch_direct(const void* const* in, void* out, const int* gi,
                   const void* slots, int n_slots, Coef k, int device,
                   void* stream) {
-  Geom g;
-  g.nx = gi[0]; g.ny = gi[1]; g.nz = gi[2];
-  g.px = gi[3]; g.py = gi[4]; g.pz = gi[5];
-  g.zc = 1;
-  g.rx = gi[6]; g.ry = gi[7]; g.rz = gi[8];
-  if (n_slots < 0 || n_slots > kMaxSlots || g.nx < 1 || g.ny < 1 ||
-      g.nz < 1 || (n_slots > 0 && slots == nullptr) || g.rx < 0 ||
-      g.ry < 0 || g.rz < 0)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return (int)e;
-  Fields<T> f;
-  for (int q = 0; q < 3; ++q)
-    f.f[q] = (const T*)in[q < F::kFields ? q : 0];
-  const dim3 grid((g.nx + 31) / 32, (g.ny + kThreads / 32 - 1) /
-                  (kThreads / 32), (g.nz + kDirectZ - 1) / kDirectZ);
-  if (grid.y > 65535 || grid.z > 65535) return (int)cudaErrorInvalidValue;
-  bulk_direct<T, F><<<grid, dim3(32, kThreads / 32), 0,
-                      (cudaStream_t)stream>>>(
-      f, (T*)out, g, (const int4*)slots, n_slots, k);
-  return (int)cudaGetLastError();
+  direct::Ptrs p = {};
+  for (int q = 0; q < F::kFields; ++q) p.in[q] = in[q];
+  p.out[0] = out;
+  const long long n0 = (long long)gi[0] * gi[1] * gi[2];
+  return direct::launch_direct<direct::Named<T, F>>(
+      p, gi, n0, n0, slots, nullptr, n_slots, k, device, stream);
 }
 
 template <typename T>

@@ -73,12 +73,17 @@
 // patches of planes z-1 and z in registers and the new patch read
 // through the cache.
 //
-// Slot table (fleet_slots), for any other neighbourhood: one cell per
-// thread marching 16 planes of z, the flux's slot table (the slots it
-// reads, in hood.offs_const order: at most 124, diffuse's at length 2;
-// from a device buffer) staged in shared memory, every
-// neighbour read through the cache at its wrapped coordinate (wrap():
-// a reach of 2 crosses an extent of 1 or 2 more than once).
+// Slot table, for any other neighbourhood: the slot-table template of
+// bulk_direct.cuh (direct::launch_fleet, the route a generated flux
+// takes too) over the flux in its fleet form (direct::NamedFleet): one
+// cell per thread marching 16 planes of z, the flux's slot table (the
+// slots it reads, in hood.offs_const order: at most 124, diffuse's at
+// length 2; from a device buffer) staged in shared memory with each
+// slot's flat row offset. A warp (32 cells of one row) whose row lies
+// the table's reach inside the grid along y and z reads each neighbour
+// at its row plus that offset, x wrapped once by a select; the others
+// read every neighbour at its wrapped coordinate (wrap(): a reach of 2
+// crosses an extent of 1 or 2 more than once).
 //
 // The flux is a compile-time functor (csrc/fluxes.cuh), with the
 // arithmetic of the twins in dccrg_tpu_torch/fleet.py (the reference's
@@ -107,6 +112,7 @@
 #include <climits>
 #include <cstdint>
 
+#include "bulk_direct.cuh"
 #include "fluxes.cuh"
 
 namespace {
@@ -126,8 +132,6 @@ constexpr int kCopyDepth = 16;       // loads in flight of a frozen copy
 // direct route
 constexpr int kChunkZ = 16;          // z planes a thread marches
 constexpr int kDirY = kThreads / 32; // rows of a block
-// slot-table route
-constexpr int kMaxSlots = 124;       // the cube of a neighbourhood of length 2
 
 struct Geom {
   int nx, ny, nz;  // grid extents
@@ -581,66 +585,6 @@ fleet_direct(const T* __restrict__ in, T* __restrict__ out,
 }
 
 // ---------------------------------------------------------------------
-// slot-table route
-// ---------------------------------------------------------------------
-
-// A block is 32 cells along x by kDirY rows of y of one slot, as on the
-// direct route, and each thread marches its column through a chunk of
-// kChunkZ planes; per cell the table's slots in order.
-template <typename T, typename F>
-__global__ void __launch_bounds__(kThreads)
-fleet_slots(const T* __restrict__ in, T* __restrict__ out,
-            const float* __restrict__ extras, const int* __restrict__ budget,
-            const int step, const int4* __restrict__ slots,
-            const int n_slots, const Geom g) {
-  using Bits = typename Store<T>::Bits;
-  if ((int)blockIdx.x >= g.n_main) {
-    tail_rows<T, F>(in, out, extras, budget, step, g);
-    return;
-  }
-  __shared__ int4 tab[kMaxSlots];
-  for (int j = threadIdx.x; j < n_slots; j += kThreads) tab[j] = slots[j];
-  __syncthreads();
-  const int w = blockIdx.x;
-  const int b = w / g.per_slot;
-  int item = w - b * g.per_slot;
-  const int tz = item / (g.dtx * g.dty);
-  item -= tz * g.dtx * g.dty;
-  const int ty = item / g.dtx;
-  const int gx = (item - ty * g.dtx) * 32 + threadIdx.x % 32;
-  const int gy = ty * kDirY + threadIdx.x / 32;
-  if (gx >= g.nx || gy >= g.ny) return;
-  const int z0 = tz * kChunkZ;
-  const int z1 = min(z0 + kChunkZ, g.nz);
-  const long long nxy = (long long)g.nx * g.ny;
-  const long long cell = gx + (long long)g.nx * gy;
-  if (frozen(budget, b, step)) {
-    const Bits* s = reinterpret_cast<const Bits*>(in) + b * g.R;
-    Bits* d = reinterpret_cast<Bits*>(out) + b * g.R;
-    for (int z = z0; z < z1; ++z) d[cell + nxy * z] = s[cell + nxy * z];
-    return;
-  }
-  const T* src = in + b * g.R;
-  T* dst = out + b * g.R;
-  const Coef k = {extras[(long long)b * g.E], 0.f};
-  for (int z = z0; z < z1; ++z) {
-    const float c[1] = {Store<T>::load(src[cell + nxy * z])};
-    float acc = 0.f;
-    for (int j = 0; j < n_slots; ++j) {
-      const int4 e = tab[j];
-      int tx = gx + e.x, tyy = gy + e.y, tzz = z + e.z;
-      const bool valid = wrap(tx, g.nx, g.px) && wrap(tyy, g.ny, g.py) &&
-                         wrap(tzz, g.nz, g.pz);
-      float n[1] = {0.f};
-      if (valid) n[0] = Store<T>::load(src[tx + (long long)g.nx * tyy +
-                                           nxy * tzz]);
-      acc = F::template add<T>(acc, c, n, valid, e.w, k);
-    }
-    dst[cell + nxy * z] = Store<T>::pack(F::template finish<T>(c, acc, k));
-  }
-}
-
-// ---------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------
 
@@ -656,10 +600,10 @@ int tail_blocks(const Geom& g) {
   return blocks < kMaxTailBlocks ? (int)blocks : kMaxTailBlocks;
 }
 
+// the plane (0) and direct (1) routes
 template <typename T, typename F>
 int launch(const void* in, void* out, const float* extras, const int* budget,
-           int step, Geom g, int route, const void* slots, int n_slots,
-           void* stream) {
+           int step, Geom g, int route, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   long long n_main;
   if (route == 0) {
@@ -689,10 +633,7 @@ int launch(const void* in, void* out, const float* extras, const int* budget,
     const long long per = (long long)((g.ny + g.by - 1) / g.by) * g.n_zc;
     if (per > INT_MAX) return (int)cudaErrorInvalidValue;
     g.per_slot = (int)per;
-  } else {  // the direct and slot-table routes
-    if (route == 2 && (n_slots < 0 || n_slots > kMaxSlots ||
-                       (n_slots > 0 && slots == nullptr)))
-      return (int)cudaErrorInvalidValue;
+  } else {
     g.dtx = (g.nx + 31) / 32;
     g.dty = (g.ny + kDirY - 1) / kDirY;
     const long long per =
@@ -714,15 +655,38 @@ int launch(const void* in, void* out, const float* extras, const int* budget,
     else
       fleet_planes<T, F, true><<<blocks, kThreads, smem, st>>>(
           (const T*)in, (T*)out, extras, budget, step, g);
-  } else if (route == 1) {
+  } else {
     fleet_direct<T, F><<<blocks, kThreads, 0, st>>>(
         (const T*)in, (T*)out, extras, budget, step, g);
-  } else {
-    fleet_slots<T, F><<<blocks, kThreads, 0, st>>>(
-        (const T*)in, (T*)out, extras, budget, step, (const int4*)slots,
-        n_slots, g);
   }
   return (int)cudaGetLastError();
+}
+
+// the slot-table route (2): bulk_direct.cuh's template over the flux's
+// fleet form
+template <typename T, typename F>
+int launch_slots(const void* in, void* out, const float* extras,
+                 const int* budget, int step, const Geom& g,
+                 const void* slots, int n_slots, int device, void* stream) {
+  direct::Ptrs p = {};
+  p.in[0] = in;
+  p.out[0] = out;
+  p.prev[0] = in;
+  const int gi[9] = {g.nx, g.ny, g.nz, g.px, g.py, g.pz, 0, 0, 0};
+  const int size = sizeof(T);
+  return direct::launch_fleet<direct::NamedFleet<T, F>>(
+      p, gi, g.n0, g.L, g.R, g.B, g.E, slots, nullptr, n_slots, extras,
+      budget, step, &size, &size, {0.f, 0.f}, device, stream);
+}
+
+template <typename T, typename F>
+int dispatch(const void* in, void* out, const float* extras,
+             const int* budget, int step, const Geom& g, int route,
+             const void* slots, int n_slots, int device, void* stream) {
+  if (route == 2)
+    return launch_slots<T, F>(in, out, extras, budget, step, g, slots,
+                              n_slots, device, stream);
+  return launch<T, F>(in, out, extras, budget, step, g, route, stream);
 }
 
 }  // namespace
@@ -754,17 +718,19 @@ extern "C" int dccrg_fleet_bulk(int dtype, int flux, int route,
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   if (dtype == 0 && flux == 0)
-    return launch<float, Diffuse>(state, out, extras, budget, step, g, route,
-                                  slots, n_slots, stream);
+    return dispatch<float, Diffuse>(state, out, extras, budget, step, g,
+                                    route, slots, n_slots, device, stream);
   if (dtype == 0 && flux == 1)
-    return launch<float, AdvectX>(state, out, extras, budget, step, g, route,
-                                  slots, n_slots, stream);
+    return dispatch<float, AdvectX>(state, out, extras, budget, step, g,
+                                    route, slots, n_slots, device, stream);
   if (dtype == 1 && flux == 0)
-    return launch<__nv_bfloat16, Diffuse>(state, out, extras, budget, step, g,
-                                          route, slots, n_slots, stream);
+    return dispatch<__nv_bfloat16, Diffuse>(state, out, extras, budget, step,
+                                            g, route, slots, n_slots, device,
+                                            stream);
   if (dtype == 1 && flux == 1)
-    return launch<__nv_bfloat16, AdvectX>(state, out, extras, budget, step, g,
-                                          route, slots, n_slots, stream);
+    return dispatch<__nv_bfloat16, AdvectX>(state, out, extras, budget, step,
+                                            g, route, slots, n_slots, device,
+                                            stream);
   return (int)cudaErrorInvalidValue;
 }
 

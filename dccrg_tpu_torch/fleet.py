@@ -201,7 +201,10 @@ FLEET_BULK_KERNELS: dict = {}
 def register_bulk_kernel(name: str, slotwise) -> None:
     """Register the ``SlotwiseKernel`` twin of a named step kernel; a
     ``GridBatch`` bucket whose job names this kernel runs the bulk
-    program when the twin's ``device_flux`` is one kernel A' knows."""
+    program: kernel A' over the twin's ``device_flux`` where it is one
+    kernel A' knows, else over the functor ``ops/flux_gen.py`` generates
+    from the twin's slot functions (the table program where the
+    lowering declines them)."""
     FLEET_BULK_KERNELS[str(name)] = slotwise
 
 

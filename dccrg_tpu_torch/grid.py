@@ -675,8 +675,10 @@ class SlotwiseKernel:
 
     ``device_flux`` names the compile-time CUDA flux functor that
     computes the same function (ops/roll_executor.py, csrc/bulk_pass.cu);
-    ``device_params`` holds its constants. A kernel without one always
-    takes the plain roll path.
+    ``device_params`` holds its constants. A kernel without one is
+    traced and lowered into a generated functor (ops/flux_gen.py) when
+    its slot functions are elementwise, and takes the plain roll path
+    where the lowering declines it.
 
     ``ghost_deps`` optionally declares per-output ghost dependencies
     (``{out_field: (in_fields whose NEIGHBOR values out_field reads)}``),

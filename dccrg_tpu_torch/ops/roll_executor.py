@@ -33,24 +33,30 @@ their own.
 
 Eligibility (anything else takes the plain roll path of
 ``Grid.compile_step_loop``): a single-device closed-form plan, scalar
-cell fields, a ``SlotwiseKernel`` that names a device flux this module
-knows, and the flux's field set in one storage dtype (float32 or
-bfloat16). The reference traces any Python flux into its Pallas body;
-the port compiles its fluxes from the repo's sources, so a
-``SlotwiseKernel`` with no named device flux, or fields of mixed
-storage dtypes, takes the plain roll path. On a CUDA grid an eligible
-step loop always launches kernel A; on a CPU grid ``bulk_pass``
-computes the same pass with its plain PyTorch version.
+cell fields and a ``SlotwiseKernel``. A kernel that names a device flux
+this module knows, over that flux's field set in one storage dtype
+(float32 or bfloat16), runs its compiled functor; any other
+``SlotwiseKernel`` (a named flux over mixed storage dtypes included) is
+traced and lowered by ``flux_gen`` into a generated functor, as the
+reference traces any Python flux into its Pallas body, and runs the
+direct kernel of csrc/bulk_direct.cuh over every slot, each field in
+its own storage dtype, any number of fields out. A kernel the lowering
+declines (its reason counted and logged) takes the plain roll path. A
+generated flux takes no k-deep pass: under ``DCCRG_BULK_SPP=k`` the
+loop runs one-step launches, bit for bit the same. On a CUDA grid an
+eligible step loop always launches kernel A; on a CPU grid
+``bulk_pass`` computes the same pass with its plain PyTorch version.
 
 The fleet's batched form (``make_fleet_bulk_step``, for ``GridBatch``)
 is **kernel A'** (``fleet_bulk_pass``, csrc/fleet_bulk_pass.cu): one
 step of a fleet twin (``diffuse``, ``advect_x``) over every slot of a
 ``[B, R]`` bucket state with per-slot extras read on the device, on
 any default neighbourhood a bucket can have (the 26-cube unrolled,
-lengths 0 and 2 over a slot table). It wraps exactly, so no epilogue
-follows it, and it takes the per-slot step budgets: a slot whose
-budget is spent is copied unchanged by the same launch, so a fleet
-step on the card is one launch.
+lengths 0 and 2 over a slot table); a registered user twin runs its
+generated functor on the slot-table route of csrc/bulk_direct.cuh. It
+wraps exactly, so no epilogue follows it, and it takes the per-slot
+step budgets: a slot whose budget is spent is copied unchanged by the
+same launch, so a fleet step on the card is one launch.
 """
 
 from __future__ import annotations
@@ -63,7 +69,7 @@ import torch
 
 from ..grid import (SlotwiseKernel, _make_offs_col, _make_roll3d_gather,
                     _run_slotwise, _synth_col, _synth_prep)
-from . import _build
+from . import _build, flux_gen
 
 _F32 = torch.float32
 
@@ -249,8 +255,19 @@ class PassSpec:
         self.n0 = int(n0)
         self.L = int(L)
         self.flux = flux
-        self.n_fields = len(DEVICE_FLUXES[flux][0])
-        self.slots = _flux_slots(flux, self.offs_cells, self.offs_const)
+        # a generated flux (flux_gen.Flux) reads every slot, in
+        # offs_const order, and its slot function reads the slot's
+        # offs_const row from a second table
+        self.gen = isinstance(flux, flux_gen.Flux)
+        if self.gen:
+            self.n_fields = len(flux.fields_in)
+            self.slots = [(j, int(o[0]), int(o[1]), int(o[2]), 0, 0)
+                          for j, o in enumerate(self.offs_cells)]
+            self.offs_table = _SlotTables(
+                [(*o, 0) for o in self.offs_const])
+        else:
+            self.n_fields = len(DEVICE_FLUXES[flux][0])
+            self.slots = _flux_slots(flux, self.offs_cells, self.offs_const)
         if len(self.slots) > _MAX_SLOTS:
             raise ValueError(f"{len(self.slots)} slots exceed {_MAX_SLOTS}")
         self.table = _SlotTables(_slot_rows(self.slots))
@@ -293,7 +310,7 @@ class PassSpec:
         reach above 2, or whose smallest tile does not fit, is declined.
         The C launcher checks the same bounds."""
         k = int(k)
-        if not 2 <= k <= 8:
+        if not 2 <= k <= 8 or self.gen:
             return None
         if self.face4:
             nx, ny, nz = self.dims
@@ -392,7 +409,10 @@ class PassSpec:
     def bytes_moved(self, itemsize, n_in=None, n_out=1):
         """HBM bytes of one step, or of one k-deep pass, at the bound:
         each input (``n_fields`` by default) read once, each output
-        written once."""
+        written once; a generated flux's fields each in its own storage
+        dtype (``itemsize`` unused)."""
+        if self.gen:
+            return sum(self.flux.itemsizes()) * self.n0
         n_in = self.n_fields if n_in is None else n_in
         return (n_in + n_out) * self.n0 * itemsize
 
@@ -403,7 +423,10 @@ class PassSpec:
         multiplies, compare), static over a pass, then in every step its
         upwind product and its accumulate; each step ends in one add
         (the face set: 4 terms, 16 + 9k a cell). A twin: ``k`` times
-        :func:`_flux_flops`."""
+        :func:`_flux_flops`. A generated flux: its programs' float
+        operations over every slot (:meth:`flux_gen.Flux.flops_per_cell`)."""
+        if self.gen:
+            return self.n0 * k * self.flux.flops_per_cell(len(self.slots))
         if self.flux != "upwind_xy":
             return self.n0 * k * _flux_flops(self.flux, len(self.slots))
         terms = self.terms()
@@ -441,18 +464,35 @@ def _flux_coeffs(kernel, dt):
     return float(dt32 * np.float32(inv[0])), float(dt32 * np.float32(inv[1]))
 
 
-def _plain_into(res, name, out):
-    """A plain version's result, copied into ``out`` where one is
-    given."""
+def _names_out(spec, kernel):
+    """The fields a pass of ``spec`` writes."""
+    return (spec.flux.fields_out if spec.gen
+            else DEVICE_FLUXES[kernel.device_flux][1])
+
+
+def _out_dict(out, names_out):
+    """``out`` as ``{field: tensor}``: a lone tensor is the first (for
+    a named flux, the only) field's."""
+    if out is None or isinstance(out, dict):
+        return out
+    return {names_out[0]: out}
+
+
+def _plain_into(res, out):
+    """A plain version's result, copied into ``out`` (``{field:
+    tensor}``) where one is given."""
     if out is None:
         return res
-    out.copy_(res[name])
-    return {name: out}
+    for f, t in out.items():
+        t.copy_(res[f])
+    return dict(out)
 
 
 def _flux_inputs(fn, spec, kernel, fields):
     """The flux's input tensors, field 0 first, after checking that
     ``spec`` was built for the kernel's flux."""
+    if spec.gen:
+        return [fields[n] for n in spec.flux.fields_in]
     if spec.flux != kernel.device_flux:
         raise ValueError(f"{fn}: the spec is the {spec.flux} flux's, the "
                          f"kernel's is {kernel.device_flux}")
@@ -496,21 +536,30 @@ def bulk_pass(spec, kernel, fields, extras, out=None):
     """One step of ``kernel``'s device flux over all ``[L]`` rows of
     ``fields`` (name -> tensor, the flux's input fields; ``spec`` built
     for that flux). Returns ``{out field: [L] tensor}`` in the storage
-    dtype; pad rows keep their values. On CUDA tensors it is one launch
-    of kernel A (csrc/bulk_pass.cu: the upwind face set's plane tiles,
-    every other flux and set the direct kernel over ``spec``'s slot
-    table), counted in ``bulk_pass.launches``; on CPU tensors it runs
-    :func:`bulk_pass_plain`. ``out``, an ``[L]`` tensor apart from the
-    fields, takes the result in place of a new one. ``extras[0]`` (dt,
-    or a twin's cfl) is read on the host: the step loop hands it over
-    as a CPU tensor, so the launch waits on nothing on the device."""
-    names_out = DEVICE_FLUXES[kernel.device_flux][1]
+    dtype; a named flux's pad rows keep their values, a generated
+    flux's are computed (every slot masked) as its plain version
+    computes them. On CUDA tensors it is one launch of kernel A
+    (csrc/bulk_pass.cu: the upwind face set's plane tiles, every other
+    named flux and set the direct kernel over ``spec``'s slot table; a
+    generated flux the direct kernel of csrc/bulk_direct.cuh over its
+    functor, every slot), counted in ``bulk_pass.launches``; on CPU
+    tensors it runs :func:`bulk_pass_plain`. ``out`` (``{field: [L]
+    tensor}``, apart from the fields; a lone tensor for a named flux's
+    one field) takes the result in place of new tensors. ``extras``
+    (0-d float32 tensors: dt, or a twin's cfl) are read on the host:
+    the step loop hands them over as CPU tensors, so the launch waits
+    on nothing on the device."""
+    names_out = _names_out(spec, kernel)
+    out = _out_dict(out, names_out)
     ins = _flux_inputs("bulk_pass", spec, kernel, fields)
     rho = ins[0]
     if rho.device.type == "cpu":
         return _plain_into(bulk_pass_plain(spec, kernel, fields, extras),
-                           names_out[0], out)
-    code, out = _cuda_operands("bulk_pass", spec, ins, out)
+                           out)
+    if spec.gen:
+        return _gen_pass(spec, ins, extras, out)
+    code, o = _cuda_operands("bulk_pass", spec, ins,
+                             None if out is None else out[names_out[0]])
     lib = _build.load("bulk_pass", _BULK_SIG)
     nx, ny, nz = spec.dims
     # the plane tiles take the tile, the direct kernel the table's reach
@@ -523,29 +572,130 @@ def bulk_pass(spec, kernel, fields, extras, out=None):
         flat = [v for s in spec.slots for v in s[1:]]
         slots = (ctypes.c_int * len(flat))(*flat)
         rc = lib.dccrg_bulk_upwind(
-            code, *(t.data_ptr() for t in ins), out.data_ptr(), geom, slots,
+            code, *(t.data_ptr() for t in ins), o.data_ptr(), geom, slots,
             len(spec.slots), c0, c1, dev, stream)
     else:
         rc = lib.dccrg_bulk_direct(
             code, DEVICE_FLUXES[spec.flux][2], _field_ptrs(ins),
-            out.data_ptr(), geom, spec.table.on(rho.device).data_ptr(),
+            o.data_ptr(), geom, spec.table.on(rho.device).data_ptr(),
             len(spec.slots), c0, c1, dev, stream)
     _build.check(lib, "dccrg_bulk", rc)
     bulk_pass.launches += 1
     if spec.L > spec.n0:
-        out[spec.n0:] = rho[spec.n0:]
-    return {names_out[0]: out}
+        o[spec.n0:] = rho[spec.n0:]
+    return {names_out[0]: o}
 
 
 bulk_pass.launches = 0
+
+_GEN_DIRECT_SIG = {
+    "dccrg_gen_direct": (ctypes.c_int, [
+        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
+        ctypes.POINTER(ctypes.c_int), ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]),
+    "dccrg_gen_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+}
+_GEN_FLEET_SIG = {
+    "dccrg_gen_fleet": (ctypes.c_int, [
+        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
+        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]),
+    "dccrg_gen_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+}
+
+
+_GEN_LIBS = {}  # (functor hash, fleet form) -> loaded library
+
+
+def gen_library(flux):
+    """The loaded library of a generated flux (its source written into
+    the build directory and compiled by nvcc at first use; a failed
+    build raises with the compiler's output), looked up by the
+    functor's hash: a launch does not hash the source again."""
+    key = (flux.key, flux.batched)
+    lib = _GEN_LIBS.get(key)
+    if lib is None:
+        lib = _GEN_LIBS[key] = _build.load(
+            _build.write_generated(flux_gen.source(flux)),
+            _GEN_FLEET_SIG if flux.batched else _GEN_DIRECT_SIG)
+    return lib
+
+
+def _ptrs(ts):
+    """The tensors' device pointers as a C array."""
+    ptrs = [t.data_ptr() for t in ts]
+    return (ctypes.c_void_p * max(1, len(ptrs)))(*ptrs)
+
+
+def _check_gen(fn, flux, ins, outs, device, shape):
+    """A generated flux's operands: contiguous tensors of ``shape`` on
+    one CUDA ``device``, each field in its storage dtype, the outputs
+    apart from the inputs; the flux lowered for the device's
+    arithmetic."""
+    if device.type != "cuda":
+        raise ValueError(f"{fn} runs on CUDA or CPU, got {device}")
+    if flux.target != device.type:
+        raise ValueError(f"{fn}: the flux was lowered for {flux.target}")
+    named = list(zip(flux.fields_in, ins)) + list(zip(flux.fields_out, outs))
+    for f, t in named:
+        if (t.device != device or t.shape != shape or not t.is_contiguous()
+                or t.dtype != flux.storage[f]):
+            raise ValueError(f"{fn} needs contiguous {list(shape)} tensors "
+                             f"of each field's storage dtype on one device "
+                             f"(field {f!r})")
+    if {t.data_ptr() for t in outs} & {t.data_ptr() for t in ins}:
+        raise ValueError(f"{fn}: an output aliases an input")
+
+
+def _gen_pass(spec, ins, extras, out):
+    """Kernel A over a generated flux: one launch of the direct kernel
+    of csrc/bulk_direct.cuh over its functor."""
+    flux = spec.flux
+    dev = ins[0].device
+    if out is None:
+        out = {f: torch.empty(spec.L, dtype=flux.storage[f], device=dev)
+               for f in flux.fields_out}
+    outs = [out[f] for f in flux.fields_out]
+    _check_gen("bulk_pass", flux, ins, outs, dev, (spec.L,))
+    extras = _f32_extras(extras, flux.n_extra)
+    lib = gen_library(flux)
+    hp = flux.host_values(extras)
+    geom = (ctypes.c_int * 9)(*spec.dims, *(int(p) for p in spec.periodic),
+                              *spec.reach())
+    rc = lib.dccrg_gen_direct(
+        _ptrs(ins), _ptrs(outs), geom, spec.n0, spec.L,
+        spec.table.on(dev).data_ptr(), spec.offs_table.on(dev).data_ptr(),
+        len(spec.slots), (ctypes.c_float * max(1, len(hp)))(*hp), len(hp),
+        dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, "dccrg_gen", rc)
+    bulk_pass.launches += 1
+    return {f: out[f] for f in flux.fields_out}
+
+
+def _f32_extras(extras, n):
+    """A generated flux's extras: ``n`` float32 values, as it was
+    lowered for them."""
+    extras = tuple(extras)
+    if len(extras) != n or any(torch.as_tensor(e).dtype != _F32
+                               for e in extras):
+        raise TypeError(f"a generated flux takes {n} float32 extras, got "
+                        f"{[torch.as_tensor(e).dtype for e in extras]}")
+    return extras
 
 
 def bulk_pass_plain(spec, kernel, fields, extras):
     """The plain PyTorch version of kernel A: one step of the kernel's
     slot functions, each slot gathered with an exact 3-D ``torch.roll``
-    and masked in closed form, the result rounded to its storage
-    dtype."""
-    names_out = DEVICE_FLUXES[kernel.device_flux][1]
+    and masked in closed form, each result rounded to its field's
+    storage dtype."""
+    names_out = _names_out(spec, kernel)
     any_t = next(iter(fields.values()))
     synth = (spec.dims, spec.periodic, spec.n0, spec.offs_cells, False)
     gidx, base = _synth_prep(synth, spec.L, any_t.device)
@@ -557,7 +707,8 @@ def bulk_pass_plain(spec, kernel, fields, extras):
     res = _run_slotwise(kernel, dict(fields), fields, gather, offs_col,
                         lambda j: _synth_col(synth, gidx, base, j), n_slots,
                         extras)
-    return {f: res[f].to(fields[f].dtype) for f in names_out}
+    return {f: res[f].to(spec.flux.storage[f] if spec.gen
+                         else fields[f].dtype) for f in names_out}
 
 
 # ---------------------------------------------------------------------
@@ -588,17 +739,19 @@ def bulk_pass_k(spec, kernel, fields, extras, k, out=None):
     ``k`` the rule declines raises ValueError, as does a failed build
     or launch (RuntimeError). On CPU tensors it runs
     :func:`bulk_pass_k_plain`. ``out`` must not alias an input."""
-    names_out = DEVICE_FLUXES[kernel.device_flux][1]
+    names_out = _names_out(spec, kernel)
+    out = _out_dict(out, names_out)
     ins = _flux_inputs("bulk_pass_k", spec, kernel, fields)
     rho = ins[0]
     if rho.device.type == "cpu":
         return _plain_into(bulk_pass_k_plain(spec, kernel, fields, extras, k),
-                           names_out[0], out)
+                           out)
     deep = spec.deep(k)
     if deep is None:
         raise ValueError(f"the k-deep pass declines k={k} for slots "
                          f"{[s[1:4] for s in spec.slots]}")
-    code, out = _cuda_operands("bulk_pass_k", spec, ins, out)
+    code, out = _cuda_operands("bulk_pass_k", spec, ins,
+                               None if out is None else out[names_out[0]])
     lib = _build.load("bulk_pass_k", _BULK_K_SIG)
     route, interior = deep
     geom = (ctypes.c_int * 13)(*spec.dims, *(int(p) for p in spec.periodic),
@@ -631,7 +784,7 @@ bulk_pass_k.launches = 0
 def bulk_pass_k_plain(spec, kernel, fields, extras, k):
     """The plain PyTorch version of the k-deep pass: ``k`` applications
     of :func:`bulk_pass_plain`, each rounded to the storage dtype."""
-    names_out = DEVICE_FLUXES[kernel.device_flux][1]
+    names_out = _names_out(spec, kernel)
     cur = dict(fields)
     for _ in range(int(k)):
         cur.update(bulk_pass_plain(spec, kernel, cur, extras))
@@ -741,22 +894,53 @@ def _grid_spec_for(grid, hood, flux="upwind_xy"):
         return None
 
 
-def _eligible_fields(grid, kernel, fields_in, fields_out):
+def _grid_target(grid):
+    """The device type whose arithmetic a one-device grid's plain path
+    runs ("cuda" or "cpu")."""
+    return "cuda" if grid.device.type == "cuda" else "cpu"
+
+
+def lowered(grid, kernel, fields_in, fields_out, n_extra, batched=False,
+            target=None):
+    """``flux_gen.lower`` of ``kernel`` over the grid's storage dtypes,
+    for ``target`` (the grid's device type by default), cached in the
+    grid's program cache per kernel, fields, dtypes, extras and form:
+    a :class:`flux_gen.Flux`, or the reason it declines."""
+    fields_in, fields_out = tuple(fields_in), tuple(fields_out)
+    dtypes = {f: grid.fields[f][1] for f in set(fields_in) | set(fields_out)}
+    target = target or _grid_target(grid)
+    key = ("fluxgen", kernel, fields_in, fields_out,
+           tuple(sorted((f, str(d)) for f, d in dtypes.items())),
+           int(n_extra), bool(batched), target)
+    hit = grid._program_cache.get(key)
+    if hit is None:
+        hit = flux_gen.lower(kernel, fields_in, fields_out, dtypes, n_extra,
+                             target=target, batched=batched)
+        grid._program_cache[key] = hit
+    return hit
+
+
+def _device_flux(grid, kernel, fields_in, fields_out, n_extra):
+    """What runs ``kernel`` as kernel A on the grid: the name of a
+    device flux of csrc/fluxes.cuh (its field set, in one storage
+    dtype), else the :class:`flux_gen.Flux` lowered from the kernel's
+    own slot functions (a named flux over mixed dtypes included), else
+    None (a non-``SlotwiseKernel``, a field with a shape, or a decline:
+    the plain roll path runs)."""
     if not isinstance(kernel, SlotwiseKernel):
-        return False
-    flux = DEVICE_FLUXES.get(getattr(kernel, "device_flux", None))
-    if flux is None:
-        return False
-    names_in, names_out, _code = flux
-    if set(fields_in) != set(names_in) or tuple(fields_out) != names_out:
-        return False
-    dtypes = set()
-    for f in names_in:
-        shape, dt = grid.fields[f]
-        if shape != ():
-            return False
-        dtypes.add(dt)
-    return len(dtypes) == 1 and dtypes.pop() in _STORAGE_CODES
+        return None
+    if any(grid.fields[f][0] != () for f in set(fields_in) | set(fields_out)):
+        return None
+    name = getattr(kernel, "device_flux", None)
+    flux = DEVICE_FLUXES.get(name)
+    if flux is not None:
+        names_in, names_out, _code = flux
+        dtypes = {grid.fields[f][1] for f in names_in}
+        if (set(fields_in) == set(names_in) and fields_out == names_out
+                and len(dtypes) == 1 and dtypes.pop() in _STORAGE_CODES):
+            return name
+    gen = lowered(grid, kernel, fields_in, fields_out, n_extra)
+    return gen if isinstance(gen, flux_gen.Flux) else None
 
 
 def compile_bulk_step_loop(grid, kernel, fields_in, fields_out,
@@ -766,17 +950,23 @@ def compile_bulk_step_loop(grid, kernel, fields_in, fields_out,
     (read here, and part of the program's key), ``n_steps // k``
     k-deep passes and then ``n_steps % k`` one-step launches of kernel
     A (``n_steps`` one-step launches at k = 1, or where
-    ``spec.deep_pays(k)`` is false), and nothing else on the device.
-    Same ``(fn, tables, static_in)`` contract (no tables),
-    ``fn.step_path == "bulk"``; returns None when ineligible."""
+    ``spec.deep_pays(k)`` is false, as for every generated flux), and
+    nothing else on the device. Same ``(fn, tables, static_in)``
+    contract (no tables), ``fn.step_path == "bulk"``; returns None when
+    ineligible. Every field of ``fields_out`` is carried: each launch
+    reads the last one's outputs in their storage dtypes."""
     fields_in = tuple(fields_in)
     fields_out = tuple(fields_out)
-    if not _eligible_fields(grid, kernel, fields_in, fields_out):
+    if grid.n_dev != 1:
         return None
     hood = grid.plan.hoods[neighborhood_id]
-    if hood.offs_const is None:
+    if (hood.offs_const is None or hood.closed_form is None
+            or hood.closed_form.get("multi")):
         return None
-    spec = _grid_spec_for(grid, hood, kernel.device_flux)
+    flux = _device_flux(grid, kernel, fields_in, fields_out, n_extra)
+    if flux is None:
+        return None
+    spec = _grid_spec_for(grid, hood, flux)
     if spec is None:
         return None
     k = bulk_steps_per_pass()
@@ -784,7 +974,8 @@ def compile_bulk_step_loop(grid, kernel, fields_in, fields_out,
     L, R = grid.plan.L, grid.plan.R
     static_in = tuple(f for f in fields_in if f not in fields_out)
     key = ("bulksteploop", kernel, fields_in, fields_out, n_extra, L, R,
-           spec.shifts, spec.dims, spec.periodic, k)
+           spec.shifts, spec.dims, spec.periodic, k,
+           flux.key if spec.gen else flux)
     fn = grid._program_cache.get(key)
     if fn is not None:
         return fn, (), static_in
@@ -802,24 +993,25 @@ def compile_bulk_step_loop(grid, kernel, fields_in, fields_out,
         # k-deep passes, then the one-step remainder (the reference's
         # order, dccrg_tpu/ops/roll_executor.py:685-694)
         passes, rem = divmod(n_steps, k) if deep else (0, n_steps)
-        # the flux writes one field; the last launch writes the new
-        # state's rows in place, and only the rows past L are copied
-        (f_out,), (a_out,) = fields_out, outs_full
-        new = torch.empty_like(a_out)
-        state = {f_out: a_out[0, :L]}
+        # the last launch writes the new state's rows in place, and only
+        # the rows past L are copied
+        news = [torch.empty_like(a) for a in outs_full]
+        state = {f: a[0, :L] for f, a in zip(fields_out, outs_full)}
         for i in range(passes + rem):
             full = dict(statics)
             full.update(state)
             ins = {f: full[f] for f in fields_in}
-            out = new[0, :L] if i + 1 == passes + rem else None
+            out = ({f: t[0, :L] for f, t in zip(fields_out, news)}
+                   if i + 1 == passes + rem else None)
             if i < passes:
                 state = bulk_pass_k(spec, kernel, ins, extras, k, out=out)
             else:
                 state = bulk_pass(spec, kernel, ins, extras, out=out)
-        if n_steps == 0:
-            new[0, :L] = a_out[0, :L]
-        new[0, L:] = a_out[0, L:]
-        return (new,)
+        for new, a in zip(news, outs_full):
+            if n_steps == 0:
+                new[0, :L] = a[0, :L]
+            new[0, L:] = a[0, L:]
+        return tuple(news)
 
     fn.step_path = "bulk"
     grid._program_cache[key] = fn
@@ -882,22 +1074,42 @@ class FleetPassSpec:
 
     def slot_table(self, flux):
         """The slot-table route's table of ``flux``: the slots it reads
-        (:func:`_flux_slots`) in ``offs_const`` order."""
-        t = self._tables.get(flux)
+        (:func:`_flux_slots`) in ``offs_const`` order; every slot for a
+        generated flux (a :class:`flux_gen.Flux`)."""
+        key = "gen" if isinstance(flux, flux_gen.Flux) else flux
+        t = self._tables.get(key)
         if t is None:
-            t = _SlotTables(_slot_rows(
-                _flux_slots(flux, self.offs_cells, self.offs_const)))
-            self._tables[flux] = t
+            if key == "gen":
+                t = _SlotTables([(*o, 0) for o in self.offs_cells])
+            else:
+                t = _SlotTables(_slot_rows(
+                    _flux_slots(flux, self.offs_cells, self.offs_const)))
+            self._tables[key] = t
         return t
 
-    def bytes_moved(self, batch, itemsize):
+    def offs_table(self):
+        """The slots' ``offs_const`` rows, for a generated flux's slot
+        function."""
+        t = self._tables.get("offs")
+        if t is None:
+            t = self._tables["offs"] = _SlotTables(
+                [(*o, 0) for o in self.offs_const])
+        return t
+
+    def bytes_moved(self, batch, itemsize, flux=None):
         """HBM bytes of one pass at the bound: every slot's rows read
-        once and written once."""
+        once and written once (a generated flux's fields in and out,
+        each in its storage dtype)."""
+        if isinstance(flux, flux_gen.Flux):
+            return batch * self.R * sum(flux.itemsizes())
         return 2 * batch * self.R * itemsize
 
     def flops(self, batch, flux):
         """Float operations of one pass: :func:`_flux_flops` over the
-        slots ``flux`` reads, a cell."""
+        slots ``flux`` reads, a cell (a generated flux: its programs
+        over every slot)."""
+        if isinstance(flux, flux_gen.Flux):
+            return batch * self.n0 * flux.flops_per_cell(len(self.offs_cells))
         return batch * self.n0 * _flux_flops(
             flux, len(self.slot_table(flux).rows))
 
@@ -939,7 +1151,8 @@ def fleet_library():
     return _build.load("fleet_bulk_pass", _FLEET_SIG)
 
 
-def fleet_bulk_pass(spec, kernel, state, extras, budget=None, i=0):
+def fleet_bulk_pass(spec, kernel, state, extras, budget=None, i=0,
+                    flux=None):
     """One fleet step of ``kernel``'s device flux over every slot of
     ``state`` (the bucket's ``[B, R]`` field, row stride ``R``) with
     per-slot ``extras`` (``[B, E]`` float32, column 0 read). Returns a
@@ -952,7 +1165,16 @@ def fleet_bulk_pass(spec, kernel, state, extras, budget=None, i=0):
     freeze included, and counts the launch in
     ``fleet_bulk_pass.launches``; on CPU tensors it runs
     :func:`fleet_bulk_pass_plain` and, with a budget,
-    :func:`fleet_freeze`."""
+    :func:`fleet_freeze`.
+
+    With ``flux`` (a :class:`flux_gen.Flux` lowered in its fleet form
+    from ``kernel``'s slot functions) ``state`` is ``{field: [B, R]}``
+    in each field's storage dtype and the result ``{out field: [B,
+    R]}``: on CUDA one launch of the slot-table route of
+    csrc/bulk_direct.cuh over the flux's functor, every slot of the
+    neighbourhood, the freeze included."""
+    if flux is not None:
+        return _gen_fleet_pass(spec, kernel, flux, state, extras, budget, i)
     if budget is not None:
         _check_budget(budget, state)
     if state.device.type == "cpu":
@@ -999,27 +1221,111 @@ def fleet_bulk_pass(spec, kernel, state, extras, budget=None, i=0):
 fleet_bulk_pass.launches = 0
 
 
-def fleet_bulk_pass_plain(spec, kernel, state, extras):
+def _gen_fleet_pass(spec, kernel, flux, state, extras, budget, i):
+    ins = [state[f] for f in flux.fields_in]
+    dev = ins[0].device
+    B = ins[0].shape[0]
+    if budget is not None:
+        _check_budget(budget, ins[0])
+    if dev.type == "cpu":
+        out = fleet_bulk_pass_plain(spec, kernel, state, extras, flux=flux)
+        if budget is not None:
+            out = {f: fleet_freeze(t, state[f], budget, i)
+                   for f, t in out.items()}
+        return out
+    if (extras.device != dev or extras.dtype != _F32 or extras.ndim != 2
+            or extras.shape[0] != B or extras.shape[1] < flux.n_extra
+            or not extras.is_contiguous()):
+        raise ValueError("fleet_bulk_pass needs contiguous float32 [B, E] "
+                         "extras on the state's device")
+    prev = [state[f] for f in flux.fields_out]
+    outs = [torch.empty_like(t) for t in prev]
+    _check_gen("fleet_bulk_pass", flux, ins, outs, dev, (B, spec.R))
+    for t in prev:
+        if t.shape != (B, spec.R) or not t.is_contiguous():
+            raise ValueError("fleet_bulk_pass needs contiguous [B, R] state")
+    lib = gen_library(flux)
+    hp = flux.host_values(())
+    # the slot-table route takes the reach from the table itself
+    geom = (ctypes.c_int * 9)(*spec.dims, *(int(p) for p in spec.periodic),
+                              0, 0, 0)
+    isz = (ctypes.c_int * 8)(*[flux.storage[f].itemsize
+                               for f in flux.fields_in])
+    osz = (ctypes.c_int * 8)(*[flux.storage[f].itemsize
+                               for f in flux.fields_out])
+    tab = spec.slot_table(flux)
+    rc = lib.dccrg_gen_fleet(
+        _ptrs(ins), _ptrs(outs), _ptrs(prev), geom, spec.n0, spec.L, spec.R,
+        B, extras.shape[1], tab.on(dev).data_ptr(),
+        spec.offs_table().on(dev).data_ptr(), len(tab.rows),
+        extras.data_ptr(), None if budget is None else budget.data_ptr(),
+        int(i), isz, osz, (ctypes.c_float * max(1, len(hp)))(*hp), len(hp),
+        dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, "dccrg_gen", rc)
+    fleet_bulk_pass.launches += 1
+    return dict(zip(flux.fields_out, outs))
+
+
+def fleet_bulk_pass_plain(spec, kernel, state, extras, flux=None):
     """The plain PyTorch version of kernel A' without the freeze: the
     twin's slot functions over ``[B, L]``, each slot gathered with an
     exact 3-D ``torch.roll`` per grid and masked in closed form,
     per-slot extras as ``[B, 1]`` columns; the result rounded to the
-    storage dtype once, the zero row copied."""
+    storage dtype once, the zero row copied. With ``flux`` (a generated
+    flux) ``state`` is ``{field: [B, R]}`` and the result ``{out field:
+    [B, R]}``, each in its storage dtype."""
     L = spec.L
-    name_in = FLEET_FLUXES[kernel.device_flux][0][0]
+    if flux is None:
+        names_in = FLEET_FLUXES[kernel.device_flux][0]
+        names_out = FLEET_FLUXES[kernel.device_flux][1]
+        fields = {names_in[0]: state}
+    else:
+        names_in, names_out, fields = flux.fields_in, flux.fields_out, state
+    any_t = fields[names_in[0]]
     synth = (spec.dims, spec.periodic, spec.n0, spec.offs_cells, False)
-    gidx, base = _synth_prep(synth, L, state.device)
+    gidx, base = _synth_prep(synth, L, any_t.device)
     gather = _make_roll3d_gather(synth, L, lead=1)
     offs_col = _make_offs_col(
         True, torch.tensor(spec.offs_const, dtype=torch.int32,
-                           device=state.device), None)
+                           device=any_t.device), None)
     ex = tuple(extras[:, i:i + 1] for i in range(extras.shape[1]))
     res = _run_slotwise(
-        kernel, {name_in: state[:, :L]}, {name_in: state}, gather, offs_col,
+        kernel, {f: fields[f][:, :L] for f in names_in},
+        {f: fields[f] for f in names_in}, gather, offs_col,
         lambda j: _synth_col(synth, gidx, base, j), len(spec.offs_cells), ex)
-    out = state.clone()
-    out[:, :L] = res[FLEET_FLUXES[kernel.device_flux][1][0]].to(state.dtype)
-    return out
+    outs = {}
+    for f in names_out:
+        prev = state if flux is None else state[f]
+        o = prev.clone()
+        o[:, :L] = res[f].to(prev.dtype)
+        outs[f] = o
+    return outs[names_out[0]] if flux is None else outs
+
+
+def _fleet_named(grid, kernel, fields_in, fields_out, n_extra):
+    """Whether a bucket's twin runs kernel A''s compiled functor: it
+    names a device flux A' knows, over that flux's one field in one
+    storage dtype, with an extra."""
+    flux = FLEET_FLUXES.get(getattr(kernel, "device_flux", None))
+    if flux is None or n_extra < 1:
+        return False
+    names_in, names_out, _code = flux
+    return (set(fields_in) == set(names_in) and tuple(fields_out) == names_out
+            and grid.fields[names_in[0]][1] in _STORAGE_CODES)
+
+
+def fleet_library_name(grid, kernel, fields_in, fields_out, n_extra):
+    """File name of the kernel library a bucket's bulk program launches
+    on the card: kernel A''s source, or the flux generated from the
+    twin's slot functions (None where the lowering declines)."""
+    if _fleet_named(grid, kernel, tuple(fields_in), tuple(fields_out),
+                    n_extra):
+        return _build.library_name("fleet_bulk_pass")
+    gen = lowered(grid, kernel, fields_in, fields_out, n_extra, batched=True,
+                  target="cuda")
+    if not isinstance(gen, flux_gen.Flux):
+        return None
+    return f"lib{_build.generated_name(flux_gen.source(gen))}.so"
 
 
 def make_fleet_bulk_step(grid, kernel, fields_in, fields_out, n_extra):
@@ -1030,24 +1336,23 @@ def make_fleet_bulk_step(grid, kernel, fields_in, fields_out, n_extra):
     ``budget <= i`` frozen. Each step is one kernel A' launch on CUDA,
     freeze included (its plain version and ``torch.where`` on the
     CPU). Kernel A' wraps exactly, so no fixup epilogue runs after it:
-    the reference's vmapped epilogue would repair nothing here. Returns
-    None when the bucket's template grid, schema or kernel is
-    ineligible (the caller keeps the table program). The pass takes its
-    batch from the state's shape."""
+    the reference's vmapped epilogue would repair nothing here. A twin
+    that names a device flux kernel A' knows (``diffuse``,
+    ``advect_x``, over one field in one storage dtype) runs its
+    compiled functor; any other ``SlotwiseKernel`` twin runs the
+    functor ``flux_gen`` generates from its slot functions (lowered for
+    the state's device type at the first step there) on the slot-table
+    route. Returns None when the bucket's template grid, schema or
+    kernel is ineligible, or the lowering declines (the caller keeps
+    the table program). The pass takes its batch from the state's
+    shape."""
     from .. import grid as grid_mod
 
     fields_in = tuple(fields_in)
     fields_out = tuple(fields_out)
-    if not isinstance(kernel, SlotwiseKernel):
+    if not isinstance(kernel, SlotwiseKernel) or grid.n_dev != 1:
         return None
-    flux = FLEET_FLUXES.get(getattr(kernel, "device_flux", None))
-    if flux is None or n_extra < 1 or grid.n_dev != 1:
-        return None
-    names_in, names_out, _code = flux
-    if set(fields_in) != set(names_in) or fields_out != names_out:
-        return None
-    shape, dtype = grid.fields[names_in[0]]
-    if shape != () or dtype not in _STORAGE_CODES:
+    if any(grid.fields[f][0] != () for f in set(fields_in) | set(fields_out)):
         return None
     hood = grid.plan.hoods[grid_mod.DEFAULT_NEIGHBORHOOD_ID]
     cf = hood.closed_form
@@ -1057,13 +1362,43 @@ def make_fleet_bulk_step(grid, kernel, fields_in, fields_out, n_extra):
                          hood.offs_const, cf["n0"], grid.plan.L)
     if len(spec.offs_cells) > _MAX_SLOTS:
         return None
-    name_out = names_out[0]
+    named = _fleet_named(grid, kernel, fields_in, fields_out, n_extra)
+    if named:
+        (name_in,), (name_out,), _code = FLEET_FLUXES[kernel.device_flux]
+
+        def step(state, extras, budget, i):
+            new = dict(state)
+            new[name_out] = fleet_bulk_pass(spec, kernel, state[name_in],
+                                            extras, budget, i)
+            return new
+
+        step.spec = spec
+        return step
+
+    gen = lowered(grid, kernel, fields_in, fields_out, n_extra, batched=True)
+    if not isinstance(gen, flux_gen.Flux):
+        return None
+    if gen.target == "cuda":
+        gen_library(gen)
+    fluxes = {gen.target: gen}
 
     def step(state, extras, budget, i):
+        kind = state[fields_in[0]].device.type
+        f = fluxes.get(kind)
+        if f is None:
+            f = lowered(grid, kernel, fields_in, fields_out, n_extra,
+                        batched=True, target="cuda" if kind == "cuda"
+                        else "cpu")
+            if not isinstance(f, flux_gen.Flux):
+                raise RuntimeError(f"kernel A': the flux lowers for "
+                                   f"{gen.target} but declines on {kind}: "
+                                   f"{f}")
+            fluxes[kind] = f
         new = dict(state)
-        new[name_out] = fleet_bulk_pass(spec, kernel, state[names_in[0]],
-                                        extras, budget, i)
+        new.update(fleet_bulk_pass(spec, kernel, state, extras, budget, i,
+                                   flux=f))
         return new
 
     step.spec = spec
+    step.flux = gen
     return step

@@ -697,9 +697,11 @@ def _library_name(batch):
     launches, or None for a table program."""
     if not batch.bulk_active() or batch.device.type != "cuda":
         return None
-    from .ops import _build
+    from .ops import roll_executor
 
-    return _build.library_name("fleet_bulk_pass")
+    return roll_executor.fleet_library_name(
+        batch.grid, batch.bulk_kernel, batch.fields_in, batch.fields_out,
+        batch.n_extra)
 
 
 # ---------------------------------------------------------------------

@@ -252,7 +252,7 @@ def test_library_name_hashes_included_headers(tmp_path, monkeypatch):
              "laplacian_matvec")
     before = {n: _build.library_name(n) for n in names}
     assert [h.name for h in _build._headers(csrc / "bulk_pass.cu")] == [
-        "fluxes.cuh"]
+        "bulk_direct.cuh", "fluxes.cuh", "flux_rt.cuh"]
     head = csrc / "fluxes.cuh"
     data = bytearray(head.read_bytes())
     data[-2] ^= 1

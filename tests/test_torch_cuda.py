@@ -890,3 +890,132 @@ def test_prewarmed_program_matches_a_cold_build(device, tmp_path, bulk):
     finally:
         _build.set_build_dir(build_dir)
         warmstart.deactivate()
+
+
+# ---------------------------------------------------------------------
+# generated fluxes: user SlotwiseKernels lowered by ops/flux_gen.py
+# ---------------------------------------------------------------------
+
+_F32, _BF16 = torch.float32, torch.bfloat16
+
+
+def _user_grid(cell_data, dims, periodic, hood_len, device, seed,
+               scale=1.0, shift=0.0, integer=False):
+    """A grid of ``cell_data`` (name -> storage dtype), each field seeded
+    in [-shift, scale - shift) (integers in [0, 64) with ``integer``)."""
+    g = (port.Grid(cell_data=cell_data).set_initial_length(dims)
+         .set_periodic(*periodic).set_maximum_refinement_level(0)
+         .set_neighborhood_length(hood_len).initialize(device))
+    n0 = int(np.prod(dims))
+    rng = np.random.default_rng(seed)
+    for f, dt in cell_data.items():
+        v = (rng.integers(0, 64, n0) if integer
+             else rng.random(n0) * scale - shift).astype(np.float32)
+        g.data[f][0, :n0] = torch.from_numpy(v).to(device).to(dt)
+    return g
+
+
+def _user_cases():
+    import torch_user_fluxes as uf
+
+    return {
+        "weighted": (uf.weighted_kernel, {"v": _F32, "w": _F32}, ("v",), 0),
+        "gauss": (uf.gauss_kernel, {"u": _BF16}, ("u",), 1),
+        "mix": (uf.mix_kernel, {"a": _F32, "b": _BF16}, ("a", "b"), 1),
+        "upwind": (lambda: make_uniform_flux_kernel((0.125,) * 3),
+                   {"density": _F32, "vx": _BF16, "vy": _BF16},
+                   ("density",), 1),
+        # int32 arithmetic that overflows: the functor wraps as ATen does
+        "wrap": (uf.wrap_kernel, {"u": _F32}, ("u",), 1),
+    }
+
+
+@pytest.mark.parametrize("case", ["weighted", "gauss", "mix", "upwind",
+                                  "wrap"])
+@pytest.mark.parametrize("hood_len", [0, 1, 2])
+def test_user_flux_run_steps_on_the_card(device, case, hood_len):
+    """``Grid.run_steps`` with a user kernel (a named flux over mixed
+    dtypes included, int32 arithmetic that wraps) launches the generated
+    kernel A once a step and equals the plain roll path bit for bit."""
+    make, cd, fout, n_extra = _user_cases()[case]
+    kern = make()
+    a, b = (_user_grid(cd, (20, 12, 9), (True, True, False), hood_len,
+                       device, seed=5, shift=0.5) for _ in range(2))
+    ex = (0.05,) * n_extra
+    before = roll_executor.bulk_pass.launches
+    a.run_steps(kern, list(cd), list(fout), 3, extra_args=ex)
+    assert a.last_step_path == "bulk"
+    assert roll_executor.bulk_pass.launches == before + 3
+    b.run_steps(kern, list(cd), list(fout), 3, extra_args=ex, bulk=False)
+    assert b.last_step_path == "roll"
+    for f in fout:
+        assert torch.equal(a.data[f], b.data[f]), f
+
+
+@pytest.mark.parametrize("dtypes", ["f32", "bf16", "mixed"])
+@pytest.mark.parametrize("hood_len", [0, 1, 2])
+@pytest.mark.parametrize("periodic", [(True, True, True), (False, True, False),
+                                      (False, False, False)])
+@pytest.mark.parametrize("dims", [(1, 7, 5), (2, 1, 9), (17, 9, 5),
+                                  (8, 8, 8)])
+def test_generated_kernel_a_matches_plain(device, dims, periodic, hood_len,
+                                          dtypes):
+    """One launch of a generated kernel A against its plain version at
+    extents of 1 and 2, every kind of edge, lengths 0-2, float32,
+    bfloat16 and mixed storage; (8, 8, 8) has no pad rows (L = n0),
+    the others have."""
+    import torch_user_fluxes as uf
+    from dccrg_tpu_torch.ops import flux_gen
+
+    da, db = {"f32": (_F32, _F32), "bf16": (_BF16, _BF16),
+              "mixed": (_F32, _BF16)}[dtypes]
+    g = _user_grid({"a": da, "b": db}, dims, periodic, hood_len, device,
+                   seed=sum(dims), shift=0.5)
+    kern = uf.mix_kernel()
+    flux = roll_executor.lowered(g, kern, ("a", "b"), ("a", "b"), 1)
+    assert isinstance(flux, flux_gen.Flux), flux
+    spec = roll_executor._grid_spec_for(
+        g, g.plan.hoods[DEFAULT_NEIGHBORHOOD_ID], flux)
+    fields = {f: g.data[f][0, :g.plan.L] for f in ("a", "b")}
+    ex = (torch.tensor(0.05),)
+    before = roll_executor.bulk_pass.launches
+    got = roll_executor.bulk_pass(spec, kern, fields, ex)
+    assert roll_executor.bulk_pass.launches == before + 1
+    want = roll_executor.bulk_pass_plain(spec, kern, fields, ex)
+    for f in ("a", "b"):
+        assert got[f].dtype == want[f].dtype
+        assert torch.equal(got[f], want[f]), f
+
+
+def test_user_twin_bucket_on_the_card(device):
+    """A ``GridBatch`` bucket of a registered user twin
+    (``weighted_diffuse``) launches kernel A' once a step, bit for bit
+    with the plain version of the same steps, a slot frozen early."""
+    import torch_user_fluxes as uf
+
+    uf.register_weighted_diffuse()
+    jobs = [fleet.FleetJob(f"w{i}", length=(12, 10, 8),
+                           kernel="weighted_diffuse", n_steps=3,
+                           params=(0.02 + 0.01 * i,), seed=30 + i,
+                           hood_len=1, cell_data={"rho": torch.float32})
+            for i in range(3)]
+    b = fleet.GridBatch(jobs[0], 4, device=device)
+    for j in jobs:
+        j.apply_init(b.grid)
+        b.admit(j)
+    state0 = b.state["rho"].clone()
+    before = roll_executor.fleet_bulk_pass.launches
+    budget = np.array([3, 1, 3, 0], np.int32)
+    b.step(budget)
+    assert b.bulk_active()
+    assert roll_executor.fleet_bulk_pass.launches == before + 3
+    step = roll_executor.make_fleet_bulk_step(b.grid, b.bulk_kernel,
+                                              ("rho",), ("rho",), 1)
+    ex = torch.tensor(b._extras, device=device)
+    bud = torch.tensor(budget, device=device)
+    cur = state0
+    for i in range(3):
+        new = roll_executor.fleet_bulk_pass_plain(
+            step.spec, b.bulk_kernel, {"rho": cur}, ex, flux=step.flux)
+        cur = roll_executor.fleet_freeze(new["rho"], cur, bud, i)
+    assert torch.equal(b.state["rho"], cur)

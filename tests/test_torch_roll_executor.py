@@ -165,22 +165,46 @@ def test_bulk_matches_roll_path_with_z_reach(periodic, k, hood, dtype):
 
 
 def test_ineligible_kernel_takes_roll_path():
-    """A SlotwiseKernel without a device flux, or fields of mixed
-    storage dtypes, run through the plain roll path."""
+    """A SlotwiseKernel the flux generator declines (here its slot
+    function sums over the cells) runs through the plain roll path. A
+    SlotwiseKernel without a device flux, and the named flux over fields
+    of mixed storage dtypes, are lowered from their slot functions and
+    take the bulk path, bit for bit with the plain roll path."""
     a = GridAdvection(n=16, device="cpu")
     k = make_uniform_flux_kernel((1 / 16, 1 / 16, 1 / 16))
-    plain = port.SlotwiseKernel(k.init, k.slot, k.finish)
     dt = torch.tensor(0.5 * a.max_time_step(), dtype=torch.float32)
-    a.grid.run_steps(plain, FIELDS, ["density"], 2, extra_args=(dt,))
+
+    def reducing(acc, cell, nbr, offs, mask, dt):
+        return k.slot(acc, cell, nbr, offs, mask, dt) - nbr["density"].mean()
+
+    declined = port.SlotwiseKernel(k.init, reducing, k.finish)
+    a.grid.run_steps(declined, FIELDS, ["density"], 2, extra_args=(dt,))
     assert a.grid.last_step_path == "roll"
+    plain = port.SlotwiseKernel(k.init, k.slot, k.finish)
+    init = a.grid.data["density"].clone()
+    a.grid.run_steps(plain, FIELDS, ["density"], 2, extra_args=(dt,))
+    assert a.grid.last_step_path == "bulk"
+    got = a.grid.data["density"].clone()
+    a.grid.data["density"] = init.clone()
     a.grid.run_steps(a._kernel, FIELDS, ["density"], 2, extra_args=(dt,))
     assert a.grid.last_step_path == "bulk"
+    assert torch.equal(got, a.grid.data["density"])
     g = (port.Grid(cell_data={"density": torch.float32, "vx": torch.bfloat16,
                               "vy": torch.float32})
          .set_initial_length((16, 16, 16)).set_periodic(True, True, False)
          .set_neighborhood_length(0).initialize("cpu"))
-    g.run_steps(a._kernel, FIELDS, ["density"], 1, extra_args=(dt,))
+    g.data["vx"][0, :16 ** 3] = torch.linspace(-1, 1, 16 ** 3).to(
+        torch.bfloat16)
+    g.data["density"][0, :16 ** 3] = torch.linspace(0, 1, 16 ** 3)
+    want = {f: t.clone() for f, t in g.data.items()}
+    g.run_steps(a._kernel, FIELDS, ["density"], 2, extra_args=(dt,))
+    assert g.last_step_path == "bulk"
+    got = g.data["density"].clone()
+    g.data.update(want)
+    g.run_steps(a._kernel, FIELDS, ["density"], 2, extra_args=(dt,),
+                bulk=False)
     assert g.last_step_path == "roll"
+    assert torch.equal(got, g.data["density"])
 
 
 def test_bulk_pass_rejects_other_devices():

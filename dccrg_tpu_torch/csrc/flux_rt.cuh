@@ -54,8 +54,18 @@ DCCRG_HD unsigned short bf_bits(float f) {
 #endif
 }
 
-// a float32 value rounded to bfloat16 and widened back
-DCCRG_HD float rbf(float f) { return bits_f((unsigned)bf_bits(f) << 16); }
+// a float32 value rounded to bfloat16 and widened back. On the card by
+// the packed conversion (F2FP, two values an instruction, here the same
+// one twice): the single one (F2F) issues on the unit that runs
+// MUFU.EX2 at 16 a clock an SM and held a bfloat16 exp kernel's pace;
+// both round to nearest even
+DCCRG_HD float rbf(float f) {
+#if defined(__CUDA_ARCH__)
+  return __low2float(__floats2bfloat162_rn(f, f));
+#else
+  return bits_f((unsigned)bf_bits(f) << 16);
+#endif
+}
 
 DCCRG_HD float ld_f32(const void* p, long long i) {
   return static_cast<const float*>(p)[i];

@@ -11,8 +11,11 @@ their storage dtypes, ``offs`` int32 ``[3]``, ``mask`` bool, the extras
 as float32 0-d host tensors, or ``[1]`` device columns for a fleet
 bucket) and lowers the aten graphs into a typed program (:class:`Prog`)
 over a functor's registers, then into the C++ text of a flux functor
-(:meth:`Flux.functor`) that the hand-written templates of
-``csrc/bulk_direct.cuh`` instantiate.
+(:meth:`Flux.functor`) and, since a grid's slot table is fixed for its
+life, of the table's slot sequence (:meth:`Flux.slots_text`), which the
+hand-written templates of ``csrc/gen_tiles.cuh`` (the tiled routes)
+and ``csrc/bulk_direct.cuh`` (the runtime-table routes) instantiate:
+:func:`source` writes one source a (flux, table).
 
 Every operation rounds as the plain PyTorch version rounds it on the
 target device: it computes in float32 and rounds to bfloat16 wherever
@@ -259,12 +262,14 @@ class Prog:
         self.ins.append((op, d) + args)
         return d
 
-    def flops(self):
-        """Float operations of one pass through the program."""
+    def flops(self, weights=None):
+        """Float operations of one pass through the program; with
+        ``weights`` (op -> count) an op of it counts its weight."""
         n = 0
         for ins in self.ins:
             if ins[0] in ("bin", "un"):
-                n += self.types[ins[1]] in FLOATS
+                if self.types[ins[1]] in FLOATS:
+                    n += (weights or {}).get(ins[2], 1)
             elif ins[0] == "cmp":
                 n += self.types[ins[3]] in FLOATS
         return n
@@ -581,6 +586,91 @@ def _trace(fn, args):
                        f"{msg[:100]})") from None
 
 
+# the tiled routes' rule (gen_form): float instructions of a cell's
+# slots from which a thread computes 2 cells (LONG_CELL) or 1
+# (HEAVY_CELL), an operation the card computes by an approximation and
+# its corrections counted at INSTR_WEIGHTS instructions (exp at the 8 of
+# its SASS in a generated kernel; log, sqrt and division alike)
+LONG_CELL = 512
+HEAVY_CELL = 1024
+INSTR_WEIGHTS = {"exp": 8, "log": 8, "sqrt": 8, "div": 8}
+GEN_THREADS = 256  # threads of a tiled route's block (gen_tiles.cuh)
+GEN_MAX_SMEM = 232448  # shared memory a block may have on sm_90
+
+
+class GenForm(collections.namedtuple("GenForm",
+                                     "cells min_blocks tx stage",
+                                     defaults=(32, "regs"))):
+    """The form of a tiled route's kernel (csrc/gen_tiles.cuh), written
+    into a source's ``GenSlots``: ``cells`` a thread computes,
+    consecutive along y (``kCellsY``); ``min_blocks`` an SM its launch
+    bounds ask for (``kMinBlocks``); ``tx`` cells of a tile along x
+    (``kTX``: 32, a warp, or 64, two; the block's 256 threads are
+    ``256 / tx`` along y); ``stage`` how a plane is staged (``kAsync``):
+    ``"regs"``, loaded into registers during the compute of the plane
+    before it and stored after it, or ``"async"``, each float32
+    element by a 4-byte ``cp.async`` straight into the ring (a bfloat16
+    field keeps the register path: ``cp.async`` copies no 2 bytes)."""
+
+    def tile(self):
+        """The (x, y) tile in cells."""
+        return self.tx, GEN_THREADS // self.tx * self.cells
+
+    def smem(self, reach, n_staged):
+        """Bytes of a block's ring: ``n_staged`` float32 fields in 2 rz
+        + 2 planes of the tile with a halo of ``reach`` along x and
+        y."""
+        rx, ry, rz = reach
+        tx, ty = self.tile()
+        return 4 * (2 * rz + 2) * int(n_staged) * (tx + 2 * rx) * (ty + 2 * ry)
+
+
+def gen_form(flux, table, nx=None):
+    """The tiled route's form for ``flux`` over ``table`` on grids ``nx``
+    cells wide (None: not known). Cells a thread (several share the
+    neighbour values of the rows between them, one shared load each,
+    and interleave their ordered chains): 4, or 2 where the flux stages
+    more than two fields or its slots issue :data:`LONG_CELL` float
+    instructions a cell or more (:data:`INSTR_WEIGHTS`), 1 from
+    :data:`HEAVY_CELL` (the unrolled code of many slots); halved until
+    the ring fits a block's shared memory (a table of a long reach).
+    Launch bounds of two blocks an SM; tiles of 64 along x on grids at
+    least 64 wide (a bucket slot's 64 cells of x one band), else 32;
+    staged through registers, or by ``cp.async`` where the flux stages
+    float32 and bfloat16 fields together. The readings behind the rule
+    are in PERF.md's findings on the tiled routes (``python -m
+    dccrg_tpu_torch.gen_tile_rule``)."""
+    n = len(flux.staged())
+    sizes = {flux.storage[flux.fields_in[q]].itemsize for q in flux.staged()}
+    work = flux.slot.flops(INSTR_WEIGHTS) * len(table.cells)
+    if work >= HEAVY_CELL:
+        cells = 1
+    else:
+        cells = 2 if n > 2 or work >= LONG_CELL else 4
+    tx = 64 if nx is not None and nx >= 64 else 32
+    while cells > 1 and GenForm(cells, 2, tx).smem(table.reach, n) \
+            > GEN_MAX_SMEM:
+        cells //= 2
+    return GenForm(cells, 2, tx, "async" if len(sizes) > 1 else "regs")
+
+
+class SlotTable:
+    """A neighbourhood's slot table as a generated flux reads it, fixed
+    for a grid's life: each slot's cell offset (``cells``, from the
+    plan's closed form) and its ``offs_const`` row (``const``), in
+    ``offs_const`` order; ``reach`` the largest cell offset per axis.
+    Two tables are the same table where ``key`` is."""
+
+    def __init__(self, offs_cells, offs_const):
+        self.cells = tuple(tuple(int(v) for v in o) for o in offs_cells)
+        self.const = tuple(tuple(int(v) for v in o) for o in offs_const)
+        if len(self.cells) != len(self.const):
+            raise ValueError("a slot table needs one offs_const row a slot")
+        self.reach = tuple(max((abs(o[d]) for o in self.cells), default=0)
+                           for d in range(3))
+        self.key = (self.cells, self.const)
+
+
 class Flux:
     """A lowered kernel: its fields, the three programs, the host nodes
     and the functor's C++ text. ``key`` hashes the text."""
@@ -675,6 +765,41 @@ class Flux:
 
         L += loads("load_cell", range(nin))
         L += loads("load_nbr", self.nbr_used)
+        # the fields the tiled routes stage (those read at a neighbour;
+        # field 0 where none is), as float32 values: one staged row's
+        # loads, the cell's other fields, and the staged values put in
+        # their places of a row
+        staged = self.staged()
+        L.append(f"  static constexpr int kStaged = {len(staged)};")
+        L.append("  DCCRG_HD static void load_staged(const void* const* in, "
+                 "long long i, float (&s)[kStaged]) {")
+        for j, q in enumerate(staged):
+            L.append(f"    s[{j}] = flux_rt::ld_"
+                     f"{_NAMES[self.storage[self.fields_in[q]]]}"
+                     f"(in[{q}], i);")
+        L.append("  }")
+        # staged field j's index into fields_in and whether it is stored
+        # in 4 bytes (float32; bfloat16 otherwise): the async staging
+        # copies those into the ring as they are
+        def chain(vals):
+            e = vals[-1]
+            for j in range(len(vals) - 2, -1, -1):
+                e = f"j == {j} ? {vals[j]} : {e}"
+            return e
+
+        L.append("  DCCRG_HD static constexpr int staged_field(int j) { "
+                 f"return {chain([str(q) for q in staged])}; }}")
+        L.append("  DCCRG_HD static constexpr bool staged_wide(int j) { "
+                 "return " + chain(
+                     ["true" if self.storage[self.fields_in[q]].itemsize == 4
+                      else "false" for q in staged]) + "; }")
+        L += loads("load_unstaged", [q for q in range(nin)
+                                     if q not in staged])[:-1]
+        L += ["    (void)in; (void)i; (void)v;", "  }"]
+        L.append("  DCCRG_HD static void unstage(const float (&s)[kStaged], "
+                 "float (&v)[kIn]) {")
+        L += [f"    v[{q}] = s[{j}];" for j, q in enumerate(staged)]
+        L.append("  }")
         L.append("  DCCRG_HD static void store(void* const* out, long long i, "
                  "const float (&v)[kOut]) {")
         for o, f in enumerate(self.fields_out):
@@ -703,6 +828,54 @@ class Flux:
         L += self._body(self.finish, lambda o, e: f"out[{o}] = {e};")
         L.append("  }")
         L.append("};")
+        return "\n".join(L) + "\n"
+
+    def staged(self):
+        """The fields the tiled routes stage, by index into
+        ``fields_in``: those read at a neighbour, or field 0 where the
+        slot function reads none."""
+        return self.nbr_used or (0,)
+
+    def slots_text(self, table, form=None):
+        """The C++ text of ``table``'s slot sequence (``GenSlots``,
+        csrc/gen_tiles.cuh): its reach per axis, the kernel's form
+        (``form``, a :class:`GenForm`; :func:`gen_form`'s for a grid of
+        unknown width by default)
+        and every slot's call of the slot function unrolled in
+        ``offs_const`` order, the cell offset and the ``offs_const``
+        row literals, so that the compiler folds the selects on
+        ``offs`` and on a mask that is a literal, and drops the
+        neighbour reads whose values go unused."""
+        form = form or gen_form(self, table)
+        if form.tx not in (32, 64) or form.stage not in ("regs", "async") \
+                or form.cells < 1 or form.min_blocks < 1:
+            raise ValueError(f"no tiled route's form {form}")
+        rx, ry, rz = table.reach
+        L = ["struct GenSlots {",
+             f"  static constexpr int kRx = {rx}, kRy = {ry}, kRz = {rz};",
+             f"  static constexpr int kCellsY = {int(form.cells)};",
+             f"  static constexpr int kMinBlocks = {int(form.min_blocks)};",
+             f"  static constexpr int kTX = {int(form.tx)};",
+             f"  static constexpr bool kAsync = "
+             f"{'true' if form.stage == 'async' else 'false'};",
+             "  // slot by slot, each of a thread's C cells (consecutive "
+             "along y)",
+             "  template <typename G, int C, typename Nb, typename Mk>",
+             "  DCCRG_HD static void run(typename G::Carry (&a)[C],",
+             "                           const float (&c)[C][G::kIn],",
+             "                           const typename G::Params& k, "
+             "const float* ex,",
+             "                           const Nb& nb, const Mk& mk) {"]
+        for j, (cell, oc) in enumerate(zip(table.cells, table.const)):
+            at = f"{j}, {cell[0]}, {cell[1]}, {cell[2]}"
+            L += [f"    {{ const int o[3] = {{{oc[0]}, {oc[1]}, {oc[2]}}};",
+                  "#pragma unroll",
+                  "      for (int y = 0; y < C; ++y) { float n[G::kIn]; "
+                  f"nb.template get<{at}>(y, n);",
+                  f"        G::slot(a[y], c[y], n, o, "
+                  f"mk.template at<{at}>(y), k, ex); }} }}"]
+        L += ["    (void)a; (void)c; (void)k; (void)ex; (void)nb; (void)mk;",
+              "  }", "};"]
         return "\n".join(L) + "\n"
 
     def _body(self, prog, assign):
@@ -979,17 +1152,20 @@ def _lower(kernel, fields_in, fields_out, dtypes, n_extra, target, batched):
 
 _HEAD = """\
 // A flux functor generated by dccrg_tpu_torch/ops/flux_gen.py from a
-// SlotwiseKernel's slot functions, instantiated in the hand-written
-// templates of csrc/bulk_direct.cuh: kernel A's direct route
-// (dccrg_gen_direct) or, for a fleet bucket's twin, kernel A''s
-// slot-table route (dccrg_gen_fleet). Each entry point returns
-// cudaGetLastError() of its launch.
+// SlotwiseKernel's slot functions and the slot table of the grid it
+// runs on (GenSlots), instantiated in the hand-written templates of
+// csrc/gen_tiles.cuh, the tiled routes (dccrg_gen_tiles: kernel A;
+// dccrg_gen_fleet_tiles: kernel A' for a fleet bucket's twin), and of
+// csrc/bulk_direct.cuh over the table in device memory, the
+// runtime-table routes (dccrg_gen_direct, dccrg_gen_fleet). Each entry
+// point returns cudaGetLastError() of its launch.
 
-#include "bulk_direct.cuh"
+#include "gen_tiles.cuh"
 
 namespace {{
 
 {functor}
+{slots}
 using F = direct::Generated<GenFlux>;
 
 bool params(const float* hp, int n_hp, F::Params& k) {{
@@ -1045,12 +1221,58 @@ extern "C" int dccrg_gen_fleet(const void* const* in, void* const* out,
 }
 """
 
+_TILES = """
+extern "C" int dccrg_gen_tiles(const void* const* in, void* const* out,
+                               const int* geom, long long n0, long long L,
+                               const float* hp, int n_hp, int device,
+                               void* stream) {
+  direct::Ptrs p = {};
+  for (int q = 0; q < F::kIn; ++q) p.in[q] = in[q];
+  for (int o = 0; o < F::kOut; ++o) p.out[o] = out[o];
+  F::Params k;
+  if (!params(hp, n_hp, k)) return (int)cudaErrorInvalidValue;
+  return tiles::launch<GenFlux, GenSlots, false>(
+      p, geom, n0, L, L, 1, 0, nullptr, nullptr, 0, nullptr, nullptr, k,
+      device, stream);
+}
+"""
 
-def source(flux):
-    """The CUDA source of ``flux``'s kernel: its functor in a template
-    of ``csrc/bulk_direct.cuh``, with the C entry point
-    ``dccrg_gen_direct`` (kernel A) or, for a fleet form
-    (``flux.batched``), ``dccrg_gen_fleet`` (kernel A'), and
-    ``dccrg_gen_error_string``."""
-    return (_HEAD.format(functor=flux.text)
-            + (_FLEET if flux.batched else _DIRECT))
+_FLEET_TILES = """
+extern "C" int dccrg_gen_fleet_tiles(const void* const* in, void* const* out,
+                                     const void* const* prev,
+                                     const int* geom, long long n0,
+                                     long long L, long long R, int B, int E,
+                                     const float* extras, const int* budget,
+                                     int step, const int* in_sizes,
+                                     const int* out_sizes, const float* hp,
+                                     int n_hp, int device, void* stream) {
+  direct::Ptrs p = {};
+  for (int q = 0; q < F::kIn; ++q) p.in[q] = in[q];
+  for (int o = 0; o < F::kOut; ++o) {
+    p.out[o] = out[o];
+    p.prev[o] = prev[o];
+  }
+  F::Params k;
+  if (!params(hp, n_hp, k)) return (int)cudaErrorInvalidValue;
+  return tiles::launch<GenFlux, GenSlots, true>(
+      p, geom, n0, L, R, B, E, extras, budget, step, in_sizes, out_sizes, k,
+      device, stream);
+}
+"""
+
+
+def source(flux, table, form=None):
+    """The CUDA source of ``flux``'s kernels over the slot table
+    ``table`` (a :class:`SlotTable`): its functor and the table's slot
+    sequence (:meth:`Flux.slots_text`) in the templates of
+    ``csrc/gen_tiles.cuh`` and ``csrc/bulk_direct.cuh``, with the C
+    entry points ``dccrg_gen_tiles`` and ``dccrg_gen_direct`` (kernel
+    A) or, for a fleet form (``flux.batched``), ``dccrg_gen_fleet_tiles``
+    and ``dccrg_gen_fleet`` (kernel A'), and ``dccrg_gen_error_string``.
+    One source a (flux, table, form); ``form`` (a :class:`GenForm`)
+    sets the tiled route's form, :func:`gen_form`'s for a grid of
+    unknown width by default."""
+    head = _HEAD.format(functor=flux.text,
+                        slots=flux.slots_text(table, form))
+    return head + (_FLEET + _FLEET_TILES if flux.batched
+                   else _DIRECT + _TILES)

@@ -38,10 +38,14 @@ this module knows, over that flux's field set in one storage dtype
 (float32 or bfloat16), runs its compiled functor; any other
 ``SlotwiseKernel`` (a named flux over mixed storage dtypes included) is
 traced and lowered by ``flux_gen`` into a generated functor, as the
-reference traces any Python flux into its Pallas body, and runs the
-direct kernel of csrc/bulk_direct.cuh over every slot, each field in
-its own storage dtype, any number of fields out. A kernel the lowering
-declines (its reason counted and logged) takes the plain roll path. A
+reference traces any Python flux into its Pallas body, and runs over
+every slot, each field in its own storage dtype, any number of fields
+out: on the tiled route of csrc/gen_tiles.cuh, its source specialised
+to the grid's slot table (neighbours read from shared-memory tiles at
+constant offsets), or by :func:`gen_route`'s rule on the direct
+kernel of csrc/bulk_direct.cuh over the table in device memory. A
+kernel the lowering declines (its reason counted and logged) takes the
+plain roll path. A
 generated flux takes no k-deep pass: under ``DCCRG_BULK_SPP=k`` the
 loop runs one-step launches, bit for bit the same. On a CUDA grid an
 eligible step loop always launches kernel A; on a CPU grid
@@ -53,8 +57,9 @@ step of a fleet twin (``diffuse``, ``advect_x``) over every slot of a
 ``[B, R]`` bucket state with per-slot extras read on the device, on
 any default neighbourhood a bucket can have (the 26-cube unrolled,
 lengths 0 and 2 over a slot table); a registered user twin runs its
-generated functor on the slot-table route of csrc/bulk_direct.cuh. It
-wraps exactly, so no epilogue follows it, and it takes the per-slot
+generated functor on the tiled route of csrc/gen_tiles.cuh (or, by
+:func:`gen_route`'s rule, the slot-table route of csrc/bulk_direct.cuh).
+It wraps exactly, so no epilogue follows it, and it takes the per-slot
 step budgets: a slot whose budget is spent is copied unchanged by the
 same launch, so a fleet step on the card is one launch.
 """
@@ -228,6 +233,45 @@ def _brick_smem(w, h, k, rz, n, fields=3):
     return -(-rings // 16) * 16 + 16 * 2 * k * (n + 1) + 4 * (w + h)
 
 
+# the tiled routes of a generated flux (csrc/gen_tiles.cuh): a block owns
+# an (x, y) tile of its form's cells (flux_gen.GenForm.tile) and marches
+# a chunk of z (cut, down to _GEN_MIN_Z planes, until about
+# _TARGET_BLOCKS blocks fill the card); any slot table whose ring fits
+# a block's shared memory is compiled in. GEN_ROUTES: the tiled route
+# and the runtime-table route (bulk_direct.cuh: kernel A's direct
+# route, A''s slot-table route)
+_GEN_MIN_Z = 8
+GEN_ROUTES = ("tiles", "table")
+
+
+def gen_tile(dims, reach, n_staged, form, batch=1):
+    """The tiled route's blocking for grids of extents ``dims`` (``batch``
+    of them: a fleet bucket's slots) over a slot table of ``reach``, a
+    flux staging ``n_staged`` fields, in ``form`` (a
+    :class:`flux_gen.GenForm`): ``(tx, ty, zc, ring, smem)``, the (x,
+    y) tile in cells, the z planes a block marches, the planes of a
+    field's ring (the 2 rz + 1 planes a cell reads and the one landing)
+    and the block's shared memory in bytes (each staged plane float32,
+    with a halo of the reach along x and y). 8 fields at a reach of 2
+    and 2 cells a thread take 138,240 bytes, at a reach of 3 214,016,
+    under the 232,448 a block may have."""
+    nx, ny, nz = dims
+    tx, ty = form.tile()
+    tiles = -(-nx // tx) * -(-ny // ty) * int(batch)
+    chunks = max(1, min(-(-_TARGET_BLOCKS // tiles), -(-nz // _GEN_MIN_Z)))
+    return (tx, ty, -(-nz // chunks), 2 * reach[2] + 2,
+            form.smem(reach, n_staged))
+
+
+def gen_route(smem):
+    """The route a generated flux takes where its tile takes ``smem``
+    bytes (:func:`gen_tile`): ``"tiles"`` where the tile fits a block's
+    shared memory, else ``"table"``. 8 staged fields fit up to a reach
+    of 3 at 2 cells a thread and of 4 at 1 (``flux_gen.gen_form``
+    halves the cells until the ring fits)."""
+    return "tiles" if smem <= _MAX_SMEM else "table"
+
+
 class PassSpec:
     """Static geometry of one bulk step of device flux ``flux`` over a
     single-device closed-form plan: the port's counterpart of
@@ -265,6 +309,10 @@ class PassSpec:
                           for j, o in enumerate(self.offs_cells)]
             self.offs_table = _SlotTables(
                 [(*o, 0) for o in self.offs_const])
+            self.gen_table = flux_gen.SlotTable(self.offs_cells,
+                                                self.offs_const)
+            self._gen_form = None
+            self._gen_tiles = {}
         else:
             self.n_fields = len(DEVICE_FLUXES[flux][0])
             self.slots = _flux_slots(flux, self.offs_cells, self.offs_const)
@@ -280,6 +328,32 @@ class PassSpec:
             self.tile = (*_TILE, -(-nz // chunks))
         else:
             self.tile = (32, 8, 1)
+
+    def gen_form(self):
+        """A generated flux's tiled form (``flux_gen.gen_form`` over this
+        grid's slot table)."""
+        if self._gen_form is None:
+            self._gen_form = flux_gen.gen_form(self.flux, self.gen_table,
+                                               self.dims[0])
+        return self._gen_form
+
+    def gen_tile(self, form=None):
+        """A generated flux's tiled route: :func:`gen_tile` over this
+        grid, its slot table and the fields the flux stages, in
+        ``form`` (:meth:`gen_form` by default; made once a form: a
+        launch reads it)."""
+        form = form or self.gen_form()
+        hit = self._gen_tiles.get(form)
+        if hit is None:
+            hit = self._gen_tiles[form] = gen_tile(
+                self.dims, self.reach(), len(self.flux.staged()), form)
+        return hit
+
+    def gen_route(self):
+        """The route a generated flux's launch takes (:func:`gen_route`):
+        the tiled route wherever its tile fits, else the runtime-table
+        direct route."""
+        return gen_route(self.gen_tile()[4])
 
     def reach(self):
         """Cells one step reads away from its cell, per axis, over the
@@ -532,7 +606,8 @@ def _field_ptrs(ins):
                                  *([None] * (3 - len(ins))))
 
 
-def bulk_pass(spec, kernel, fields, extras, out=None):
+def bulk_pass(spec, kernel, fields, extras, out=None, gen_route=None,
+              gen_form=None):
     """One step of ``kernel``'s device flux over all ``[L]`` rows of
     ``fields`` (name -> tensor, the flux's input fields; ``spec`` built
     for that flux). Returns ``{out field: [L] tensor}`` in the storage
@@ -548,7 +623,13 @@ def bulk_pass(spec, kernel, fields, extras, out=None):
     one field) takes the result in place of new tensors. ``extras``
     (0-d float32 tensors: dt, or a twin's cfl) are read on the host:
     the step loop hands them over as CPU tensors, so the launch waits
-    on nothing on the device."""
+    on nothing on the device. A generated flux launches on the route
+    ``spec.gen_route()`` states (the tiled route of csrc/gen_tiles.cuh
+    over its slot table compiled in, or the runtime-table direct
+    route), or on ``gen_route`` where given (to time one beside the
+    other), counted by route in ``bulk_pass.gen_routes``; the tiled
+    route in ``gen_form`` where given (a ``flux_gen.GenForm``, its own
+    library: to time forms), ``spec.gen_form()`` by default."""
     names_out = _names_out(spec, kernel)
     out = _out_dict(out, names_out)
     ins = _flux_inputs("bulk_pass", spec, kernel, fields)
@@ -557,7 +638,7 @@ def bulk_pass(spec, kernel, fields, extras, out=None):
         return _plain_into(bulk_pass_plain(spec, kernel, fields, extras),
                            out)
     if spec.gen:
-        return _gen_pass(spec, ins, extras, out)
+        return _gen_pass(spec, ins, extras, out, gen_route, gen_form)
     code, o = _cuda_operands("bulk_pass", spec, ins,
                              None if out is None else out[names_out[0]])
     lib = _build.load("bulk_pass", _BULK_SIG)
@@ -587,6 +668,7 @@ def bulk_pass(spec, kernel, fields, extras, out=None):
 
 
 bulk_pass.launches = 0
+bulk_pass.gen_routes = dict.fromkeys(GEN_ROUTES, 0)
 
 _GEN_DIRECT_SIG = {
     "dccrg_gen_direct": (ctypes.c_int, [
@@ -609,22 +691,43 @@ _GEN_FLEET_SIG = {
         ctypes.c_void_p]),
     "dccrg_gen_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
+_GEN_TILES_SIG = {
+    "dccrg_gen_tiles": (ctypes.c_int, [
+        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
+        ctypes.POINTER(ctypes.c_int), ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]),
+}
+_GEN_FLEET_TILES_SIG = {
+    "dccrg_gen_fleet_tiles": (ctypes.c_int, [
+        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
+        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float),
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
+}
 
 
-_GEN_LIBS = {}  # (functor hash, fleet form) -> loaded library
+_GEN_LIBS = {}  # (functor hash, fleet form, table) -> loaded library
 
 
-def gen_library(flux):
-    """The loaded library of a generated flux (its source written into
-    the build directory and compiled by nvcc at first use; a failed
-    build raises with the compiler's output), looked up by the
-    functor's hash: a launch does not hash the source again."""
-    key = (flux.key, flux.batched)
+def gen_library(flux, table, form):
+    """The loaded library of a generated flux specialised to ``table``
+    (a :class:`flux_gen.SlotTable`: the source of both routes,
+    ``flux_gen.source(flux, table, form)``, written into the build
+    directory and compiled by nvcc at first use; a failed build raises
+    with the compiler's output), looked up by the functor's hash, the
+    table and the tiled route's form (the spec's ``gen_form``): a
+    launch does not write or hash the source again."""
+    key = (flux.key, flux.batched, table.key, form)
     lib = _GEN_LIBS.get(key)
     if lib is None:
+        sig = (dict(_GEN_FLEET_SIG, **_GEN_FLEET_TILES_SIG) if flux.batched
+               else dict(_GEN_DIRECT_SIG, **_GEN_TILES_SIG))
         lib = _GEN_LIBS[key] = _build.load(
-            _build.write_generated(flux_gen.source(flux)),
-            _GEN_FLEET_SIG if flux.batched else _GEN_DIRECT_SIG)
+            _build.write_generated(flux_gen.source(flux, table, form)), sig)
     return lib
 
 
@@ -654,28 +757,43 @@ def _check_gen(fn, flux, ins, outs, device, shape):
         raise ValueError(f"{fn}: an output aliases an input")
 
 
-def _gen_pass(spec, ins, extras, out):
-    """Kernel A over a generated flux: one launch of the direct kernel
-    of csrc/bulk_direct.cuh over its functor."""
+def _gen_pass(spec, ins, extras, out, route=None, form=None):
+    """Kernel A over a generated flux: one launch of the tiled route of
+    csrc/gen_tiles.cuh (in ``form``, ``spec.gen_form()`` by default) or
+    of the direct route of csrc/bulk_direct.cuh over its functor
+    (``route``, ``spec.gen_route()`` by default)."""
     flux = spec.flux
     dev = ins[0].device
+    route = route or spec.gen_route()
+    if route not in GEN_ROUTES:
+        raise ValueError(f"bulk_pass: no route {route!r}")
     if out is None:
         out = {f: torch.empty(spec.L, dtype=flux.storage[f], device=dev)
                for f in flux.fields_out}
     outs = [out[f] for f in flux.fields_out]
     _check_gen("bulk_pass", flux, ins, outs, dev, (spec.L,))
     extras = _f32_extras(extras, flux.n_extra)
-    lib = gen_library(flux)
+    form = form or spec.gen_form()
+    lib = gen_library(flux, spec.gen_table, form)
     hp = flux.host_values(extras)
-    geom = (ctypes.c_int * 9)(*spec.dims, *(int(p) for p in spec.periodic),
-                              *spec.reach())
-    rc = lib.dccrg_gen_direct(
-        _ptrs(ins), _ptrs(outs), geom, spec.n0, spec.L,
-        spec.table.on(dev).data_ptr(), spec.offs_table.on(dev).data_ptr(),
-        len(spec.slots), (ctypes.c_float * max(1, len(hp)))(*hp), len(hp),
-        dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+    hp_c = (ctypes.c_float * max(1, len(hp)))(*hp)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    per = [int(p) for p in spec.periodic]
+    if route == "tiles":
+        geom = (ctypes.c_int * 7)(*spec.dims, *per, spec.gen_tile(form)[2])
+        rc = lib.dccrg_gen_tiles(_ptrs(ins), _ptrs(outs), geom, spec.n0,
+                                 spec.L, hp_c, len(hp), dev.index or 0,
+                                 stream)
+    else:
+        geom = (ctypes.c_int * 9)(*spec.dims, *per, *spec.reach())
+        rc = lib.dccrg_gen_direct(
+            _ptrs(ins), _ptrs(outs), geom, spec.n0, spec.L,
+            spec.table.on(dev).data_ptr(),
+            spec.offs_table.on(dev).data_ptr(), len(spec.slots), hp_c,
+            len(hp), dev.index or 0, stream)
     _build.check(lib, "dccrg_gen", rc)
     bulk_pass.launches += 1
+    bulk_pass.gen_routes[route] += 1
     return {f: out[f] for f in flux.fields_out}
 
 
@@ -1071,6 +1189,37 @@ class FleetPassSpec:
         signs = tuple(tuple(int(np.sign(v)) for v in o) for o in self.offs_const)
         self.cube = self.offs_cells == _CUBE and signs == _CUBE
         self._tables = {}
+        self.gen_table = flux_gen.SlotTable(self.offs_cells, self.offs_const)
+
+    def gen_form(self, flux):
+        """A generated flux's tiled form (``flux_gen.gen_form`` over the
+        bucket's slot table)."""
+        key = ("form", flux.key)
+        hit = self._tables.get(key)
+        if hit is None:
+            hit = self._tables[key] = flux_gen.gen_form(
+                flux, self.gen_table, self.dims[0])
+        return hit
+
+    def gen_tile(self, flux, batch, form=None):
+        """A generated flux's tiled route over ``batch`` slots:
+        :func:`gen_tile` over one slot's grid, the slot table and the
+        fields ``flux`` stages, in ``form`` (:meth:`gen_form` by
+        default; made once a flux, batch and form)."""
+        form = form or self.gen_form(flux)
+        key = ("tile", flux.key, int(batch), form)
+        hit = self._tables.get(key)
+        if hit is None:
+            hit = self._tables[key] = gen_tile(
+                self.dims, self.gen_table.reach, len(flux.staged()), form,
+                batch)
+        return hit
+
+    def gen_route(self, flux, batch):
+        """The route a generated flux's launch takes (:func:`gen_route`):
+        the tiled route wherever its tile fits (the 26-cube and lengths
+        0 and 2 alike), else the slot-table route."""
+        return gen_route(self.gen_tile(flux, batch)[4])
 
     def slot_table(self, flux):
         """The slot-table route's table of ``flux``: the slots it reads
@@ -1152,7 +1301,7 @@ def fleet_library():
 
 
 def fleet_bulk_pass(spec, kernel, state, extras, budget=None, i=0,
-                    flux=None):
+                    flux=None, gen_route=None, gen_form=None):
     """One fleet step of ``kernel``'s device flux over every slot of
     ``state`` (the bucket's ``[B, R]`` field, row stride ``R``) with
     per-slot ``extras`` (``[B, E]`` float32, column 0 read). Returns a
@@ -1170,11 +1319,17 @@ def fleet_bulk_pass(spec, kernel, state, extras, budget=None, i=0,
     With ``flux`` (a :class:`flux_gen.Flux` lowered in its fleet form
     from ``kernel``'s slot functions) ``state`` is ``{field: [B, R]}``
     in each field's storage dtype and the result ``{out field: [B,
-    R]}``: on CUDA one launch of the slot-table route of
-    csrc/bulk_direct.cuh over the flux's functor, every slot of the
-    neighbourhood, the freeze included."""
+    R]}``: on CUDA one launch over the flux's functor, every slot of
+    the neighbourhood, the freeze included, on the route
+    ``spec.gen_route(flux, B)`` states (the tiled route of
+    csrc/gen_tiles.cuh over its slot table compiled in, or the
+    slot-table route of csrc/bulk_direct.cuh), or on ``gen_route``
+    where given, counted by route in ``fleet_bulk_pass.gen_routes``;
+    the tiled route in ``gen_form`` where given (as :func:`bulk_pass`
+    takes it)."""
     if flux is not None:
-        return _gen_fleet_pass(spec, kernel, flux, state, extras, budget, i)
+        return _gen_fleet_pass(spec, kernel, flux, state, extras, budget, i,
+                               gen_route, gen_form)
     if budget is not None:
         _check_budget(budget, state)
     if state.device.type == "cpu":
@@ -1219,9 +1374,11 @@ def fleet_bulk_pass(spec, kernel, state, extras, budget=None, i=0,
 
 
 fleet_bulk_pass.launches = 0
+fleet_bulk_pass.gen_routes = dict.fromkeys(GEN_ROUTES, 0)
 
 
-def _gen_fleet_pass(spec, kernel, flux, state, extras, budget, i):
+def _gen_fleet_pass(spec, kernel, flux, state, extras, budget, i,
+                    route=None, form=None):
     ins = [state[f] for f in flux.fields_in]
     dev = ins[0].device
     B = ins[0].shape[0]
@@ -1244,25 +1401,40 @@ def _gen_fleet_pass(spec, kernel, flux, state, extras, budget, i):
     for t in prev:
         if t.shape != (B, spec.R) or not t.is_contiguous():
             raise ValueError("fleet_bulk_pass needs contiguous [B, R] state")
-    lib = gen_library(flux)
+    route = route or spec.gen_route(flux, B)
+    if route not in GEN_ROUTES:
+        raise ValueError(f"fleet_bulk_pass: no route {route!r}")
+    form = form or spec.gen_form(flux)
+    lib = gen_library(flux, spec.gen_table, form)
     hp = flux.host_values(())
-    # the slot-table route takes the reach from the table itself
-    geom = (ctypes.c_int * 9)(*spec.dims, *(int(p) for p in spec.periodic),
-                              0, 0, 0)
+    hp_c = (ctypes.c_float * max(1, len(hp)))(*hp)
+    per = [int(p) for p in spec.periodic]
     isz = (ctypes.c_int * 8)(*[flux.storage[f].itemsize
                                for f in flux.fields_in])
     osz = (ctypes.c_int * 8)(*[flux.storage[f].itemsize
                                for f in flux.fields_out])
-    tab = spec.slot_table(flux)
-    rc = lib.dccrg_gen_fleet(
-        _ptrs(ins), _ptrs(outs), _ptrs(prev), geom, spec.n0, spec.L, spec.R,
-        B, extras.shape[1], tab.on(dev).data_ptr(),
-        spec.offs_table().on(dev).data_ptr(), len(tab.rows),
-        extras.data_ptr(), None if budget is None else budget.data_ptr(),
-        int(i), isz, osz, (ctypes.c_float * max(1, len(hp)))(*hp), len(hp),
-        dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+    bud = None if budget is None else budget.data_ptr()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if route == "tiles":
+        geom = (ctypes.c_int * 7)(*spec.dims, *per,
+                                  spec.gen_tile(flux, B, form)[2])
+        rc = lib.dccrg_gen_fleet_tiles(
+            _ptrs(ins), _ptrs(outs), _ptrs(prev), geom, spec.n0, spec.L,
+            spec.R, B, extras.shape[1], extras.data_ptr(), bud, int(i), isz,
+            osz, hp_c, len(hp), dev.index or 0, stream)
+    else:
+        # the slot-table route takes the reach from the table itself
+        geom = (ctypes.c_int * 9)(*spec.dims, *per, 0, 0, 0)
+        tab = spec.slot_table(flux)
+        rc = lib.dccrg_gen_fleet(
+            _ptrs(ins), _ptrs(outs), _ptrs(prev), geom, spec.n0, spec.L,
+            spec.R, B, extras.shape[1], tab.on(dev).data_ptr(),
+            spec.offs_table().on(dev).data_ptr(), len(tab.rows),
+            extras.data_ptr(), bud, int(i), isz, osz, hp_c, len(hp),
+            dev.index or 0, stream)
     _build.check(lib, "dccrg_gen", rc)
     fleet_bulk_pass.launches += 1
+    fleet_bulk_pass.gen_routes[route] += 1
     return dict(zip(flux.fields_out, outs))
 
 
@@ -1316,8 +1488,9 @@ def _fleet_named(grid, kernel, fields_in, fields_out, n_extra):
 
 def fleet_library_name(grid, kernel, fields_in, fields_out, n_extra):
     """File name of the kernel library a bucket's bulk program launches
-    on the card: kernel A''s source, or the flux generated from the
-    twin's slot functions (None where the lowering declines)."""
+    on the card: kernel A''s source, or the source of the flux generated
+    from the twin's slot functions, specialised to the bucket's slot
+    table (None where the lowering declines)."""
     if _fleet_named(grid, kernel, tuple(fields_in), tuple(fields_out),
                     n_extra):
         return _build.library_name("fleet_bulk_pass")
@@ -1325,7 +1498,13 @@ def fleet_library_name(grid, kernel, fields_in, fields_out, n_extra):
                   target="cuda")
     if not isinstance(gen, flux_gen.Flux):
         return None
-    return f"lib{_build.generated_name(flux_gen.source(gen))}.so"
+    from .. import grid as grid_mod
+
+    hood = grid.plan.hoods[grid_mod.DEFAULT_NEIGHBORHOOD_ID]
+    table = flux_gen.SlotTable(hood.closed_form["offsets"], hood.offs_const)
+    form = flux_gen.gen_form(gen, table, hood.closed_form["dims"][0])
+    return (f"lib{_build.generated_name(flux_gen.source(gen, table, form))}"
+            ".so")
 
 
 def make_fleet_bulk_step(grid, kernel, fields_in, fields_out, n_extra):
@@ -1379,7 +1558,7 @@ def make_fleet_bulk_step(grid, kernel, fields_in, fields_out, n_extra):
     if not isinstance(gen, flux_gen.Flux):
         return None
     if gen.target == "cuda":
-        gen_library(gen)
+        gen_library(gen, spec.gen_table, spec.gen_form(gen))
     fluxes = {gen.target: gen}
 
     def step(state, extras, budget, i):

@@ -1019,3 +1019,256 @@ def test_user_twin_bucket_on_the_card(device):
             step.spec, b.bulk_kernel, {"rho": cur}, ex, flux=step.flux)
         cur = roll_executor.fleet_freeze(new["rho"], cur, bud, i)
     assert torch.equal(b.state["rho"], cur)
+
+
+# ---------------------------------------------------------------------
+# the tiled routes of a generated flux (csrc/gen_tiles.cuh): the slot
+# table compiled in, neighbours read from shared-memory tiles
+# ---------------------------------------------------------------------
+
+def _gen_case(case, dims, periodic, hood_len, device):
+    make, cd, fout, n_extra = _user_cases()[case]
+    kern = make()
+    g = _user_grid(cd, dims, periodic, hood_len, device, seed=sum(dims),
+                   shift=0.5)
+    flux = roll_executor.lowered(g, kern, tuple(cd), fout, n_extra)
+    spec = roll_executor._grid_spec_for(
+        g, g.plan.hoods[DEFAULT_NEIGHBORHOOD_ID], flux)
+    fields = {f: g.data[f][0, :g.plan.L] for f in cd}
+    ex = tuple(torch.tensor(0.05) for _ in range(n_extra))
+    return kern, flux, spec, fields, ex
+
+
+@pytest.mark.parametrize("case", ["weighted", "gauss", "mix", "upwind",
+                                  "wrap"])
+@pytest.mark.parametrize("hood_len", [0, 1, 2])
+@pytest.mark.parametrize("periodic", [(True, True, True), (False, True, False),
+                                      (True, False, True),
+                                      (False, False, False)])
+@pytest.mark.parametrize("dims", [(1, 2, 17), (2, 17, 1), (3, 1, 2),
+                                  (17, 9, 5), (40, 35, 19)])
+def test_generated_tiles_match_plain(device, dims, periodic, hood_len, case):
+    """Kernel A's tiled route (the slot table compiled in) against its
+    plain version and the runtime-table route, one launch each, bit for
+    bit, at extents of 1, 2, 3, 17, 35 and 40 (several tiles and z
+    chunks), every kind of edge and lengths 0-2; the route counters say
+    which route ran."""
+    kern, flux, spec, fields, ex = _gen_case(case, dims, periodic, hood_len,
+                                             device)
+    assert spec.gen_route() == "tiles"
+    routes = dict(roll_executor.bulk_pass.gen_routes)
+    got = roll_executor.bulk_pass(spec, kern, fields, ex)
+    table = roll_executor.bulk_pass(spec, kern, fields, ex, gen_route="table")
+    assert roll_executor.bulk_pass.gen_routes == {
+        "tiles": routes["tiles"] + 1, "table": routes["table"] + 1}
+    want = roll_executor.bulk_pass_plain(spec, kern, fields, ex)
+    for f in flux.fields_out:
+        assert torch.equal(got[f], want[f]), f
+        assert torch.equal(table[f], want[f]), f
+
+
+@pytest.mark.parametrize("case", ["weighted", "mix", "wrap"])
+@pytest.mark.parametrize("periodic", [(True, True, False),
+                                      (False, False, False),
+                                      (True, True, True)])
+@pytest.mark.parametrize("dims", [(12, 10, 9), (40, 2, 5), (2, 35, 7)])
+def test_generated_reach3_tiles_match_plain(device, dims, periodic, case):
+    """A user neighbourhood reaching 3 along each axis (a grid of
+    neighbourhood length 3) takes the tiled route (``gen_route``: its
+    ring fits): one launch there and one on the runtime-table route,
+    both bit for bit with the plain version; extents of 2 wrap a reach
+    of 3 more than once."""
+    make, cd, fout, n_extra = _user_cases()[case]
+    kern = make()
+    g = _user_grid(cd, dims, periodic, 3, device, seed=7, shift=0.5)
+    assert g.add_neighborhood(7, [(3, 0, 0), (-3, 1, 0), (0, 0, 2),
+                                  (1, -3, 0), (0, 2, -3), (-1, -1, 1)])
+    flux = roll_executor.lowered(g, kern, tuple(cd), fout, n_extra)
+    spec = roll_executor._grid_spec_for(g, g.plan.hoods[7], flux)
+    assert spec.reach() == (3, 3, 3) and spec.gen_route() == "tiles"
+    fields = {f: g.data[f][0, :g.plan.L] for f in cd}
+    ex = tuple(torch.tensor(0.05) for _ in range(n_extra))
+    routes = dict(roll_executor.bulk_pass.gen_routes)
+    got = roll_executor.bulk_pass(spec, kern, fields, ex)
+    table = roll_executor.bulk_pass(spec, kern, fields, ex, gen_route="table")
+    assert roll_executor.bulk_pass.gen_routes == {
+        "tiles": routes["tiles"] + 1, "table": routes["table"] + 1}
+    want = roll_executor.bulk_pass_plain(spec, kern, fields, ex)
+    for f in flux.fields_out:
+        assert torch.equal(got[f], want[f]), f
+        assert torch.equal(table[f], want[f]), f
+
+
+_FORMS = [(4, 1, 32, "async"), (2, 1, 32, "async"), (1, 2, 32, "async"),
+          (4, 1, 64, "regs"), (2, 1, 64, "async"), (1, 2, 64, "regs")]
+
+
+@pytest.mark.parametrize("form", _FORMS, ids=lambda f: "x".join(map(str, f)))
+@pytest.mark.parametrize("case", ["weighted", "gauss", "upwind", "mix"])
+@pytest.mark.parametrize("periodic", [(True, True, True),
+                                      (False, True, False)])
+def test_generated_tile_forms_match_plain(device, periodic, case, form):
+    """Kernel A's tiled route in the forms the tile rule times (the
+    async staging by cp.async, zero-filled outside a face; tiles of 64
+    along x; 1, 2 or 4 cells a thread) bit for bit with the plain
+    version on lengths 1 and 2, extents of 70 (two tiles of 64, the
+    second partial), 9 and 5."""
+    from dccrg_tpu_torch.ops import flux_gen
+
+    form = flux_gen.GenForm(*form)
+    for hood_len in (1, 2):
+        kern, flux, spec, fields, ex = _gen_case(case, (70, 9, 5), periodic,
+                                                 hood_len, device)
+        got = roll_executor.bulk_pass(spec, kern, fields, ex, gen_form=form)
+        want = roll_executor.bulk_pass_plain(spec, kern, fields, ex)
+        for f in flux.fields_out:
+            assert torch.equal(got[f], want[f]), (hood_len, f)
+
+
+@pytest.mark.parametrize("form", _FORMS, ids=lambda f: "x".join(map(str, f)))
+def test_generated_fleet_tile_forms_match_plain(device, form):
+    """Kernel A''s tiled route in the tile rule's forms over a [5, R]
+    bucket of ``weighted_diffuse`` (slot bases not aligned, so the
+    4-byte cp.async of the async form; a tile of 64 is a grid's whole x
+    extent) with the freeze at step 1: bit for bit with the plain pass
+    and its freeze."""
+    import torch_user_fluxes as uf
+    from dccrg_tpu_torch.ops import flux_gen
+
+    g = _user_grid({"rho": _F32}, (64, 9, 5), (True, True, True), 1, device,
+                   seed=3)
+    hood = g.plan.hoods[DEFAULT_NEIGHBORHOOD_ID]
+    cf = hood.closed_form
+    spec = roll_executor.FleetPassSpec(cf["dims"], cf["periodic"],
+                                       cf["offsets"], hood.offs_const,
+                                       cf["n0"], g.plan.L)
+    twin = uf.weighted_diffuse()
+    flux = flux_gen.lower(twin, ("rho",), ("rho",), {"rho": _F32}, 1,
+                          target="cuda", batched=True)
+    gen = torch.Generator(device=device).manual_seed(11)
+    state = {"rho": torch.rand((5, spec.R), generator=gen, device=device)}
+    state["rho"][:, -1] = 0
+    extras = (0.02 + 0.03 * torch.arange(5, device=device,
+                                         dtype=_F32))[:, None]
+    budget = torch.tensor([2, 0, 1, 3, 1], dtype=torch.int32, device=device)
+    want = roll_executor.fleet_freeze(
+        roll_executor.fleet_bulk_pass_plain(spec, twin, state, extras,
+                                            flux=flux)["rho"],
+        state["rho"], budget, 1)
+    got = roll_executor.fleet_bulk_pass(spec, twin, state, extras, budget, 1,
+                                        flux=flux,
+                                        gen_form=flux_gen.GenForm(*form))
+    assert torch.equal(_bits(got["rho"]), _bits(want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hood_len", [0, 1, 2])
+@pytest.mark.parametrize("periodic", [(True, True, True), (False, True, True),
+                                      (False, False, False)])
+@pytest.mark.parametrize("length", [(8, 8, 8), (40, 20, 9), (17, 9, 5),
+                                    (2, 1, 3)])
+def test_generated_fleet_tiles_match_plain(device, length, periodic, hood_len,
+                                           dtype):
+    """Kernel A''s tiled route over a bucket of a user twin (float32:
+    ``weighted_diffuse``; bfloat16: the ``gauss`` kernel, which lowers
+    in bfloat16) on a [5, R] state (slot bases not aligned) against its
+    plain version and the slot-table route bit for bit, and with the
+    freeze at step 1 of budgets [2, 0, 1, 3, 1]: the frozen slots keep
+    their bytes, a NaN with a payload and a -0.0 included."""
+    import torch_user_fluxes as uf
+    from dccrg_tpu_torch.ops import flux_gen
+
+    f, twin = (("rho", uf.weighted_diffuse()) if dtype == torch.float32
+               else ("u", uf.gauss_kernel()))
+    g = _user_grid({f: dtype}, length, periodic, hood_len, device, seed=1)
+    hood = g.plan.hoods[DEFAULT_NEIGHBORHOOD_ID]
+    cf = hood.closed_form
+    spec = roll_executor.FleetPassSpec(cf["dims"], cf["periodic"],
+                                       cf["offsets"], hood.offs_const,
+                                       cf["n0"], g.plan.L)
+    flux = flux_gen.lower(twin, (f,), (f,), {f: dtype}, 1, target="cuda",
+                          batched=True)
+    assert isinstance(flux, flux_gen.Flux), flux
+    B = 5
+    assert spec.gen_route(flux, B) == "tiles"
+    gen = torch.Generator(device=device).manual_seed(sum(length) + hood_len)
+    state = {f: (torch.rand((B, spec.R), generator=gen, device=device)
+                 * 4).to(dtype)}
+    state[f][:, -1] = 0
+    extras = (0.02 + 0.03 * torch.arange(B, device=device,
+                                         dtype=torch.float32))[:, None]
+    routes = dict(roll_executor.fleet_bulk_pass.gen_routes)
+    want = roll_executor.fleet_bulk_pass_plain(spec, twin, state, extras,
+                                               flux=flux)[f]
+    for route in (None, "table"):
+        got = roll_executor.fleet_bulk_pass(spec, twin, state, extras,
+                                            flux=flux, gen_route=route)[f]
+        assert torch.equal(got, want), route
+    assert roll_executor.fleet_bulk_pass.gen_routes == {
+        "tiles": routes["tiles"] + 1, "table": routes["table"] + 1}
+    budget = torch.tensor([2, 0, 1, 3, 1], dtype=torch.int32, device=device)
+    _bits(state[f])[2, 3] = 0x7FC01234 if dtype == torch.float32 else 0x7FC5
+    state[f][2, 4] = -0.0
+    want = roll_executor.fleet_freeze(
+        roll_executor.fleet_bulk_pass_plain(spec, twin, state, extras,
+                                            flux=flux)[f],
+        state[f], budget, 1)
+    for route in (None, "table"):
+        got = roll_executor.fleet_bulk_pass(spec, twin, state, extras, budget,
+                                            1, flux=flux,
+                                            gen_route=route)[f]
+        assert torch.equal(_bits(got), _bits(want)), route
+
+
+def test_specialised_source_cold_build_into_compile_cache(device, tmp_path):
+    """A warm pool's cache (``DCCRG_COMPILE_CACHE``) starts empty: the
+    first bucket of a user twin compiles the twin's source specialised
+    to the bucket's slot table with nvcc into the cache's ``build/``
+    under the name ``fleet_library_name`` gives, and its step runs the
+    tiled route bit for bit with the plain pass."""
+    import torch_user_fluxes as uf
+    from dccrg_tpu_torch import warmstart
+    from dccrg_tpu_torch.ops import _build, flux_gen
+
+    build_dir = _build.BUILD_DIR
+    saved = dict(roll_executor._GEN_LIBS)
+    try:
+        uf.register_weighted_diffuse()
+        cache = tmp_path / "cache"
+        pool = warmstart.WarmPool(str(cache), device=device, start_pool=False)
+        built = cache / warmstart.BUILD_DIR
+        assert _build.BUILD_DIR == built and not any(built.glob("*.so"))
+        job = fleet.FleetJob("c", length=(12, 10, 8),
+                             kernel="weighted_diffuse", n_steps=2,
+                             params=(0.05,), seed=4,
+                             cell_data={"rho": torch.float32})
+        grid = fleet.template_grid(job, device)
+        twin = fleet.FLEET_BULK_KERNELS["weighted_diffuse"]
+        name = roll_executor.fleet_library_name(grid, twin, ("rho",),
+                                                ("rho",), 1)
+        # this process may have loaded it from the repo's build
+        # directory: forget that, so the step builds it here
+        roll_executor._GEN_LIBS.clear()
+        _build._libs.pop(name[len("lib"):-len(".so")], None)
+        step = roll_executor.make_fleet_bulk_step(grid, twin, ("rho",),
+                                                  ("rho",), 1)
+        src = flux_gen.source(step.flux, step.spec.gen_table,
+                              step.spec.gen_form(step.flux))
+        assert name == f"lib{_build.generated_name(src)}.so"
+        assert (built / name).is_file()
+        gen = torch.Generator(device=device).manual_seed(9)
+        state = {"rho": torch.rand((2, step.spec.R), generator=gen,
+                                   device=device)}
+        extras = torch.full((2, 1), 0.05, device=device)
+        routes = dict(roll_executor.fleet_bulk_pass.gen_routes)
+        got = step(state, extras, None, 0)["rho"]
+        assert roll_executor.fleet_bulk_pass.gen_routes["tiles"] == \
+            routes["tiles"] + 1
+        want = roll_executor.fleet_bulk_pass_plain(
+            step.spec, twin, state, extras, flux=step.flux)["rho"]
+        assert torch.equal(got, want)
+        pool.close()
+    finally:
+        _build.set_build_dir(build_dir)
+        warmstart.deactivate()
+        roll_executor._GEN_LIBS.update(saved)

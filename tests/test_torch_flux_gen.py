@@ -146,7 +146,8 @@ def test_generated_functor_gxx_bit_for_bit(name, hood_len):
 def test_functor_text_and_cache():
     """The functor states its fields, carry and offs use; the lowering
     is cached in the grid's program cache per kernel, fields, dtypes and
-    form, and the source hashes its text."""
+    form, and the source (specialised to a slot table) holds the functor
+    and the entry points of its form."""
     kern = uf.mix_kernel()
     cd = {"a": F32, "b": BF16}
     g = _grid(cd, DIMS, (True, True, True), 1, seed=1)
@@ -158,12 +159,14 @@ def test_functor_text_and_cache():
                  "flux_rt::ld_f32(in[0], i)", "flux_rt::st_bf16(out[1], i"):
         assert line in a.text
     assert a.n_carry == 2 and a.offs_used and a.nbr_used == (0, 1)
-    src = flux_gen.source(a)
-    assert '#include "bulk_direct.cuh"' in src and a.text in src
+    table = rx._grid_spec_for(g, g.plan.hoods[DEFAULT_NEIGHBORHOOD_ID],
+                              a).gen_table
+    src = flux_gen.source(a, table)
+    assert '#include "gen_tiles.cuh"' in src and a.text in src
     direct, fleet_ = 'int dccrg_gen_direct(', 'int dccrg_gen_fleet('
     assert direct in src and fleet_ not in src
     fsrc = flux_gen.source(rx.lowered(g, kern, ("a", "b"), ("a", "b"), 1,
-                                      batched=True))
+                                      batched=True), table)
     assert fleet_ in fsrc and direct not in fsrc
 
 
@@ -190,7 +193,7 @@ def test_generated_source_build(tmp_path, monkeypatch):
     kern = uf.weighted_kernel()
     flux = flux_gen.lower(kern, ("v", "w"), ("v",), {"v": F32, "w": F32}, 0,
                           target="cpu")
-    text = flux_gen.source(flux)
+    text = flux_gen.source(flux, flux_gen.SlotTable([(1, 0, 0)], [(1, 0, 0)]))
     name = _build.write_generated(text)
     assert name == _build.generated_name(text) == f"gen-{name[4:]}"
     assert (tmp_path / "build" / f"{name}.cu").read_text() == text

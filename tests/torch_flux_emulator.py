@@ -10,12 +10,15 @@ gathered at each slot's 3-D offset, +0.0 where masked.
 
 ``gxx_library(flux)`` builds the functor itself as host code with g++
 (``-ffp-contract=off``, csrc/flux_rt.cuh's round-to-nearest-even
-bfloat16) into a ``run`` entry point over a neighbour table; None where
-there is no g++.
+bfloat16) into a ``run`` entry point over a neighbour table, and
+``gxx_specialised(flux, table)`` the same functor through a table's
+specialised slot sequence (``Flux.slots_text``); None where there is no
+g++.
 """
 
 import ctypes
 import hashlib
+import os
 import shutil
 import subprocess
 from pathlib import Path
@@ -209,20 +212,34 @@ extern "C" void run(const void* const* in, void* const* out,
 def gxx_library(flux):
     """The functor built as host code by g++ (``-O2
     -ffp-contract=off``) with a ``run`` entry point; None without g++."""
+    return _gxx(_HOST_LOOP.format(functor=flux.text))
+
+
+def _gxx(text):
+    """``text`` built by g++ into a library with a ``run`` entry point
+    (once, by the hash of the text and csrc/flux_rt.cuh); None without
+    g++."""
     gxx = shutil.which("g++")
     if gxx is None:
         return None
-    text = _HOST_LOOP.format(functor=flux.text)
     digest = hashlib.sha256((text + (CSRC / "flux_rt.cuh").read_text())
                             .encode()).hexdigest()[:16]
     BUILD.mkdir(parents=True, exist_ok=True)
     src = BUILD / f"gxx-{digest}.cpp"
     so = BUILD / f"libgxx-{digest}.so"
     if not so.exists():
-        src.write_text(text)
+        # built under names of this process's own, then published
+        # whole: test workers may build the same text at once
+        tag = f"{os.getpid()}.tmp"
+        tmp_src = src.with_name(f"{src.name}.{tag}.cpp")
+        tmp_so = so.with_name(f"{so.name}.{tag}")
+        tmp_src.write_text(text)
         subprocess.run([gxx, "-std=c++17", "-O2", "-ffp-contract=off",
-                        "-fPIC", "-shared", "-I", str(CSRC), "-o", str(so),
-                        str(src)], check=True, capture_output=True, text=True)
+                        "-Wno-unknown-pragmas", "-fPIC", "-shared", "-I",
+                        str(CSRC), "-o", str(tmp_so), str(tmp_src)],
+                       check=True, capture_output=True, text=True)
+        os.replace(tmp_src, src)
+        os.replace(tmp_so, so)
     lib = ctypes.CDLL(str(so))
     lib.run.restype = None
     return lib
@@ -246,3 +263,53 @@ def run_gxx(lib, flux, spec, fields, extras):
             hp.ctypes.data_as(vp) if len(hp) else None,
             ctypes.c_int(len(hp)))
     return outs
+
+
+_HOST_SLOTS = """
+#include "flux_rt.cuh"
+{functor}
+{slots}
+// the specialised slot sequence on the host: slot J's neighbour from
+// the neighbour table's column J, its mask where that row is >= 0
+struct HostNbr {{
+  const void* const* in;
+  const long long* row;
+  template <int J, int OX, int OY, int OZ>
+  void get(int, float (&n)[GenFlux::kIn]) const {{
+    for (int q = 0; q < GenFlux::kIn; ++q) n[q] = 0.f;
+    if (row[J] >= 0) GenFlux::load_nbr(in, row[J], n);
+  }}
+}};
+struct HostMask {{
+  const long long* row;
+  template <int J, int OX, int OY, int OZ>
+  bool at(int) const {{ return row[J] >= 0; }}
+}};
+extern "C" void run(const void* const* in, void* const* out,
+                    const long long* nbr, const int* offs, int S,
+                    long long L, const float* hp, int n_hp) {{
+  (void)offs;
+  GenFlux::Params k;
+  for (int i = 0; i < GenFlux::kHost; ++i) k.hp[i] = i < n_hp ? hp[i] : 0.f;
+  for (long long r = 0; r < L; ++r) {{
+    float c[1][GenFlux::kIn];
+    GenFlux::load_cell(in, r, c[0]);
+    GenFlux::Carry a[1];
+    GenFlux::init(a[0], c[0], k, nullptr);
+    GenSlots::run<GenFlux, 1>(a, c, k, nullptr, HostNbr{{in, nbr + r * S}},
+                              HostMask{{nbr + r * S}});
+    float o[GenFlux::kOut];
+    GenFlux::finish(o, a[0], c[0], k, nullptr);
+    GenFlux::store(out, r, o);
+  }}
+}}
+"""
+
+
+def gxx_specialised(flux, table):
+    """The functor and ``table``'s specialised slot sequence
+    (``flux.slots_text(table)``, the text the tiled routes compile),
+    built as host code by g++ with the ``run`` entry point of
+    :func:`gxx_library`; None without g++."""
+    return _gxx(_HOST_SLOTS.format(functor=flux.text,
+                                   slots=flux.slots_text(table)))

@@ -2,17 +2,13 @@
 flux generator's CPU tests (tests/test_torch_flux_gen.py) and the card
 tests (tests/test_torch_cuda.py). Imports no jax.
 
-- :func:`weighted_kernel`: tests/test_slotwise.py's kernel (fields ``v``
-  and ``w``, writes ``v``), with weights that depend on the slot's
-  offset;
-- :func:`gauss_kernel`: a bfloat16 ``u`` relaxed by ``exp(-d^2) d`` of
-  each neighbour difference ``d``, ``u + dt * acc``;
+- :func:`weighted_kernel`, :func:`gauss_kernel`, :func:`weighted_diffuse`
+  and :func:`weighted_diffuse_table`: ``dccrg_tpu_torch.user_kernels``'
+  ``weighted``, ``gauss``, ``weighted_diffuse`` and its table kernel;
 - :func:`mix_kernel`: two carry leaves, two outputs, a clamp, a
   division, a comparison with a float constant and an extra;
-- :func:`weighted_diffuse`: the fleet twin ``weighted_diffuse`` (the
-  weights of :func:`weighted_kernel` over one field ``rho``, finish
-  ``rho + dt * acc``) and :func:`weighted_diffuse_table`, its table
-  kernel; :func:`register_weighted_diffuse` registers both;
+- :func:`register_weighted_diffuse` registers the twin and its table
+  kernel;
 - :func:`wrap_kernel`: int32 arithmetic on the slot's offset that
   overflows (ATen wraps it), read back as a sign and a float;
 - the declines: a branch on a value, a sum over the cells, an op
@@ -23,39 +19,15 @@ tests (tests/test_torch_cuda.py). Imports no jax.
 import torch
 
 from dccrg_tpu_torch import fleet
-from dccrg_tpu_torch.grid import SlotwiseKernel, slot_sum
+from dccrg_tpu_torch import user_kernels
+from dccrg_tpu_torch.grid import SlotwiseKernel
 
-_F32 = torch.float32
-
-
-def weighted_kernel():
-    def init(cell, *extra):
-        return torch.zeros_like(cell["v"], dtype=_F32)
-
-    def slot(acc, cell, nbr, offs, mask, *extra):
-        wgt = torch.where(mask & (offs[..., 0] == 1), 2.0,
-                          torch.where(mask, 1.0, 0.0))
-        return acc + wgt * torch.where(mask, nbr["v"], 0.0) + torch.where(
-            mask, nbr["w"], 0.0)
-
-    def finish(acc, cell, *extra):
-        return {"v": cell["v"] + acc}
-
-    return SlotwiseKernel(init, slot, finish)
-
-
-def gauss_kernel():
-    def init(cell, dt):
-        return torch.zeros_like(cell["u"])
-
-    def slot(acc, cell, nbr, offs, mask, dt):
-        d = nbr["u"] - cell["u"]
-        return acc + torch.where(mask, torch.exp(-d * d) * d, 0)
-
-    def finish(acc, cell, dt):
-        return {"u": cell["u"] + dt * acc}
-
-    return SlotwiseKernel(init, slot, finish)
+# the kernels the port's smoke and tile rule share (dccrg_tpu_torch/
+# user_kernels.py)
+weighted_kernel = user_kernels.weighted
+gauss_kernel = user_kernels.gauss
+weighted_diffuse = user_kernels.weighted_diffuse
+weighted_diffuse_table = user_kernels.weighted_diffuse_table
 
 
 def mix_kernel():
@@ -79,31 +51,6 @@ def mix_kernel():
                 "b": torch.sqrt(torch.abs(rest["m"])) + 1.0 - dt}
 
     return SlotwiseKernel(init, slot, finish)
-
-
-def weighted_diffuse():
-    def init(c, dt):
-        return torch.zeros_like(c["rho"])
-
-    def slot(acc, c, nbr, offs, mask, dt):
-        wgt = torch.where(mask & (offs[..., 0] == 1), 2.0,
-                          torch.where(mask, 1.0, 0.0))
-        return acc + wgt * torch.where(mask, nbr["rho"] - c["rho"], 0.0)
-
-    def finish(acc, c, dt):
-        return {"rho": c["rho"] + dt * acc}
-
-    return SlotwiseKernel(init, slot, finish)
-
-
-def weighted_diffuse_table(c, nbr, offs, mask, dt):
-    """The table program's kernel: the twin's sum over the slot axis in
-    slot order."""
-    wgt = torch.where(mask & (offs[..., 0] == 1), 2.0,
-                      torch.where(mask, 1.0, 0.0))
-    acc = slot_sum(wgt * torch.where(mask, nbr["rho"] - c["rho"][..., None],
-                                     0.0))
-    return {"rho": c["rho"] + dt * acc}
 
 
 def register_weighted_diffuse():
